@@ -20,6 +20,16 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      against x @ decompress(w), and K3 (csrc/bitlinear.cu) must have been
      launched once per call.  Then K3 is held against its plain version on
      the same inputs and timed beside its bound and a dense bf16 matmul.
+  K5 (csrc/flash_attention.cu) against its plain version at the prefill
+     shape of phase 4 (bf16) and on a sliding-window fixture (f32, bf16),
+     timed at the prefill shape beside its bound, the plain version and
+     ``scaled_dot_product_attention``.
+  4. Generation: ``serve_model`` restores phase 2's checkpoint through its
+     manifest and generates 32 tokens for 4 prompts of 1024 tokens; K5
+     must have been launched once (one layer, one prefill) and K3 once per
+     compressed tensor per forward (prefill + 31 decode steps).  The
+     prefill's logits are held against the plain path (kernels disabled),
+     and the plain path's greedy tokens are compared (reported).
 
 Prints JSON lines along the way, the card's ``nvidia-smi`` name and power
 limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
@@ -47,6 +57,13 @@ SEED = 0
 BBO_ITERS = 32
 SERVE_T = (1, 16, 512)
 BF16_TOL = 2e-2                 # of max|y|: z is rounded to bf16 before z @ C
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 1024, 32
+# K5 against its plain version, as tests/test_kernels.py holds the Pallas
+# kernel: |o - ref| <= tol + tol * |ref|
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# kernels on vs off, of max|logit|: z is rounded to bf16 in K3, and the plain
+# attention forms its scores in bf16 where K5 keeps them in f32
+LOGIT_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -302,6 +319,137 @@ def phase_serve(torch, dev, params, artifact, flush):
     return k3_launches, max_err, totals
 
 
+def attention_shapes(cfg):
+    """K5's fixtures: the prefill shape of phase 4, and the sliding-window
+    shape of tests/test_kernels.py in both dtypes."""
+    return {
+        "prefill_bf16": (GEN_BATCH, cfg.num_heads, cfg.num_kv_heads, GEN_PROMPT,
+                         cfg.resolved_head_dim, 0, "bfloat16"),
+        "window_f32": (1, 8, 8, 256, 64, 64, "float32"),
+        "window_bf16": (1, 8, 8, 256, 64, 64, "bfloat16"),
+    }
+
+
+def phase_k5(torch, dev, flush):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    _, cfg = full_width_config()
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = {}
+    for label, (B, H, KV, S, hd, win, dt) in attention_shapes(cfg).items():
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, H, S, hd), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, KV, S, hd), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, KV, S, hd), generator=g, device=dev).to(dtype)
+        o = fa.flash_attention(q, k, v, win)
+        r = ref.flash_attention_ref(q, k, v, win)
+        torch.cuda.synchronize()
+        diff = (o.float() - r.float()).abs()
+        tol = ATTN_TOL[dt]
+        check(bool(torch.isfinite(o).all()) and o.shape == r.shape, f"K5 {label}: bad output")
+        check(bool((diff <= tol + tol * r.float().abs()).all()),
+              f"K5 {label}: max |o - ref| {float(diff.max()):.3g} beyond tol {tol}")
+        out[label] = {"shape": [B, H, KV, S, hd], "window": win, "dtype": dt,
+                      "max_abs_err": float(diff.max()), "tol": tol}
+        if label != "prefill_bf16":
+            continue
+        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
+        plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, win), 3, flush)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        library_ms = cuda_ms(torch, sdpa, 10, flush)
+        lib_err = float((sdpa().float() - r.float()).abs().max())
+        nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
+        pairs = S * (S + 1) // 2            # causal (query, key) pairs, window 0
+        ops_ = 4 * B * H * hd * pairs       # q.k and p.v, 2 operations per mul-add
+        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
+        out["timing"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_max_abs_err": lib_err, "bound_ms": max(b_bytes, b_ops),
+                         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                         "bytes": nbytes, "operations": ops_}
+        del q, k, v, o, r
+    return out
+
+
+def phase_generate(torch, dev, out_dir):
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import init_cache
+    from repro_torch.serving import Engine
+
+    full, cfg = full_width_config()
+    emit({"reduced": {"arch": cfg.name, "num_layers": [full.num_layers, cfg.num_layers],
+                      "serve": {"batch": GEN_BATCH, "prompt_len": GEN_PROMPT,
+                                "steps": GEN_STEPS}}})
+    eos = cfg.vocab_size                     # never emitted: launch counts are fixed
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.bitlinear.launches = 0
+    fa.flash_attention.launches = 0
+    res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                      steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "bitlinear": bl.bitlinear.launches, "sa_sweep_many": sa.sa_sweep_many.launches}
+    eng = res.engine
+    n_tensors = eng.compression["tensors"]
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"K5 launched {launches['flash_attention']} times, want {cfg.num_layers}")
+    check(launches["bitlinear"] == n_tensors * GEN_STEPS,
+          f"K3 launched {launches['bitlinear']} times, want {n_tensors} x {GEN_STEPS}")
+    check(launches["sa_sweep_many"] == 0, "serving launched the annealer")
+    toks = res.tokens
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+          and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(toks.shape)} out of shape or range")
+
+    # prefill logits with the kernels against the plain path on the same prompts
+    max_len = GEN_PROMPT + GEN_STEPS
+    with torch.inference_mode():
+        lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+        ops.disable_kernels()
+        lp, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
+          "prefill logits are not finite")
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    check(err <= LOGIT_TOL * scale,
+          f"prefill logits kernels vs plain: {err:.3g} > {LOGIT_TOL} x {scale:.3g}")
+    before = (fa.flash_attention.launches, bl.bitlinear.launches)
+    plain = Engine(cfg, eng.params, max_len=max_len, batch=GEN_BATCH, eos_id=eos,
+                   artifact=eng.artifact, use_fused_bitlinear=False)
+    toks_plain = plain.generate(res.prompts, GEN_STEPS)
+    check((fa.flash_attention.launches, bl.bitlinear.launches) == before,
+          "the plain path launched a kernel")
+    same = (toks[:, GEN_PROMPT:] == toks_plain[:, GEN_PROMPT:]).float()
+    t = res.timing
+    out = {
+        "launches": launches,
+        "ttft_s": t["prefill_s"],
+        "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+        "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
+        "generate_wall_s": res.wall_s,
+        "prefill_logits": {"max_abs_diff": err, "max_abs_logit": scale,
+                           "tol": LOGIT_TOL * scale},
+        "greedy_agreement": {"first_token": float(same[:, 0].mean()),
+                             "all_tokens": float(same.mean())},
+        "plain_timing": plain.last_timing,
+        "compression": eng.compression,
+    }
+    emit({"generate": out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -342,11 +490,20 @@ def main() -> int:
         params, artifact, k1_launches = phase_compress(torch, dev, out_dir)
         phases["compress_s"] = time.time() - t
         t = time.time()
-        k3_launches, k3_err, k3 = phase_serve(torch, dev, params, artifact, flush)
+        k3_layer_launches, k3_err, k3 = phase_serve(torch, dev, params, artifact, flush)
         phases["serve_s"] = time.time() - t
+        del params
+        t = time.time()
+        k5 = phase_k5(torch, dev, flush)
+        phases["k5_check_s"] = time.time() - t
+        emit({"k5_check": k5})
+        t = time.time()
+        gen = phase_generate(torch, dev, out_dir)
+        phases["generate_s"] = time.time() - t
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     emit({"phase_s": phases})
+    k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
     emit({"kernels": [
         {"name": "sa_sweep_many", "route": "cuda",
          "source": "src/repro_torch/csrc/sa_sweep.cu",
@@ -359,10 +516,18 @@ def main() -> int:
         {"name": "bitlinear", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:438",
-         "launches": k3_launches, "max_abs_err": k3_err,
+         "launches": gen["launches"]["bitlinear"], "launches_phase3": k3_layer_launches,
+         "max_abs_err": k3_err,
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
          "library_ms": k3["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:79",
+         "launches": gen["launches"]["flash_attention"], "max_abs_err": k5_err,
+         "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
+         "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
+         "library_ms": k5["timing"]["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,111 @@
+"""Checkpoint lifecycle: async save, keep-last-k GC, auto-resume.
+
+Counterpart of ``repro/checkpoint/manager.py`` over the port's
+``checkpointer`` (the JAX package's on-disk format).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+import shutil
+import time
+
+import torch
+
+from repro_torch.checkpoint import checkpointer
+
+__all__ = ["CheckpointManager"]
+
+
+def _to_host(tree):
+    """A host copy of every tensor, so the caller may go on mutating its
+    buffers while the worker thread writes."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+class CheckpointManager:
+    #: A ``.tmp`` dir younger than this is treated as another writer's
+    #: in-flight save and left alone by GC (see :meth:`_gc`).
+    STALE_TMP_S = 3600.0
+
+    def __init__(
+        self,
+        directory: str,
+        keep_last: int = 3,
+        async_save: bool = True,
+        stale_tmp_s: float | None = None,
+    ):
+        self.directory = directory
+        self.keep_last = keep_last
+        self.stale_tmp_s = self.STALE_TMP_S if stale_tmp_s is None else stale_tmp_s
+        self._pool = (
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) if async_save else None
+        )
+        self._pending = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- save ---------------------------------------------------------------
+    def save(self, step: int, tree) -> None:
+        """Async by default: the device-to-host copy happens now, file IO on
+        the worker thread."""
+        host_tree = _to_host(tree)
+        self.wait()
+        if self._pool is None:
+            self._save_and_gc(step, host_tree)
+        else:
+            self._pending = self._pool.submit(self._save_and_gc, step, host_tree)
+
+    def _save_and_gc(self, step, host_tree):
+        checkpointer.save(self.directory, step, host_tree)
+        self._gc()
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None
+
+    # -- aux metadata --------------------------------------------------------
+    def save_aux(self, name: str, obj: dict) -> str:
+        return checkpointer.save_aux(self.directory, name, obj)
+
+    def load_aux(self, name: str):
+        return checkpointer.load_aux(self.directory, name)
+
+    # -- restore ------------------------------------------------------------
+    def latest_step(self):
+        return checkpointer.latest_step(self.directory)
+
+    def restore_latest(self, like_tree, device=None):
+        """Returns (step, tree) on ``device`` (default: the GPU), or
+        (None, None) when no checkpoint exists."""
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        return step, checkpointer.restore(self.directory, step, like_tree, device=device)
+
+    # -- GC -----------------------------------------------------------------
+    def _gc(self) -> None:
+        steps = checkpointer.available_steps(self.directory)
+        for s in steps[: -self.keep_last] if self.keep_last else []:
+            shutil.rmtree(checkpointer.step_dir(self.directory, s), ignore_errors=True)
+        # Remove stale .tmp dirs of crashed saves, and only stale ones: a
+        # second writer sharing the directory keeps its in-flight tmp dir's
+        # mtime fresh with every file it adds.
+        now = time.time()
+        for d in os.listdir(self.directory):
+            if not d.endswith(".tmp"):
+                continue
+            path = os.path.join(self.directory, d)
+            try:
+                age = now - os.path.getmtime(path)
+            except OSError:
+                continue  # already removed by a concurrent GC
+            if age > self.stale_tmp_s:
+                shutil.rmtree(path, ignore_errors=True)

@@ -13,6 +13,7 @@ checks a params tree against the manifest.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -39,6 +40,14 @@ class CompressionArtifact:
                 f"unsupported compression manifest format {fmt!r} "
                 f"(expected {MANIFEST_FORMAT!r})"
             )
+
+    @property
+    def total_ratio(self) -> float:
+        return self.manifest["totals"]["ratio"]
+
+    def total_bytes(self) -> int:
+        """Stored bytes of the compressed tensors."""
+        return int(self.manifest["totals"]["new_bytes"])
 
     def summary(self) -> str:
         t = self.manifest["totals"]
@@ -67,6 +76,10 @@ class CompressionArtifact:
         if manifest is None:
             raise FileNotFoundError(f"no {MANIFEST_NAME} in {directory!r}")
         return cls(manifest)
+
+    @classmethod
+    def exists(cls, directory: str) -> bool:
+        return os.path.exists(os.path.join(directory, MANIFEST_NAME))
 
     def restore_template(self, dense_values):
         """Each manifested leaf of a dense values tree becomes

@@ -37,6 +37,7 @@ _COMMON = [
 SOURCES = {
     "sa_sweep": ["-fmad=false"],
     "bitlinear": [],
+    "flash_attention": [],
 }
 
 _libs: dict = {}

@@ -8,9 +8,17 @@ against them.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["unpack_signs", "bitlinear_ref", "sa_sweep_many_ref", "sq_sweep_many_ref"]
+__all__ = [
+    "unpack_signs",
+    "bitlinear_ref",
+    "flash_attention_ref",
+    "sa_sweep_many_ref",
+    "sq_sweep_many_ref",
+]
 
 
 def unpack_signs(m_packed: torch.Tensor, K: int, dtype) -> torch.Tensor:
@@ -38,6 +46,26 @@ def bitlinear_ref(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor) -> t
     z = z.to(C.dtype).to(torch.float32)
     y = torch.einsum("trck,rckd->tcd", z, C.to(torch.float32))
     return y.reshape(T, n_c * td).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0) -> torch.Tensor:
+    """Plain masked softmax attention, ``repro.kernels.ref.flash_attention_ref``.
+    q (B, H, S, hd), k/v (B, KV, S, hd) -> (B, H, S, hd) in v's dtype.  The
+    scores are formed in the inputs' dtype (rounded, as JAX's einsum does)
+    and softmaxed in f32; p is rounded to v's dtype before p @ v."""
+    B, H, S, hd = q.shape
+    rep = H // k.shape[1]
+    kr = k.repeat_interleave(rep, dim=1)
+    vr = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kr).to(torch.float32) / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), vr)
 
 
 def sa_sweep_many_ref(h, B, x0, rand, temps):

@@ -1,5 +1,5 @@
-"""Model parameter trees (counterpart of ``repro.models``; init only)."""
+"""Model parameter trees and the forward pass (counterpart of ``repro.models``)."""
 
-from repro_torch.models.transformer import init_model, model_dtype
+from repro_torch.models.transformer import forward, init_cache, init_model, model_dtype
 
-__all__ = ["init_model", "model_dtype"]
+__all__ = ["init_model", "forward", "init_cache", "model_dtype"]

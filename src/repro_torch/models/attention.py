@@ -1,10 +1,22 @@
-"""GQA attention: the init half of ``repro/models/attention.py``.
+"""GQA attention with RoPE, optional qk-norm, sliding window and KV cache.
 
-The attention forward, KV cache and the flash-attention kernel (K5) come
-with the model forward (ROADMAP.md).
+Counterpart of ``repro/models/attention.py``.  Paths:
+  * prefill: with a flash hook registered (``kernels.ops.enable_kernels``)
+    the whole causal attention runs through kernel K5; without one, the
+    plain chunked online-softmax loop ``_chunked_attention``;
+  * decode: one query per row against the cache (plain softmax);
+  * chunked prefill (``attend_cache``): a chunk's queries against the full
+    cache.
+
+Unlike the JAX layer, the cache is written in place (slice assignment and
+``copy_``), so a cache tree passed in is updated; it is still returned.
+The costing twin ``_chunked_attention_unrolled`` and the multi-GPU
+flash-decode branch are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -12,7 +24,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 from repro_torch.models.params import param
 
-__all__ = ["init_attention"]
+__all__ = ["init_attention", "attention", "init_kv_cache", "register_flash", "clear_flash"]
+
+# Hook set by repro_torch.kernels.ops.enable_kernels():
+# fn(q (B, S, KV, rep, hd), k, v (B, S, KV, hd), window) -> (B, S, KV, rep, hd)
+_FLASH_IMPL = None
+
+# q/kv chunk of the plain prefill loop
+Q_CHUNK_DEFAULT = 512
+
+
+def register_flash(fn) -> None:
+    global _FLASH_IMPL
+    _FLASH_IMPL = fn
+
+
+def clear_flash() -> None:
+    global _FLASH_IMPL
+    _FLASH_IMPL = None
 
 
 def init_attention(generator, cfg: ModelConfig, dtype) -> dict:
@@ -29,3 +58,213 @@ def init_attention(generator, cfg: ModelConfig, dtype) -> dict:
         p["q_norm"] = {"scale": param(ones(), (None,))}
         p["k_norm"] = {"scale": param(ones(), (None,))}
     return p
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split RoPE in f32.  x (B, S, H, hd), positions (S,) or (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    ang = ang[None, :, None, :] if ang.ndim == 2 else ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _head_rms(x: torch.Tensor, scale, eps: float) -> torch.Tensor:
+    return layers.rms_norm(x, {"scale": scale}, eps)
+
+
+def _chunked_attention(q, k, v, window: int, q_chunk: int, causal_skip: bool = False):
+    """Causal (optionally sliding-window) online-softmax attention over
+    q/kv chunks.  q (B, S, KV, rep, hd), k/v (B, S, KV, hd).
+
+    ``causal_skip=True`` visits only the kv chunks a query chunk can see
+    (from the window's first to the diagonal); otherwise every chunk is
+    visited and the masked ones contribute nothing.  Both give the same
+    result."""
+    B, S, KV, rep, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    nq = max(S // q_chunk, 1)
+    qc = S // nq
+    ar = torch.arange(qc, device=q.device)
+    outs = []
+    for i in range(nq):
+        qb = q[:, i * qc:(i + 1) * qc]
+        q_pos = i * qc + ar
+        m = torch.full((B, KV, rep, qc), float("-inf"), dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, KV, rep, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KV, rep, qc, hd), dtype=torch.float32, device=q.device)
+        if causal_skip:
+            j_lo = 0 if window <= 0 else max((i * qc - (window - 1)) // qc, 0)
+            blocks = range(j_lo, i + 1)
+        else:
+            blocks = range(nq)
+        for j in blocks:
+            kj, vj = k[:, j * qc:(j + 1) * qc], v[:, j * qc:(j + 1) * qc]
+            k_pos = j * qc + ar
+            s = torch.einsum("bqgrh,bkgh->bgrqk", qb, kj).to(torch.float32) * scale
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if window > 0:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = s.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows (m_new = -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None]).masked_fill(~mask, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgh->bgrqh", p.to(qb.dtype), vj
+            ).to(torch.float32)
+            m = m_new
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    o = torch.stack(outs)                       # (nq, B, KV, rep, qc, hd)
+    return o.permute(1, 0, 4, 2, 3, 5).reshape(B, S, KV, rep, hd)
+
+
+def _decode_attention(qh, ck, cv, valid, scale: float, out_dtype):
+    """One query per row against the cache.  qh (B, KV, rep, hd), ck/cv
+    (B, Smax, KV, hd); ``valid`` (Smax,) for one position or (B, Smax) per
+    row."""
+    s = torch.einsum("bgrh,bkgh->bgrk", qh, ck).to(torch.float32) * scale
+    vb = valid[:, None, None, :] if valid.ndim == 2 else valid[None, None, None]
+    s = s.masked_fill(~vb, float("-inf"))
+    w = torch.softmax(s, dim=-1).to(out_dtype)
+    return torch.einsum("bgrk,bkgh->bgrh", w, cv)
+
+
+def _chunk_cache_attention(qh, ck, cv, qpos, window: int, scale: float, out_dtype):
+    """A chunk's queries qh (B, S, KV, rep, hd) at absolute positions
+    ``qpos`` ((S,) or (B, S)) against the full updated cache (B, Smax, KV,
+    hd)."""
+    Smax = ck.shape[1]
+    s = torch.einsum("bqgrh,bkgh->bgrqk", qh, ck).to(torch.float32) * scale
+    kpos = torch.arange(Smax, device=qh.device)
+    qp = qpos if qpos.ndim == 2 else qpos[None]
+    mask = kpos[None, None, :] <= qp[:, :, None]              # (B|1, S, Smax)
+    if window > 0:
+        mask &= kpos[None, None, :] > qp[:, :, None] - window
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    w = torch.softmax(s, dim=-1).to(cv.dtype)
+    return torch.einsum("bgrqk,bkgh->bqgrh", w, cv).to(out_dtype)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _write_cache(cache, k, v, pos_offset, pos_is_vec: bool, ring: bool):
+    """Write this call's k/v into the cache in place (JAX writes a new one);
+    start positions clamp so the slice fits, as dynamic_update_slice does."""
+    ck, cv = cache["k"], cache["v"]
+    B, S = k.shape[:2]
+    cache_len = ck.shape[1]
+    if pos_is_vec:
+        if ring and S > 1:
+            raise NotImplementedError(
+                "vector pos_offset with a ring (window-sized) cache is decode-only (S == 1)"
+            )
+        wp = torch.remainder(pos_offset, cache_len) if ring else pos_offset
+        idx = wp.clamp(0, cache_len - S)[:, None] + torch.arange(S, device=k.device)
+        rows = torch.arange(B, device=k.device)[:, None]
+        ck[rows, idx] = k
+        cv[rows, idx] = v
+    elif ring and S >= cache_len:
+        # only the last `window` tokens matter: token pos_offset + t lands in
+        # ring slot (pos_offset + t) % window
+        roll = (pos_offset + (S - cache_len)) % cache_len
+        ck.copy_(torch.roll(k[:, -cache_len:], roll, dims=1))
+        cv.copy_(torch.roll(v[:, -cache_len:], roll, dims=1))
+    else:
+        wp = pos_offset % cache_len if ring else pos_offset
+        wp = min(max(wp, 0), cache_len - S)
+        ck[:, wp:wp + S] = k
+        cv[:, wp:wp + S] = v
+    return {"k": ck, "v": cv}
+
+
+def attention(
+    h: torch.Tensor,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    pos_offset=0,
+    cache: dict | None = None,
+    window: int | None = None,
+    q_chunk: int | None = None,
+    attend_cache: bool = False,
+):
+    """Returns (out, new_cache).  Modes:
+      cache is None              -> prefill without a cache
+      cache given, S == 1        -> decode step at position pos_offset
+      cache given, S > 1         -> prefill writing the cache; with
+                                    ``attend_cache=True`` the chunk's queries
+                                    attend to the full cache (continuation
+                                    chunks of a chunked prefill), otherwise
+                                    chunk-local causal attention
+
+    ``pos_offset`` is an int (every row at the same position) or a (B,)
+    tensor of per-row positions.  A cache exactly ``window`` long on a
+    sliding-window layer is a ring buffer."""
+    B, S, _ = h.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = H // KV
+    window = cfg.sliding_window if window is None else window
+    q_chunk = Q_CHUNK_DEFAULT if q_chunk is None else q_chunk
+    scale = 1.0 / math.sqrt(hd)
+
+    q = layers.apply_dense(h, p["wq"]).reshape(B, S, H, hd)
+    k = layers.apply_dense(h, p["wk"]).reshape(B, S, KV, hd)
+    v = layers.apply_dense(h, p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = _head_rms(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = _head_rms(k, p["k_norm"]["scale"], cfg.norm_eps)
+
+    pos_is_vec = isinstance(pos_offset, torch.Tensor) and pos_offset.ndim == 1
+    ar = torch.arange(S, device=h.device)
+    if pos_is_vec:
+        positions = pos_offset[:, None] + ar                  # (B, S)
+    else:
+        pos_offset = int(pos_offset)
+        positions = pos_offset + ar                           # (S,)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+
+    cache_len = cache["k"].shape[1] if cache is not None else 0
+    ring = cache is not None and window > 0 and cache_len == window
+    new_cache = cache
+    if cache is not None:
+        new_cache = _write_cache(cache, k, v, pos_offset, pos_is_vec, ring)
+
+    if S == 1 and cache is not None:
+        ck, cv = new_cache["k"], new_cache["v"]
+        kpos = torch.arange(ck.shape[1], device=h.device)
+        pb = pos_offset[:, None] if pos_is_vec else pos_offset
+        valid = kpos <= pb
+        if ring:
+            # entries are the last `window` tokens by construction; only the
+            # not-yet-written slots (pos < cache_len) are invalid
+            valid = valid | (pb >= cache_len)
+        elif window > 0:
+            valid &= kpos > pb - window
+        o = _decode_attention(q.reshape(B, KV, rep, hd), ck, cv, valid, scale, h.dtype)
+        o = o.reshape(B, 1, H * hd)
+    elif cache is not None and attend_cache:
+        o = _chunk_cache_attention(
+            q.reshape(B, S, KV, rep, hd), new_cache["k"], new_cache["v"], positions, window,
+            scale, h.dtype,
+        )
+        o = o.reshape(B, S, H * hd)
+    else:
+        qh = q.reshape(B, S, KV, rep, hd)
+        if _FLASH_IMPL is not None:
+            o = _FLASH_IMPL(qh, k, v, window)
+        else:
+            o = _chunked_attention(qh, k, v, window, q_chunk, causal_skip=cache is not None)
+        o = o.reshape(B, S, H * hd)
+    return layers.apply_dense(o, p["wo"]), new_cache

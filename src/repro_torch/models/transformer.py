@@ -1,11 +1,14 @@
-"""Decoder backbone: the init half of ``repro/models/transformer.py``.
+"""Decoder backbone: counterpart of ``repro/models/transformer.py``.
 
 ``init_model`` builds the same parameter tree as ``repro``'s (group
 parameters stacked along a leading ``num_groups`` axis, e.g.
 ``groups/0/attn/wk/w`` of shape (num_groups, d_model, kv_heads*head_dim)),
-with weights drawn from a ``torch.Generator``.  Dense attention blocks are
-ported; MoE and SSM blocks, the shared attention block and the forward
-pass come with the next slices (ROADMAP.md).
+with weights drawn from a ``torch.Generator``.  ``forward`` runs the groups
+in a Python loop (JAX scans them), slicing each group's parameters and
+cache out of the stacked trees; compressed ``{m_packed, C}`` leaves slice
+the same way.  Dense attention blocks are ported (both ``parallel_block``
+settings); MoE and SSM blocks and the shared attention block come with the
+next slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,18 +22,26 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 from repro_torch.models.params import Param
 
-__all__ = ["init_model", "model_dtype"]
+__all__ = ["init_model", "forward", "init_cache", "model_dtype"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+def _not_ported(kind: str):
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported yet (attn only; ROADMAP.md, Queue 1)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
 def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
     if kind != "attn":
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (attn only; ROADMAP.md)"
-        )
+        raise _not_ported(kind)
     d, dev = cfg.d_model, generator.device
     return {
         "norm1": layers.init_rms_norm(d, dtype, dev),
@@ -39,6 +50,46 @@ def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
         "mlp": layers.init_mlp(generator, d, cfg.d_ff_dense or cfg.d_ff, dtype, cfg.use_bias),
     }
 
+
+def _apply_block(h, p, kind: str, cfg: ModelConfig, *, cache, pos_offset, window,
+                 attend_cache=False):
+    """Returns (h, new_cache, aux); aux (the MoE balance loss) is 0.0 for
+    attention blocks."""
+    if kind != "attn":
+        raise _not_ported(kind)
+    kv = cache["kv"] if cache is not None else None
+    kw = dict(pos_offset=pos_offset, cache=kv, window=window, attend_cache=attend_cache)
+    if cfg.parallel_block:
+        n = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+        a, new_kv = attn_lib.attention(n, p["attn"], cfg, **kw)
+        h = h + a + layers.mlp(n, p["mlp"])
+    else:
+        a, new_kv = attn_lib.attention(
+            layers.rms_norm(h, p["norm1"], cfg.norm_eps), p["attn"], cfg, **kw
+        )
+        h = h + a
+        h = h + layers.mlp(layers.rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"])
+    return h, ({"kv": new_kv} if cache is not None else None), 0.0
+
+
+def _apply_group(h, gp, cfg: ModelConfig, *, cache, pos_offset, window, attend_cache=False):
+    aux = 0.0
+    new_cache = {} if cache is not None else None
+    for i, kind in enumerate(cfg.block_pattern):
+        key = f"{i}"
+        h, nc, a = _apply_block(
+            h, gp[key], kind, cfg, cache=None if cache is None else cache[key],
+            pos_offset=pos_offset, window=window, attend_cache=attend_cache,
+        )
+        if cache is not None:
+            new_cache[key] = nc
+        aux = aux + a
+    return h, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Model init
+# ---------------------------------------------------------------------------
 
 def _stack(trees):
     """Stack identically-structured Param trees along a new leading axis."""
@@ -73,3 +124,136 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None):
     if not cfg.tie_embeddings:
         p["head"] = layers.init_dense(g, cfg.d_model, cfg.vocab_size, ("embed", "vocab"), dtype)
     return p
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    if kind != "attn":
+        raise _not_ported(kind)
+    return {"kv": attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, stacked: bool = True, device=None):
+    """Decode cache tree on ``device`` (default: the GPU).  ``stacked=True``
+    packs the per-group caches into (G, ...) tensors, as the JAX scan
+    carries them; ``stacked=False`` keeps a list of per-group caches."""
+    device = resolve_device(device)
+    dtype = model_dtype(cfg)
+    G = cfg.num_groups
+
+    def one(dev):
+        return {
+            f"{i}": _init_block_cache(kind, cfg, batch, max_len, dtype, dev)
+            for i, kind in enumerate(cfg.block_pattern)
+        }
+
+    def stack(tree):
+        if isinstance(tree, dict):
+            return {k: stack(v) for k, v in tree.items()}
+        return torch.zeros((G,) + tuple(tree.shape), dtype=tree.dtype, device=device)
+
+    groups = stack(one("meta")) if stacked else [one(device) for _ in range(G)]
+    cache = {"groups": groups}
+    if cfg.remainder_pattern:
+        cache["rem"] = {
+            f"{i}": _init_block_cache(kind, cfg, batch, max_len, dtype, device)
+            for i, kind in enumerate(cfg.remainder_pattern)
+        }
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _values(tree):
+    if isinstance(tree, Param):
+        return tree.value
+    if isinstance(tree, dict):
+        return {k: _values(v) for k, v in tree.items()}
+    return tree
+
+
+def _index(tree, g: int):
+    """Slice index ``g`` of the leading axis of every leaf."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def forward(
+    params,
+    inputs,
+    cfg: ModelConfig,
+    *,
+    cache=None,
+    pos_offset=0,
+    window: int | None = None,
+    last_only: bool = False,
+    return_hidden: bool = False,
+    attend_cache: bool = False,
+):
+    """inputs: {"tokens": (B, S) int} or {"embeds": (B, S, d)}.
+    Returns (logits (B, S, V), new_cache, aux_loss).  ``last_only`` computes
+    logits for the final position only; ``return_hidden`` skips the head and
+    returns the post-final-norm hidden states.  A given cache is written in
+    place (see ``models/attention.py``) and returned; both cache forms of
+    ``init_cache`` are accepted."""
+    p = _values(params)
+    dtype = model_dtype(cfg)
+    if cfg.shared_attn:
+        raise NotImplementedError("shared attention blocks are not ported yet (ROADMAP.md)")
+
+    if "tokens" in inputs:
+        h = layers.embed_lookup(inputs["tokens"], p["embed"]).to(dtype)
+    else:
+        h = inputs["embeds"].to(dtype)
+    window = cfg.sliding_window if window is None else window
+    kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
+
+    aux_total = 0.0
+    gcache = cache["groups"] if cache is not None else None
+    cache_is_list = isinstance(gcache, list)
+    new_groups = [] if cache is not None else None
+    for g in range(cfg.num_groups):
+        if gcache is None:
+            gc = None
+        else:
+            gc = gcache[g] if cache_is_list else _index(gcache, g)
+        h, nc, aux = _apply_group(h, _index(p["groups"], g), cfg, cache=gc, **kw)
+        aux_total = aux_total + aux
+        if cache is not None:
+            new_groups.append(nc)
+    if cache is not None and not cache_is_list:
+        new_groups = gcache      # the per-group slices were written in place
+    new_cache = {"groups": new_groups} if cache is not None else None
+
+    if cfg.remainder_pattern:
+        rcache = cache["rem"] if cache is not None else None
+        new_rem = {}
+        for i, kind in enumerate(cfg.remainder_pattern):
+            h, nc, aux = _apply_block(
+                h, p["rem"][f"{i}"], kind, cfg,
+                cache=None if rcache is None else rcache[f"{i}"], **kw,
+            )
+            aux_total = aux_total + aux
+            if nc is not None:
+                new_rem[f"{i}"] = nc
+        if cache is not None:
+            new_cache["rem"] = new_rem
+
+    if last_only:
+        h = h[:, -1:]
+    h = layers.rms_norm(h, p["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return h, new_cache, aux_total
+    if cfg.tie_embeddings:
+        logits = h @ p["embed"]["table"].T
+    else:
+        logits = layers.apply_dense(h, p["head"])
+    if cfg.logits_softcap > 0:
+        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return logits, new_cache, aux_total

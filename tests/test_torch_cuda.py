@@ -7,13 +7,22 @@ the JAX package, so it runs where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.compression import CompressionPolicy, execute_plan, plan_compression
+from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.kernels import bitlinear as bl
-from repro_torch.kernels import ref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sa_sweep as sa
+from repro_torch.models import init_model
+from repro_torch.models.params import split
+from repro_torch.serving import Engine
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +84,53 @@ def test_bitlinear_kernel_matches_plain(dev, T, K, dtype):
     else:
         scale = yr.float().abs().max().item()
         assert (yk.float() - yr.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,win", [
+    (2, 4, 2, 128, 32, 0),
+    (1, 8, 8, 256, 64, 64),     # MHA + sliding window
+    (2, 4, 1, 128, 16, 0),      # MQA
+    (1, 2, 2, 64, 128, 32),
+    (2, 8, 2, 100, 128, 0),     # ragged S: the last query and kv tiles are partial
+    (1, 4, 2, 1, 64, 0),        # one position
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, H, KV, S, hd, win, dtype):
+    g = torch.Generator(device=dev).manual_seed(B * S + hd)
+    q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+    before = fa.flash_attention.launches
+    o = fa.flash_attention(q, k, v, win)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    r = ref.flash_attention_ref(q, k, v, win)
+    assert o.dtype == dtype and o.shape == q.shape
+    # the Pallas kernel's tolerance against its oracle (tests/test_kernels.py)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(o.float(), r.float(), rtol=tol, atol=tol)
+
+
+def test_engine_serves_through_both_kernels(dev):
+    """A reduced bf16 model compressed on the card: every prefill attention
+    goes through K5, every compressed layer of every step through K3, and
+    the tokens are in range."""
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("qwen3-32b")), dtype="bfloat16")
+    values, _ = split(init_model(cfg, seed=0, device=dev))
+    policy = CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                               min_size=4096)
+    cvals, art = execute_plan(plan_compression(values, policy), values, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), device=dev)
+    before = (fa.flash_attention.launches, bl.bitlinear.launches)
+    try:
+        eng = Engine(cfg, cvals, max_len=24, batch=2, eos_id=cfg.vocab_size, artifact=art)
+        out = eng.generate(prompts, 8)
+    finally:
+        ops.disable_kernels()
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before[0] == cfg.num_layers
+    # one launch per compressed weight per layer (its group slice) per forward
+    per_forward = sum(math.prod(e["group_dims"]) for e in art.manifest["tensors"].values())
+    assert bl.bitlinear.launches - before[1] == per_forward * 8
+    assert out.shape == (2, 24) and torch.equal(out[:, :16], prompts)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size

@@ -14,7 +14,8 @@ from repro_torch.models import init_model
 from repro_torch.models.params import split
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
-_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    _ROOT / "chip_smoke.py", _ROOT / "tools" / "torch_serve_profile.py"]
 
 
 def _imported_roots(path):
@@ -75,3 +76,18 @@ def test_compress_cli_needs_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--arch", "qwen3-32b", "--reduced", "--plan-only"])
+
+
+def test_serving_entry_points_refuse_the_cpu_without_device(tmp_path):
+    _cpu_only()
+    from repro_torch.launch.serve import main, serve_model
+    from repro_torch.models import init_cache
+
+    cfg = reduced_for_smoke(get_config("qwen3-32b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_model(cfg, ckpt_dir=str(tmp_path), batch=1, prompt_len=4, steps=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "qwen3-32b", "--reduced", "--steps", "2"])
+    assert not any(tmp_path.iterdir())

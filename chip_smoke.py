@@ -16,14 +16,17 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      must equal bbo_iters x chunks, and no BBO tile may end worse than its
      alternating start.
   3. Serving: with the fused hook enabled, ``apply_compressed`` on every
-     compressed tensor at T = 1, 16, 512 bf16 tokens; each output is held
-     against x @ decompress(w), and K3 (csrc/bitlinear.cu) must have been
-     launched once per call.  Then K3 is held against its plain version on
-     the same inputs and timed beside its bound and a dense bf16 matmul.
+     compressed tensor at T = 1, 16, 512 bf16 tokens and at phase 4's
+     shapes (T = 4 for decode and the last-position head, T = 4096 for the
+     prefill of every other weight); each output is held against
+     x @ decompress(w), and K3 (csrc/bitlinear.cu) must have been launched
+     once per call.  Then K3 is held against its plain version on the same
+     inputs and timed beside its bound and a dense bf16 matmul.
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
-     shape of phase 4 (bf16) and on a sliding-window fixture (f32, bf16),
-     timed at the prefill shape beside its bound, the plain version and
-     ``scaled_dot_product_attention``.
+     shape of phase 4 and on a sliding-window fixture, each in f32 and
+     bf16; in bf16 also against f32 scores within K5's rounding bound.
+     Timed at the bf16 prefill shape beside its bound, the plain version
+     and ``scaled_dot_product_attention``.
   4. Generation: ``serve_model`` restores phase 2's checkpoint through its
      manifest and generates 32 tokens for 4 prompts of 1024 tokens; K5
      must have been launched once (one layer, one prefill) and K3 once per
@@ -61,6 +64,7 @@ GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 1024, 32
 # K5 against its plain version, as tests/test_kernels.py holds the Pallas
 # kernel: |o - ref| <= tol + tol * |ref|
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+BF16_U = 2.0 ** -8              # unit roundoff of bfloat16 (8 significant bits)
 # kernels on vs off, of max|logit|: z is rounded to bf16 in K3, and the plain
 # attention forms its scores in bf16 where K5 keeps them in f32
 LOGIT_TOL = 5e-2
@@ -90,6 +94,14 @@ def cuda_ms(torch, fn, reps: int, flush) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def dyadic_problems(torch, g, P, n, dev):
@@ -247,6 +259,13 @@ def phase_compress(torch, dev, out_dir):
     return restored, artifact, k1_launches
 
 
+def generate_shapes(path):
+    """K3's token counts in phase 4: T = 4 in decode and for the head, which
+    prefill runs on the last position only; T = 4096 for the prefill of
+    every other weight."""
+    return (GEN_BATCH,) if path == "head/w" else (GEN_BATCH, GEN_BATCH * GEN_PROMPT)
+
+
 def phase_serve(torch, dev, params, artifact, flush):
     from repro_torch.core import quantized
     from repro_torch.kernels import bitlinear as bl
@@ -260,7 +279,7 @@ def phase_serve(torch, dev, params, artifact, flush):
     inputs = {
         (path, T): torch.randn((T, w["m_packed"].shape[0] * w["m_packed"].shape[2]),
                                generator=g, device=dev).to(torch.bfloat16)
-        for path, w in weights.items() for T in SERVE_T
+        for path, w in weights.items() for T in SERVE_T + generate_shapes(path)
     }
     ops.enable_kernels()
     torch.cuda.synchronize()
@@ -271,12 +290,14 @@ def phase_serve(torch, dev, params, artifact, flush):
     wall = time.time() - t0
     k3_launches = bl.bitlinear.launches
     ops.disable_kernels()
-    check(k3_launches == len(weights) * len(SERVE_T),
-          f"K3 launched {k3_launches} times, want {len(weights)} x {len(SERVE_T)}")
+    check(k3_launches == len(inputs), f"K3 launched {k3_launches} times, want {len(inputs)}")
 
     rows = []
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-              "bytes_ms": 0.0, "ops_ms": 0.0}
+    # "serve_t": the calls at T = 1, 16, 512; "generate": the distinct
+    # (tensor, T) calls of phase 4, each once
+    totals = {part: {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+              for part in ("serve_t", "generate")}
     max_err = 0.0
     for (path, T), x in inputs.items():
         w = weights[path]
@@ -310,24 +331,45 @@ def phase_serve(torch, dev, params, artifact, flush):
                      "bound_ms": max(b_bytes, b_ops),
                      "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                      "max_abs_err": kerr})
+        tot = totals["serve_t" if T in SERVE_T else "generate"]
+        tot["calls"] += 1
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                      ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
                      ("ops_ms", b_ops)):
-            totals[k] += v
+            tot[k] += v
         del w_dense
-    emit({"serve": {"wall_s": wall, "k3_launches": k3_launches, "calls": rows}})
-    return k3_launches, max_err, totals
+    emit({"serve": {"wall_s": wall, "k3_launches": k3_launches, "totals": totals,
+                    "calls": rows}})
+    return k3_launches, max_err, totals["generate"]
 
 
 def attention_shapes(cfg):
-    """K5's fixtures: the prefill shape of phase 4, and the sliding-window
-    shape of tests/test_kernels.py in both dtypes."""
+    """K5's fixtures: the prefill shape of phase 4 in both dtypes, and the
+    sliding-window shape of tests/test_kernels.py in both dtypes."""
+    prefill = (GEN_BATCH, cfg.num_heads, cfg.num_kv_heads, GEN_PROMPT, cfg.resolved_head_dim, 0)
     return {
-        "prefill_bf16": (GEN_BATCH, cfg.num_heads, cfg.num_kv_heads, GEN_PROMPT,
-                         cfg.resolved_head_dim, 0, "bfloat16"),
+        "prefill_bf16": (*prefill, "bfloat16"),
+        "prefill_f32": (*prefill, "float32"),
         "window_f32": (1, 8, 8, 256, 64, 64, "float32"),
         "window_bf16": (1, 8, 8, 256, 64, 64, "bfloat16"),
     }
+
+
+def attention_f32_scores(torch, q, k, v, window):
+    """The plain attention with K5's rounding: scores from the inputs in f32,
+    p rounded to v's dtype before P.V, the product kept in f32.  Returns
+    (o, p @ |v|), each (B, H, S, hd) f32."""
+    B, H, S, hd = q.shape
+    rep = H // k.shape[1]
+    kr = k.float().repeat_interleave(rep, dim=1)
+    vr = v.float().repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) / hd ** 0.5
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1).to(v.dtype).float()
+    return p @ vr, p @ vr.abs()
 
 
 def phase_k5(torch, dev, flush):
@@ -354,6 +396,20 @@ def phase_k5(torch, dev, flush):
               f"K5 {label}: max |o - ref| {float(diff.max()):.3g} beyond tol {tol}")
         out[label] = {"shape": [B, H, KV, S, hd], "window": win, "dtype": dt,
                       "max_abs_err": float(diff.max()), "tol": tol}
+        if dtype == torch.bfloat16:
+            # against f32 scores, K5's own rounding: p and o are each rounded
+            # once to bf16 (relative error <= 2^-8) in K5 and p once in the
+            # reference, so |o - o32| <= 2^-8 (|o32| + 2 p@|v|) up to f32 noise
+            o32, pv_abs = attention_f32_scores(torch, q, k, v, win)
+            d32 = (o.float() - o32).abs()
+            bound = BF16_U * (o32.abs() + 2.0 * pv_abs) + ATTN_TOL["float32"]
+            ratio = float((d32 / bound).max())
+            check(ratio <= 1.0, f"K5 {label}: |o - o32| beyond 2^-8 (|o32| + 2 p@|v|), "
+                                f"{ratio:.3g} x the bound")
+            out[label]["f32_scores"] = {"max_abs_err": float(d32.max()),
+                                        "max_err_over_bound": ratio,
+                                        "max_bound": float(bound.max())}
+            del o32, pv_abs, d32, bound
         if label != "prefill_bf16":
             continue
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
@@ -462,10 +518,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
@@ -518,6 +571,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/bitlinear.py:438",
          "launches": gen["launches"]["bitlinear"], "launches_phase3": k3_layer_launches,
          "max_abs_err": k3_err,
+         # times summed over phase 4's distinct (tensor, T) calls, each once
+         "timed_calls": k3["calls"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
          "library_ms": k3["library_ms"]},

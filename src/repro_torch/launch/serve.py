@@ -124,7 +124,6 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--eos-id", type=int, default=1)
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--tile-n", type=int, default=16)
     ap.add_argument("--tile-d", type=int, default=32)
@@ -152,7 +151,7 @@ def main(argv=None) -> None:
     )
     serve_model(cfg, ckpt_dir=args.ckpt_dir, compress=args.compress, batch=args.batch,
                 prompt_len=args.prompt_len, steps=args.steps, temperature=args.temperature,
-                eos_id=args.eos_id, seed=args.seed,
+                seed=args.seed,
                 use_fused_bitlinear=False if args.no_fused_bitlinear else None,
                 compress_policy=policy)
 

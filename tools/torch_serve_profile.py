@@ -1,38 +1,42 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's serving path goes, on one GPU.
 
-    python3 tools/torch_serve_profile.py [--batch 4] [--prompt-len 1024] [--steps 32]
+    python3 tools/torch_serve_profile.py
 
-Builds qwen3-32b at its published widths with depth cut to one layer
-(random weights from seed 0), compresses every weight with the
-``chip_smoke.py`` policy minus its BBO rule (alternating, tile 32x128,
-K=4; tiles solved in chunks of 10,240, as ``chip_smoke.py`` does), and
-serves it through ``Engine`` with the kernels on.  After one
-warm-up generation it traces, with ``torch.profiler``, one prefill and then
-the decode loop of ``Engine.generate`` (decode step, argmax, EOS masking,
-the per-step host check), and prints one JSON line with, for each of the
-two, the host wall time, the device busy time (the sum of kernel times: one
-stream), the idle share, and device time and launches per kernel name,
-largest first.  Needs one CUDA card; imports nothing of JAX.
+Serves ``chip_smoke.py``'s phase 4 configuration: its phase 2 compresses
+qwen3-32b at its published widths with depth cut to one layer (random
+weights from seed 0, chip_smoke's policy), and ``serve_model`` restores
+that checkpoint and generates for the same prompts (which also warms up).
+Then ``Engine.generate`` itself runs twice under ``torch.profiler``: with
+one step (prefill and the first pick) and with all the steps.  The prefill
+is read from the first run; the decode loop's launches and device times
+are the differences of the two, per kernel name.
+Prints one JSON line with, for each, the host wall time (the engine's own
+``last_timing``, profiler on), the device busy time (the sum of kernel
+times: one stream), the idle share, and device time and launches per
+kernel name, largest first.  Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
-import dataclasses
 import json
 import os
-import subprocess
+import shutil
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def kernel_table(prof, wall_ms: float) -> dict:
+def traced_generate(torch, eng, prompts, steps):
+    """(device ms, launches) per kernel name of ``eng.generate(prompts,
+    steps)``, and the engine's timing of that call."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.generate(prompts, steps)
     times, counts = collections.Counter(), collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -40,6 +44,10 @@ def kernel_table(prof, wall_ms: float) -> dict:
             counts[e.name] += 1
     if not times:
         raise RuntimeError("the profiler recorded no device events")
+    return times, counts, dict(eng.last_timing)
+
+
+def kernel_table(times, counts, wall_ms: float) -> dict:
     busy = sum(times.values())
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
@@ -49,77 +57,43 @@ def kernel_table(prof, wall_ms: float) -> dict:
     }
 
 
-def profile_serving(cfg, dev, B: int, P: int, steps: int) -> dict:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.compression import CompressionPolicy, execute_plan, plan_compression
-    from repro_torch.kernels import ops
-    from repro_torch.models import init_cache, init_model
-    from repro_torch.models.params import split
-    from repro_torch.serving import Engine
-
-    values, _ = split(init_model(cfg, seed=0, device=dev))
-    policy = CompressionPolicy(method="alternating", tile_n=32, tile_d=128, rank_ratio=0.125)
-    params, art = execute_plan(plan_compression(values, policy), values, seed=0, device=dev,
-                               max_pool_tiles=10240)
-    del values
-    eng = Engine(cfg, params, max_len=P + steps, batch=B, eos_id=cfg.vocab_size, artifact=art)
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev)
-    eng.generate(prompts, steps)                                    # warm-up
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.inference_mode():
-        cache = init_cache(cfg, B, P + steps, device=dev)
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            last, cache = eng.prefill(eng.params, {"tokens": prompts}, cache)
-            cur = eng._pick(last, None)
-            torch.cuda.synchronize()
-            prefill_ms = (time.perf_counter() - t0) * 1e3
-        prefill = kernel_table(prof, prefill_ms)
-        done = torch.zeros((B,), dtype=torch.bool, device=dev)
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for t in range(steps - 1):                              # Engine.generate's loop
-                cur = torch.where(done, eng.eos_id, cur).to(prompts.dtype)
-                done = done | (cur == eng.eos_id)
-                if bool(done.all()):
-                    break
-                logits, cache = eng.decode(eng.params, cur, cache, P + t)
-                cur = eng._pick(logits, None)
-            torch.cuda.synchronize()
-            decode_ms = (time.perf_counter() - t0) * 1e3
-        decode = kernel_table(prof, decode_ms)
-    ops.disable_kernels()
-    return {"batch": B, "prompt_len": P, "steps": steps,
-            "compressed_tensors": len(art.manifest["tensors"]),
-            "prefill": prefill, "decode": decode}
-
-
-def main(argv=None) -> int:
+def main() -> int:
     import torch
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=1024)
-    ap.add_argument("--steps", type=int, default=32)
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_config
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = cs.nvidia_smi()
     print(smi, flush=True)
-    cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=1)
-    out = profile_serving(cfg, torch.device("cuda"), args.batch, args.prompt_len, args.steps)
-    print(json.dumps({"profile": {"gpu": smi, **out}}), flush=True)
+    dev = torch.device("cuda")
+    _, cfg = cs.full_width_config()
+    out_dir = os.path.join(ROOT, "build", "torch_serve_profile_ckpt")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        cs.phase_compress(torch, dev, out_dir)
+        res = serve_model(cfg, ckpt_dir=out_dir, batch=cs.GEN_BATCH, prompt_len=cs.GEN_PROMPT,
+                          steps=cs.GEN_STEPS, eos_id=cfg.vocab_size, seed=cs.SEED, device=dev,
+                          verbose=False)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    eng = res.engine
+    t1, c1, timing1 = traced_generate(torch, eng, res.prompts, 1)
+    tn, cn, timing = traced_generate(torch, eng, res.prompts, cs.GEN_STEPS)
+    ops.disable_kernels()
+    prefill = kernel_table(t1, c1, 1e3 * timing1["prefill_s"])
+    dc = cn - c1                      # kernel names launched more often with all steps
+    decode = kernel_table(collections.Counter({n: tn[n] - t1[n] for n in dc}), dc,
+                          1e3 * timing["decode_s"])
+    print(json.dumps({"profile": {
+        "gpu": smi, "batch": cs.GEN_BATCH, "prompt_len": cs.GEN_PROMPT, "steps": cs.GEN_STEPS,
+        "decode_steps": timing["decode_steps"], "compression": eng.compression,
+        "prefill": prefill, "decode": decode}}), flush=True)
     return 0
 
 

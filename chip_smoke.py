@@ -23,8 +23,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      once per call.  Then K3 is held against its plain version on the same
      inputs and timed beside its bound and a dense bf16 matmul.
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
-     shape of phase 4 and on a sliding-window fixture, each in f32 and
-     bf16; in bf16 also against f32 scores within K5's rounding bound.
+     shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
+     and bf16; in bf16 also against f32 scores within K5's rounding bound.
      Timed at the bf16 prefill shape beside its bound, the plain version
      and ``scaled_dot_product_attention``.
   4. Generation: ``serve_model`` restores phase 2's checkpoint through its
@@ -33,6 +33,24 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      compressed tensor per forward (prefill + 31 decode steps).  The
      prefill's logits are held against the plain path (kernels disabled),
      and the plain path's greedy tokens are compared (reported).
+  K4 (the grouped form in csrc/bitlinear.cu) against its plain version at
+     granite-moe-1b-a400m's three expert shapes (gate, up, down; tile
+     32x128, K = 4) in f32 and bf16, at phase 5's decode and prefill T per
+     expert (4 and 1,280), and on fixtures with ragged T, E = 1 and
+     K in {3, 9}; timed in bf16 beside its bound, the plain version and a
+     dense bf16 ``torch.bmm`` over the decompressed expert stacks.
+  5. MoE serving at full width and depth: ``compress_model`` on
+     granite-moe-1b-a400m (24 layers, 32 experts top-8, random weights from
+     seed 0) with the default policy (alternating, tile 32x128, K = 4) and
+     the default ``max_pool_tiles="auto"``, which cuts the 313,344-tile pool
+     below cuSOLVER's batched-eigh limit; then ``serve_model`` from that
+     checkpoint generates 32 tokens for 4 prompts of 1024 tokens.  K4 must
+     have been launched 3 x 24 x 32 times, K3 4 x 24 x 32 and K5 24.  The
+     prefill logits of the kernels are held against the plain path on the
+     checkpoint cast to f32; in bf16 (where rounding differences flip
+     near-tied router choices and the flips cascade through the layers)
+     their distance and, per layer, the tokens whose expert sets differ
+     between the two paths are reported.
 
 Prints JSON lines along the way, the card's ``nvidia-smi`` name and power
 limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
@@ -344,14 +362,18 @@ def phase_serve(torch, dev, params, artifact, flush):
 
 
 def attention_shapes(cfg):
-    """K5's fixtures: the prefill shape of phase 4 in both dtypes, and the
-    sliding-window shape of tests/test_kernels.py in both dtypes."""
+    """K5's fixtures: the prefill shapes of phases 4 and 5 in both dtypes,
+    and the sliding-window shape of tests/test_kernels.py in both dtypes."""
     prefill = (GEN_BATCH, cfg.num_heads, cfg.num_kv_heads, GEN_PROMPT, cfg.resolved_head_dim, 0)
+    m = moe_config()
+    moe_prefill = (GEN_BATCH, m.num_heads, m.num_kv_heads, GEN_PROMPT, m.resolved_head_dim, 0)
     return {
         "prefill_bf16": (*prefill, "bfloat16"),
         "prefill_f32": (*prefill, "float32"),
         "window_f32": (1, 8, 8, 256, 64, 64, "float32"),
         "window_bf16": (1, 8, 8, 256, 64, 64, "bfloat16"),
+        "moe_prefill_f32": (*moe_prefill, "float32"),
+        "moe_prefill_bf16": (*moe_prefill, "bfloat16"),
     }
 
 
@@ -506,6 +528,292 @@ def phase_generate(torch, dev, out_dir):
     return out
 
 
+MOE_ARCH = "granite-moe-1b-a400m"
+
+
+def moe_config():
+    """granite-moe-1b-a400m at its published widths and depth, bf16."""
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_ARCH)
+
+
+def k4_tokens(cfg):
+    """K4's T per expert in phase 5: decode routes each row's one token
+    alone (capacity 1), prefill routes 1024-token blocks (capacity 320)."""
+    from repro_torch.models.moe import ROUTE_BLOCK, moe_capacity
+
+    return {"decode": GEN_BATCH * moe_capacity(cfg, 1),
+            "prefill": GEN_BATCH * moe_capacity(cfg, min(GEN_PROMPT, ROUTE_BLOCK))}
+
+
+def k4_fixtures(cfg):
+    """label -> (E, n_r, n_c, tn, K, td, T, dtype).  The expert stacks at
+    the default policy's tile 32x128, K = 4 at both T of phase 5 and in
+    both dtypes; then ragged T, E = 1, K in {3, 9} and narrow td."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    stacks = {"gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        for phase, T in k4_tokens(cfg).items():
+            for name, (d_in, d_out) in stacks.items():
+                out[f"{name}_{phase}_{dt}"] = (E, d_in // 32, d_out // 128, 32, 4, 128, T, dt)
+    out.update({
+        "ragged_e1_k3_f32": (1, 4, 3, 32, 3, 128, 13, "float32"),
+        "ragged_e1_k9_bf16": (1, 2, 2, 16, 9, 96, 13, "bfloat16"),
+        "ragged_k9_td48_f32": (5, 3, 2, 16, 9, 48, 13, "float32"),
+        "e3_k3_t1_bf16": (3, 4, 2, 32, 3, 128, 1, "bfloat16"),
+    })
+    return out
+
+
+def phase_k4(torch, dev, flush):
+    from repro_torch.core import quantized
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import ref
+
+    cfg = moe_config()
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out, timed, max_err = {}, [], 0.0
+    for label, (E, n_r, n_c, tn, K, td, T, dt) in k4_fixtures(cfg).items():
+        dtype = getattr(torch, dt)
+        mp = torch.randint(0, 256, (E, n_r, n_c, tn, (K + 7) // 8), generator=g, device=dev,
+                           dtype=torch.uint8)
+        C = (torch.randn((E, n_r, n_c, K, td), generator=g, device=dev) * 0.2).to(dtype)
+        x = torch.randn((E, T, n_r * tn), generator=g, device=dev).to(dtype)
+        before = bl.bitlinear_grouped.launches
+        yk = bl.bitlinear_grouped(x, mp, C)
+        torch.cuda.synchronize()
+        check(bl.bitlinear_grouped.launches == before + 1, f"K4 {label}: not launched once")
+        yp = ref.bitlinear_grouped_ref(x, mp, C)
+        check(bool(torch.isfinite(yk).all()) and yk.shape == yp.shape and yk.dtype == x.dtype,
+              f"K4 {label}: bad output")
+        diff = (yk.float() - yp.float()).abs()
+        err, scale = float(diff.max()), float(yp.float().abs().max())
+        if dtype == torch.bfloat16:
+            tol = BF16_TOL * scale
+            check(err <= tol, f"K4 {label}: |y - plain| {err:.3g} > {BF16_TOL} x {scale:.3g}")
+        else:      # as tests/test_torch_bitlinear.py: rtol = atol = 1e-4
+            tol = 1e-4
+            check(bool((diff <= 1e-4 + 1e-4 * yp.float().abs()).all()),
+                  f"K4 {label}: |y - plain| {err:.3g} beyond 1e-4 + 1e-4 |plain|")
+        max_err = max(max_err, err)
+        out[label] = {"shape": [E, n_r, n_c, tn, K, td], "T": T, "dtype": dt,
+                      "max_abs_err": err, "tol": tol, "max_abs_y": scale}
+        if dt != "bfloat16" or label.split("_")[0] not in ("gate", "up", "down"):
+            continue
+        w_dense = quantized.decompress({"m_packed": mp, "C": C}, torch.bfloat16)
+        ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C), 10, flush)
+        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_grouped_ref(x, mp, C), 3, flush)
+        library_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush)
+        nbytes = mp.numel() + C.numel() * C.element_size() + (x.numel() + yk.numel()) * 2
+        ops_ = 2 * E * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
+        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(b_bytes, b_ops),
+               "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+               "bytes": nbytes, "operations": ops_}
+        out[label].update(row)
+        timed.append(row)
+        del w_dense
+    # the kernels line sums phase 5's six distinct (stack, T) calls, each once
+    total = {k: sum(r[k] for r in timed) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    b = sum(r["bytes"] for r in timed) / HBM_BYTES_PER_S
+    o = sum(r["operations"] for r in timed) / BF16_FLOPS
+    total.update({"calls": len(timed), "bound_by": "bytes" if b >= o else "operations",
+                  "max_abs_err": max_err})
+    out["timing"] = total
+    return out
+
+
+def phase_moe_compress(torch, dev, out_dir):
+    from repro_torch.compression import CompressionPolicy
+    from repro_torch.compression.execute import EIGH_MAX_BATCH
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.compress import compress_model
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = moe_config()
+    emit({"moe_config": {"arch": cfg.name, "num_layers": cfg.num_layers,
+                         "widths": "published (d_model 1024, 16x64 q heads, 8 kv heads, "
+                                   "32 experts top-8 of d_ff 512, vocab 49155, tied, bf16)",
+                         "reduced": []}})
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.bitlinear.launches = 0
+    bl.bitlinear_grouped.launches = 0
+    t0 = time.time()
+    _, artifact = compress_model(cfg, CompressionPolicy(), out_dir, seed=SEED, device=dev,
+                                 values=values, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check((sa.sa_sweep_many.launches, bl.bitlinear.launches,
+           bl.bitlinear_grouped.launches) == (0, 0, 0), "compression launched a kernel")
+    m = artifact.manifest
+    L, E = cfg.num_layers, cfg.num_experts
+    d, q, kv = cfg.d_model, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    want_tiles = L * (2 * d * q + 2 * d * kv + 3 * E * d * cfg.d_ff) // (32 * 128)
+    (pool,) = m["pools"]
+    check(pool["num_tiles"] == want_tiles == 313344,
+          f"pool of {pool['num_tiles']} tiles, want {want_tiles}")
+    check(pool["chunk_policy"] == "auto" and max(pool["chunk_sizes"]) <= EIGH_MAX_BATCH
+          and pool["chunks"] == -(-pool["num_tiles"] // EIGH_MAX_BATCH),
+          f"auto chunking gave {pool['chunks']} chunks of at most "
+          f"{max(pool['chunk_sizes'])} tiles (bound {EIGH_MAX_BATCH})")
+    grouped = {p: e for p, e in m["tensors"].items() if "/moe/" in p}
+    check(sorted(p.rsplit("/", 1)[1] for p in grouped) == ["down", "gate", "up"]
+          and all(e["group_dims"] == [L, E] for e in grouped.values())
+          and len(m["tensors"]) == 7, f"compressed tensors {sorted(m['tensors'])}")
+    out = {"wall_s": wall, "pool": {k: pool[k] for k in ("num_tiles", "chunks", "tile_n",
+                                                          "tile_d", "K", "method")},
+           "max_chunk": max(pool["chunk_sizes"]), "eigh_max_batch": EIGH_MAX_BATCH,
+           "tensors": {p: {"rel_err": e["rel_err"], "ratio": e["orig_bytes"] / e["new_bytes"],
+                           "group_dims": e["group_dims"]} for p, e in m["tensors"].items()},
+           "totals": m["totals"]}
+    emit({"moe_compress": out})
+    return out
+
+
+def _expert_sets(torch, h, router, k):
+    """Each token's top-k expert set (sorted indices) from the MoE input."""
+    probs = torch.softmax(h.float() @ router.float(), dim=-1)
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.sort(idx, dim=-1)[0]
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def moe_prefill(torch, cfg, params, prompts, dev, setup):
+    """The last-position prefill logits (f32) after ``setup()`` chose the
+    path (e.g. ``ops.enable_kernels``), each MoE block's per-token expert
+    sets (read from its input by wrapping ``moe_block``), and the kernel
+    launches the prefill made."""
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_cache, moe
+    from repro_torch.serving.engine import make_prefill
+
+    block, sets = moe.moe_block, []
+
+    def tap(h, p, c):
+        sets.append(_expert_sets(torch, h, p["router"], c.experts_per_token))
+        return block(h, p, c)
+
+    def counts():
+        return {"bitlinear": bl.bitlinear.launches,
+                "bitlinear_grouped": bl.bitlinear_grouped.launches,
+                "flash_attention": fa.flash_attention.launches}
+
+    setup()
+    before = counts()
+    moe.moe_block = tap
+    try:
+        with torch.inference_mode():
+            logits, _ = make_prefill(cfg)(params, {"tokens": prompts},
+                                          init_cache(cfg, prompts.shape[0], prompts.shape[1],
+                                                     device=dev))
+    finally:
+        moe.moe_block = block
+    check(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+    return logits.float(), sets, {k: v - before[k] for k, v in counts().items()}
+
+
+def moe_prefill_pair(torch, cfg, params, prompts, dev):
+    """Prefill with the kernels and on the plain path (kernels disabled):
+    the logits' distance, the kernel prefill's launches and, per layer, the
+    tokens whose expert set differs between the two."""
+    from repro_torch.kernels import ops
+
+    lk, sk, launched = moe_prefill(torch, cfg, params, prompts, dev, ops.enable_kernels)
+    lp, sp, _ = moe_prefill(torch, cfg, params, prompts, dev, ops.disable_kernels)
+    return {"max_abs_diff": float((lk - lp).abs().max()),
+            "max_abs_logit": float(lp.abs().max()), "kernel_launches": launched,
+            "expert_sets_differ": [int((a != b).any(-1).sum()) for a, b in zip(sk, sp)]}
+
+
+def phase_moe_generate(torch, dev, out_dir):
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.serving import Engine
+
+    cfg = moe_config()
+    L, steps = cfg.num_layers, GEN_STEPS
+    eos = cfg.vocab_size                     # never emitted: launch counts are fixed
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.bitlinear.launches = 0
+    bl.bitlinear_grouped.launches = 0
+    fa.flash_attention.launches = 0
+    res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                      steps=steps, eos_id=eos, seed=SEED, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    launches = {"bitlinear_grouped": bl.bitlinear_grouped.launches,
+                "bitlinear": bl.bitlinear.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "sa_sweep_many": sa.sa_sweep_many.launches}
+    want = {"bitlinear_grouped": 3 * L * steps, "bitlinear": 4 * L * steps,
+            "flash_attention": L, "sa_sweep_many": 0}
+    check(launches == want, f"launches {launches}, want {want}")
+    eng = res.engine
+    check(eng.compression["grouped_tensors"] == 3, f"compression {eng.compression}")
+    toks = res.tokens
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + steps)
+          and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(toks.shape)} out of shape or range")
+
+    # prefill logits with the kernels against the plain path.  In bf16 the
+    # two differ in where they round, which flips near-tied router choices;
+    # the flips cascade through 24 random layers (PERF.md, PR 13), so bf16 is
+    # reported and the check is made on the same checkpoint cast to f32
+    bf16 = moe_prefill_pair(torch, cfg, eng.params, res.prompts, dev)
+    f32 = moe_prefill_pair(torch, dataclasses.replace(cfg, dtype="float32"),
+                           _to_f32(eng.params), res.prompts, dev)
+    want_prefill = {"bitlinear": 4 * L, "bitlinear_grouped": 3 * L, "flash_attention": L}
+    for name, pair in (("bf16", bf16), ("f32", f32)):
+        check(pair.pop("kernel_launches") == want_prefill,
+              f"{name} prefill did not run every kernel once per layer")
+    check(f32["max_abs_diff"] <= LOGIT_TOL * f32["max_abs_logit"],
+          f"f32 prefill logits kernels vs plain: {f32['max_abs_diff']:.3g} > "
+          f"{LOGIT_TOL} x {f32['max_abs_logit']:.3g}")
+
+    before = (fa.flash_attention.launches, bl.bitlinear.launches,
+              bl.bitlinear_grouped.launches)
+    plain = Engine(cfg, eng.params, max_len=GEN_PROMPT + steps, batch=GEN_BATCH, eos_id=eos,
+                   artifact=eng.artifact, use_fused_bitlinear=False)
+    toks_plain = plain.generate(res.prompts, steps)
+    check((fa.flash_attention.launches, bl.bitlinear.launches,
+           bl.bitlinear_grouped.launches) == before, "the plain path launched a kernel")
+    same = (toks[:, GEN_PROMPT:] == toks_plain[:, GEN_PROMPT:]).float()
+    t = res.timing
+    out = {
+        "launches": launches,
+        "ttft_s": t["prefill_s"],
+        "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+        "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
+        "generate_wall_s": res.wall_s,
+        "prefill_logits_f32": dict(f32, tol=LOGIT_TOL * f32["max_abs_logit"]),
+        "prefill_logits_bf16": bf16,
+        "first_layer_expert_sets_differ": {"tokens": bf16["expert_sets_differ"][0],
+                                           "of": GEN_BATCH * GEN_PROMPT},
+        "greedy_agreement": {"first_token": float(same[:, 0].mean()),
+                             "all_tokens": float(same.mean())},
+        "plain_timing": plain.last_timing,
+        "compression": eng.compression,
+    }
+    emit({"moe_generate": out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -555,6 +863,21 @@ def main() -> int:
         phases["generate_s"] = time.time() - t
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    t = time.time()
+    k4 = phase_k4(torch, dev, flush)
+    phases["k4_check_s"] = time.time() - t
+    emit({"k4_check": k4})
+    moe_dir = os.path.join(ROOT, "build", "chip_smoke_moe_ckpt")
+    shutil.rmtree(moe_dir, ignore_errors=True)
+    try:
+        t = time.time()
+        phase_moe_compress(torch, dev, moe_dir)
+        phases["moe_compress_s"] = time.time() - t
+        t = time.time()
+        moe_gen = phase_moe_generate(torch, dev, moe_dir)
+        phases["moe_generate_s"] = time.time() - t
+    finally:
+        shutil.rmtree(moe_dir, ignore_errors=True)
     emit({"phase_s": phases})
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
     emit({"kernels": [
@@ -570,6 +893,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:438",
          "launches": gen["launches"]["bitlinear"], "launches_phase3": k3_layer_launches,
+         "launches_phase5": moe_gen["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -579,10 +903,21 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:79",
-         "launches": gen["launches"]["flash_attention"], "max_abs_err": k5_err,
+         "launches": gen["launches"]["flash_attention"],
+         "launches_phase5": moe_gen["launches"]["flash_attention"], "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
          "library_ms": k5["timing"]["library_ms"]},
+        {"name": "bitlinear_grouped", "route": "cuda",
+         "source": "src/repro_torch/csrc/bitlinear.cu",
+         "replaces": "src/repro/kernels/bitlinear.py:583",
+         "launches": moe_gen["launches"]["bitlinear_grouped"],
+         "max_abs_err": k4["timing"]["max_abs_err"],
+         # times summed over phase 5's distinct (stack, T) calls, each once
+         "timed_calls": k4["timing"]["calls"],
+         "ms": k4["timing"]["ms"], "plain_ms": k4["timing"]["plain_ms"],
+         "bound_ms": k4["timing"]["bound_ms"], "bound_by": k4["timing"]["bound_by"],
+         "library_ms": k4["timing"]["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -38,6 +38,8 @@ __all__ = [
     "execute_plan",
     "surrogate_tile_bytes",
     "auto_pool_chunk",
+    "auto_chunk",
+    "EIGH_MAX_BATCH",
     "tile_residuals",
     "POOL_BUDGET_ENV",
 ]
@@ -47,6 +49,16 @@ _DEFAULT_POOL_BUDGET = 64 << 20
 _MIN_BBO_CHUNK = 64
 _MAX_POOL_CHUNK = 4096
 _POOL_SALT = 0x706F6F6C      # "pool", as repro folds it into the pool key
+# Tiles per greedy/alternating chunk on a CUDA device.  Both solve their
+# least squares through torch.linalg.eigh on the (tiles, K, K) Gram stack,
+# and cuSOLVER's batched eigh refuses a large enough batch with
+# CUSOLVER_STATUS_INVALID_VALUE from cusolverDnXsyevBatched_bufferSize.
+# tools/torch_eigh_batch_probe.py on an NVIDIA H100 80GB HBM3 (torch 2.11.0,
+# CUDA 12.8) found the largest accepted batch 31,744 for K = 2, 30,720 for
+# K = 3 and 4, 29,696 for K = 8, 26,624 for K = 16, 24,576 for K = 24 and
+# 22,528 for K = 32 (the next 1,024 up refused).  16,384 keeps a margin of
+# 27% below the smallest of these.
+EIGH_MAX_BATCH = 16384
 
 
 def surrogate_tile_bytes(tile_n: int, K: int, bbo_iters: int) -> int:
@@ -68,10 +80,29 @@ def auto_pool_chunk(
         budget_bytes = int(os.environ.get(POOL_BUDGET_ENV, _DEFAULT_POOL_BUDGET))
     per_tile = surrogate_tile_bytes(tile_n, K, bbo_iters)
     cap = max(_MIN_BBO_CHUNK, min(_MAX_POOL_CHUNK, budget_bytes // per_tile))
-    if total_tiles <= cap:
-        return total_tiles
-    n_chunks = -(-total_tiles // cap)
-    return -(-total_tiles // n_chunks)
+    return _even_split(total_tiles, cap)
+
+
+def _even_split(total: int, cap: int) -> int:
+    """The chunk size that cuts ``total`` into the fewest chunks of at most
+    ``cap`` tiles, as evenly as possible."""
+    if total <= cap:
+        return total
+    n_chunks = -(-total // cap)
+    return -(-total // n_chunks)
+
+
+def auto_chunk(total_tiles: int, method: str, tile_n: int, K: int, bbo_iters: int,
+               device) -> int:
+    """Tiles per chunk under ``max_pool_tiles="auto"``: BBO pools by the
+    surrogate budget (``auto_pool_chunk``); greedy and alternating pools on
+    a CUDA device at most ``EIGH_MAX_BATCH`` (chunking does not change
+    their results), elsewhere whole; int8 pools whole."""
+    if method == "bbo":
+        return auto_pool_chunk(total_tiles, tile_n, K, bbo_iters)
+    if method in ("greedy", "alternating") and torch.device(device).type == "cuda":
+        return _even_split(total_tiles, EIGH_MAX_BATCH)
+    return total_tiles
 
 
 def tile_residuals(tiles, M, C) -> torch.Tensor:
@@ -177,9 +208,10 @@ def execute_plan(
     returns (new_values, artifact).
 
     ``max_pool_tiles`` bounds the tiles per batched solve: "auto" sizes each
-    BBO pool's chunk from the surrogate memory model and leaves
-    greedy/alternating pools whole; an int pins the bound for every pool;
-    None disables chunking.  ``backend`` overrides the policy's solver
+    BBO pool's chunk from the surrogate memory model and cuts
+    greedy/alternating pools on a CUDA device to ``EIGH_MAX_BATCH`` tiles
+    (whole elsewhere; see ``auto_chunk``); an int pins the bound for every
+    pool; None disables chunking.  ``backend`` overrides the policy's solver
     backend (auto|cuda|torch; it must match the device)."""
     device = resolve_device(device)
     backend = backend or plan.policy.solver_backend
@@ -191,7 +223,7 @@ def execute_plan(
         tn, td, K, method, bbo_iters = pool_key
         total = sum(t.num_tiles for t in members)
         if max_pool_tiles == "auto":
-            chunk = auto_pool_chunk(total, tn, K, bbo_iters) if method == "bbo" else total
+            chunk = auto_chunk(total, method, tn, K, bbo_iters, device)
         else:
             chunk = total if not max_pool_tiles else min(total, max_pool_tiles)
         n_chunks = -(-total // chunk)

@@ -13,9 +13,10 @@ as z[r, c] = x[r] @ M[r, c], y[c] += z[r, c] @ C[r, c].
 (``repro_torch.kernels.ops.enable_kernels``), ``apply_compressed`` runs the
 whole layer through the bitlinear kernel; its gradient comes from the
 einsum form through a ``torch.autograd.Function`` (exact dx and dC, none
-for the packed bits).  Grouped (per-expert, 5-D) weights wait for the
-grouped kernel K4.  The int8 baseline {"q", "scale"} is served by
-dequant-einsum.
+for the packed bits).  Grouped (per-expert) weights, C (E, r, c, K, td),
+take x (E, ..., d_in) and run through the grouped hook (kernel K4) when one
+is registered, else the grouped einsum form; their gradient is derived the
+same way.  The int8 baseline {"q", "scale"} is served by dequant-einsum.
 """
 
 from __future__ import annotations
@@ -29,45 +30,68 @@ __all__ = [
     "is_grouped",
     "apply_compressed",
     "apply_compressed_einsum",
+    "apply_compressed_grouped",
+    "apply_compressed_grouped_einsum",
     "decompress",
     "compressed_num_bytes",
     "dense_num_bytes",
     "is_intquant",
     "intquant_num_bytes",
     "register_bitlinear_fused",
+    "register_bitlinear_grouped",
     "clear_bitlinear",
     "has_fused_bitlinear",
+    "has_grouped_bitlinear",
 ]
 
 _KEYS = frozenset({"m_packed", "C"})
 _INT8_KEYS = frozenset({"q", "scale"})
 
-# Whole-layer hook y = (x @ M) @ C, registered by
+# Whole-layer hooks y = (x @ M) @ C and its grouped form, registered by
 # repro_torch.kernels.ops.enable_kernels().  Process-global, as in repro.
 _BITLINEAR_FUSED_IMPL = None
+_BITLINEAR_GROUPED_IMPL = None
+
+
+def _check_impl(fn, name: str) -> None:
+    if fn is None:
+        raise ValueError(
+            f"{name}(None) would silently disable a kernel; "
+            "call clear_bitlinear() to unregister explicitly"
+        )
+    if not callable(fn):
+        raise TypeError(f"{name} expects a callable, got {type(fn)!r}")
 
 
 def register_bitlinear_fused(fn) -> None:
     """Register the fused hook ``fn(x, w) -> y`` for the compressed layer."""
-    if fn is None:
-        raise ValueError(
-            "register_bitlinear_fused(None) would silently disable a kernel; "
-            "call clear_bitlinear() to unregister explicitly"
-        )
-    if not callable(fn):
-        raise TypeError(f"register_bitlinear_fused expects a callable, got {type(fn)!r}")
+    _check_impl(fn, "register_bitlinear_fused")
     global _BITLINEAR_FUSED_IMPL
     _BITLINEAR_FUSED_IMPL = fn
 
 
+def register_bitlinear_grouped(fn) -> None:
+    """Register the grouped hook ``fn(x, w) -> y`` computing
+    y_e = (x_e @ M_e) @ C_e for x (E, ..., d_in) and a grouped weight
+    {"m_packed" (E, r, c, tn, kb), "C" (E, r, c, K, td)}."""
+    _check_impl(fn, "register_bitlinear_grouped")
+    global _BITLINEAR_GROUPED_IMPL
+    _BITLINEAR_GROUPED_IMPL = fn
+
+
 def clear_bitlinear() -> None:
-    """Unregister the fused hook (back to the einsum form)."""
-    global _BITLINEAR_FUSED_IMPL
+    """Unregister every bitlinear hook (back to the einsum forms)."""
+    global _BITLINEAR_FUSED_IMPL, _BITLINEAR_GROUPED_IMPL
     _BITLINEAR_FUSED_IMPL = None
+    _BITLINEAR_GROUPED_IMPL = None
 
 
 def has_fused_bitlinear() -> bool:
     return _BITLINEAR_FUSED_IMPL is not None
+
+
+def has_grouped_bitlinear() -> bool:
+    return _BITLINEAR_GROUPED_IMPL is not None
 
 
 def is_compressed(w) -> bool:
@@ -112,6 +136,23 @@ def apply_compressed_einsum(x: torch.Tensor, w: dict) -> torch.Tensor:
     return y.reshape(*lead, c * td)
 
 
+def apply_compressed_grouped_einsum(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """Grouped oracle: y_e = x_e @ W_hat_e per expert via the two-einsum
+    form.  x (E, ..., d_in) with the leading axis matching the weight's
+    expert axis (the MoE (E, B, C, d) dispatch layout)."""
+    C = w["C"]
+    E, r, c, K, td = C.shape
+    tn = w["m_packed"].shape[3]
+    if x.shape[0] != E:
+        raise ValueError(f"grouped apply: x {tuple(x.shape)} vs C {tuple(C.shape)}")
+    lead = x.shape[1:-1]
+    xt = x.reshape(E, -1, r, tn)
+    M = unpack_signs(w["m_packed"], K, x.dtype)                 # (E, r, c, tn, K)
+    z = torch.einsum("etrn,ercnk->etrck", xt, M)
+    y = torch.einsum("etrck,erckd->etcd", z, C.to(x.dtype))
+    return y.reshape(E, *lead, c * td)
+
+
 class _FusedApply(torch.autograd.Function):
     """Forward: the registered fused kernel.  Backward: cotangents of the
     einsum formulation (M recomputed from the packed bits); the packed bits
@@ -137,14 +178,47 @@ class _FusedApply(torch.autograd.Function):
         return dx, None, dC
 
 
+class _GroupedFusedApply(torch.autograd.Function):
+    """The grouped form of ``_FusedApply``: forward through the registered
+    grouped kernel, backward from the grouped einsum form with the expert
+    axis threaded through (``repro``'s ``_apply_grouped_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, m_packed, C):
+        ctx.save_for_backward(x, m_packed, C)
+        return _BITLINEAR_GROUPED_IMPL(x, {"m_packed": m_packed, "C": C})
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m_packed, C = ctx.saved_tensors
+        E, r, c, K, td = C.shape
+        tn = m_packed.shape[3]
+        M = unpack_signs(m_packed, K, x.dtype)
+        xt = x.reshape(E, -1, r, tn)
+        gt = g.reshape(E, -1, c, td).to(x.dtype)
+        dz = torch.einsum("etcd,erckd->etrck", gt, C.to(x.dtype))
+        dx = torch.einsum("etrck,ercnk->etrn", dz, M).reshape(x.shape)
+        z = torch.einsum("etrn,ercnk->etrck", xt, M)
+        dC = torch.einsum("etrck,etcd->erckd", z, gt).to(C.dtype)
+        return dx, None, dC
+
+
+def apply_compressed_grouped(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """Per-expert y_e = x_e @ W_hat_e without materialising any W_hat_e:
+    all E experts in one grouped kernel launch when the grouped hook is
+    registered, else the grouped einsum form."""
+    if _BITLINEAR_GROUPED_IMPL is not None:
+        return _GroupedFusedApply.apply(x, w["m_packed"], w["C"])
+    return apply_compressed_grouped_einsum(x, w)
+
+
 def apply_compressed(x: torch.Tensor, w: dict) -> torch.Tensor:
     """y = x @ W_hat without materialising W_hat: through the fused kernel
-    when one is registered, else the einsum form."""
+    when one is registered, else the einsum form.  Grouped weights (C with
+    a leading expert axis) take the grouped path, where x's leading axis is
+    the expert axis."""
     if is_grouped(w):
-        raise NotImplementedError(
-            "grouped (per-expert) compressed weights need the grouped kernel "
-            "K4, not ported yet (ROADMAP.md, Queue 2, K4)"
-        )
+        return apply_compressed_grouped(x, w)
     if _BITLINEAR_FUSED_IMPL is not None:
         return _FusedApply.apply(x, w["m_packed"], w["C"])
     return apply_compressed_einsum(x, w)

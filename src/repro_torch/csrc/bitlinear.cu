@@ -1,10 +1,13 @@
-// Fused compressed linear layer y = (x @ M) @ C (kernel K3).
+// Fused compressed linear layer y = (x @ M) @ C (kernel K3), and its
+// grouped form y_e = (x_e @ M_e) @ C_e over a stack of E experts (kernel K4).
 //
-// Replaces the Pallas TPU kernel repro/kernels/bitlinear.py::bitlinear
-// (grid schedule _kernel, decode schedule _decode_kernel).  The weight is
-// stored per (row tile r, column tile c) as a bit-packed sign matrix
-// M[r, c] in {-1,+1}^{tn x K} (uint8, LSB-first, kb = ceil(K/8) bytes per
-// row) and a small real factor C[r, c] (K x td).  For every r, c:
+// Replaces the Pallas TPU kernels repro/kernels/bitlinear.py::bitlinear
+// (grid schedule _kernel, decode schedule _decode_kernel) and
+// repro/kernels/bitlinear.py::bitlinear_grouped (_grouped_kernel,
+// _grouped_decode_kernel).  The weight is stored per (row tile r, column
+// tile c) as a bit-packed sign matrix M[r, c] in {-1,+1}^{tn x K} (uint8,
+// LSB-first, kb = ceil(K/8) bytes per row) and a small real factor C[r, c]
+// (K x td).  For every r, c:
 //     z = x[:, r*tn:(r+1)*tn] @ M[r, c]                  (f32 accumulation)
 //     y[:, c*td:(c+1)*td] += z.to(C.dtype) @ C[r, c]      (f32 accumulation)
 // and y is written once in x's dtype.
@@ -14,10 +17,14 @@
 // f32 FMA rate at large T, since K (3-4) is below the tensor cores'
 // k-minimum.  The design keeps as many independent (r, c) tiles in flight
 // as the card holds:
-//   * one block per (row block of BT tokens, column tile c, column chunk);
-//     its W warps take the row tiles r = warp, warp + W, ... with no block
-//     barrier inside the loop, so every warp streams its own C and M bytes
-//     (the TPU's sequential "arbitrary" r axis becomes this strided loop);
+//   * one block per (row block of BT tokens, expert e and column tile c,
+//     column chunk); blockIdx.y = e * n_c + c, and the block offsets x, M, C
+//     and y to its expert's slice, so all E experts run in one launch (the
+//     TPU's leading "parallel" expert grid axis) with K3's body unchanged
+//     (K3 is the case E = 1); its W warps take the row tiles
+//     r = warp, warp + W, ... with no block barrier inside the loop, so
+//     every warp streams its own C and M bytes (the TPU's sequential
+//     "arbitrary" r axis becomes this strided loop);
 //   * per r a warp computes z (BT x K) lane-parallel over (token, k) pairs,
 //     unpacking the sign bits in registers (no float M is materialised),
 //     rounds z to C's dtype as the JAX kernel does, and keeps it in its own
@@ -27,8 +34,10 @@
 //   * at the end the W partial sums are added in warp order through shared
 //     memory (deterministic), and y is written once.
 // Ragged T is masked (rows >= T read zeros and are not written) and any K
-// works (K % 8 != 0 included).  wgmma, TMA and a split of r across blocks
-// for the fewest-column decode shapes are later work.
+// works (K % 8 != 0 included).  Every expert of a grouped call has the same
+// T (the MoE dispatch layout pads each expert to its capacity).  wgmma, TMA
+// and a split of r across blocks for the fewest-column decode shapes are
+// later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,10 +69,15 @@ __global__ void bitlinear_kernel(const XT* __restrict__ x, const uint8_t* __rest
 
   const int t0 = blockIdx.x * BT;
   const int rows = min(BT, T - t0);
-  const int c = blockIdx.y;
+  const int e = blockIdx.y / n_c;                // expert (0 for K3)
+  const int c = blockIdx.y - e * n_c;
   const int d0 = blockIdx.z * 32 * NCOL;         // first column of this chunk
   const int d_in = n_r * tn;
   const int d_out = n_c * td;
+  x += (size_t)e * T * d_in;
+  mp += (size_t)e * n_r * n_c * tn * kb;
+  Cw += (size_t)e * n_r * n_c * K * td;
+  y += (size_t)e * T * d_out;
 
   float acc[BT][NCOL];
 #pragma unroll
@@ -126,12 +140,12 @@ __global__ void bitlinear_kernel(const XT* __restrict__ x, const uint8_t* __rest
 }
 
 template <typename XT, typename CT, int BT, int NCOL>
-cudaError_t launch_cfg(const void* x, const uint8_t* mp, const void* C, void* y, int T,
+cudaError_t launch_cfg(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T,
                        int n_r, int n_c, int tn, int kb, int K, int td, cudaStream_t stream) {
   // decode rows (BT = 1) keep few registers: 32 warps per block; larger
   // row blocks hold BT x NCOL accumulators per lane: 16 warps
   const int warps = BT == 1 ? 32 : 16;
-  const dim3 grid((T + BT - 1) / BT, n_c, (td + 32 * NCOL - 1) / (32 * NCOL));
+  const dim3 grid((T + BT - 1) / BT, E * n_c, (td + 32 * NCOL - 1) / (32 * NCOL));
   const size_t smem = sizeof(float) * ((size_t)warps * BT * K + (size_t)BT * 32 * NCOL);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(bitlinear_kernel<XT, CT, BT, NCOL>,
@@ -146,18 +160,35 @@ cudaError_t launch_cfg(const void* x, const uint8_t* mp, const void* C, void* y,
 }
 
 template <typename XT, typename CT, int BT>
-cudaError_t launch_bt(const void* x, const uint8_t* mp, const void* C, void* y, int T, int n_r,
-                      int n_c, int tn, int kb, int K, int td, cudaStream_t st) {
-  if (td <= 32) return launch_cfg<XT, CT, BT, 1>(x, mp, C, y, T, n_r, n_c, tn, kb, K, td, st);
-  if (td <= 64) return launch_cfg<XT, CT, BT, 2>(x, mp, C, y, T, n_r, n_c, tn, kb, K, td, st);
-  return launch_cfg<XT, CT, BT, 4>(x, mp, C, y, T, n_r, n_c, tn, kb, K, td, st);
+cudaError_t launch_bt(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T,
+                      int n_r, int n_c, int tn, int kb, int K, int td, cudaStream_t st) {
+  if (td <= 32) return launch_cfg<XT, CT, BT, 1>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
+  if (td <= 64) return launch_cfg<XT, CT, BT, 2>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
+  return launch_cfg<XT, CT, BT, 4>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
 }
 
 template <typename XT, typename CT>
-cudaError_t launch(const void* x, const uint8_t* mp, const void* C, void* y, int T, int n_r,
-                   int n_c, int tn, int kb, int K, int td, cudaStream_t st) {
-  if (T == 1) return launch_bt<XT, CT, 1>(x, mp, C, y, T, n_r, n_c, tn, kb, K, td, st);
-  return launch_bt<XT, CT, 8>(x, mp, C, y, T, n_r, n_c, tn, kb, K, td, st);
+cudaError_t launch(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T,
+                   int n_r, int n_c, int tn, int kb, int K, int td, cudaStream_t st) {
+  if (T == 1) return launch_bt<XT, CT, 1>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
+  return launch_bt<XT, CT, 8>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
+}
+
+cudaError_t dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T,
+                     int n_r, int n_c, int tn, int kb, int K, int td, int x_bf16, int c_bf16,
+                     void* stream) {
+  if (T <= 0 || E <= 0) return cudaSuccess;
+  if ((long long)E * n_c > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    if (c_bf16)
+      return launch<__nv_bfloat16, __nv_bfloat16>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td,
+                                                   st);
+    return launch<__nv_bfloat16, float>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
+  }
+  if (c_bf16)
+    return launch<float, __nv_bfloat16>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
+  return launch<float, float>(x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, st);
 }
 
 }  // namespace
@@ -170,17 +201,17 @@ extern "C" {
 // pointers.  Returns cudaGetLastError() of the launch.
 int bitlinear(const void* x, const uint8_t* m_packed, const void* C, void* y, int T, int n_r,
               int n_c, int tn, int kb, int K, int td, int x_bf16, int c_bf16, void* stream) {
-  if (T <= 0) return 0;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    if (c_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16>(x, m_packed, C, y, T, n_r, n_c, tn, kb, K,
-                                                   td, st);
-    return launch<__nv_bfloat16, float>(x, m_packed, C, y, T, n_r, n_c, tn, kb, K, td, st);
-  }
-  if (c_bf16)
-    return launch<float, __nv_bfloat16>(x, m_packed, C, y, T, n_r, n_c, tn, kb, K, td, st);
-  return launch<float, float>(x, m_packed, C, y, T, n_r, n_c, tn, kb, K, td, st);
+  return dispatch(x, m_packed, C, y, 1, T, n_r, n_c, tn, kb, K, td, x_bf16, c_bf16, stream);
+}
+
+// The grouped form (K4): x (E, T, n_r*tn), y (E, T, n_c*td), m_packed
+// (E, n_r, n_c, tn, kb), C (E, n_r, n_c, K, td), each expert's slice
+// contiguous after the previous one; dtypes as for bitlinear.  E * n_c must
+// fit gridDim.y (65535).
+int bitlinear_grouped(const void* x, const uint8_t* m_packed, const void* C, void* y, int E,
+                      int T, int n_r, int n_c, int tn, int kb, int K, int td, int x_bf16,
+                      int c_bf16, void* stream) {
+  return dispatch(x, m_packed, C, y, E, T, n_r, n_c, tn, kb, K, td, x_bf16, c_bf16, stream);
 }
 
 }  // extern "C"

@@ -3,17 +3,17 @@
 Counterpart of ``repro/kernels/ops.py``.  ``enable_kernels()`` registers
 the flash-attention adapter into :mod:`repro_torch.models.attention` (every
 prefill without ``attend_cache`` runs ``kernels.flash_attention``) and the
-fused bitlinear hook into :mod:`repro_torch.core.quantized` (every
-``apply_compressed`` call runs ``kernels.bitlinear.bitlinear``); each is the
-CUDA kernel for CUDA tensors and its plain version for CPU ones.  The
-schedule autotuner and the grouped kernel K4 are not ported yet
-(ROADMAP.md).
+fused bitlinear hooks into :mod:`repro_torch.core.quantized` (every
+``apply_compressed`` call runs ``kernels.bitlinear.bitlinear``, or
+``kernels.bitlinear.bitlinear_grouped`` for a grouped expert stack); each
+is the CUDA kernel for CUDA tensors and its plain version for CPU ones.
+The schedule autotuner is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from repro_torch.core import quantized
-from repro_torch.kernels.bitlinear import bitlinear
+from repro_torch.kernels.bitlinear import bitlinear, bitlinear_grouped
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_lib
 
@@ -21,6 +21,7 @@ __all__ = [
     "enable_kernels",
     "disable_kernels",
     "apply_compressed_fused",
+    "apply_compressed_grouped_fused",
     "flash_attention",
     "flash_attention_model_layout",
 ]
@@ -38,10 +39,12 @@ def flash_attention_model_layout(qh, k, v, window: int):
 
 
 def enable_kernels() -> None:
-    """Route attention prefill through K5 and compressed layers through K3.
-    The hooks are process-global; ``disable_kernels()`` removes both."""
+    """Route attention prefill through K5, compressed layers through K3 and
+    compressed expert stacks through K4.  The hooks are process-global;
+    ``disable_kernels()`` removes them all."""
     attn_lib.register_flash(flash_attention_model_layout)
     quantized.register_bitlinear_fused(apply_compressed_fused)
+    quantized.register_bitlinear_grouped(apply_compressed_grouped_fused)
 
 
 def disable_kernels() -> None:
@@ -53,11 +56,19 @@ def apply_compressed_fused(x, w):
     """y = (x @ M) @ C through the bitlinear kernel; x (..., d_in) ->
     (..., d_out) with any leading dims flattened into the kernel's T axis."""
     C = w["C"]
-    if C.ndim != 4:
-        raise NotImplementedError(
-            "grouped compressed weights need kernel K4 (ROADMAP.md)"
-        )
     n_c, td = C.shape[1], C.shape[3]
     lead = x.shape[:-1]
     y = bitlinear(x.reshape(-1, x.shape[-1]), w["m_packed"], C)
     return y.reshape(*lead, n_c * td)
+
+
+def apply_compressed_grouped_fused(x, w):
+    """y_e = (x_e @ M_e) @ C_e through the grouped bitlinear kernel; x (E,
+    ..., d_in) -> (E, ..., d_out) with the inner lead dims (the MoE (B, C)
+    dispatch dims) flattened into the kernel's T axis.  The dispatch
+    einsum's output is strided: it is made contiguous here, once."""
+    C = w["C"]
+    E, n_c, td = C.shape[0], C.shape[2], C.shape[4]
+    lead = x.shape[1:-1]
+    y = bitlinear_grouped(x.reshape(E, -1, x.shape[-1]).contiguous(), w["m_packed"], C)
+    return y.reshape(E, *lead, n_c * td)

@@ -15,6 +15,7 @@ import torch
 __all__ = [
     "unpack_signs",
     "bitlinear_ref",
+    "bitlinear_grouped_ref",
     "flash_attention_ref",
     "sa_sweep_many_ref",
     "sq_sweep_many_ref",
@@ -46,6 +47,24 @@ def bitlinear_ref(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor) -> t
     z = z.to(C.dtype).to(torch.float32)
     y = torch.einsum("trck,rckd->tcd", z, C.to(torch.float32))
     return y.reshape(T, n_c * td).to(x.dtype)
+
+
+def bitlinear_grouped_ref(x: torch.Tensor, m_packed: torch.Tensor,
+                          C: torch.Tensor) -> torch.Tensor:
+    """y_e = (x_e @ M_e) @ C_e per expert, dense: the grouped form of
+    ``bitlinear_ref`` (``repro.kernels.ref.bitlinear_grouped_ref``).
+    x (E, T, d_in), m_packed (E, r, c, tn, kb), C (E, r, c, K, td) ->
+    (E, T, c*td) in x's dtype; z is rounded to C's dtype before z @ C, as
+    the kernels do."""
+    E, n_r, n_c, tn, _ = m_packed.shape
+    K, td = C.shape[3], C.shape[4]
+    T = x.shape[1]
+    M = unpack_signs(m_packed, K, torch.float32)
+    xt = x.to(torch.float32).reshape(E, T, n_r, tn)
+    z = torch.einsum("etrn,ercnk->etrck", xt, M)
+    z = z.to(C.dtype).to(torch.float32)
+    y = torch.einsum("etrck,erckd->etcd", z, C.to(torch.float32))
+    return y.reshape(E, T, n_c * td).to(x.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,9 +6,11 @@ parameters stacked along a leading ``num_groups`` axis, e.g.
 with weights drawn from a ``torch.Generator``.  ``forward`` runs the groups
 in a Python loop (JAX scans them), slicing each group's parameters and
 cache out of the stacked trees; compressed ``{m_packed, C}`` leaves slice
-the same way.  Dense attention blocks are ported (both ``parallel_block``
-settings); MoE and SSM blocks and the shared attention block come with the
-next slices (ROADMAP.md).
+the same way: a compressed expert stack (L, E, ...) slices to the grouped
+(E, ...) form that ``models/moe.py`` runs through kernel K4.  Dense
+attention blocks (both ``parallel_block`` settings) and attention + MoE
+blocks (``attn_moe``) are ported; SSM blocks and the shared attention
+block come with later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator as make_generator
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.params import Param
 
 __all__ = ["init_model", "forward", "init_cache", "model_dtype"]
@@ -31,7 +33,8 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _not_ported(kind: str):
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (attn only; ROADMAP.md, Queue 1)"
+        f"block kind {kind!r} is not ported yet (attn and attn_moe only; ROADMAP.md, "
+        "Queue 1)"
     )
 
 
@@ -40,23 +43,29 @@ def _not_ported(kind: str):
 # ---------------------------------------------------------------------------
 
 def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
-    if kind != "attn":
+    if kind not in ("attn", "attn_moe"):
         raise _not_ported(kind)
     d, dev = cfg.d_model, generator.device
-    return {
+    p = {
         "norm1": layers.init_rms_norm(d, dtype, dev),
         "attn": attn_lib.init_attention(generator, cfg, dtype),
         "norm2": layers.init_rms_norm(d, dtype, dev),
-        "mlp": layers.init_mlp(generator, d, cfg.d_ff_dense or cfg.d_ff, dtype, cfg.use_bias),
     }
+    if kind == "attn":
+        p["mlp"] = layers.init_mlp(generator, d, cfg.d_ff_dense or cfg.d_ff, dtype, cfg.use_bias)
+    else:
+        p["moe"] = moe.init_moe(generator, cfg, dtype)
+    return p
 
 
 def _apply_block(h, p, kind: str, cfg: ModelConfig, *, cache, pos_offset, window,
                  attend_cache=False):
     """Returns (h, new_cache, aux); aux (the MoE balance loss) is 0.0 for
-    attention blocks."""
-    if kind != "attn":
+    attention blocks.  With ``parallel_block`` both kinds run the dense MLP
+    beside attention, as ``repro`` does."""
+    if kind not in ("attn", "attn_moe"):
         raise _not_ported(kind)
+    aux = 0.0
     kv = cache["kv"] if cache is not None else None
     kw = dict(pos_offset=pos_offset, cache=kv, window=window, attend_cache=attend_cache)
     if cfg.parallel_block:
@@ -68,8 +77,13 @@ def _apply_block(h, p, kind: str, cfg: ModelConfig, *, cache, pos_offset, window
             layers.rms_norm(h, p["norm1"], cfg.norm_eps), p["attn"], cfg, **kw
         )
         h = h + a
-        h = h + layers.mlp(layers.rms_norm(h, p["norm2"], cfg.norm_eps), p["mlp"])
-    return h, ({"kv": new_kv} if cache is not None else None), 0.0
+        n = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
+        if kind == "attn":
+            h = h + layers.mlp(n, p["mlp"])
+        else:
+            mo, aux = moe.moe_block(n, p["moe"], cfg)
+            h = h + mo
+    return h, ({"kv": new_kv} if cache is not None else None), aux
 
 
 def _apply_group(h, gp, cfg: ModelConfig, *, cache, pos_offset, window, attend_cache=False):
@@ -131,7 +145,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None):
 # ---------------------------------------------------------------------------
 
 def _init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    if kind != "attn":
+    if kind not in ("attn", "attn_moe"):
         raise _not_ported(kind)
     return {"kv": attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)}
 

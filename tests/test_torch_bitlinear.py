@@ -118,7 +118,13 @@ def test_bitlinear_rejects_what_is_not_ported():
                       torch.from_numpy(C))
     with pytest.raises(ValueError, match="inconsistent"):
         tbl.bitlinear(torch.zeros(2, 9), torch.from_numpy(mp), torch.from_numpy(C))
+    # the grouped kernel K4 refuses the same, and an expert-count mismatch
     grouped = {"m_packed": torch.zeros(2, 1, 1, 8, 1, dtype=torch.uint8),
                "C": torch.zeros(2, 1, 1, 3, 16)}
-    with pytest.raises(NotImplementedError, match="K4"):
-        tq.apply_compressed(torch.zeros(2, 1, 8), grouped)
+    with pytest.raises(NotImplementedError, match="int8"):
+        tbl.bitlinear_grouped(torch.zeros(2, 1, 8, dtype=torch.int8), grouped["m_packed"],
+                              grouped["C"])
+    with pytest.raises(ValueError, match="inconsistent"):
+        tbl.bitlinear_grouped(torch.zeros(3, 1, 8), grouped["m_packed"], grouped["C"])
+    with pytest.raises(ValueError, match="grouped apply"):
+        tq.apply_compressed(torch.zeros(3, 1, 8), grouped)

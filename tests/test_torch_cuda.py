@@ -86,6 +86,31 @@ def test_bitlinear_kernel_matches_plain(dev, T, K, dtype):
         assert (yk.float() - yr.float()).abs().max().item() <= 2e-2 * scale
 
 
+@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("T", [1, 13, 40])
+@pytest.mark.parametrize("K", [3, 4, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bitlinear_grouped_kernel_matches_plain(dev, E, T, K, dtype):
+    g = torch.Generator(device=dev).manual_seed(E * 1000 + T * 16 + K)
+    n_r, n_c, tn, td = 3, 2, 16, 160
+    kb = (K + 7) // 8
+    mp = torch.randint(0, 256, (E, n_r, n_c, tn, kb), generator=g, device=dev,
+                       dtype=torch.uint8)
+    C = (torch.randn(E, n_r, n_c, K, td, generator=g, device=dev) * 0.2).to(dtype)
+    x = torch.randn(E, T, n_r * tn, generator=g, device=dev).to(dtype)
+    before = bl.bitlinear_grouped.launches
+    yk = bl.bitlinear_grouped(x, mp, C)
+    torch.cuda.synchronize()
+    assert bl.bitlinear_grouped.launches == before + 1
+    yr = ref.bitlinear_grouped_ref(x, mp, C)
+    assert yk.dtype == dtype and yk.shape == (E, T, n_c * td)
+    if dtype == torch.float32:
+        torch.testing.assert_close(yk, yr, rtol=1e-4, atol=1e-4)
+    else:
+        scale = yr.float().abs().max().item()
+        assert (yk.float() - yr.float()).abs().max().item() <= 2e-2 * scale
+
+
 @pytest.mark.parametrize("B,H,KV,S,hd,win", [
     (2, 4, 2, 128, 32, 0),
     (1, 8, 8, 256, 64, 64),     # MHA + sliding window
@@ -132,5 +157,34 @@ def test_engine_serves_through_both_kernels(dev):
     # one launch per compressed weight per layer (its group slice) per forward
     per_forward = sum(math.prod(e["group_dims"]) for e in art.manifest["tensors"].values())
     assert bl.bitlinear.launches - before[1] == per_forward * 8
+    assert out.shape == (2, 24) and torch.equal(out[:, :16], prompts)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+
+
+def test_engine_serves_moe_through_the_grouped_kernel(dev):
+    """Reduced bf16 granite-moe compressed on the card: every expert stack
+    of every layer and step goes through K4, the attention projections
+    through K3, and the tokens are in range."""
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("granite-moe-1b-a400m")),
+                              dtype="bfloat16")
+    values, _ = split(init_model(cfg, seed=0, device=dev))
+    policy = CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                               min_size=4096)
+    cvals, art = execute_plan(plan_compression(values, policy), values, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), device=dev)
+    before = (bl.bitlinear.launches, bl.bitlinear_grouped.launches)
+    try:
+        eng = Engine(cfg, cvals, max_len=24, batch=2, eos_id=cfg.vocab_size, artifact=art)
+        out = eng.generate(prompts, 8)
+    finally:
+        ops.disable_kernels()
+    torch.cuda.synchronize()
+    assert eng.compression["grouped_tensors"] == 3
+    tensors = art.manifest["tensors"].values()
+    per_forward = {n: sum(e["group_dims"][0] for e in tensors if (len(e["group_dims"]) == 2) == g)
+                   for n, g in (("k3", False), ("k4", True))}
+    assert per_forward["k4"] == 3 * cfg.num_layers
+    assert bl.bitlinear.launches - before[0] == per_forward["k3"] * 8
+    assert bl.bitlinear_grouped.launches - before[1] == per_forward["k4"] * 8
     assert out.shape == (2, 24) and torch.equal(out[:, :16], prompts)
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size

@@ -15,7 +15,8 @@ from repro_torch.models.params import split
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    _ROOT / "chip_smoke.py", _ROOT / "tools" / "torch_serve_profile.py"]
+    _ROOT / "chip_smoke.py", _ROOT / "tools" / "torch_serve_profile.py",
+    _ROOT / "tools" / "torch_eigh_batch_probe.py", _ROOT / "tools" / "torch_moe_divergence.py"]
 
 
 def _imported_roots(path):
@@ -90,4 +91,21 @@ def test_serving_entry_points_refuse_the_cpu_without_device(tmp_path):
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--arch", "qwen3-32b", "--reduced", "--steps", "2"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_moe_entry_points_refuse_the_cpu_without_device(tmp_path):
+    _cpu_only()
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import init_cache
+
+    cfg = reduced_for_smoke(get_config("granite-moe-1b-a400m"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_model(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_model(cfg, compress=True, batch=1, prompt_len=4, steps=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compress_model(cfg, CompressionPolicy(tile_d=32, min_size=1024), str(tmp_path))
     assert not any(tmp_path.iterdir())

@@ -298,7 +298,7 @@ def test_both_cache_forms_give_the_same_logits(qwen):
 
 
 def test_unported_blocks_raise_naming_the_roadmap():
-    cfg = reduced_for_smoke(get_config("granite-moe-1b-a400m"))
+    cfg = reduced_for_smoke(get_config("mamba2-130m"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_cache(cfg, 1, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's serving path goes, on one GPU.
 
-    python3 tools/torch_serve_profile.py
+    python3 tools/torch_serve_profile.py [--arch qwen3-32b | granite-moe-1b-a400m]
 
-Serves ``chip_smoke.py``'s phase 4 configuration: its phase 2 compresses
-qwen3-32b at its published widths with depth cut to one layer (random
-weights from seed 0, chip_smoke's policy), and ``serve_model`` restores
-that checkpoint and generates for the same prompts (which also warms up).
+Serves one of ``chip_smoke.py``'s serving configurations.  qwen3-32b (the
+default) is phase 4's: phase 2 compresses qwen3-32b at its published widths
+with depth cut to one layer (random weights from seed 0, chip_smoke's
+policy).  granite-moe-1b-a400m is phase 5's: the whole model at its
+published widths and depth, compressed with the default policy.
+``serve_model`` restores that checkpoint and generates for chip_smoke's
+prompts (which also warms up).
 Then ``Engine.generate`` itself runs twice under ``torch.profiler``: with
 one step (prefill and the first pick) and with all the steps.  The prefill
 is read from the first run; the decode loop's launches and device times
@@ -19,6 +22,7 @@ kernel name, largest first.  Needs one CUDA card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -57,9 +61,13 @@ def kernel_table(times, counts, wall_ms: float) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-32b",
+                    choices=["qwen3-32b", "granite-moe-1b-a400m"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -72,11 +80,15 @@ def main() -> int:
     smi = cs.nvidia_smi()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    _, cfg = cs.full_width_config()
+    moe = args.arch == cs.MOE_ARCH
+    cfg = cs.moe_config() if moe else cs.full_width_config()[1]
     out_dir = os.path.join(ROOT, "build", "torch_serve_profile_ckpt")
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
-        cs.phase_compress(torch, dev, out_dir)
+        if moe:
+            cs.phase_moe_compress(torch, dev, out_dir)
+        else:
+            cs.phase_compress(torch, dev, out_dir)
         res = serve_model(cfg, ckpt_dir=out_dir, batch=cs.GEN_BATCH, prompt_len=cs.GEN_PROMPT,
                           steps=cs.GEN_STEPS, eos_id=cfg.vocab_size, seed=cs.SEED, device=dev,
                           verbose=False)
@@ -90,8 +102,10 @@ def main() -> int:
     dc = cn - c1                      # kernel names launched more often with all steps
     decode = kernel_table(collections.Counter({n: tn[n] - t1[n] for n in dc}), dc,
                           1e3 * timing["decode_s"])
+    decode["launches_per_step"] = decode["launches"] / timing["decode_steps"]
     print(json.dumps({"profile": {
-        "gpu": smi, "batch": cs.GEN_BATCH, "prompt_len": cs.GEN_PROMPT, "steps": cs.GEN_STEPS,
+        "gpu": smi, "arch": cfg.name, "num_layers": cfg.num_layers, "batch": cs.GEN_BATCH,
+        "prompt_len": cs.GEN_PROMPT, "steps": cs.GEN_STEPS,
         "decode_steps": timing["decode_steps"], "compression": eng.compression,
         "prefill": prefill, "decode": decode}}), flush=True)
     return 0

@@ -52,6 +52,21 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      their distance and, per layer, the tokens whose expert sets differ
      between the two paths are reported.
 
+  K2 (csrc/sqa_sweep.cu) against its plain PyTorch version on dyadic
+     fixtures at the paper's nBOCSqa solve (P, C, T, S, n) = (25, 10, 8, 64,
+     24) and at edge shapes (T = 1, 2, 3, 16; n = 33, 40; C = 1, 13): spins
+     and energies must be bit-identical.  Timed at the paper's shape.
+  6. The paper's experiment at the paper's size (configs/paper_vgg.py):
+     the shrunk-VGG instance 0 (8 x 100, K = 3, n = 24 spins), its exact
+     optimum by brute force over all 2^24 codes, then ``run_bbo_batch`` for
+     nBOCSqa, nBOCS and nBOCSsq (25 runs) and RS (100 runs) at 24 initial
+     points + 1,152 iterations, and gBOCS, vBOCS, FMQA08, FMQA12 (4 runs x
+     1,152) and nBOCSa (4 runs x 400).  K2 must have been launched once per
+     nBOCSqa iteration and K1 once per nBOCS / nBOCSsq iteration; no run may
+     beat the brute-force optimum, every trajectory must be non-increasing
+     and every best cost must be the objective of its spins; nBOCSqa's mean
+     final residual error must lie below RS's.
+
 Prints JSON lines along the way, the card's ``nvidia-smi`` name and power
 limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
 failure exits non-zero without that line.  Needs one card; exits non-zero
@@ -97,10 +112,11 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(torch, fn, reps: int, flush) -> float:
+def cuda_ms(torch, fn, reps: int, flush, warmup: bool = True) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each after the
     L2 cache was overwritten (a serving step finds its weights cold)."""
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         flush.zero_()
@@ -168,6 +184,171 @@ def phase_k1(torch, dev, flush):
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                 "bytes": nbytes, "operations": ops,
             }
+    return out
+
+
+# K2's fixtures (P, C, T, S, n): the paper's nBOCSqa solve (25 runs x 10
+# reads, 8 replicas, 64 sweeps, 24 spins), then edge shapes: T = 1 (a
+# replica is its own neighbour), T = 2 (both neighbours the same), T not a
+# power of two, n > 32 (two spins per lane), C > 8 (a second row of
+# blocks) and C = 1
+K2_FIXTURES = {
+    "paper_shape": (25, 10, 8, 64, 24),
+    "c1_t3_n40": (1, 1, 3, 5, 40),
+    "c13_t1": (7, 13, 1, 4, 24),
+    "c9_t2_n8": (2, 9, 2, 6, 8),
+    "t16_n33": (3, 4, 16, 3, 33),
+}
+SQA_TEMPERATURE, SQA_GAMMA0 = 0.05, 3.0
+BF_TOPK = 1024
+
+
+def phase_k2(torch, dev, flush):
+    from repro_torch.core import ising
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sqa_sweep import sqa_sweep_many
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = {}
+    for label, (P, C, T, S, n) in K2_FIXTURES.items():
+        h, B = dyadic_problems(torch, g, P, n, dev)
+        X0 = (2.0 * torch.randint(0, 2, (P, C, T, n), generator=g, device=dev) - 1.0).contiguous()
+        u = torch.rand((P, C, S, T, n), generator=g, device=dev)
+        jp = ising.sqa_jperps(S, T, SQA_TEMPERATURE, SQA_GAMMA0, dev).contiguous()
+        before = sqa_sweep_many.launches
+        Xk, Ek = sqa_sweep_many(h, B, X0, u, jp, SQA_TEMPERATURE)
+        torch.cuda.synchronize()
+        check(sqa_sweep_many.launches == before + 1, f"K2 {label}: not launched once")
+        Xr, Er = ref.sqa_sweep_many_ref(h, B, X0, u, jp, SQA_TEMPERATURE)
+        torch.cuda.synchronize()
+        err = max(float((Xk - Xr).abs().max()), float((Ek - Er).abs().max()))
+        check(torch.equal(Xk, Xr), f"K2 spins differ from the plain version ({label})")
+        check(torch.equal(Ek, Er), f"K2 energies differ from the plain version ({label})")
+        out[label] = {"P": P, "C": C, "T": T, "S": S, "n": n, "identical": True,
+                      "max_abs_err": err, "flipped": float((Xk != X0).float().mean())}
+        if label != "paper_shape":
+            continue
+        ms = cuda_ms(torch, lambda: sqa_sweep_many(h, B, X0, u, jp, SQA_TEMPERATURE), 10, flush)
+        # the plain version is a Python loop of S*T*n = 12,288 steps, warm from the check
+        plain_ms = cuda_ms(torch, lambda: ref.sqa_sweep_many_ref(h, B, X0, u, jp, SQA_TEMPERATURE),
+                           1, flush, warmup=False)
+        nbytes = 4 * (P * n + P * n * n + P * C * T * n + P * C * S * T * n + S
+                      + P * C * T * n + P * C * T)
+        # per spin step: field update (n mul-adds) + acceptance with the
+        # replica coupling (~8 ops); per replica: initial field and final
+        # energy (2 n^2 mul-adds each)
+        ops = P * C * (S * T * n * (2 * n + 8) + T * 4 * 2 * n * n)
+        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        out["timing"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "bytes": nbytes, "operations": ops, "ns_per_step": ms * 1e6 / (S * T * n),
+        }
+    return out
+
+
+# Phase 6: the paper's algorithms, name -> (BBOConfig options, runs, iterations).
+# Fig. 2 / Table 2 at the paper's budget; the five slower algorithms cut to 4
+# runs, nBOCSa to the 400 iterations benchmarks/paper_experiments.py gives it.
+def paper_algorithms(paper):
+    full = paper.iters
+    return {
+        "nbocsqa": ({"algo": "nbocs", "solver": "qa"}, paper.num_runs, full),
+        "nbocs": ({"algo": "nbocs", "solver": "sa"}, paper.num_runs, full),
+        "nbocssq": ({"algo": "nbocs", "solver": "sq"}, paper.num_runs, full),
+        "rs": ({"algo": "rs"}, paper.num_runs_rs, full),
+        "gbocs": ({"algo": "gbocs", "beta": paper.beta_gbocs}, 4, full),
+        "vbocs": ({"algo": "vbocs"}, 4, full),
+        "fmqa08": ({"algo": "fmqa", "fm_rank": 8}, 4, full),
+        "fmqa12": ({"algo": "fmqa", "fm_rank": 12}, 4, full),
+        "nbocsa": ({"algo": "nbocs", "augment": True}, 4, min(full, 400)),
+    }
+
+
+def phase_paper(torch, dev, paper=None):
+    from repro_torch.configs.paper_vgg import CONFIG
+    from repro_torch.core import bbo, bruteforce, symmetry
+    from repro_torch.core.decomposition import greedy_decompose, make_objective
+    from repro_torch.core.instances import shrunk_vgg_instance
+    from repro_torch.device import generator
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.kernels import sqa_sweep as sqa
+
+    paper = paper or CONFIG
+    N, K, n = paper.N, paper.K, paper.n
+    algos = paper_algorithms(paper)
+    emit({"paper_config": {
+        "instance": f"shrunk_vgg_instance(0), {N} x {paper.D}, K = {K}, n = {n}",
+        "init_points": paper.init_points, "iters": paper.iters, "num_reads": paper.num_reads,
+        "reduced": ["instances 10 -> 1",
+                    "runs 25 -> 4 for gbocs, vbocs, fmqa08, fmqa12, nbocsa",
+                    "nbocsa iterations 1152 -> 400 (as benchmarks/paper_experiments.py)"]}})
+    W = shrunk_vgg_instance(0, N=N, D=paper.D, device=dev)
+    wnorm = float(torch.linalg.vector_norm(W))
+    torch.cuda.synchronize()
+    t = time.time()
+    # topk beyond the default 64: instance 0's optimum is reached by four
+    # orbits of codes spanning one column space (192 codes)
+    bf = bruteforce.brute_force(W, K, chunk=min(1 << 14, 1 << n), topk=BF_TOPK)
+    bf_s = time.time() - t
+    sols = bruteforce.exact_solutions(bf)
+    check(bf.second_cost > bf.best_cost,
+          f"brute force: second cost {bf.second_cost} not above best {bf.best_cost} "
+          f"({len(sols)} exact solutions in the top {BF_TOPK})")
+    classes = symmetry.dedupe_exact(sols)
+    have = {tuple(r) for r in sols.reshape(len(sols), -1).tolist()}
+    for M in classes:
+        orbit = symmetry.orbit_flat(torch.from_numpy(M.reshape(-1)), N, K)
+        check(all(tuple(r) in have for r in orbit.tolist()),
+              "brute force: the solution set is not closed under the symmetry orbit")
+    check(len(sols) == len(classes) * symmetry.orbit_size(K),
+          f"brute force: {len(sols)} exact solutions are not {len(classes)} whole orbits")
+    greedy = greedy_decompose(W, K, generator(dev, SEED, 17))
+    f = make_objective(W, K)
+    out = {"brute_force": {"best_cost": bf.best_cost, "second_cost": bf.second_cost,
+                           "exact_solutions": len(sols), "orbits": len(classes),
+                           "orbit_size": symmetry.orbit_size(K), "seconds": bf_s},
+           "residual_error": {"second": (bf.second_cost ** 0.5 - bf.best_norm) / wnorm,
+                              "greedy": (float(greedy.cost) ** 0.5 - bf.best_norm) / wnorm},
+           "algorithms": {}}
+    for i, (name, (opts, runs, iters)) in enumerate(algos.items()):
+        cfg = bbo.BBOConfig(n=n, N=N, K=K, iters=iters, init_points=paper.init_points,
+                            num_reads=paper.num_reads, **opts)
+        torch.cuda.synchronize()
+        sa.sa_sweep_many.launches = 0
+        sqa.sqa_sweep_many.launches = 0
+        t = time.time()
+        res = bbo.run_bbo_batch(cfg, f, runs, generator(dev, SEED, i))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = {"sa_sweep_many": sa.sa_sweep_many.launches,
+                    "sqa_sweep_many": sqa.sqa_sweep_many.launches}
+        want = {"sa_sweep_many": 0 if opts["algo"] == "rs" or opts.get("solver") == "qa" else iters,
+                "sqa_sweep_many": iters if opts.get("solver") == "qa" else 0}
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        best_y = res.best_y.double().cpu()
+        check(tuple(res.traj.shape) == (runs, iters) and bool(torch.isfinite(best_y).all()),
+              f"{name}: trajectory {tuple(res.traj.shape)} or non-finite best costs")
+        check(bool((best_y >= bf.best_cost * (1 - 1e-5)).all()),
+              f"{name}: a run beat the exact optimum ({float(best_y.min())} < {bf.best_cost})")
+        check(bool((res.traj[:, 1:] <= res.traj[:, :-1]).all()),
+              f"{name}: a best-so-far trajectory increased")
+        again = f(res.best_x).double().cpu()
+        rel = float(((again - best_y).abs() / best_y.abs()).max())
+        check(rel <= 1e-5, f"{name}: f(best_x) differs from best_y by {rel:.3g} relative")
+        resid = (best_y.sqrt() - bf.best_norm) / wnorm
+        out["algorithms"][name] = {
+            "runs": runs, "iters": iters, "seconds_per_run": wall / runs, "wall_s": wall,
+            "exact_found": int((best_y <= bf.best_cost * (1 + 1e-5)).sum()),
+            "mean_residual_error": float(resid.mean()),
+            "max_residual_error": float(resid.max()),
+            "launches": launches, "max_rel_f_check": rel,
+        }
+    a = out["algorithms"]
+    check(a["nbocsqa"]["mean_residual_error"] < a["rs"]["mean_residual_error"],
+          f"nBOCSqa's mean residual error {a['nbocsqa']['mean_residual_error']:.4g} is not "
+          f"below RS's {a['rs']['mean_residual_error']:.4g}")
+    emit({"paper": out})
     return out
 
 
@@ -843,6 +1024,10 @@ def main() -> int:
     k1 = phase_k1(torch, dev, flush)
     phases["k1_check_s"] = time.time() - t
     emit({"k1_check": k1})
+    t = time.time()
+    k2 = phase_k2(torch, dev, flush)
+    phases["k2_check_s"] = time.time() - t
+    emit({"k2_check": k2})
 
     out_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -878,6 +1063,9 @@ def main() -> int:
         phases["moe_generate_s"] = time.time() - t
     finally:
         shutil.rmtree(moe_dir, ignore_errors=True)
+    t = time.time()
+    paper = phase_paper(torch, dev)
+    phases["paper_s"] = time.time() - t
     emit({"phase_s": phases})
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
     emit({"kernels": [
@@ -888,7 +1076,9 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in k1.values() if "max_abs_err" in v),
          "ms": k1["timing"]["ms"], "plain_ms": k1["timing"]["plain_ms"],
          "bound_ms": k1["timing"]["bound_ms"], "bound_by": k1["timing"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "launches_phase6": {k: v["launches"]["sa_sweep_many"]
+                             for k, v in paper["algorithms"].items()}},
         {"name": "bitlinear", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:438",
@@ -918,6 +1108,14 @@ def main() -> int:
          "ms": k4["timing"]["ms"], "plain_ms": k4["timing"]["plain_ms"],
          "bound_ms": k4["timing"]["bound_ms"], "bound_by": k4["timing"]["bound_by"],
          "library_ms": k4["timing"]["library_ms"]},
+        {"name": "sqa_sweep_many", "route": "cuda",
+         "source": "src/repro_torch/csrc/sqa_sweep.cu",
+         "replaces": "src/repro/kernels/sqa_sweep.py:108",
+         "launches": paper["algorithms"]["nbocsqa"]["launches"]["sqa_sweep_many"],
+         "max_abs_err": max(v["max_abs_err"] for v in k2.values() if "max_abs_err" in v),
+         "ms": k2["timing"]["ms"], "plain_ms": k2["timing"]["plain_ms"],
+         "bound_ms": k2["timing"]["bound_ms"], "bound_by": k2["timing"]["bound_by"],
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,9 @@ Both sides speak the checkpointer's flat form: numpy arrays keyed by
 gives for a JAX values tree, or the leaves of a compressed artifact).
 ``to_torch`` builds the port's nested dict of tensors on a device;
 ``to_numpy`` flattens it back.  bfloat16 travels as ml_dtypes' bfloat16
-(JAX's numpy type) or as raw 2-byte data, bit for bit.
+(JAX's numpy type) or as raw 2-byte data, bit for bit.  ``state_to_torch``
+carries a surrogate state (``SuffStats``, ``HorseshoeState`` or
+``FMState``) across, field by field.
 """
 
 from __future__ import annotations
@@ -15,9 +17,14 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import from_numpy
 from repro_torch.compression.plan import tree_paths
+from repro_torch.core import surrogate
 from repro_torch.device import dtype_name, resolve_device
 
-__all__ = ["to_torch", "to_numpy"]
+__all__ = ["to_torch", "to_numpy", "state_to_torch"]
+
+_STATES = {cls.__name__: cls for cls in (
+    surrogate.SuffStats, surrogate.HorseshoeState, surrogate.FMState,
+)}
 
 
 def to_torch(flat: dict, device=None) -> dict:
@@ -50,3 +57,16 @@ def to_numpy(tree) -> dict:
         else:
             out[path] = t.numpy()
     return out
+
+
+def state_to_torch(state, device=None):
+    """A NamedTuple of numpy fields (a JAX state after ``np.asarray`` of each
+    field) -> the port's NamedTuple of the same name, with its fields as
+    tensors on ``device`` (default: the GPU)."""
+    name = type(state).__name__
+    cls = _STATES.get(name)
+    if cls is None:
+        raise TypeError(f"no port state named {name!r} ({', '.join(sorted(_STATES))})")
+    device = resolve_device(device)
+    return cls(**{f: torch.from_numpy(np.array(getattr(state, f))).to(device)
+                  for f in cls._fields})

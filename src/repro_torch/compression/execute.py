@@ -49,16 +49,9 @@ _DEFAULT_POOL_BUDGET = 64 << 20
 _MIN_BBO_CHUNK = 64
 _MAX_POOL_CHUNK = 4096
 _POOL_SALT = 0x706F6F6C      # "pool", as repro folds it into the pool key
-# Tiles per greedy/alternating chunk on a CUDA device.  Both solve their
-# least squares through torch.linalg.eigh on the (tiles, K, K) Gram stack,
-# and cuSOLVER's batched eigh refuses a large enough batch with
-# CUSOLVER_STATUS_INVALID_VALUE from cusolverDnXsyevBatched_bufferSize.
-# tools/torch_eigh_batch_probe.py on an NVIDIA H100 80GB HBM3 (torch 2.11.0,
-# CUDA 12.8) found the largest accepted batch 31,744 for K = 2, 30,720 for
-# K = 3 and 4, 29,696 for K = 8, 26,624 for K = 16, 24,576 for K = 24 and
-# 22,528 for K = 32 (the next 1,024 up refused).  16,384 keeps a margin of
-# 27% below the smallest of these.
-EIGH_MAX_BATCH = 16384
+# Tiles per greedy/alternating chunk on a CUDA device: both solve their
+# least squares through batched eigh (see decomposition.EIGH_MAX_BATCH).
+EIGH_MAX_BATCH = dec.EIGH_MAX_BATCH
 
 
 def surrogate_tile_bytes(tile_n: int, K: int, bbo_iters: int) -> int:

@@ -26,6 +26,10 @@ __all__ = [
     "least_squares_C",
     "objective",
     "objective_from_x",
+    "residual_norm",
+    "residual_error",
+    "make_objective",
+    "EIGH_MAX_BATCH",
     "greedy_decompose",
     "greedy_decompose_from",
     "draw_restart_signs",
@@ -35,6 +39,17 @@ __all__ = [
     "unpack_bits",
     "GreedyResult",
 ]
+
+
+# Largest batch of (K, K) Gram matrices one torch.linalg.eigh call takes on
+# a CUDA device.  cuSOLVER's batched eigh refuses a large enough batch with
+# CUSOLVER_STATUS_INVALID_VALUE from cusolverDnXsyevBatched_bufferSize.
+# tools/torch_eigh_batch_probe.py on an NVIDIA H100 80GB HBM3 (torch 2.11.0,
+# CUDA 12.8) found the largest accepted batch 31,744 for K = 2, 30,720 for
+# K = 3 and 4, 29,696 for K = 8, 26,624 for K = 16, 24,576 for K = 24 and
+# 22,528 for K = 32 (the next 1,024 up refused).  16,384 keeps a margin of
+# 27% below the smallest of these.
+EIGH_MAX_BATCH = 16384
 
 
 def _mT(a: torch.Tensor) -> torch.Tensor:
@@ -70,6 +85,26 @@ def objective_from_x(x: torch.Tensor, W: torch.Tensor, K: int, tol: float = 1e-6
     """Objective on flattened spins x (..., N*K) (row-major M)."""
     N = W.shape[-2]
     return objective(x.reshape(*x.shape[:-1], N, K), W, tol)
+
+
+def residual_norm(M: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """||f(M)||_2 = ||W - M C*(M)||_F (Frobenius norm, not squared)."""
+    return torch.sqrt(torch.clamp_min(objective(M, W), 0.0))
+
+
+def residual_error(M: torch.Tensor, W: torch.Tensor, exact_norm) -> torch.Tensor:
+    """The paper's comparison measure (||f(M)||_2 - ||f(M*)||_2) / ||W||_2."""
+    return (residual_norm(M, W) - exact_norm) / torch.linalg.vector_norm(W, dim=(-2, -1))
+
+
+def make_objective(W: torch.Tensor, K: int, tol: float = 1e-6):
+    """The black box of the BBO loop: f(x (..., N*K)) -> cost (...), so one
+    call evaluates a batch of candidates (a run's, or every run's)."""
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        return objective_from_x(x, W, K, tol)
+
+    return f
 
 
 class GreedyResult(NamedTuple):

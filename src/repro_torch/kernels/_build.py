@@ -32,10 +32,11 @@ _COMMON = [
     "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
 ]
 
-# source stem -> extra nvcc flags.  The annealer also forbids FMA
+# source stem -> extra nvcc flags.  The annealers also forbid FMA
 # contraction so every update rounds exactly as the plain version does.
 SOURCES = {
     "sa_sweep": ["-fmad=false"],
+    "sqa_sweep": ["-fmad=false"],
     "bitlinear": [],
     "flash_attention": [],
 }

@@ -19,6 +19,7 @@ __all__ = [
     "flash_attention_ref",
     "sa_sweep_many_ref",
     "sq_sweep_many_ref",
+    "sqa_sweep_many_ref",
 ]
 
 
@@ -120,3 +121,40 @@ def sq_sweep_many_ref(h, B, x0, rand, temperature: float = 0.1):
     P, _, S, _ = rand.shape
     temps = torch.full((P, S), temperature, dtype=torch.float32, device=rand.device)
     return sa_sweep_many_ref(h, B, x0, rand, temps)
+
+
+def sqa_sweep_many_ref(h, B, X0, rand, jperps, temperature: float = 0.05):
+    """Path-integral SQA over P problems x C chains x T Trotter replicas.
+
+    h (P, n), B (P, n, n) symmetric zero-diagonal, X0 (P, C, T, n) +-1,
+    rand (P, C, S, T, n) uniforms, jperps (S,) inter-replica couplings ->
+    (X (P, C, T, n), E (P, C, T)).  Every chain visits (sweep, slice, spin)
+    in order and consumes its uniforms as
+    ``repro.kernels.ref.sqa_sweep_many_ref`` does:
+
+        dE = (-2 x) (F[p, i] / T + jperp_s (X[p+1, i] + X[p-1, i]))
+
+    with replica indices mod T and F[p] = h + 2 B X[p] kept incrementally.
+    T and the temperature are device tensors, so CUDA divides by them
+    (PyTorch multiplies by the reciprocal of a host scalar)."""
+    h = h.to(torch.float32)
+    B = B.to(torch.float32)
+    X = X0.to(torch.float32).clone()
+    T, n = X.shape[2], X.shape[3]
+    jp = jperps.to(torch.float32)
+    tt = torch.tensor(float(T), dtype=torch.float32, device=X.device)
+    temp = torch.tensor(temperature, dtype=torch.float32, device=X.device).clamp_min(1e-12)
+    F = h[:, None, None, :] + 2.0 * torch.einsum("pij,pctj->pcti", B, X)
+    for s in range(jp.shape[0]):
+        for p in range(T):
+            up, dn = (p + 1) % T, (p - 1) % T
+            u = rand[:, :, s, p, :]
+            for i in range(n):
+                xi = X[:, :, p, i]
+                dE = -2.0 * xi * (F[:, :, p, i] / tt + jp[s] * (X[:, :, up, i] + X[:, :, dn, i]))
+                accept = (dE < 0.0) | (u[:, :, i] < torch.exp(-dE / temp))
+                delta = torch.where(accept, -2.0 * xi, torch.zeros_like(xi))
+                F[:, :, p, :] += (2.0 * B[:, i, :])[:, None, :] * delta[:, :, None]
+                X[:, :, p, i] = xi + delta
+    E = (X * h[:, None, None, :]).sum(-1) + (X * torch.einsum("pij,pctj->pcti", B, X)).sum(-1)
+    return X, E

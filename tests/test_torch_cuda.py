@@ -20,6 +20,7 @@ from repro_torch.kernels import bitlinear as bl
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sa_sweep as sa
+from repro_torch.kernels import sqa_sweep as sqa
 from repro_torch.models import init_model
 from repro_torch.models.params import split
 from repro_torch.serving import Engine
@@ -61,6 +62,32 @@ def test_sa_sweep_kernel_bit_identical(dev, P, C, S, n):
     xr, er = ref.sa_sweep_many_ref(*args)
     assert torch.equal(xk, xr)
     assert torch.equal(ek, er)
+
+
+@pytest.mark.parametrize("P,C,T,S,n", [(1, 1, 3, 5, 40), (7, 13, 1, 4, 24), (2, 9, 2, 6, 8),
+                                       (3, 4, 16, 3, 33), (25, 10, 8, 16, 24)])
+def test_sqa_sweep_kernel_bit_identical(dev, P, C, T, S, n):
+    rng = np.random.default_rng(P * n + C * T)
+    h, B = _dyadic_problems(rng, P, n)
+    X0 = np.where(rng.random((P, C, T, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+    u = rng.random((P, C, S, T, n), dtype=np.float32)
+    jp = np.geomspace(2.0, 1e-3, S).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (h, B, X0, u, jp)]
+    before = sqa.sqa_sweep_many.launches
+    Xk, Ek = sqa.sqa_sweep_many(*args, temperature=0.05)
+    torch.cuda.synchronize()
+    assert sqa.sqa_sweep_many.launches == before + 1
+    Xr, Er = ref.sqa_sweep_many_ref(*args, temperature=0.05)
+    assert torch.equal(Xk, Xr)
+    assert torch.equal(Ek, Er)
+
+
+def test_sqa_sweep_kernel_refuses_shapes_beyond_shared_memory(dev):
+    P, C, T, n = 1, 8, 64, sqa.max_spins(8, 64) + 1
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        sqa.sqa_sweep_many(torch.zeros(P, n, device=dev), torch.zeros(P, n, n, device=dev),
+                           torch.ones(P, C, T, n, device=dev),
+                           torch.zeros(P, C, 1, T, n, device=dev), torch.zeros(1, device=dev))
 
 
 @pytest.mark.parametrize("T", [1, 13, 40])

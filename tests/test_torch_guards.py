@@ -94,6 +94,17 @@ def test_serving_entry_points_refuse_the_cpu_without_device(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+def test_paper_instances_refuse_the_cpu_without_device():
+    _cpu_only()
+    from repro_torch.core.instances import paper_instances, random_instance, shrunk_vgg_instance
+
+    for make in (lambda: shrunk_vgg_instance(0), lambda: random_instance(0),
+                 lambda: paper_instances(1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert shrunk_vgg_instance(0, device="cpu").shape == (8, 100)
+
+
 def test_moe_entry_points_refuse_the_cpu_without_device(tmp_path):
     _cpu_only()
     from repro_torch.launch.serve import serve_model

@@ -93,10 +93,14 @@ def test_solve_many_from_jax_draws_identical(name, warm):
     np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
 
 
-def test_solve_many_sqa_not_ported_and_backend_checked():
+def test_solve_many_backend_checked():
     prob = tising.IsingProblem(torch.zeros(1, 4), torch.zeros(1, 4, 4))
-    with pytest.raises(NotImplementedError, match="K2"):
-        tising.solve_many("qa", prob, generator=torch.Generator().manual_seed(0))
+    x, e = tising.solve_many("qa", prob, generator=torch.Generator().manual_seed(0),
+                             num_sweeps=2, num_reads=2, n_trotter=2)
+    assert x.shape == (1, 4) and e.shape == (1,)
+    with pytest.raises(ValueError, match="cannot run on cpu"):
+        tising.solve_many("qa", prob, generator=torch.Generator().manual_seed(0),
+                          backend="cuda")
     with pytest.raises(ValueError):
         tising.resolve_backend("cuda", torch.device("cpu"))
     assert tising.resolve_backend("auto", torch.device("cpu")) == "torch"

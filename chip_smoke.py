@@ -22,6 +22,14 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      x @ decompress(w), and K3 (csrc/bitlinear.cu) must have been launched
      once per call.  Then K3 is held against its plain version on the same
      inputs and timed beside its bound and a dense bf16 matmul.
+  K3's variants: every schedule (grid at three (block_t, r_chunk), decode
+     where its x rows fit shared memory, stream at r_chunk 1 and 2) x bit
+     algebra (unpack, bitplane) x activations (f32, bf16, int8) x C (f32,
+     bf16) against the plain version on phase 3's tensors at T = 1, 16,
+     512, 4, 4096, the BBO tensors (tn = 8, K = 3) and a ragged T = 37:
+     int8 equal (on a dyadic C grid where every f32 sum is exact), f32
+     within 1e-4 + 1e-4 |y|, bf16 within 2e-2 of max |y|.  Each schedule x
+     bit algebra timed in bf16 over phase 4's distinct calls.
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
      shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
      and bf16; in bf16 also against f32 scores within K5's rounding bound.
@@ -33,12 +41,20 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      compressed tensor per forward (prefill + 31 decode steps).  The
      prefill's logits are held against the plain path (kernels disabled),
      and the plain path's greedy tokens are compared (reported).
+  4b. Tuned serving, this slice's main path: ``tune_artifact`` on phase 2's
+     artifact at T = 4 and 4096 (each signature's winner and trials are
+     printed), the table saved into the manifest, then phase 4's serve
+     again from that checkpoint: the Engine installs the table, every
+     resolution must come from it, K3's launches per schedule must be what
+     it picked, and the prefill logits must agree with the plain path.
   K4 (the grouped form in csrc/bitlinear.cu) against its plain version at
      granite-moe-1b-a400m's three expert shapes (gate, up, down; tile
      32x128, K = 4) in f32 and bf16, at phase 5's decode and prefill T per
      expert (4 and 1,280), and on fixtures with ragged T, E = 1 and
      K in {3, 9}; timed in bf16 beside its bound, the plain version and a
-     dense bf16 ``torch.bmm`` over the decompressed expert stacks.
+     dense bf16 ``torch.bmm`` over the decompressed expert stacks.  Then
+     K4's variants (grid, decode x bit algebra x activations x C) at the
+     three expert stacks and both T, held and timed as K3's.
   5. MoE serving at full width and depth: ``compress_model`` on
      granite-moe-1b-a400m (24 layers, 32 experts top-8, random weights from
      seed 0) with the default policy (alternating, tile 32x128, K = 4) and
@@ -397,7 +413,7 @@ def phase_compress(torch, dev, out_dir):
     torch.cuda.synchronize()
 
     sa.sa_sweep_many.launches = 0
-    bl.bitlinear.launches = 0
+    bl.reset_counts()
     t0 = time.time()
     cvalues, artifact = compress_model(cfg, pol, out_dir, seed=SEED, device=dev,
                                        max_pool_tiles=10240, values=values)
@@ -482,7 +498,7 @@ def phase_serve(torch, dev, params, artifact, flush):
     }
     ops.enable_kernels()
     torch.cuda.synchronize()
-    bl.bitlinear.launches = 0
+    bl.reset_counts()
     t0 = time.time()
     outputs = {key: quantized.apply_compressed(x, weights[key[0]]) for key, x in inputs.items()}
     torch.cuda.synchronize()
@@ -539,7 +555,175 @@ def phase_serve(torch, dev, params, artifact, flush):
         del w_dense
     emit({"serve": {"wall_s": wall, "k3_launches": k3_launches, "totals": totals,
                     "calls": rows}})
-    return k3_launches, max_err, totals["generate"]
+    return k3_launches, max_err, totals["generate"], weights, inputs
+
+
+# K3 and K4 variants: schedule x bit algebra x activation dtype x C dtype,
+# each held against its plain version on the same inputs
+XDTYPES = ("float32", "bfloat16", "int8")
+CDTYPES = ("float32", "bfloat16")
+MATHS = ("unpack", "bitplane")
+# each schedule also at other block_t / r_chunk (decode takes neither)
+MODE_OPTIONS = {"grid": ({}, {"block_t": 64, "r_chunk": 4}, {"block_t": 256, "r_chunk": 2}),
+                "decode": ({},), "stream": ({}, {"r_chunk": 2})}
+
+
+def variant_inputs(torch, g, dev, x_shape, C, xd, cd, tn):
+    """x (x_shape) and C in the variant's dtypes.  int8 activations take
+    x in [-8, 8] and C rounded to the grid k/256, |k| <= q: z is an exact
+    integer, every product z*C a multiple of 1/256 and every partial sum
+    below 2^24/256, so the f32 sums are exact in any order and the
+    truncated int8 output must be equal (kernel and plain version sum in
+    different orders)."""
+    if xd == "int8":
+        n_r, K = C.shape[-4], C.shape[-2]
+        q = min(16, (2 ** 24 - 1) // (n_r * K * 8 * tn))
+        check(q >= 1, f"no dyadic C grid for n_r {n_r}, K {K}, tn {tn}")
+        x = torch.randint(-8, 9, x_shape, generator=g, device=dev, dtype=torch.int8)
+        return x, (torch.round(C.float() * 256).clamp(-q, q) / 256).to(getattr(torch, cd))
+    x = torch.randn(x_shape, generator=g, device=dev).to(getattr(torch, xd))
+    return x, C.to(getattr(torch, cd)).contiguous()
+
+
+def variant_error(torch, yk, yp, xd, cd):
+    """(max |y - plain|, within the limit).  int8: equal.  f32 x and C:
+    within 1e-4 + 1e-4 |plain|.  Either in bf16 (z is rounded to bf16
+    before z @ C): within 2e-2 of max |plain|."""
+    if xd == "int8":
+        return float((yk.int() - yp.int()).abs().max()), torch.equal(yk, yp)
+    diff = (yk.float() - yp.float()).abs()
+    err = float(diff.max())
+    if xd == "float32" and cd == "float32":
+        return err, bool((diff <= 1e-4 + 1e-4 * yp.float().abs()).all())
+    return err, err <= BF16_TOL * float(yp.float().abs().max())
+
+
+def hold_variants(torch, fn, plain, label, x, mp, C, xd, cd, modes, errs):
+    """Every mode x math x options of ``fn`` against ``plain`` on (x, mp,
+    C).  A variant whose block needs more shared memory than the card has
+    is skipped (decode keeps every row of x there); any other refusal or
+    failure fails the run.  Returns the variants held."""
+    from repro_torch.kernels import bitlinear as bl
+
+    T = x.shape[-2]
+    n_r, tn, K, td = mp.shape[-4], mp.shape[-2], C.shape[-2], C.shape[-1]
+    budget = bl.device_smem_budget(x.device)
+    ran = 0
+    for math in MATHS:
+        yp = plain(x, mp, C, math)
+        for mode in modes:
+            for opts in MODE_OPTIONS[mode]:
+                rc = bl.resolve_r_chunk(n_r, opts.get("r_chunk", 1))
+                if bl.smem_bytes(mode, T=T, n_r=n_r, tn=tn, K=K, td=td,
+                                 x_itemsize=x.element_size(), c_itemsize=C.element_size(),
+                                 r_chunk=rc) > budget:
+                    continue
+                before = fn.launches
+                yk = fn(x, mp, C, mode=mode, math=math, **opts)
+                torch.cuda.synchronize()
+                check(fn.launches == before + 1, f"{label} {mode}/{math}: not launched once")
+                check(yk.dtype == x.dtype and yk.shape == yp.shape,
+                      f"{label} {mode}/{math} {opts}: bad output {yk.dtype} {tuple(yk.shape)}")
+                err, ok = variant_error(torch, yk, yp, xd, cd)
+                check(ok, f"{label} {xd} x, {cd} C, {mode}/{math} {opts}: |y - plain| {err:.3g} "
+                          "beyond its limit")
+                key = f"{mode}/{math}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                ran += 1
+        del yp
+    return ran
+
+
+def k3_variant_fixtures():
+    """(label, tensor, T): phase 3's T = 1, 16, 512 and phase 4's T = 4
+    and 4096 on its tensors, the BBO tensors (tn = 8, K = 3) and ragged T."""
+    return (("wq_T1", "attn/wq", 1), ("down_T16", "mlp/down", 16), ("wo_T512", "attn/wo", 512),
+            ("up_T4", "mlp/up", 4), ("wq_T4096", "attn/wq", 4096),
+            ("bbo_wk_T4", "attn/wk", 4), ("bbo_wv_T37", "attn/wv", 37),
+            ("gate_T37", "mlp/gate", 37))
+
+
+def k3_bound(mp, C, T, x_itemsize):
+    """(bytes_ms, ops_ms) of one K3 call: each input read once and the
+    output written once; 2 operations per multiply-add of x @ M and z @ C
+    at the bf16 tensor-core rate."""
+    n_r, n_c, tn, _ = mp.shape
+    K, td = C.shape[2], C.shape[3]
+    nbytes = mp.numel() + C.numel() * C.element_size() + T * n_r * tn * x_itemsize \
+        + T * n_c * td * x_itemsize
+    ops_ = 2 * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
+
+
+def sum_variants(timed):
+    """Per "mode/math": the sums of ms, plain_ms, library_ms and the bound
+    over the calls it ran, with bound_by from the summed bytes and ops, and
+    the kernel's ms summed per T."""
+    out = {}
+    for key, rows in timed.items():
+        b = sum(r["bytes_ms"] for r in rows)
+        o = sum(r["ops_ms"] for r in rows)
+        Ts = sorted({r["T"] for r in rows})
+        out[key] = {"calls": len(rows), "T": Ts,
+                    **{k: sum(r[k] for r in rows)
+                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                    "bound_by": "bytes" if b >= o else "operations",
+                    "ms_by_T": {T: sum(r["ms"] for r in rows if r["T"] == T) for T in Ts}}
+    return out
+
+
+def phase_k3_variants(torch, dev, weights, inputs, flush):
+    """K3's schedules, bit algebras and activation dtypes against the plain
+    version on phase 3's tensors; then each mode x math timed in bf16 over
+    phase 4's distinct (tensor, T) calls beside its bound, the plain
+    version of the same math and a dense bf16 matmul."""
+    from repro_torch.core import quantized
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    by_name = {p.split("/", 2)[-1] if p.startswith("groups/") else p: p for p in weights}
+    errs, checks = {}, {}
+    for label, name, T in k3_variant_fixtures():
+        w = weights[by_name[name + "/w"]]
+        mp = w["m_packed"]
+        ran = 0
+        for xd in XDTYPES:
+            for cd in CDTYPES:
+                x, C = variant_inputs(torch, g, dev, (T, mp.shape[0] * mp.shape[2]), w["C"],
+                                      xd, cd, mp.shape[2])
+                ran += hold_variants(torch, bl.bitlinear, ref.bitlinear_ref, label, x, mp, C,
+                                     xd, cd, ("grid", "decode", "stream"), errs)
+        checks[label] = {"tensor": name, "T": T, "shape": list(mp.shape[:3]) + list(
+            w["C"].shape[2:]), "variants_held": ran}
+
+    timed = {f"{m}/{a}": [] for m in ("grid", "decode", "stream") for a in MATHS}
+    budget = bl.device_smem_budget(dev)
+    for (path, T), x in inputs.items():
+        if T not in generate_shapes(path):
+            continue
+        w = weights[path]
+        mp, C = w["m_packed"], w["C"]
+        n_r, _, tn, _ = mp.shape
+        K, td = C.shape[2], C.shape[3]
+        w_dense = quantized.decompress(w, torch.bfloat16)
+        library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5, flush)
+        del w_dense
+        b_bytes, b_ops = k3_bound(mp, C, T, 2)
+        for math in MATHS:
+            plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C, math), 2, flush)
+            for mode in ("grid", "decode", "stream"):
+                if mode == "decode" and not bl.decode_path_ok(T, n_r, tn, K, td, 2,
+                                                               budget):
+                    continue
+                ms = cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, mode=mode, math=math), 5,
+                             flush)
+                timed[f"{mode}/{math}"].append(
+                    {"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops})
+    out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed)}
+    emit({"k3_variants": out})
+    return out
 
 
 def attention_shapes(cfg):
@@ -649,13 +833,14 @@ def phase_generate(torch, dev, out_dir):
     eos = cfg.vocab_size                     # never emitted: launch counts are fixed
     torch.cuda.synchronize()
     sa.sa_sweep_many.launches = 0
-    bl.bitlinear.launches = 0
+    bl.reset_counts()
     fa.flash_attention.launches = 0
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                       steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
     torch.cuda.synchronize()
     launches = {"flash_attention": fa.flash_attention.launches,
                 "bitlinear": bl.bitlinear.launches, "sa_sweep_many": sa.sa_sweep_many.launches}
+    by_schedule = dict(bl.bitlinear.by_schedule)
     eng = res.engine
     n_tensors = eng.compression["tensors"]
     check(launches["flash_attention"] == cfg.num_layers,
@@ -694,6 +879,7 @@ def phase_generate(torch, dev, out_dir):
     t = res.timing
     out = {
         "launches": launches,
+        "bitlinear_by_schedule": by_schedule,
         "ttft_s": t["prefill_s"],
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
         "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
@@ -706,6 +892,124 @@ def phase_generate(torch, dev, out_dir):
         "compression": eng.compression,
     }
     emit({"generate": out})
+    return out
+
+
+# the tuned-serving phase: tune_artifact at phase 4's decode and prefill rows
+TUNE_T = (GEN_BATCH, GEN_BATCH * GEN_PROMPT)
+TUNE_REPEATS, TUNE_ITERS = 3, 3
+
+
+def tuned_launches(manifest, entries, dev):
+    """Launches per "mode/math" that the table implies for phase 4's
+    serve: per compressed tensor and layer, one prefill call (T = 4096; the
+    head runs on the last position, T = 4) and GEN_STEPS - 1 decode calls
+    (T = 4)."""
+    from repro_torch.kernels import autotune
+
+    want = {}
+    for path, e in manifest["tensors"].items():
+        E, n_r, n_c, tn, _, K, td, dname = autotune._entry_geometry(e)
+        kind = "bitlinear_grouped" if E else "bitlinear"
+        layers = e["group_dims"][0] if e.get("group_dims") else 1
+        prefill_T = GEN_BATCH if path == "head/w" else GEN_BATCH * GEN_PROMPT
+        for T, n in ((prefill_T, 1), (GEN_BATCH, GEN_STEPS - 1)):
+            key = autotune.schedule_key(kind, n_r=n_r, n_c=n_c, tn=tn, K=K, td=td, T=T,
+                                        dtype=dname, E=E, device=autotune.device_kind(dev),
+                                        mode=autotune.pallas_mode(dev))
+            s = entries[key]
+            k = f"{s['mode']}/{s['math']}"
+            want[k] = want.get(k, 0) + n * layers
+    return want
+
+
+def phase_tuned_generate(torch, dev, out_dir, heuristic):
+    """This slice's main path: ``tune_artifact`` on phase 2's artifact at
+    T = 4 and 4096, the table saved into its manifest, then phase 4's
+    serve again from that checkpoint, the Engine installing the table.
+    Every resolution must come from the cache, K3's launches per schedule
+    must be what the table picked, and the prefill logits must agree with
+    the plain path."""
+    from repro_torch.compression import CompressionArtifact
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import init_cache
+
+    _, cfg = full_width_config()
+    eos = cfg.vocab_size                     # never emitted: launch counts are fixed
+    art = CompressionArtifact.load(out_dir)
+    autotune.clear_schedules()
+    autotune.clear_log()
+    torch.cuda.synchronize()
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    t = time.time()
+    trials = {}
+    table = autotune.tune_artifact(art, T_values=TUNE_T, repeats=TUNE_REPEATS,
+                                   iters=TUNE_ITERS, device=dev, trials_out=trials)
+    torch.cuda.synchronize()
+    tune_s = time.time() - t
+    tuning = dict(bl.bitlinear.by_schedule)
+    entries = table["entries"]
+    check(entries and all(e["mode"] != "jnp" for e in entries.values()),
+          f"tuned table {entries}")
+    art.save(out_dir)
+    autotune.clear_schedules()               # the Engine installs the table from the manifest
+    autotune.clear_log()
+    res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                      steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    main_path = dict(bl.bitlinear.by_schedule)
+    serving = {k: v - tuning[k] for k, v in main_path.items() if v - tuning[k]}
+    eng = res.engine
+    log = autotune.last_resolutions()
+    check(eng.kernel_schedules == len(entries)
+          and eng.compression.get("kernel_schedules") == len(entries),
+          f"Engine installed {eng.kernel_schedules} schedules of {len(entries)}")
+    check(log and all(r["source"] == "cache" for r in log),
+          f"resolutions not from the cache: {[r for r in log if r['source'] != 'cache']}")
+    check({r["key"] for r in log} <= set(entries), "a resolution's key is not in the table")
+    want = tuned_launches(art.manifest, entries, dev)
+    check(serving == want, f"K3 launches per schedule {serving}, the table implies {want}")
+    check(fa.flash_attention.launches == cfg.num_layers,
+          f"K5 launched {fa.flash_attention.launches} times, want {cfg.num_layers}")
+
+    max_len = GEN_PROMPT + GEN_STEPS
+    with torch.inference_mode():
+        lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+        ops.disable_kernels()
+        lp, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()), "tuned prefill logits are not finite")
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    check(err <= LOGIT_TOL * scale,
+          f"tuned prefill logits vs plain: {err:.3g} > {LOGIT_TOL} x {scale:.3g}")
+    autotune.clear_schedules()
+    autotune.clear_log()
+    t = res.timing
+    out = {
+        "tune_s": tune_s, "signatures": len(entries),
+        "winners": {k: "{mode}/{math} bt={block_t} rc={r_chunk}".format(**e)
+                    for k, e in entries.items()},
+        "trials": {k: [[tr["schedule"]["mode"], tr["schedule"]["math"],
+                        tr["schedule"]["block_t"], tr["schedule"]["r_chunk"],
+                        round(tr["seconds"] * 1e6, 1), bool(tr.get("plain"))]
+                       for tr in v if "seconds" in tr] for k, v in trials.items()},
+        "launches_tuning": tuning, "launches_serving": serving, "launches_main_path": main_path,
+        "resolutions": len(log),
+        "ttft_s": t["prefill_s"], "ttft_s_heuristic": heuristic["ttft_s"],
+        "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+        "decode_ms_per_step_heuristic": heuristic["decode_ms_per_step"],
+        "heuristic_launches": heuristic["bitlinear_by_schedule"],
+        "prefill_logits": {"max_abs_diff": err, "max_abs_logit": scale,
+                           "tol": LOGIT_TOL * scale},
+    }
+    emit({"tuned_generate": out})
     return out
 
 
@@ -807,6 +1111,62 @@ def phase_k4(torch, dev, flush):
     return out
 
 
+def phase_k4_variants(torch, dev, flush):
+    """K4's schedules (grid, decode), bit algebras and activation dtypes
+    against the plain version at granite-moe's expert stacks and phase 5's
+    T per expert; then each mode x math timed in bf16 over phase 5's six
+    distinct (stack, T) calls beside its bound, the plain version of the
+    same math and a dense bf16 ``torch.bmm``."""
+    from repro_torch.core import quantized
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import ref
+
+    cfg = moe_config()
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    stacks = {"gate": (d, ff), "up": (d, ff), "down": (ff, d)}
+    errs, checks = {}, {}
+    timed = {f"{m}/{a}": [] for m in ("grid", "decode") for a in MATHS}
+    budget = bl.device_smem_budget(dev)
+    for name, (d_in, d_out) in stacks.items():
+        n_r, n_c, tn, K, td = d_in // 32, d_out // 128, 32, 4, 128
+        mp = torch.randint(0, 256, (E, n_r, n_c, tn, 1), generator=g, device=dev,
+                           dtype=torch.uint8)
+        C0 = torch.randn((E, n_r, n_c, K, td), generator=g, device=dev) * 0.2
+        for phase, T in k4_tokens(cfg).items():
+            label = f"{name}_{phase}"
+            ran = 0
+            for xd in XDTYPES:
+                for cd in CDTYPES:
+                    x, C = variant_inputs(torch, g, dev, (E, T, d_in), C0, xd, cd, tn)
+                    ran += hold_variants(torch, bl.bitlinear_grouped, ref.bitlinear_grouped_ref,
+                                         label, x, mp, C, xd, cd, ("grid", "decode"), errs)
+            checks[label] = {"shape": [E, n_r, n_c, tn, K, td], "T": T, "variants_held": ran}
+            x = torch.randn((E, T, d_in), generator=g, device=dev).to(torch.bfloat16)
+            C = C0.to(torch.bfloat16)
+            w_dense = quantized.decompress({"m_packed": mp, "C": C}, torch.bfloat16)
+            library_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush)
+            del w_dense
+            nbytes = mp.numel() + C.numel() * 2 + E * T * (d_in + d_out) * 2
+            ops_ = 2 * E * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
+            b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
+            for math in MATHS:
+                plain_ms = cuda_ms(torch, lambda: ref.bitlinear_grouped_ref(x, mp, C, math), 3,
+                                   flush)
+                for mode in ("grid", "decode"):
+                    if mode == "decode" and not bl.decode_path_ok(T, n_r, tn, K, td, 2,
+                                                                   budget):
+                        continue
+                    ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C, mode=mode,
+                                                                     math=math), 10, flush)
+                    timed[f"{mode}/{math}"].append(
+                        {"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops})
+    out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed)}
+    emit({"k4_variants": out})
+    return out
+
+
 def phase_moe_compress(torch, dev, out_dir):
     from repro_torch.compression import CompressionPolicy
     from repro_torch.compression.execute import EIGH_MAX_BATCH
@@ -824,8 +1184,7 @@ def phase_moe_compress(torch, dev, out_dir):
     values, _ = split(init_model(cfg, seed=SEED, device=dev))
     torch.cuda.synchronize()
     sa.sa_sweep_many.launches = 0
-    bl.bitlinear.launches = 0
-    bl.bitlinear_grouped.launches = 0
+    bl.reset_counts()
     t0 = time.time()
     _, artifact = compress_model(cfg, CompressionPolicy(), out_dir, seed=SEED, device=dev,
                                  values=values, verbose=False)
@@ -931,8 +1290,7 @@ def phase_moe_generate(torch, dev, out_dir):
     eos = cfg.vocab_size                     # never emitted: launch counts are fixed
     torch.cuda.synchronize()
     sa.sa_sweep_many.launches = 0
-    bl.bitlinear.launches = 0
-    bl.bitlinear_grouped.launches = 0
+    bl.reset_counts()
     fa.flash_attention.launches = 0
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                       steps=steps, eos_id=eos, seed=SEED, device=dev, verbose=False)
@@ -941,6 +1299,8 @@ def phase_moe_generate(torch, dev, out_dir):
                 "bitlinear": bl.bitlinear.launches,
                 "flash_attention": fa.flash_attention.launches,
                 "sa_sweep_many": sa.sa_sweep_many.launches}
+    by_schedule = {"bitlinear": dict(bl.bitlinear.by_schedule),
+                   "bitlinear_grouped": dict(bl.bitlinear_grouped.by_schedule)}
     want = {"bitlinear_grouped": 3 * L * steps, "bitlinear": 4 * L * steps,
             "flash_attention": L, "sa_sweep_many": 0}
     check(launches == want, f"launches {launches}, want {want}")
@@ -978,6 +1338,7 @@ def phase_moe_generate(torch, dev, out_dir):
     t = res.timing
     out = {
         "launches": launches,
+        "by_schedule": by_schedule,
         "ttft_s": t["prefill_s"],
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
         "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
@@ -1036,9 +1397,13 @@ def main() -> int:
         params, artifact, k1_launches = phase_compress(torch, dev, out_dir)
         phases["compress_s"] = time.time() - t
         t = time.time()
-        k3_layer_launches, k3_err, k3 = phase_serve(torch, dev, params, artifact, flush)
+        k3_layer_launches, k3_err, k3, weights, inputs = phase_serve(torch, dev, params,
+                                                                     artifact, flush)
         phases["serve_s"] = time.time() - t
-        del params
+        t = time.time()
+        k3v = phase_k3_variants(torch, dev, weights, inputs, flush)
+        phases["k3_variants_s"] = time.time() - t
+        del params, weights, inputs
         t = time.time()
         k5 = phase_k5(torch, dev, flush)
         phases["k5_check_s"] = time.time() - t
@@ -1046,12 +1411,18 @@ def main() -> int:
         t = time.time()
         gen = phase_generate(torch, dev, out_dir)
         phases["generate_s"] = time.time() - t
+        t = time.time()
+        tuned = phase_tuned_generate(torch, dev, out_dir, gen)
+        phases["tuned_generate_s"] = time.time() - t
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     t = time.time()
     k4 = phase_k4(torch, dev, flush)
     phases["k4_check_s"] = time.time() - t
     emit({"k4_check": k4})
+    t = time.time()
+    k4v = phase_k4_variants(torch, dev, flush)
+    phases["k4_variants_s"] = time.time() - t
     moe_dir = os.path.join(ROOT, "build", "chip_smoke_moe_ckpt")
     shutil.rmtree(moe_dir, ignore_errors=True)
     try:
@@ -1068,6 +1439,24 @@ def main() -> int:
     phases["paper_s"] = time.time() - t
     emit({"phase_s": phases})
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
+    # this slice's main path (tuning + tuned serving) launched every K3
+    # schedule and bit algebra; phase 5 launched both of K4's kernels
+    k3_main = tuned["launches_main_path"]
+    check(all(k3_main.values()), f"a K3 variant was not launched on the main path: {k3_main}")
+    k4_main = moe_gen["by_schedule"]["bitlinear_grouped"]
+    for mode in ("grid", "decode"):
+        check(sum(v for k, v in k4_main.items() if k.startswith(mode + "/")) > 0,
+              f"K4 {mode} was not launched in phase 5: {k4_main}")
+
+    def variants(timing, errs, launches, replaces, **extra):
+        return [dict({"mode": key.split("/")[0], "math": key.split("/")[1],
+                      "replaces": replaces[key.split("/")[0]],
+                      "launches": launches[key], "max_abs_err": errs[key],
+                      "timed_calls": tm["calls"], "timed_T": tm["T"], "ms": tm["ms"],
+                      "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                      "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]},
+                     **{k: v[key] for k, v in extra.items()})
+                for key, tm in timing.items()]
     emit({"kernels": [
         {"name": "sa_sweep_many", "route": "cuda",
          "source": "src/repro_torch/csrc/sa_sweep.cu",
@@ -1089,7 +1478,20 @@ def main() -> int:
          "timed_calls": k3["calls"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
-         "library_ms": k3["library_ms"]},
+         "library_ms": k3["library_ms"],
+         # per schedule x bit algebra, launches from the tuned phase (tuning
+         # + serving), times summed in bf16 over phase 4's distinct calls
+         # that the schedule takes (decode: the T = 4 ones)
+         "sources": ["src/repro_torch/csrc/bitlinear.cu",
+                     "src/repro_torch/csrc/bitlinear_decode.cu",
+                     "src/repro_torch/csrc/bitlinear_stream.cu"],
+         "variants": variants(k3v["timing"], k3v["max_abs_err"], k3_main,
+                              {"grid": "src/repro/kernels/bitlinear.py:417",
+                               "decode": "src/repro/kernels/bitlinear.py:369",
+                               "stream": "src/repro/kernels/bitlinear.py:388"},
+                              launches_serving={k: tuned["launches_serving"].get(k, 0)
+                                                for k in k3_main},
+                              launches_phase4=gen["bitlinear_by_schedule"])},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:79",
@@ -1107,7 +1509,14 @@ def main() -> int:
          "timed_calls": k4["timing"]["calls"],
          "ms": k4["timing"]["ms"], "plain_ms": k4["timing"]["plain_ms"],
          "bound_ms": k4["timing"]["bound_ms"], "bound_by": k4["timing"]["bound_by"],
-         "library_ms": k4["timing"]["library_ms"]},
+         "library_ms": k4["timing"]["library_ms"],
+         # per schedule x bit algebra, launches from phase 5, times summed
+         # in bf16 over phase 5's distinct (stack, T) calls the schedule takes
+         "sources": ["src/repro_torch/csrc/bitlinear.cu",
+                     "src/repro_torch/csrc/bitlinear_decode.cu"],
+         "variants": variants(k4v["timing"], k4v["max_abs_err"], k4_main,
+                              {"grid": "src/repro/kernels/bitlinear.py:558",
+                               "decode": "src/repro/kernels/bitlinear.py:536"})},
         {"name": "sqa_sweep_many", "route": "cuda",
          "source": "src/repro_torch/csrc/sqa_sweep.cu",
          "replaces": "src/repro/kernels/sqa_sweep.py:108",

@@ -16,7 +16,11 @@ einsum form through a ``torch.autograd.Function`` (exact dx and dC, none
 for the packed bits).  Grouped (per-expert) weights, C (E, r, c, K, td),
 take x (E, ..., d_in) and run through the grouped hook (kernel K4) when one
 is registered, else the grouped einsum form; their gradient is derived the
-same way.  The int8 baseline {"q", "scale"} is served by dequant-einsum.
+same way.  The int8 baseline {"q", "scale"} (per-tile int8 q with a
+per-tile scale) is served by dequant-einsum (``apply_intquant``).  The
+partial hook ``register_bitlinear`` (z = x @ M per tile inside the einsum
+form) is an extension point: nothing in the package registers it, as in
+``repro``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ __all__ = [
     "dense_num_bytes",
     "is_intquant",
     "intquant_num_bytes",
+    "dequantize",
+    "apply_intquant",
+    "register_bitlinear",
     "register_bitlinear_fused",
     "register_bitlinear_grouped",
     "clear_bitlinear",
@@ -47,8 +54,10 @@ __all__ = [
 _KEYS = frozenset({"m_packed", "C"})
 _INT8_KEYS = frozenset({"q", "scale"})
 
-# Whole-layer hooks y = (x @ M) @ C and its grouped form, registered by
+# The partial hook z = x @ M per tile (kept inside the two-einsum form), and
+# the whole-layer hooks y = (x @ M) @ C and its grouped form, registered by
 # repro_torch.kernels.ops.enable_kernels().  Process-global, as in repro.
+_BITLINEAR_IMPL = None
 _BITLINEAR_FUSED_IMPL = None
 _BITLINEAR_GROUPED_IMPL = None
 
@@ -61,6 +70,15 @@ def _check_impl(fn, name: str) -> None:
         )
     if not callable(fn):
         raise TypeError(f"{name} expects a callable, got {type(fn)!r}")
+
+
+def register_bitlinear(fn) -> None:
+    """Register the partial hook ``fn(xt, m_packed, K) -> z`` computing
+    z = x @ M per tile, xt (..., r, tn) -> z (..., r, c, K); the einsum
+    form then applies C (and keeps its gradient)."""
+    _check_impl(fn, "register_bitlinear")
+    global _BITLINEAR_IMPL
+    _BITLINEAR_IMPL = fn
 
 
 def register_bitlinear_fused(fn) -> None:
@@ -81,7 +99,8 @@ def register_bitlinear_grouped(fn) -> None:
 
 def clear_bitlinear() -> None:
     """Unregister every bitlinear hook (back to the einsum forms)."""
-    global _BITLINEAR_FUSED_IMPL, _BITLINEAR_GROUPED_IMPL
+    global _BITLINEAR_IMPL, _BITLINEAR_FUSED_IMPL, _BITLINEAR_GROUPED_IMPL
+    _BITLINEAR_IMPL = None
     _BITLINEAR_FUSED_IMPL = None
     _BITLINEAR_GROUPED_IMPL = None
 
@@ -130,8 +149,11 @@ def apply_compressed_einsum(x: torch.Tensor, w: dict) -> torch.Tensor:
     tn = w["m_packed"].shape[2]
     lead = x.shape[:-1]
     xt = x.reshape(*lead, r, tn)
-    M = unpack_signs(w["m_packed"], K, x.dtype)                 # (r, c, tn, K)
-    z = torch.einsum("...rn,rcnk->...rck", xt, M)
+    if _BITLINEAR_IMPL is not None:
+        z = _BITLINEAR_IMPL(xt, w["m_packed"], K)               # (..., r, c, K)
+    else:
+        M = unpack_signs(w["m_packed"], K, x.dtype)             # (r, c, tn, K)
+        z = torch.einsum("...rn,rcnk->...rck", xt, M)
     y = torch.einsum("...rck,rckd->...cd", z, C.to(x.dtype))
     return y.reshape(*lead, c * td)
 
@@ -226,6 +248,38 @@ def apply_compressed(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 def compressed_num_bytes(w: dict) -> int:
     return w["m_packed"].numel() + w["C"].numel() * w["C"].element_size()
+
+
+def dequantize(w: dict, dtype=None) -> torch.Tensor:
+    """Materialise W_hat = scale * q.  Leading stack dims (grouped expert
+    weights) are preserved: (..., r, c, tn, td) -> (..., r*tn, c*td)."""
+    q, scale = w["q"], w["scale"]
+    dtype = dtype or scale.dtype
+    tiles = q.to(torch.float32) * scale                         # (..., r, c, tn, td)
+    r, c, tn, td = tiles.shape[-4:]
+    lead = tiles.shape[:-4]
+    n = len(lead)
+    tiles = tiles.permute(*range(n), n, n + 2, n + 1, n + 3)
+    return tiles.reshape(*lead, r * tn, c * td).to(dtype)
+
+
+def apply_intquant(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """y = x @ (scale * q) by per-tile dequant-einsum in x's dtype.  4-D
+    tiles take the layer path (x (..., d_in)); 5-D grouped stacks take the
+    MoE dispatch layout (x (E, ..., d_in)), as ``apply_compressed_grouped``."""
+    q, scale = w["q"], w["scale"]
+    W = q.to(x.dtype) * scale.to(x.dtype)                       # (..., r, c, tn, td)
+    if q.ndim == 5:
+        E, r, c, tn, td = q.shape
+        if x.shape[0] != E:
+            raise ValueError(f"grouped intquant: x {tuple(x.shape)} vs q {tuple(q.shape)}")
+        lead = x.shape[1:-1]
+        y = torch.einsum("etrn,ercnd->etcd", x.reshape(E, -1, r, tn), W)
+        return y.reshape(E, *lead, c * td)
+    r, c, tn, td = q.shape
+    lead = x.shape[:-1]
+    y = torch.einsum("...rn,rcnd->...cd", x.reshape(*lead, r, tn), W)
+    return y.reshape(*lead, c * td)
 
 
 def intquant_num_bytes(w: dict) -> int:

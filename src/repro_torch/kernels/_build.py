@@ -3,14 +3,16 @@
 Each ``.cu`` source exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` into a shared library under ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``) and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing here
+The library's file name carries a hash of the source, the headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing here
 runs at import time: the CPU tests import every module of the port.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,6 +40,8 @@ SOURCES = {
     "sa_sweep": ["-fmad=false"],
     "sqa_sweep": ["-fmad=false"],
     "bitlinear": [],
+    "bitlinear_decode": [],
+    "bitlinear_stream": [],
     "flash_attention": [],
 }
 
@@ -56,8 +60,11 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[str, list]:
     src = os.path.join(_CSRC, f"{name}.cu")
     flags = _COMMON + SOURCES[name]
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(_BUILD, f"lib{name}-{digest}.so")
     return out, [_nvcc(), *flags, "-o", _tmp(out), src]
 

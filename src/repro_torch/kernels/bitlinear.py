@@ -1,16 +1,32 @@
-"""Fused compressed linear layer y = (x @ M) @ C (kernel K3) and its grouped
-per-expert form (kernel K4).
+"""Fused compressed linear layer y = (x @ M) @ C (kernel K3) and its
+grouped per-expert form (kernel K4).
 
 Counterpart of ``repro/kernels/bitlinear.py::bitlinear`` and
-``::bitlinear_grouped``.  For CUDA tensors ``bitlinear`` and
-``bitlinear_grouped`` launch the hand-written kernel ``csrc/bitlinear.cu``
-(one schedule: a (row block, [expert,] column tile) grid with the r
-reduction looped inside the block; the grouped call runs every expert in
-one launch); for CPU tensors they run the plain versions
-``ref.bitlinear_ref`` and ``ref.bitlinear_grouped_ref``.  Float32 and
-bfloat16 activations; the int8 activation path and the
-``decode``/``stream``/``bitplane`` variants of the JAX kernels are not
-ported yet (ROADMAP.md).
+``::bitlinear_grouped``.  For CUDA tensors they launch the hand-written
+kernels ``csrc/bitlinear*.cu`` (design in ``csrc/bitlinear.cuh``); for CPU
+tensors they run the plain versions ``ref.bitlinear_ref`` and
+``ref.bitlinear_grouped_ref`` with the requested bit algebra.
+
+Schedules (``mode``), the names of the JAX kernels' so that a tuned
+``kernel_schedules`` table means the same in both packages:
+
+  * grid: blocks of ``block_t`` rows (in register groups of 8) x one column
+    chunk; each warp takes ``r_chunk`` r tiles at a time and issues their x
+    and M loads before C consumes them.
+  * decode: one block per (expert,) column tile with all T rows; the rows
+    of x are staged once in shared memory, so it is admissible only while
+    they fit (:func:`decode_path_ok`).  ``block_t`` and ``r_chunk`` are
+    ignored.
+  * stream (K3 only, as in JAX): one block per column tile; each warp
+    double-buffers its chunks of ``r_chunk`` M and C tiles in shared memory
+    with asynchronous copies.  ``block_t`` is ignored.
+  * jnp: the plain version; the CPU route.  It is not served on the card:
+    a CUDA tensor with ``mode="jnp"`` is refused.
+
+Bit algebra (``math``): unpack or bitplane (``z = 2 (x @ B) - rowsum(x)``);
+"dot" is unpack outside ``jnp``, as in JAX.  Activations are float32,
+bfloat16 or int8 (exact int32 z, int8 output truncated toward zero and
+saturated); C is float32 or bfloat16.
 """
 
 from __future__ import annotations
@@ -22,23 +38,99 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import bitlinear_grouped_ref, bitlinear_ref
 
-__all__ = ["bitlinear", "bitlinear_grouped"]
+__all__ = [
+    "bitlinear",
+    "bitlinear_grouped",
+    "MODES",
+    "GROUPED_MODES",
+    "MATHS",
+    "decode_path_ok",
+    "smem_bytes",
+    "device_smem_budget",
+    "resolve_r_chunk",
+    "reset_counts",
+]
 
-_FLOATS = (torch.float32, torch.bfloat16)
+MODES = ("auto", "grid", "decode", "stream", "jnp")
+GROUPED_MODES = ("auto", "grid", "decode", "jnp")
+MATHS = ("unpack", "bitplane")
+
+_X_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_C_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535          # experts x column tiles share blockIdx.y
+_SOURCES = {"grid": "bitlinear", "decode": "bitlinear_decode", "stream": "bitlinear_stream"}
+_FNS: dict = {}           # mode -> loaded C entry point
+_BUDGETS: dict = {}       # device index -> opt-in shared memory per block
 
 
-def _lib(name: str):
-    fn = getattr(_build.load("bitlinear"), name)
-    n_ints = 9 if name == "bitlinear" else 10
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
+    """Largest divisor of n_r that is <= the requested chunk (JAX's
+    ``_resolve_r_chunk``)."""
+    rc = max(1, min(int(r_chunk), n_r))
+    while n_r % rc:
+        rc -= 1
+    return rc
+
+
+def _group_rows(mode: str, T: int) -> int:
+    if mode == "grid":
+        return 1 if T == 1 else 8
+    return 1 if T <= 1 else 2 if T <= 2 else 4 if T <= 4 else 8
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(mode: str, *, T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
+               c_itemsize: int, r_chunk: int = 1) -> int:
+    """Dynamic shared memory of one block of ``mode`` (``smem_bytes`` in
+    ``csrc/bitlinear.cuh``): the warps' z buffers and the block sums, plus
+    the staged x rows (decode) or each warp's two M/C slots (stream)."""
+    bt = _group_rows(mode, T)
+    warps = 32 if mode != "stream" and bt <= 2 else 16
+    rc = 1 if mode == "decode" else r_chunk
+    ncol = 1 if td <= 32 else 4
+    n = warps * rc * bt * K * 4 + bt * 32 * ncol * 4
+    if mode == "decode":
+        n += _align16(T * n_r * tn * x_itemsize)
+    if mode == "stream":
+        kb = (K + 7) // 8
+        n += warps * 2 * (_align16(rc * tn * kb) + _align16(rc * K * td * c_itemsize))
+    return n
+
+
+def device_smem_budget(device=None) -> int:
+    """The card's opt-in shared memory per block (227 KiB on an H100)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _BUDGETS:
+        _BUDGETS[idx] = int(torch.cuda.get_device_properties(idx).shared_memory_per_block_optin)
+    return _BUDGETS[idx]
+
+
+def decode_path_ok(T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
+                   budget: int) -> bool:
+    """Counterpart of JAX's ``_decode_path_ok``: the decode block keeps all
+    T rows of x in shared memory; it is admissible when what it keeps there
+    fits ``budget`` bytes.  (No bound on n_r: the r loop is not unrolled.)"""
+    return smem_bytes("decode", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
+                      c_itemsize=4) <= budget
+
+
+def _lib(mode: str):
+    fn = _FNS.get(mode)
+    if fn is None:
+        fn = getattr(_build.load(_SOURCES[mode]), f"bitlinear_{mode}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[mode] = fn
     return fn
 
 
-def _check(name, x, m_packed, C, lead: int):
-    """Validate shapes and dtypes; ``lead`` is 1 for the grouped form (a
-    leading expert axis on all three) and 0 for the plain one."""
+def _check(name, x, m_packed, C, lead: int, mode: str, math: str, modes) -> None:
+    """Validate shapes, dtypes and options; ``lead`` is 1 for the grouped
+    form (a leading expert axis on all three) and 0 for the plain one."""
     if x.ndim != 2 + lead or m_packed.ndim != 4 + lead or C.ndim != 4 + lead:
         e = "E, " if lead else ""
         raise ValueError(
@@ -56,16 +148,29 @@ def _check(name, x, m_packed, C, lead: int):
         )
     if m_packed.dtype != torch.uint8:
         raise TypeError(f"{name}: m_packed must be uint8, got {m_packed.dtype}")
-    if x.dtype not in _FLOATS or C.dtype not in _FLOATS:
+    if x.dtype not in _X_KINDS or C.dtype not in _C_DTYPES:
         raise NotImplementedError(
-            f"{name}: x {x.dtype} / C {C.dtype}: only float32 and bfloat16 "
-            "are ported (int8 activations: ROADMAP.md)"
+            f"{name}: x {x.dtype} / C {C.dtype}: x must be float32, bfloat16 or int8, "
+            "C float32 or bfloat16"
         )
+    if mode not in modes:
+        raise ValueError(f"{name}: mode {mode!r} not in {modes}")
+    if math not in MATHS + ("dot",):
+        raise ValueError(f"{name}: math {math!r} not in {MATHS + ('dot',)}")
 
 
-def _launch(name, x, m_packed, C, y, dims) -> None:
-    """Launch ``csrc/bitlinear.cu::<name>`` on x's device and stream;
-    ``dims`` are its integer shape arguments."""
+def _auto_mode(T, n_r, tn, K, td, x, block_t, budget) -> str:
+    """JAX's static rule: decode when the padded T fits one token block and
+    the decode working set fits the budget, else grid."""
+    if -(-T // 8) * 8 > block_t:
+        return "grid"
+    budget = device_smem_budget(x.device) if budget is None else budget
+    return "decode" if decode_path_ok(T, n_r, tn, K, td, x.element_size(), budget) else "grid"
+
+
+def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> None:
+    """Launch ``csrc/bitlinear*.cu::bitlinear_<mode>`` on x's device and
+    stream; ``dims`` are (E, T, n_r, n_c, tn, kb, K, td)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("m_packed", m_packed), ("C", C)):
@@ -73,54 +178,102 @@ def _launch(name, x, m_packed, C, y, dims) -> None:
             raise ValueError(f"{name}: {arg} on {t.device}, x on {x.device}")
     if not (x.is_contiguous() and m_packed.is_contiguous() and C.is_contiguous()):
         raise ValueError(f"{name}: x, m_packed and C must be contiguous")
-    err = _lib(name)(
+    E, T, n_r, n_c, tn, kb, K, td = dims
+    if E * n_c > _MAX_GRID_Y:
+        raise ValueError(f"{name}: E * n_c = {E * n_c} exceeds {_MAX_GRID_Y}")
+    if block_t < 1:
+        raise ValueError(f"{name}: block_t {block_t} < 1")
+    need = smem_bytes(mode, T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x.element_size(),
+                      c_itemsize=C.element_size(), r_chunk=r_chunk)
+    budget = device_smem_budget(x.device) if budget is None else budget
+    if need > budget:
+        raise ValueError(f"{name}: mode {mode!r} needs {need} bytes of shared memory per "
+                         f"block, over the budget of {budget}")
+    err = _lib(mode)(
         x.data_ptr(), m_packed.data_ptr(), C.data_ptr(), y.data_ptr(), *dims,
-        int(x.dtype == torch.bfloat16), int(C.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _X_KINDS[x.dtype], int(C.dtype == torch.bfloat16), int(math == "bitplane"),
+        int(block_t), int(r_chunk), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+        raise RuntimeError(f"{name}: CUDA launch of mode {mode!r} failed (cudaError {err})")
 
 
-def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def _count(fn, mode: str, math: str) -> None:
+    fn.launches += 1
+    fn.by_schedule[f"{mode}/{math}"] += 1
+
+
+def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t: int = 128,
+              mode: str = "auto", math: str = "unpack", r_chunk: int = 1,
+              smem_budget: int | None = None) -> torch.Tensor:
     """y (T, n_c*td) = x @ decompress(m_packed, C) for x (T, d_in),
-    m_packed (n_r, n_c, tn, kb) uint8 and C (n_r, n_c, K, td); any T."""
-    _check("bitlinear", x, m_packed, C, 0)
+    m_packed (n_r, n_c, tn, kb) uint8 and C (n_r, n_c, K, td); any T.
+    ``mode`` pins the schedule (module docstring); "auto" picks decode when
+    T fits one token block of ``block_t`` and the decode block fits
+    ``smem_budget`` bytes (default: the card's opt-in limit), else grid."""
+    _check("bitlinear", x, m_packed, C, 0, mode, math, MODES)
+    if mode != "jnp" and math == "dot":
+        math = "unpack"
     if x.device.type == "cpu":
-        return bitlinear_ref(x, m_packed, C)
+        return bitlinear_ref(x, m_packed, C, math)
+    if mode == "jnp":
+        raise ValueError("bitlinear: mode 'jnp' is the plain version, the CPU route; "
+                         "it is not served on the card")
     T = x.shape[0]
     n_r, n_c, tn, kb = m_packed.shape
     K, td = C.shape[2], C.shape[3]
+    if mode == "auto":
+        mode = _auto_mode(T, n_r, tn, K, td, x, block_t, smem_budget)
+    rc = resolve_r_chunk(n_r, r_chunk) if mode != "decode" else 1
     x = x.contiguous()
     y = torch.empty((T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0:
         return y
-    _launch("bitlinear", x, m_packed, C, y, (T, n_r, n_c, tn, kb, K, td))
-    bitlinear.launches += 1
+    _launch("bitlinear", mode, x, m_packed, C, y, (1, T, n_r, n_c, tn, kb, K, td), math,
+            block_t, rc, smem_budget)
+    _count(bitlinear, mode, math)
     return y
 
 
-def bitlinear_grouped(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def bitlinear_grouped(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
+                      block_t: int = 128, mode: str = "auto", math: str = "unpack",
+                      r_chunk: int = 1, smem_budget: int | None = None) -> torch.Tensor:
     """y_e (T, n_c*td) = x_e @ decompress(m_packed_e, C_e) for every expert
     e in one launch: x (E, T, d_in), m_packed (E, n_r, n_c, tn, kb) uint8,
     C (E, n_r, n_c, K, td) -> (E, T, n_c*td); any T (one T for all
-    experts), any E >= 1."""
-    _check("bitlinear_grouped", x, m_packed, C, 1)
+    experts), any E >= 1.  Schedules grid, decode and jnp (no stream, as in
+    JAX); "auto" as in :func:`bitlinear`."""
+    _check("bitlinear_grouped", x, m_packed, C, 1, mode, math, GROUPED_MODES)
+    if mode != "jnp" and math == "dot":
+        math = "unpack"
     if x.device.type == "cpu":
-        return bitlinear_grouped_ref(x, m_packed, C)
+        return bitlinear_grouped_ref(x, m_packed, C, math)
+    if mode == "jnp":
+        raise ValueError("bitlinear_grouped: mode 'jnp' is the plain version, the CPU route; "
+                         "it is not served on the card")
     E, T, _ = x.shape
     _, n_r, n_c, tn, kb = m_packed.shape
     K, td = C.shape[3], C.shape[4]
-    if E * n_c > _MAX_GRID_Y:
-        raise ValueError(f"bitlinear_grouped: E * n_c = {E * n_c} exceeds {_MAX_GRID_Y}")
+    if mode == "auto":
+        mode = _auto_mode(T, n_r, tn, K, td, x, block_t, smem_budget)
+    rc = resolve_r_chunk(n_r, r_chunk) if mode != "decode" else 1
     x = x.contiguous()
     y = torch.empty((E, T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0 or E == 0:
         return y
-    _launch("bitlinear_grouped", x, m_packed, C, y, (E, T, n_r, n_c, tn, kb, K, td))
-    bitlinear_grouped.launches += 1
+    _launch("bitlinear_grouped", mode, x, m_packed, C, y, (E, T, n_r, n_c, tn, kb, K, td),
+            math, block_t, rc, smem_budget)
+    _count(bitlinear_grouped, mode, math)
     return y
 
 
-bitlinear.launches = 0
-bitlinear_grouped.launches = 0
+def reset_counts() -> None:
+    """Set every launch count of K3 and K4 to 0: the totals ``launches``
+    and the counts per schedule and bit algebra, ``by_schedule["mode/math"]``."""
+    for fn, modes in ((bitlinear, MODES), (bitlinear_grouped, GROUPED_MODES)):
+        fn.launches = 0
+        fn.by_schedule = {f"{m}/{a}": 0 for m in modes if m not in ("auto", "jnp")
+                          for a in MATHS}
+
+
+reset_counts()

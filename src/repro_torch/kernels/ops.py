@@ -7,12 +7,14 @@ fused bitlinear hooks into :mod:`repro_torch.core.quantized` (every
 ``apply_compressed`` call runs ``kernels.bitlinear.bitlinear``, or
 ``kernels.bitlinear.bitlinear_grouped`` for a grouped expert stack); each
 is the CUDA kernel for CUDA tensors and its plain version for CPU ones.
-The schedule autotuner is not ported yet (ROADMAP.md).
+Each fused call takes its schedule from ``kernels.autotune`` (a tuned
+``kernel_schedules`` entry, else the heuristic), unless the caller pins one.
 """
 
 from __future__ import annotations
 
 from repro_torch.core import quantized
+from repro_torch.kernels import autotune
 from repro_torch.kernels.bitlinear import bitlinear, bitlinear_grouped
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_lib
@@ -52,23 +54,43 @@ def disable_kernels() -> None:
     quantized.clear_bitlinear()
 
 
-def apply_compressed_fused(x, w):
+def _schedule_kwargs(schedule, mode: str, block_t: int, resolve) -> dict:
+    """An explicit ``schedule`` pins everything; ``mode="auto"`` resolves
+    through the autotuner; any other ``mode`` is taken as given."""
+    if schedule is None and mode == "auto":
+        schedule = resolve()
+    if schedule is not None:
+        return schedule.kwargs()
+    return {"mode": mode, "block_t": block_t}
+
+
+def apply_compressed_fused(x, w, block_t: int = 128, mode: str = "auto",
+                           schedule: autotune.Schedule | None = None):
     """y = (x @ M) @ C through the bitlinear kernel; x (..., d_in) ->
-    (..., d_out) with any leading dims flattened into the kernel's T axis."""
+    (..., d_out) with any leading dims flattened into the kernel's T axis.
+    Schedule selection as in ``repro.kernels.ops.apply_compressed_fused``."""
     C = w["C"]
     n_c, td = C.shape[1], C.shape[3]
     lead = x.shape[:-1]
-    y = bitlinear(x.reshape(-1, x.shape[-1]), w["m_packed"], C)
+    x2 = x.reshape(-1, x.shape[-1])
+    kw = _schedule_kwargs(schedule, mode, block_t,
+                          lambda: autotune.resolve_fused(x2, w["m_packed"], C))
+    y = bitlinear(x2, w["m_packed"], C, **kw)
     return y.reshape(*lead, n_c * td)
 
 
-def apply_compressed_grouped_fused(x, w):
+def apply_compressed_grouped_fused(x, w, block_t: int = 128, mode: str = "auto",
+                                   schedule: autotune.Schedule | None = None):
     """y_e = (x_e @ M_e) @ C_e through the grouped bitlinear kernel; x (E,
     ..., d_in) -> (E, ..., d_out) with the inner lead dims (the MoE (B, C)
     dispatch dims) flattened into the kernel's T axis.  The dispatch
-    einsum's output is strided: it is made contiguous here, once."""
+    einsum's output is strided: it is made contiguous here, once.
+    Schedule selection as in :func:`apply_compressed_fused`."""
     C = w["C"]
     E, n_c, td = C.shape[0], C.shape[2], C.shape[4]
     lead = x.shape[1:-1]
-    y = bitlinear_grouped(x.reshape(E, -1, x.shape[-1]).contiguous(), w["m_packed"], C)
+    x3 = x.reshape(E, -1, x.shape[-1]).contiguous()
+    kw = _schedule_kwargs(schedule, mode, block_t,
+                          lambda: autotune.resolve_grouped(x3, w["m_packed"], C))
+    y = bitlinear_grouped(x3, w["m_packed"], C, **kw)
     return y.reshape(E, *lead, n_c * td)

@@ -31,41 +31,76 @@ def unpack_signs(m_packed: torch.Tensor, K: int, dtype) -> torch.Tensor:
     return 2 * bits.to(dtype) - 1
 
 
-def bitlinear_ref(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """y = (x @ M) @ C, dense.  x (T, d_in), m_packed (r, c, tn, kb) uint8,
-    C (r, c, K, td) -> (T, c*td) in x's dtype.
+def _z_tiles(xt: torch.Tensor, m_packed: torch.Tensor, K: int, math: str, spec: str) -> torch.Tensor:
+    """z = x @ M per (row tile, column tile) through the requested bit
+    algebra: ``unpack`` contracts x with the {-1,+1} signs; ``bitplane``
+    forms z = 2 (x @ B) - s with B the raw {0,1} bits and s x's row sum per
+    r tile.  xt is f32 (float activations) or int32 (int8 activations,
+    where every z is exact); ``spec`` is the einsum of x with the bits."""
+    acc = xt.dtype
+    if math == "bitplane":
+        bits = (unpack_signs(m_packed, K, torch.int32) + 1) // 2
+        zb = _contract(spec, xt, bits.to(acc))
+        s = xt.sum(-1)
+        return 2 * zb - s[..., None, None]
+    return _contract(spec, xt, unpack_signs(m_packed, K, torch.int32).to(acc))
 
-    As the kernel (and the Pallas kernel, ``repro/kernels/bitlinear.py``)
-    does, z = x @ M accumulates in f32 and is rounded to C's dtype before
-    z @ C, which accumulates in f32.  For f32 C this is exactly
-    ``repro.kernels.ref.bitlinear_ref``."""
+
+def _contract(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum, also for int32 operands (where CUDA's einsum has no kernel:
+    the exact int32 products are summed in float64, exact below 2^53)."""
+    if a.dtype == torch.int32:
+        return torch.einsum(spec, a.double(), b.double()).to(torch.int32)
+    return torch.einsum(spec, a, b)
+
+
+def _finish(y: torch.Tensor, dtype) -> torch.Tensor:
+    """The f32 accumulator in the output dtype: floats round to nearest;
+    int8 is truncated toward zero and saturated to [-128, 127], as the
+    Pallas kernels' f32 -> int8 cast does (a plain ``.to(int8)`` leaves
+    out-of-range values undefined)."""
+    if dtype == torch.int8:
+        return torch.trunc(y.clamp(-128.0, 127.0)).to(torch.int8)
+    return y.to(dtype)
+
+
+def bitlinear_ref(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
+                  math: str = "unpack") -> torch.Tensor:
+    """y = (x @ M) @ C, dense.  x (T, d_in) f32, bf16 or int8, m_packed (r, c,
+    tn, kb) uint8, C (r, c, K, td) -> (T, c*td) in x's dtype.
+
+    As the kernels (and the Pallas kernels, ``repro/kernels/bitlinear.py``)
+    do, z = x @ M accumulates in f32 (exactly in int32 for int8 x) through
+    the bit algebra ``math`` ("unpack" or "bitplane"; "dot" is unpack) and
+    is rounded to C's dtype before z @ C, which accumulates in f32.  For
+    f32 C and x this is exactly ``repro.kernels.ref.bitlinear_ref``."""
     n_r, n_c, tn, _ = m_packed.shape
     K, td = C.shape[2], C.shape[3]
     T = x.shape[0]
-    M = unpack_signs(m_packed, K, torch.float32)
-    xt = x.to(torch.float32).reshape(T, n_r, tn)
-    z = torch.einsum("trn,rcnk->trck", xt, M)
+    acc = torch.int32 if x.dtype == torch.int8 else torch.float32
+    xt = x.to(acc).reshape(T, n_r, tn)
+    z = _z_tiles(xt, m_packed, K, math, "trn,rcnk->trck")
     z = z.to(C.dtype).to(torch.float32)
     y = torch.einsum("trck,rckd->tcd", z, C.to(torch.float32))
-    return y.reshape(T, n_c * td).to(x.dtype)
+    return _finish(y.reshape(T, n_c * td), x.dtype)
 
 
-def bitlinear_grouped_ref(x: torch.Tensor, m_packed: torch.Tensor,
-                          C: torch.Tensor) -> torch.Tensor:
+def bitlinear_grouped_ref(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
+                          math: str = "unpack") -> torch.Tensor:
     """y_e = (x_e @ M_e) @ C_e per expert, dense: the grouped form of
     ``bitlinear_ref`` (``repro.kernels.ref.bitlinear_grouped_ref``).
     x (E, T, d_in), m_packed (E, r, c, tn, kb), C (E, r, c, K, td) ->
-    (E, T, c*td) in x's dtype; z is rounded to C's dtype before z @ C, as
-    the kernels do."""
+    (E, T, c*td) in x's dtype; z and the output are rounded as in
+    ``bitlinear_ref``."""
     E, n_r, n_c, tn, _ = m_packed.shape
     K, td = C.shape[3], C.shape[4]
     T = x.shape[1]
-    M = unpack_signs(m_packed, K, torch.float32)
-    xt = x.to(torch.float32).reshape(E, T, n_r, tn)
-    z = torch.einsum("etrn,ercnk->etrck", xt, M)
+    acc = torch.int32 if x.dtype == torch.int8 else torch.float32
+    xt = x.to(acc).reshape(E, T, n_r, tn)
+    z = _z_tiles(xt, m_packed, K, math, "etrn,ercnk->etrck")
     z = z.to(C.dtype).to(torch.float32)
     y = torch.einsum("etrck,erckd->etcd", z, C.to(torch.float32))
-    return y.reshape(E, T, n_c * td).to(x.dtype)
+    return _finish(y.reshape(E, T, n_c * td), x.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

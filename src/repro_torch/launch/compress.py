@@ -7,9 +7,11 @@ Counterpart of the one-shot path of ``repro/launch/compress.py``:
         --out-dir /tmp/cc
 
 runs on the GPU and writes a checkpoint and ``compression_manifest.json``
-that ``repro`` restores and serves as well.  ``--streaming``,
-``--delta-from``, ``--budget-mb`` and ``--autotune-kernels`` are not ported
-yet (ROADMAP.md) and exit with a message.
+that ``repro`` restores and serves as well.  ``--autotune-kernels`` times
+the bitlinear schedules of every compressed geometry on the card and stores
+the winners in the manifest's ``kernel_schedules``, which ``Engine``
+installs.  ``--streaming``, ``--delta-from`` and ``--budget-mb`` are not
+ported yet (ROADMAP.md) and exit with a message.
 """
 
 from __future__ import annotations
@@ -28,11 +30,14 @@ __all__ = ["compress_model", "build_policy", "main"]
 
 
 def compress_model(cfg, policy, out_dir, *, seed: int = 0, device=None,
-                   max_pool_tiles="auto", values=None, verbose: bool = True):
+                   max_pool_tiles="auto", values=None, autotune_kernels: bool = False,
+                   verbose: bool = True):
     """Initialise ``cfg``'s weights from ``seed`` (unless ``values`` are
     given), plan and execute ``policy`` over them on ``device`` (default:
     the GPU), save the compressed params as checkpoint step 0 under
-    ``out_dir`` with the artifact manifest.  Returns (params, artifact)."""
+    ``out_dir`` with the artifact manifest.  With ``autotune_kernels`` the
+    bitlinear schedules are tuned first (``kernels.autotune.tune_artifact``)
+    so the manifest carries the table.  Returns (params, artifact)."""
     device = resolve_device(device)
     if values is None:
         values, _ = split(init_model(cfg, seed=seed, device=device))
@@ -48,6 +53,14 @@ def compress_model(cfg, policy, out_dir, *, seed: int = 0, device=None,
         print(f"\n[compress/{policy.method}] {len(artifact.manifest['tensors'])} "
               f"tensors in {time.time() - t:.1f}s")
         print(artifact.summary())
+    if autotune_kernels:
+        from repro_torch.kernels import autotune
+
+        t = time.time()
+        table = autotune.tune_artifact(artifact, device=device, verbose=verbose)
+        if verbose:
+            print(f"[autotune] {len(table['entries'])} kernel schedule(s) in "
+                  f"{time.time() - t:.1f}s")
     path = checkpointer.save(out_dir, 0, {"params": cvalues})
     mpath = artifact.save(out_dir)
     if verbose:
@@ -67,7 +80,7 @@ def build_policy(args) -> CompressionPolicy:
     )
 
 
-_NOT_PORTED = ("streaming", "delta_from", "budget_mb", "autotune_kernels")
+_NOT_PORTED = ("streaming", "delta_from", "budget_mb")
 
 
 def main(argv=None) -> None:
@@ -91,7 +104,9 @@ def main(argv=None) -> None:
     ap.add_argument("--streaming", action="store_true")
     ap.add_argument("--delta-from", default=None)
     ap.add_argument("--budget-mb", type=float, default=None)
-    ap.add_argument("--autotune-kernels", action="store_true")
+    ap.add_argument("--autotune-kernels", action="store_true",
+                    help="time the bitlinear schedules of every compressed geometry and "
+                         "persist the winners in manifest['kernel_schedules']")
     args = ap.parse_args(argv)
     for name in _NOT_PORTED:
         if getattr(args, name):
@@ -115,7 +130,7 @@ def main(argv=None) -> None:
         print(plan_compression(values, policy).summary())
         return
     compress_model(cfg, policy, args.out_dir, seed=args.seed, device=device,
-                   values=values)
+                   values=values, autotune_kernels=args.autotune_kernels)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ prefill attention through kernel K5.
         --reduced --compress --steps 32 --batch 4
 
 runs on the GPU (``serve_model(..., device="cpu")`` runs on the CPU with
-the kernels' plain versions).  ``--load-curve`` and ``--autotune-kernels``
-are not ported yet (ROADMAP.md) and exit with a message.
+the kernels' plain versions).  ``--autotune-kernels`` tunes the bitlinear
+schedules of the served artifact at T = batch and batch x prompt_len before
+the engine is built.  ``--load-curve`` is not ported yet (ROADMAP.md) and
+exits with a message.
 """
 
 from __future__ import annotations
@@ -51,12 +53,14 @@ class ServeResult:
 def serve_model(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, steps=32,
                 temperature=0.0, eos_id=1, seed=0, device=None, use_fused_bitlinear=None,
                 compress_policy: CompressionPolicy | None = None,
-                verbose: bool = True) -> ServeResult:
+                autotune_kernels: bool = False, verbose: bool = True) -> ServeResult:
     """Initialise ``cfg``'s weights from ``seed``, restore the latest step
     of ``ckpt_dir`` over them (through the compression manifest when one is
-    there), compress them when ``compress`` and no manifest was found, and
-    generate ``steps`` tokens for ``batch`` random prompts on ``device``
-    (default: the GPU)."""
+    there), compress them when ``compress`` and no manifest was found, tune
+    the bitlinear schedules at T = batch and batch x prompt_len when
+    ``autotune_kernels`` (``kernels.autotune.tune_artifact``), and generate
+    ``steps`` tokens for ``batch`` random prompts on ``device`` (default:
+    the GPU)."""
     device = resolve_device(device)
     values, _ = split(init_model(cfg, seed=seed, device=device))
     say = print if verbose else (lambda *a, **k: None)
@@ -95,6 +99,14 @@ def serve_model(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, s
             f"ratio {artifact.total_ratio:.2f}x, {time.time() - t:.1f}s; "
             f"skipped {len(artifact.manifest['skipped'])}")
 
+    if autotune_kernels and artifact is not None:
+        from repro_torch.kernels import autotune
+
+        t = time.time()
+        table = autotune.tune_artifact(artifact, T_values=(batch, batch * prompt_len),
+                                       device=device, verbose=verbose)
+        say(f"[autotune] {len(table['entries'])} kernel schedule(s) in {time.time() - t:.1f}s")
+
     eng = Engine(cfg, values, max_len=prompt_len + steps, batch=batch,
                  temperature=temperature, eos_id=eos_id, artifact=artifact,
                  use_fused_bitlinear=use_fused_bitlinear)
@@ -112,7 +124,7 @@ def serve_model(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, s
     return ServeResult(out, prompts, eng, wall, eng.last_timing)
 
 
-_NOT_PORTED = ("load_curve", "autotune_kernels")
+_NOT_PORTED = ("load_curve",)
 
 
 def main(argv=None) -> None:
@@ -134,7 +146,8 @@ def main(argv=None) -> None:
                     help="serve compressed weights through the unpack+einsum form "
                          "instead of the fused bitlinear kernel")
     ap.add_argument("--load-curve", action="store_true")
-    ap.add_argument("--autotune-kernels", action="store_true")
+    ap.add_argument("--autotune-kernels", action="store_true",
+                    help="tune the bitlinear schedules of the served artifact before serving")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     for name in _NOT_PORTED:
@@ -153,7 +166,7 @@ def main(argv=None) -> None:
                 prompt_len=args.prompt_len, steps=args.steps, temperature=args.temperature,
                 seed=args.seed,
                 use_fused_bitlinear=False if args.no_fused_bitlinear else None,
-                compress_policy=policy)
+                compress_policy=policy, autotune_kernels=args.autotune_kernels)
 
 
 if __name__ == "__main__":

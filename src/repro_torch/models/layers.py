@@ -48,14 +48,13 @@ def init_dense(generator, d_in: int, d_out: int, axes, dtype, use_bias: bool = F
 
 
 def apply_dense(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """x @ w (+ b) for a dense or a compressed ``{m_packed, C}`` weight."""
+    """x @ w (+ b) for a dense, a compressed ``{m_packed, C}`` or an int8
+    ``{q, scale}`` weight."""
     w = _value(p["w"])
     if quantized.is_compressed(w):
         y = quantized.apply_compressed(x, w)
     elif quantized.is_intquant(w):
-        raise NotImplementedError(
-            "int8 {q, scale} weights: apply_intquant is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        y = quantized.apply_intquant(x, w)
     else:
         y = x @ w
     if "b" in p:

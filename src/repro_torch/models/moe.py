@@ -52,13 +52,12 @@ def init_moe(generator, cfg: ModelConfig, dtype) -> dict:
 def _expert_linear(x: torch.Tensor, w) -> torch.Tensor:
     """Per-expert linear over the (E, B, C, d_in) dispatch layout: dense
     stacks (E, d_in, d_out) by einsum, compressed ones through
-    ``quantized.apply_compressed`` (grouped)."""
+    ``quantized.apply_compressed`` (grouped), int8 ones through
+    ``quantized.apply_intquant``."""
     if quantized.is_compressed(w):
         return quantized.apply_compressed(x, w)
     if quantized.is_intquant(w):
-        raise NotImplementedError(
-            "int8 {q, scale} expert stacks: apply_intquant is not ported yet (ROADMAP.md)"
-        )
+        return quantized.apply_intquant(x, w)
     return torch.einsum("ebcd,edf->ebcf", x, w)
 
 

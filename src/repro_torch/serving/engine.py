@@ -6,8 +6,7 @@ step functions over ``models.forward``, and ``Engine`` drives greedy or
 temperature sampling with EOS masking over one rectangular batch.  PyTorch
 runs eagerly, so there is no jit: each step calls the forward directly,
 under ``torch.inference_mode()``.  ``cache_shardings`` (multi-GPU), the
-continuous-batching scheduler, paged KV and the schedule autotuner are not
-ported yet (ROADMAP.md).
+continuous-batching scheduler and paged KV are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -86,9 +85,11 @@ class Engine:
       True            enable them unconditionally;
       False           clear the fused bitlinear hook, so compressed layers
                       take the unpack+einsum form.
-    The hooks are process-global and read at call time.  A manifest's
-    ``kernel_schedules`` table is not applied: the port has one K3 schedule
-    (same results; ROADMAP.md, Queue 3).
+    The hooks are process-global and read at call time.  With the kernels
+    enabled, a manifest's tuned ``kernel_schedules`` table is installed
+    (``kernels.autotune.load_schedules``) before they are, so every fused
+    call resolves its tuned schedule; ``self.kernel_schedules`` (and
+    ``compression["kernel_schedules"]``) counts its entries.
     """
 
     cfg: ModelConfig
@@ -125,7 +126,15 @@ class Engine:
         fused = self.use_fused_bitlinear
         if fused is None:
             fused = self.artifact is not None
+        self.kernel_schedules = 0
         if fused:
+            if self.compression is not None:
+                table = self.artifact.manifest.get("kernel_schedules")
+                if table:
+                    from repro_torch.kernels import autotune
+
+                    self.kernel_schedules = autotune.load_schedules(table)
+                    self.compression["kernel_schedules"] = self.kernel_schedules
             ops.enable_kernels()
         elif self.use_fused_bitlinear is False:
             quantized.clear_bitlinear()

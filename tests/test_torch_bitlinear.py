@@ -1,5 +1,7 @@
-"""The port's compressed layer (bitlinear plain version, fused hook and its
-gradient) against the JAX package's kernel, oracle and custom VJP."""
+"""The port's compressed layer (bitlinear plain versions for every schedule,
+bit algebra and activation dtype, the fused hook and its gradient, the int8
+baseline apply) against the JAX package's Pallas kernels in interpret mode,
+its oracle and its custom VJP."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ from repro_torch.core import decomposition as tdec
 from repro_torch.core import quantized as tq
 from repro_torch.kernels import bitlinear as tbl
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref
 
 torch.set_num_threads(1)
 
@@ -113,18 +116,190 @@ def test_fused_gradient_matches_jax_custom_vjp():
 
 def test_bitlinear_rejects_what_is_not_ported():
     mp, C = _weights(0, 1, 1, 8, 3, 16)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tbl.bitlinear(torch.zeros(2, 8, dtype=torch.int8), torch.from_numpy(mp),
+    with pytest.raises(NotImplementedError, match="float16"):
+        tbl.bitlinear(torch.zeros(2, 8, dtype=torch.float16), torch.from_numpy(mp),
                       torch.from_numpy(C))
     with pytest.raises(ValueError, match="inconsistent"):
         tbl.bitlinear(torch.zeros(2, 9), torch.from_numpy(mp), torch.from_numpy(C))
-    # the grouped kernel K4 refuses the same, and an expert-count mismatch
+    with pytest.raises(ValueError, match="mode"):
+        tbl.bitlinear(torch.zeros(2, 8), torch.from_numpy(mp), torch.from_numpy(C), mode="x")
+    # the grouped kernel K4 refuses the same, stream (no grouped stream, as
+    # in JAX) and an expert-count mismatch
     grouped = {"m_packed": torch.zeros(2, 1, 1, 8, 1, dtype=torch.uint8),
                "C": torch.zeros(2, 1, 1, 3, 16)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        tbl.bitlinear_grouped(torch.zeros(2, 1, 8, dtype=torch.int8), grouped["m_packed"],
+    with pytest.raises(NotImplementedError, match="float16"):
+        tbl.bitlinear_grouped(torch.zeros(2, 1, 8, dtype=torch.float16), grouped["m_packed"],
                               grouped["C"])
+    with pytest.raises(ValueError, match="stream"):
+        tbl.bitlinear_grouped(torch.zeros(2, 1, 8), grouped["m_packed"], grouped["C"],
+                              mode="stream")
     with pytest.raises(ValueError, match="inconsistent"):
         tbl.bitlinear_grouped(torch.zeros(3, 1, 8), grouped["m_packed"], grouped["C"])
     with pytest.raises(ValueError, match="grouped apply"):
         tq.apply_compressed(torch.zeros(3, 1, 8), grouped)
+
+
+# ---------------------------------------------------------------------------
+# every schedule x bit algebra x activation dtype against JAX's Pallas kernels
+# ---------------------------------------------------------------------------
+
+# (T, n_r, n_c, tn, K, td, int8 C scale): decode-sized T with the BBO tile
+# (tn = 8, K = 3); a ragged T with K = 9 (two packed bytes, K % 8 != 0); and
+# a C large enough that most int8 outputs saturate
+SHAPES = [(1, 2, 3, 8, 3, 32, 16), (13, 2, 2, 16, 9, 32, 16), (5, 2, 3, 16, 4, 32, 256)]
+GROUPED_SHAPES = [(2, 1, 2, 3, 8, 3, 32, 16), (3, 13, 2, 2, 16, 9, 32, 256)]
+TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+def _inputs(seed, lead, T, nr, nc, tn, K, td, dtype, c_scale, c_dtype=None):
+    """numpy inputs for both packages.  int8 activations take C on the grid
+    k/256 (|k| <= c_scale): z is an exact integer and every product z*C and
+    partial sum is exact in float32, so the truncated int8 output does not
+    depend on the order of the f32 sum (the kernels and the plain version
+    sum in different orders).  Float inputs are rounded once to the working
+    dtype, identically on both sides."""
+    rng = np.random.default_rng(seed)
+    M = np.where(rng.random(lead + (nr, nc, tn, K)) < 0.5, -1.0, 1.0).astype(np.float32)
+    mp = tdec.pack_bits(torch.from_numpy(M)).numpy()
+    if dtype == "int8":
+        x = rng.integers(-128, 128, lead + (T, nr * tn)).astype(np.int8)
+        C = (rng.integers(-c_scale, c_scale + 1, lead + (nr, nc, K, td)) / 256).astype(np.float32)
+        c_dtype = c_dtype or "float32"
+    else:
+        x = rng.standard_normal(lead + (T, nr * tn)).astype(np.float32)
+        C = (rng.standard_normal(lead + (nr, nc, K, td)) * 0.2).astype(np.float32)
+        c_dtype = c_dtype or dtype
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    Cj = jnp.asarray(C).astype(getattr(jnp, c_dtype))
+    xt = (torch.from_numpy(x) if dtype == "int8"
+          else _to_torch(np.asarray(xj, np.float32), getattr(torch, dtype)))
+    Ct = _to_torch(np.asarray(Cj, np.float32), getattr(torch, c_dtype))
+    return (xj, jnp.asarray(mp), Cj), (xt, torch.from_numpy(mp), Ct)
+
+
+def _same(yt, yj, dtype):
+    yj = np.asarray(yj)
+    assert str(yt.dtype).split(".")[-1] == yj.dtype.name == dtype
+    if dtype == "int8":
+        np.testing.assert_array_equal(yt.numpy(), yj)
+    else:
+        np.testing.assert_allclose(yt.float().numpy(), yj.astype(np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "T{}_r{}c{}n{}k{}d{}_c{}".format(*s))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("math", ["unpack", "bitplane"])
+@pytest.mark.parametrize("mode", ["grid", "decode", "stream"])
+def test_plain_bitlinear_matches_jax_schedule(mode, math, dtype, shape):
+    T, nr, nc, tn, K, td, c_scale = shape
+    (xj, mpj, Cj), (xt, mpt, Ct) = _inputs(T * K, (), T, nr, nc, tn, K, td, dtype, c_scale)
+    yj = jops.bitlinear(xj, mpj, Cj, block_t=8, interpret=True, mode=mode, math=math)
+    _same(tbl.bitlinear(xt, mpt, Ct, block_t=8, mode=mode, math=math), yj, dtype)
+    assert tbl.bitlinear.launches == 0
+
+
+@pytest.mark.parametrize("shape", GROUPED_SHAPES,
+                         ids=lambda s: "E{}_T{}_r{}c{}n{}k{}d{}_c{}".format(*s))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("math", ["unpack", "bitplane"])
+@pytest.mark.parametrize("mode", ["grid", "decode"])
+def test_plain_grouped_bitlinear_matches_jax_schedule(mode, math, dtype, shape):
+    E, T, nr, nc, tn, K, td, c_scale = shape
+    (xj, mpj, Cj), (xt, mpt, Ct) = _inputs(E * T * K, (E,), T, nr, nc, tn, K, td, dtype, c_scale)
+    yj = jops.bitlinear_grouped(xj, mpj, Cj, block_t=8, interpret=True, mode=mode, math=math)
+    _same(tbl.bitlinear_grouped(xt, mpt, Ct, block_t=8, mode=mode, math=math), yj, dtype)
+    assert tbl.bitlinear_grouped.launches == 0
+
+
+@pytest.mark.parametrize("math", ["unpack", "bitplane"])
+def test_plain_int8_with_bf16_c_matches_jax(math):
+    """int8 activations with a bfloat16 C: z is rounded to bf16 (exact here,
+    |z| <= 256) before z @ C, in every schedule."""
+    (xj, mpj, Cj), (xt, mpt, Ct) = _inputs(5, (), 4, 2, 3, 8, 3, 32, "int8", 64, "bfloat16")
+    for mode in ("grid", "stream"):
+        yj = jops.bitlinear(xj, mpj, Cj, block_t=8, interpret=True, mode=mode, math=math)
+        _same(tbl.bitlinear(xt, mpt, Ct, mode=mode, math=math), yj, "int8")
+    (xj, mpj, Cj), (xt, mpt, Ct) = _inputs(6, (2,), 3, 2, 2, 8, 3, 32, "int8", 64, "bfloat16")
+    yj = jops.bitlinear_grouped(xj, mpj, Cj, block_t=8, interpret=True, mode="decode", math=math)
+    _same(tbl.bitlinear_grouped(xt, mpt, Ct, mode="decode", math=math), yj, "int8")
+
+
+def test_int8_output_truncates_toward_zero_and_saturates():
+    """The plain version's int8 output is the f32 accumulator truncated
+    toward zero and saturated to [-128, 127], as the Pallas kernels give."""
+    x = torch.tensor([[1, 0, 0, 0, 0, 0, 0, 0]], dtype=torch.int8)
+    mp = torch.full((1, 1, 8, 1), 0b111, dtype=torch.uint8)        # M[:, k] = +1
+    C = torch.tensor([[[[1.880, -3.862, 188.0, -386.2]] * 3]]).reshape(1, 1, 3, 4) / 3
+    y = ref.bitlinear_ref(x, mp, C)
+    assert y.dtype == torch.int8 and y.tolist() == [[1, -3, 127, -128]]
+    yj = jops.bitlinear(jnp.asarray(x.numpy()), jnp.asarray(mp.numpy()), jnp.asarray(C.numpy()),
+                        block_t=8, interpret=True, mode="grid")
+    np.testing.assert_array_equal(np.asarray(yj), y.numpy())
+
+
+def test_jax_jnp_schedule_disagrees_with_its_kernels_on_int8():
+    """Fixture for ROADMAP Queue 3: JAX's ``jnp`` schedule on int8
+    activations casts C to int8 (unpack: zeros for |C| < 1, int8
+    wrap-around for larger C) or returns float32 zeros (bitplane), where
+    every Pallas kernel gives the saturated f32 result.  The port's plain
+    version, which ``mode="jnp"`` runs, follows the kernels."""
+    (xj, mpj, Cj), (xt, mpt, Ct) = _inputs(3, (), 5, 2, 3, 16, 4, 32, "int8", 16)
+    kern = np.asarray(jops.bitlinear(xj, mpj, Cj, block_t=8, interpret=True, mode="grid"))
+    assert np.abs(kern.astype(np.int32)).max() > 0
+    unpack = np.asarray(jops.bitlinear(xj, mpj, Cj, interpret=True, mode="jnp"))
+    assert unpack.dtype == np.int8 and not unpack.any()                  # C -> int8 = 0
+    bitplane = np.asarray(jops.bitlinear(xj, mpj, Cj, interpret=True, mode="jnp",
+                                         math="bitplane"))
+    assert bitplane.dtype == np.float32 and not bitplane.any()
+    big = Cj * 64                                                        # |C| up to 4
+    kern_big = np.asarray(jops.bitlinear(xj, mpj, big, block_t=8, interpret=True, mode="grid"))
+    wrap = np.asarray(jops.bitlinear(xj, mpj, big, interpret=True, mode="jnp"))
+    assert (np.abs(kern_big.astype(np.int32)) == 128).sum() + (kern_big == 127).sum() > 0
+    assert not np.array_equal(wrap, kern_big)
+    for math in ("unpack", "bitplane"):
+        np.testing.assert_array_equal(
+            tbl.bitlinear(xt, mpt, Ct, mode="jnp", math=math).numpy(), kern)
+        np.testing.assert_array_equal(
+            tbl.bitlinear(xt, mpt, Ct * 64, mode="jnp", math=math).numpy(), kern_big)
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["4d", "grouped_5d"])
+def test_apply_intquant_and_dequantize_match_jax(grouped):
+    rng = np.random.default_rng(11)
+    lead = (3,) if grouped else ()
+    q = rng.integers(-127, 128, lead + (2, 3, 8, 16)).astype(np.int8)
+    scale = (rng.random(lead + (2, 3, 1, 1)) * 0.05).astype(np.float32)
+    x = rng.standard_normal(lead + (4, 5, 16)).astype(np.float32)
+    wj = {"q": jnp.asarray(q), "scale": jnp.asarray(scale)}
+    wt = {"q": torch.from_numpy(q), "scale": torch.from_numpy(scale)}
+    np.testing.assert_allclose(tq.apply_intquant(torch.from_numpy(x), wt).numpy(),
+                               np.asarray(jq.apply_intquant(jnp.asarray(x), wj)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tq.dequantize(wt).numpy(), np.asarray(jq.dequantize(wj)),
+                               rtol=1e-6, atol=1e-7)
+    assert tq.intquant_num_bytes(wt) == jq.intquant_num_bytes(wj)
+
+
+def test_partial_bitlinear_hook_feeds_the_einsum_form():
+    """``register_bitlinear`` (the partial z = x @ M hook) is used by the
+    einsum form, as in JAX; ``clear_bitlinear`` removes it."""
+    mp, C = _weights(4, 2, 2, 8, 3, 16)
+    w = {"m_packed": torch.from_numpy(mp), "C": torch.from_numpy(C)}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 16)).astype(np.float32))
+    calls = []
+
+    def z_hook(xt, m_packed, K):
+        calls.append(tuple(xt.shape))
+        M = ref.unpack_signs(m_packed, K, xt.dtype)
+        return torch.einsum("...rn,rcnk->...rck", xt, M)
+
+    want = tq.apply_compressed_einsum(x, w)
+    tq.register_bitlinear(z_hook)
+    try:
+        torch.testing.assert_close(tq.apply_compressed_einsum(x, w), want)
+    finally:
+        tq.clear_bitlinear()
+    assert calls == [(3, 2, 8)]
+    with pytest.raises(ValueError, match="clear_bitlinear"):
+        tq.register_bitlinear(None)

@@ -215,3 +215,109 @@ def test_engine_serves_moe_through_the_grouped_kernel(dev):
     assert bl.bitlinear_grouped.launches - before[1] == per_forward["k4"] * 8
     assert out.shape == (2, 24) and torch.equal(out[:, :16], prompts)
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+
+
+# ---------------------------------------------------------------------------
+# K3/K4 schedules x bit algebras x activation dtypes, and the autotuner
+# ---------------------------------------------------------------------------
+
+def _variant_operands(g, dev, lead, T, n_r, n_c, tn, K, td, xd, cd):
+    """int8 activations take C on the grid k/256 (|k| <= 16) and x in
+    [-8, 8]: every f32 sum is exact, so the int8 output must be equal."""
+    kb = (K + 7) // 8
+    mp = torch.randint(0, 256, lead + (n_r, n_c, tn, kb), generator=g, device=dev,
+                       dtype=torch.uint8)
+    if xd == torch.int8:
+        C = torch.randint(-16, 17, lead + (n_r, n_c, K, td), generator=g, device=dev) / 256
+        x = torch.randint(-8, 9, lead + (T, n_r * tn), generator=g, device=dev,
+                          dtype=torch.int8)
+    else:
+        C = torch.randn(lead + (n_r, n_c, K, td), generator=g, device=dev) * 0.2
+        x = torch.randn(lead + (T, n_r * tn), generator=g, device=dev).to(xd)
+    return x, mp, C.to(cd)
+
+
+def _assert_variant(yk, yr, xd, cd):
+    assert yk.dtype == yr.dtype and yk.shape == yr.shape
+    if xd == torch.int8:
+        assert torch.equal(yk, yr)
+    elif xd == cd == torch.float32:
+        torch.testing.assert_close(yk, yr, rtol=1e-4, atol=1e-4)
+    else:       # z is rounded to bf16 before z @ C
+        scale = yr.float().abs().max().item()
+        assert (yk.float() - yr.float()).abs().max().item() <= 2e-2 * scale
+
+
+SCHEDULE_SHAPES = [(1, 3, 2, 16, 3, 160), (13, 3, 2, 16, 9, 160), (40, 4, 3, 8, 3, 128),
+                   (4, 5, 2, 16, 4, 48)]
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("mode,opts", [("grid", {}), ("grid", {"block_t": 16, "r_chunk": 2}),
+                                       ("decode", {}), ("stream", {}),
+                                       ("stream", {"r_chunk": 2})])
+def test_bitlinear_schedules_match_plain(dev, mode, opts, math_, cd, xd):
+    g = torch.Generator(device=dev).manual_seed(7)
+    for T, n_r, n_c, tn, K, td in SCHEDULE_SHAPES:
+        x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, xd, cd)
+        before = bl.bitlinear.by_schedule[f"{mode}/{math_}"]
+        yk = bl.bitlinear(x, mp, C, mode=mode, math=math_, **opts)
+        torch.cuda.synchronize()
+        assert bl.bitlinear.by_schedule[f"{mode}/{math_}"] == before + 1
+        _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), xd, cd)
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("mode", ["grid", "decode"])
+def test_bitlinear_grouped_schedules_match_plain(dev, mode, math_, xd):
+    g = torch.Generator(device=dev).manual_seed(8)
+    for E, T in ((1, 13), (3, 4), (4, 1)):
+        for cd in (torch.float32, torch.bfloat16):
+            x, mp, C = _variant_operands(g, dev, (E,), T, 3, 2, 16, 9, 96, xd, cd)
+            before = bl.bitlinear_grouped.by_schedule[f"{mode}/{math_}"]
+            yk = bl.bitlinear_grouped(x, mp, C, mode=mode, math=math_)
+            torch.cuda.synchronize()
+            assert bl.bitlinear_grouped.by_schedule[f"{mode}/{math_}"] == before + 1
+            _assert_variant(yk, ref.bitlinear_grouped_ref(x, mp, C, math_), xd, cd)
+
+
+def test_bitlinear_refuses_what_the_card_does_not_serve(dev):
+    x = torch.zeros(64, 25600, dtype=torch.float32, device=dev)
+    mp = torch.zeros(800, 1, 32, 1, dtype=torch.uint8, device=dev)
+    C = torch.zeros(800, 1, 4, 128, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):      # x rows beyond 227 KiB
+        bl.bitlinear(x, mp, C, mode="decode")
+    with pytest.raises(ValueError, match="jnp"):                # the plain version
+        bl.bitlinear(x, mp, C, mode="jnp")
+    assert bl.bitlinear(x[:4].bfloat16(), mp, C, mode="auto").shape == (4, 128)
+
+
+def test_engine_serves_from_a_tuned_table(dev):
+    """tune_artifact on the card, then an Engine from the manifest: every
+    resolution comes from the table and no resolution names the plain
+    version."""
+    from repro_torch.kernels import autotune
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("qwen3-32b")), dtype="bfloat16")
+    values, _ = split(init_model(cfg, seed=0, device=dev))
+    policy = CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                               min_size=4096)
+    cvals, art = execute_plan(plan_compression(values, policy), values, seed=0, device=dev)
+    autotune.clear_schedules()
+    table = autotune.tune_artifact(art, T_values=(2, 32), repeats=1, iters=2)
+    assert table["entries"] and all(e["mode"] != "jnp" for e in table["entries"].values())
+    autotune.clear_schedules()
+    autotune.clear_log()
+    try:
+        eng = Engine(cfg, cvals, max_len=24, batch=2, eos_id=cfg.vocab_size, artifact=art)
+        assert eng.kernel_schedules == len(table["entries"])
+        eng.generate(torch.randint(0, cfg.vocab_size, (2, 16), device=dev), 4)
+    finally:
+        ops.disable_kernels()
+        autotune.clear_schedules()
+    log = autotune.last_resolutions()
+    assert log and all(r["source"] == "cache" for r in log)
+    assert {r["key"] for r in log} <= set(table["entries"])

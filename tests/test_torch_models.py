@@ -22,6 +22,7 @@ from repro.models import layers as jlayers
 from repro.models.params import split as j_split
 from repro_torch import bridge
 from repro_torch.configs import get_config, reduced_for_smoke
+from repro_torch.core import quantized as tq
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import forward, init_cache
@@ -118,9 +119,21 @@ def test_mlp_and_apply_dense_dense_and_compressed_match_jax(qwen, qwen_compresse
 
 
 def test_apply_dense_refuses_int8_weights():
-    w = {"w": {"q": torch.zeros(1, 1, 4, 4, dtype=torch.int8), "scale": torch.ones(1, 1, 1, 1)}}
-    with pytest.raises(NotImplementedError, match="apply_intquant"):
-        tlayers.apply_dense(torch.zeros(2, 4), w)
+    """int8 ``{q, scale}`` weights are served by dequant-einsum as in JAX's
+    ``apply_dense``; a grouped int8 stack whose expert axis does not match
+    x's is refused."""
+    rng = np.random.default_rng(5)
+    q = rng.integers(-127, 128, (2, 2, 4, 8)).astype(np.int8)
+    scale = (rng.random((2, 2, 1, 1)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((3, 8)).astype(np.float32)
+    _close(tlayers.apply_dense(torch.from_numpy(x), {"w": {"q": torch.from_numpy(q),
+                                                          "scale": torch.from_numpy(scale)}}),
+           jlayers.apply_dense(jnp.asarray(x), {"w": {"q": jnp.asarray(q),
+                                                      "scale": jnp.asarray(scale)}}))
+    grouped = {"q": torch.zeros(2, 1, 1, 4, 4, dtype=torch.int8),
+               "scale": torch.ones(2, 1, 1, 1, 1)}
+    with pytest.raises(ValueError, match="grouped intquant"):
+        tq.apply_intquant(torch.zeros(3, 1, 4), grouped)
 
 
 # ---------------------------------------------------------------------------

@@ -180,7 +180,7 @@ def test_serve_model_compresses_when_asked(model):
     assert res.engine.compression["tensors"] > 0 and res.tokens.shape == (2, 7)
 
 
-@pytest.mark.parametrize("flag", ["--load-curve", "--autotune-kernels"])
+@pytest.mark.parametrize("flag", ["--load-curve"])
 def test_serve_cli_refuses_unported_flags(flag, capsys):
     from repro_torch.launch.serve import main
 
@@ -188,6 +188,18 @@ def test_serve_cli_refuses_unported_flags(flag, capsys):
         main(["--arch", "qwen3-32b", "--reduced", flag])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_serve_cli_autotune_kernels_needs_cuda(capsys):
+    """``--autotune-kernels`` is ported: it gets past the "not yet ported"
+    exit and reaches the CUDA check."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.launch.serve import main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "qwen3-32b", "--reduced", "--autotune-kernels"])
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,9 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      shapes (T = 4 for decode and the last-position head, T = 4096 for the
      prefill of every other weight); each output is held against
      x @ decompress(w), and K3 (csrc/bitlinear.cu) must have been launched
-     once per call.  Then K3 is held against its plain version on the same
-     inputs and timed beside its bound and a dense bf16 matmul.
+     once per call.  Then K3, at the schedule each call resolved (the
+     default rule), is held against its plain version on the same inputs
+     and timed beside its bound and a dense bf16 matmul.
   K3's variants: every schedule (grid at three (block_t, r_chunk), decode
      where its x rows fit shared memory, stream at r_chunk 1 and 2) x bit
      algebra (unpack, bitplane) x activations (f32, bf16, int8) x C (f32,
@@ -29,7 +30,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      512, 4, 4096, the BBO tensors (tn = 8, K = 3) and a ragged T = 37:
      int8 equal (on a dyadic C grid where every f32 sum is exact), f32
      within 1e-4 + 1e-4 |y|, bf16 within 2e-2 of max |y|.  Each schedule x
-     bit algebra timed in bf16 over phase 4's distinct calls.
+     bit algebra timed in bf16 over phase 4's distinct calls, and over
+     phase 4's tensors at T = 1 ... 64 (the default rule's small-T cutoff).
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
      shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
      and bf16; in bf16 also against f32 scores within K5's rounding bound.
@@ -38,15 +40,17 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
   4. Generation: ``serve_model`` restores phase 2's checkpoint through its
      manifest and generates 32 tokens for 4 prompts of 1024 tokens; K5
      must have been launched once (one layer, one prefill) and K3 once per
-     compressed tensor per forward (prefill + 31 decode steps).  The
-     prefill's logits are held against the plain path (kernels disabled),
-     and the plain path's greedy tokens are compared (reported).
+     compressed tensor per forward (prefill + 31 decode steps), per
+     schedule as its resolutions (the default rule) picked.  The prefill's
+     logits are held against the plain path (kernels disabled), and the
+     plain path's greedy tokens are compared (reported).
   4b. Tuned serving, this slice's main path: ``tune_artifact`` on phase 2's
      artifact at T = 4 and 4096 (each signature's winner and trials are
      printed), the table saved into the manifest, then phase 4's serve
      again from that checkpoint: the Engine installs the table, every
      resolution must come from it, K3's launches per schedule must be what
-     it picked, and the prefill logits must agree with the plain path.
+     it picked (the tuner's trial launches are counted apart), and the
+     prefill logits must agree with the plain path.
   K4 (the grouped form in csrc/bitlinear.cu) against its plain version at
      granite-moe-1b-a400m's three expert shapes (gate, up, down; tile
      32x128, K = 4) in f32 and bf16, at phase 5's decode and prefill T per
@@ -54,7 +58,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      K in {3, 9}; timed in bf16 beside its bound, the plain version and a
      dense bf16 ``torch.bmm`` over the decompressed expert stacks.  Then
      K4's variants (grid, decode x bit algebra x activations x C) at the
-     three expert stacks and both T, held and timed as K3's.
+     three expert stacks and both T, held and timed as K3's (small T per
+     expert: 1 ... 64).
   5. MoE serving at full width and depth: ``compress_model`` on
      granite-moe-1b-a400m (24 layers, 32 experts top-8, random weights from
      seed 0) with the default policy (alternating, tile 32x128, K = 4) and
@@ -66,7 +71,12 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      checkpoint cast to f32; in bf16 (where rounding differences flip
      near-tied router choices and the flips cascade through the layers)
      their distance and, per layer, the tokens whose expert sets differ
-     between the two paths are reported.
+     between the two paths are reported.  Launches per schedule must be
+     what the resolutions picked.
+  5b. Tuned MoE serving: phase 4b on phase 5's checkpoint, so the tuner
+     times K4 on the layer x expert stacks and the Engine resolves K3 and
+     K4 from the table: every resolution from it, launches per kernel and
+     schedule as it picked; bf16 prefill logits reported as phase 5's.
 
   K2 (csrc/sqa_sweep.cu) against its plain PyTorch version on dyadic
      fixtures at the paper's nBOCSqa solve (P, C, T, S, n) = (25, 10, 8, 64,
@@ -483,8 +493,8 @@ def generate_shapes(path):
 
 def phase_serve(torch, dev, params, artifact, flush):
     from repro_torch.core import quantized
+    from repro_torch.kernels import autotune, ops, ref
     from repro_torch.kernels import bitlinear as bl
-    from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     weights = {}
@@ -525,8 +535,11 @@ def phase_serve(torch, dev, params, artifact, flush):
               f"{path} T={T}: bad output")
         check(err <= BF16_TOL * scale, f"{path} T={T}: |y - x@W_hat| {err:.3g} > tol")
         mp, C = w["m_packed"], w["C"]
-        yk = bl.bitlinear(x, mp, C)
-        yp = ref.bitlinear_ref(x, mp, C)
+        # the schedule the served call above resolved (no table: the default rule)
+        sched = autotune.resolve_fused(x, mp, C)
+        kw = sched.kwargs()
+        yk = bl.bitlinear(x, mp, C, **kw)
+        yp = ref.bitlinear_ref(x, mp, C, sched.math)
         kerr = float((yk.float() - yp.float()).abs().max())
         check(kerr <= BF16_TOL * float(yp.float().abs().max()),
               f"{path} T={T}: kernel vs plain {kerr:.3g}")
@@ -535,13 +548,14 @@ def phase_serve(torch, dev, params, artifact, flush):
         del dense
         n_r, n_c, tn, kb = mp.shape
         K, td = C.shape[2], C.shape[3]
-        ms = cuda_ms(torch, lambda: bl.bitlinear(x, mp, C), 5, flush)
-        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C), 2, flush)
+        ms = cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, **kw), 5, flush)
+        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C, sched.math), 2, flush)
         library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5, flush)
         nbytes = mp.numel() + C.numel() * C.element_size() + x.numel() * 2 + y.numel() * 2
         ops_ = 2 * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
-        rows.append({"tensor": path, "T": T, "shape": [n_r, n_c, tn, K, td], "ms": ms,
+        rows.append({"tensor": path, "T": T, "shape": [n_r, n_c, tn, K, td],
+                     "schedule": f"{sched.mode}/{sched.math}", "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": max(b_bytes, b_ops),
                      "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -672,6 +686,44 @@ def sum_variants(timed):
     return out
 
 
+# the default rule's small-T cutoff: each schedule timed at these T
+SWEEP_T = (1, 2, 4, 8, 16, 32, 64)
+
+
+def sweep_small_t(torch, g, dev, fn, operands, modes, Ts, flush):
+    """Per T: ms summed over ``operands`` [(lead, mp, C)] per "mode/math",
+    in bf16, each schedule at the default rule's options (grid at its
+    block_t, stream at r_chunk 2), a schedule only where every operand's
+    block fits; and the default rule's picks ("rule")."""
+    from repro_torch.kernels import bitlinear as bl
+
+    budget = bl.device_smem_budget(dev)
+    opts = {"grid": {"block_t": bl.DEFAULT_GRID_BLOCK_T}, "decode": {}, "stream": {"r_chunk": 2}}
+    out = {}
+    for T in Ts:
+        xs = [torch.randn(lead + (T, mp.shape[-4] * mp.shape[-2]), generator=g,
+                          device=dev).to(torch.bfloat16) for lead, mp, _ in operands]
+
+        def fits(mode):
+            return all(bl.smem_bytes(mode, T=T, n_r=mp.shape[-4], tn=mp.shape[-2],
+                                     K=C.shape[-2], td=C.shape[-1], x_itemsize=2, c_itemsize=2,
+                                     r_chunk=bl.resolve_r_chunk(mp.shape[-4],
+                                                                opts[mode].get("r_chunk", 1)))
+                       <= budget for _, mp, C in operands)
+
+        row = {"rule": sorted({"{mode}/{math}".format(**bl.default_schedule(
+            bool(lead), T=T, n_r=mp.shape[-4], tn=mp.shape[-2], K=C.shape[-2], td=C.shape[-1],
+            x_itemsize=2, c_itemsize=2, budget=budget)) for lead, mp, C in operands})}
+        for mode in (m for m in modes if fits(m)):
+            for math in MATHS:
+                row[f"{mode}/{math}"] = sum(
+                    cuda_ms(torch, lambda: fn(x, mp, C, mode=mode, math=math, **opts[mode]), 5,
+                            flush)
+                    for x, (_, mp, C) in zip(xs, operands))
+        out[T] = row
+    return out
+
+
 def phase_k3_variants(torch, dev, weights, inputs, flush):
     """K3's schedules, bit algebras and activation dtypes against the plain
     version on phase 3's tensors; then each mode x math timed in bf16 over
@@ -721,7 +773,12 @@ def phase_k3_variants(torch, dev, weights, inputs, flush):
                 timed[f"{mode}/{math}"].append(
                     {"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops})
-    out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed)}
+    # the small-T cutoff of the default rule, over phase 4's tensors
+    operands = [((), weights[p]["m_packed"], weights[p]["C"]) for p in sorted(weights)]
+    sweep = sweep_small_t(torch, g, dev, bl.bitlinear, operands, ("grid", "decode", "stream"),
+                          SWEEP_T, flush)
+    out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed),
+           "small_t_ms": sweep}
     emit({"k3_variants": out})
     return out
 
@@ -818,9 +875,9 @@ def phase_k5(torch, dev, flush):
 
 
 def phase_generate(torch, dev, out_dir):
+    from repro_torch.kernels import autotune, ops
     from repro_torch.kernels import bitlinear as bl
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.kernels import sa_sweep as sa
     from repro_torch.launch.serve import serve_model
     from repro_torch.models import init_cache
@@ -835,13 +892,16 @@ def phase_generate(torch, dev, out_dir):
     sa.sa_sweep_many.launches = 0
     bl.reset_counts()
     fa.flash_attention.launches = 0
+    autotune.clear_log()
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                       steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
     torch.cuda.synchronize()
     launches = {"flash_attention": fa.flash_attention.launches,
                 "bitlinear": bl.bitlinear.launches, "sa_sweep_many": sa.sa_sweep_many.launches}
-    by_schedule = dict(bl.bitlinear.by_schedule)
+    by_schedule = served(bl.bitlinear)
     eng = res.engine
+    heuristic_launches(torch, dev, eng.artifact.manifest, {"bitlinear": by_schedule},
+                       qwen_tokens, "phase 4")
     n_tensors = eng.compression["tensors"]
     check(launches["flash_attention"] == cfg.num_layers,
           f"K5 launched {launches['flash_attention']} times, want {cfg.num_layers}")
@@ -900,11 +960,12 @@ TUNE_T = (GEN_BATCH, GEN_BATCH * GEN_PROMPT)
 TUNE_REPEATS, TUNE_ITERS = 3, 3
 
 
-def tuned_launches(manifest, entries, dev):
-    """Launches per "mode/math" that the table implies for phase 4's
-    serve: per compressed tensor and layer, one prefill call (T = 4096; the
-    head runs on the last position, T = 4) and GEN_STEPS - 1 decode calls
-    (T = 4)."""
+def implied_launches(manifest, schedules, dev, tokens):
+    """{kind: {"mode/math": n}}: the launches a serve of GEN_STEPS tokens
+    makes when each call signature runs ``schedules[key]`` (a table's
+    entries, or what a serve's resolution log says it resolved).  Per
+    compressed tensor and layer: one prefill call and GEN_STEPS - 1 decode
+    calls, at the T that ``tokens(path, kind)`` gives as (prefill, decode)."""
     from repro_torch.kernels import autotune
 
     want = {}
@@ -912,32 +973,48 @@ def tuned_launches(manifest, entries, dev):
         E, n_r, n_c, tn, _, K, td, dname = autotune._entry_geometry(e)
         kind = "bitlinear_grouped" if E else "bitlinear"
         layers = e["group_dims"][0] if e.get("group_dims") else 1
-        prefill_T = GEN_BATCH if path == "head/w" else GEN_BATCH * GEN_PROMPT
-        for T, n in ((prefill_T, 1), (GEN_BATCH, GEN_STEPS - 1)):
+        for T, n in zip(tokens(path, kind), (1, GEN_STEPS - 1)):
             key = autotune.schedule_key(kind, n_r=n_r, n_c=n_c, tn=tn, K=K, td=td, T=T,
                                         dtype=dname, E=E, device=autotune.device_kind(dev),
                                         mode=autotune.pallas_mode(dev))
-            s = entries[key]
+            s = schedules[key]
             k = f"{s['mode']}/{s['math']}"
-            want[k] = want.get(k, 0) + n * layers
+            counts = want.setdefault(kind, {})
+            counts[k] = counts.get(k, 0) + n * layers
     return want
 
 
-def phase_tuned_generate(torch, dev, out_dir, heuristic):
-    """This slice's main path: ``tune_artifact`` on phase 2's artifact at
-    T = 4 and 4096, the table saved into its manifest, then phase 4's
-    serve again from that checkpoint, the Engine installing the table.
-    Every resolution must come from the cache, K3's launches per schedule
-    must be what the table picked, and the prefill logits must agree with
-    the plain path."""
+def qwen_tokens(path, kind):
+    """phase 4's T per call: 4096 at prefill (the head runs on the last
+    position, T = 4) and 4 at decode."""
+    return (GEN_BATCH if path == "head/w" else GEN_BATCH * GEN_PROMPT, GEN_BATCH)
+
+
+def served(fn):
+    """A wrapper's non-zero launches per "mode/math"."""
+    return {k: v for k, v in fn.by_schedule.items() if v}
+
+
+def resolved_schedules():
+    """key -> schedule of every resolution in the autotuner's log."""
+    from repro_torch.kernels import autotune
+
+    return {r["key"]: r["schedule"] for r in autotune.last_resolutions()}
+
+
+def tuned_serve(torch, dev, out_dir, cfg, tokens):
+    """``tune_artifact`` on the checkpoint's artifact at TUNE_T, the table
+    saved into its manifest, then ``serve_model`` from that checkpoint, the
+    Engine installing the table.  Every resolution must come from the
+    table, and each kernel's launches per schedule must be what the table
+    picked; the tuner's trial launches are counted apart."""
     from repro_torch.compression import CompressionArtifact
-    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import bitlinear as bl
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import serve_model
-    from repro_torch.models import init_cache
 
-    _, cfg = full_width_config()
+    kinds = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
     eos = cfg.vocab_size                     # never emitted: launch counts are fixed
     art = CompressionArtifact.load(out_dir)
     autotune.clear_schedules()
@@ -951,18 +1028,18 @@ def phase_tuned_generate(torch, dev, out_dir, heuristic):
                                    iters=TUNE_ITERS, device=dev, trials_out=trials)
     torch.cuda.synchronize()
     tune_s = time.time() - t
-    tuning = dict(bl.bitlinear.by_schedule)
+    tuning = {k: served(fn) for k, fn in kinds.items()}
     entries = table["entries"]
     check(entries and all(e["mode"] != "jnp" for e in entries.values()),
           f"tuned table {entries}")
     art.save(out_dir)
     autotune.clear_schedules()               # the Engine installs the table from the manifest
     autotune.clear_log()
+    bl.reset_counts()
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                       steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
     torch.cuda.synchronize()
-    main_path = dict(bl.bitlinear.by_schedule)
-    serving = {k: v - tuning[k] for k, v in main_path.items() if v - tuning[k]}
+    serving = {k: served(fn) for k, fn in kinds.items() if fn.launches}
     eng = res.engine
     log = autotune.last_resolutions()
     check(eng.kernel_schedules == len(entries)
@@ -971,11 +1048,53 @@ def phase_tuned_generate(torch, dev, out_dir, heuristic):
     check(log and all(r["source"] == "cache" for r in log),
           f"resolutions not from the cache: {[r for r in log if r['source'] != 'cache']}")
     check({r["key"] for r in log} <= set(entries), "a resolution's key is not in the table")
-    want = tuned_launches(art.manifest, entries, dev)
-    check(serving == want, f"K3 launches per schedule {serving}, the table implies {want}")
+    want = implied_launches(art.manifest, entries, dev, tokens)
+    check(serving == want, f"launches per schedule {serving}, the table implies {want}")
     check(fa.flash_attention.launches == cfg.num_layers,
           f"K5 launched {fa.flash_attention.launches} times, want {cfg.num_layers}")
+    toks = res.tokens
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+          and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"tuned generated tokens {tuple(toks.shape)} out of shape or range")
+    t = res.timing
+    out = {
+        "tune_s": tune_s, "signatures": len(entries),
+        "winners": {k: "{mode}/{math} bt={block_t} rc={r_chunk}".format(**e)
+                    for k, e in entries.items()},
+        "trials": {k: [[tr["schedule"]["mode"], tr["schedule"]["math"],
+                        tr["schedule"]["block_t"], tr["schedule"]["r_chunk"],
+                        round(tr["seconds"] * 1e6, 1), bool(tr.get("plain"))]
+                       for tr in v if "seconds" in tr] for k, v in trials.items()},
+        "launches_tuning": tuning, "launches_serving": serving, "resolutions": len(log),
+        "ttft_s": t["prefill_s"],
+        "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+    }
+    return res, out
 
+
+def heuristic_launches(torch, dev, manifest, by_kind, tokens, label):
+    """A serve without a table launched, per kernel and schedule, what its
+    resolutions (the default rule) picked."""
+    from repro_torch.kernels import autotune
+
+    log = autotune.last_resolutions()
+    check(log and all(r["source"] == "heuristic" for r in log),
+          f"{label}: resolutions {[r['source'] for r in log]}, want the default rule")
+    want = implied_launches(manifest, resolved_schedules(), dev, tokens)
+    check(by_kind == want, f"{label}: launches per schedule {by_kind}, its resolutions imply "
+                           f"{want}")
+
+
+def phase_tuned_generate(torch, dev, out_dir, heuristic):
+    """This slice's main path on qwen3-32b: phase 4's serve again, tuned
+    (``tuned_serve``); its prefill logits must agree with the plain path."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.models import init_cache
+
+    _, cfg = full_width_config()
+    res, out = tuned_serve(torch, dev, out_dir, cfg, qwen_tokens)
+    eng = res.engine
     max_len = GEN_PROMPT + GEN_STEPS
     with torch.inference_mode():
         lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
@@ -991,24 +1110,13 @@ def phase_tuned_generate(torch, dev, out_dir, heuristic):
           f"tuned prefill logits vs plain: {err:.3g} > {LOGIT_TOL} x {scale:.3g}")
     autotune.clear_schedules()
     autotune.clear_log()
-    t = res.timing
-    out = {
-        "tune_s": tune_s, "signatures": len(entries),
-        "winners": {k: "{mode}/{math} bt={block_t} rc={r_chunk}".format(**e)
-                    for k, e in entries.items()},
-        "trials": {k: [[tr["schedule"]["mode"], tr["schedule"]["math"],
-                        tr["schedule"]["block_t"], tr["schedule"]["r_chunk"],
-                        round(tr["seconds"] * 1e6, 1), bool(tr.get("plain"))]
-                       for tr in v if "seconds" in tr] for k, v in trials.items()},
-        "launches_tuning": tuning, "launches_serving": serving, "launches_main_path": main_path,
-        "resolutions": len(log),
-        "ttft_s": t["prefill_s"], "ttft_s_heuristic": heuristic["ttft_s"],
-        "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+    out.update({
+        "ttft_s_heuristic": heuristic["ttft_s"],
         "decode_ms_per_step_heuristic": heuristic["decode_ms_per_step"],
         "heuristic_launches": heuristic["bitlinear_by_schedule"],
         "prefill_logits": {"max_abs_diff": err, "max_abs_logit": scale,
                            "tol": LOGIT_TOL * scale},
-    }
+    })
     emit({"tuned_generate": out})
     return out
 
@@ -1054,8 +1162,8 @@ def k4_fixtures(cfg):
 
 def phase_k4(torch, dev, flush):
     from repro_torch.core import quantized
+    from repro_torch.kernels import autotune, ref
     from repro_torch.kernels import bitlinear as bl
-    from repro_torch.kernels import ref
 
     cfg = moe_config()
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1066,11 +1174,14 @@ def phase_k4(torch, dev, flush):
                            dtype=torch.uint8)
         C = (torch.randn((E, n_r, n_c, K, td), generator=g, device=dev) * 0.2).to(dtype)
         x = torch.randn((E, T, n_r * tn), generator=g, device=dev).to(dtype)
+        # the schedule a served call of these shapes resolves (no table: the default rule)
+        sched = autotune.resolve_grouped(x, mp, C)
+        kw = sched.kwargs()
         before = bl.bitlinear_grouped.launches
-        yk = bl.bitlinear_grouped(x, mp, C)
+        yk = bl.bitlinear_grouped(x, mp, C, **kw)
         torch.cuda.synchronize()
         check(bl.bitlinear_grouped.launches == before + 1, f"K4 {label}: not launched once")
-        yp = ref.bitlinear_grouped_ref(x, mp, C)
+        yp = ref.bitlinear_grouped_ref(x, mp, C, sched.math)
         check(bool(torch.isfinite(yk).all()) and yk.shape == yp.shape and yk.dtype == x.dtype,
               f"K4 {label}: bad output")
         diff = (yk.float() - yp.float()).abs()
@@ -1084,12 +1195,14 @@ def phase_k4(torch, dev, flush):
                   f"K4 {label}: |y - plain| {err:.3g} beyond 1e-4 + 1e-4 |plain|")
         max_err = max(max_err, err)
         out[label] = {"shape": [E, n_r, n_c, tn, K, td], "T": T, "dtype": dt,
-                      "max_abs_err": err, "tol": tol, "max_abs_y": scale}
+                      "schedule": f"{sched.mode}/{sched.math}", "max_abs_err": err, "tol": tol,
+                      "max_abs_y": scale}
         if dt != "bfloat16" or label.split("_")[0] not in ("gate", "up", "down"):
             continue
         w_dense = quantized.decompress({"m_packed": mp, "C": C}, torch.bfloat16)
-        ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C), 10, flush)
-        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_grouped_ref(x, mp, C), 3, flush)
+        ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C, **kw), 10, flush)
+        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_grouped_ref(x, mp, C, sched.math), 3,
+                           flush)
         library_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush)
         nbytes = mp.numel() + C.numel() * C.element_size() + (x.numel() + yk.numel()) * 2
         ops_ = 2 * E * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
@@ -1128,11 +1241,13 @@ def phase_k4_variants(torch, dev, flush):
     errs, checks = {}, {}
     timed = {f"{m}/{a}": [] for m in ("grid", "decode") for a in MATHS}
     budget = bl.device_smem_budget(dev)
+    stacks_ops = []
     for name, (d_in, d_out) in stacks.items():
         n_r, n_c, tn, K, td = d_in // 32, d_out // 128, 32, 4, 128
         mp = torch.randint(0, 256, (E, n_r, n_c, tn, 1), generator=g, device=dev,
                            dtype=torch.uint8)
         C0 = torch.randn((E, n_r, n_c, K, td), generator=g, device=dev) * 0.2
+        stacks_ops.append(((E,), mp, C0.to(torch.bfloat16)))
         for phase, T in k4_tokens(cfg).items():
             label = f"{name}_{phase}"
             ran = 0
@@ -1162,7 +1277,9 @@ def phase_k4_variants(torch, dev, flush):
                     timed[f"{mode}/{math}"].append(
                         {"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops})
-    out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed)}
+    out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed),
+           "small_t_ms": sweep_small_t(torch, g, dev, bl.bitlinear_grouped, stacks_ops,
+                                       ("grid", "decode"), SWEEP_T, flush)}
     emit({"k4_variants": out})
     return out
 
@@ -1278,7 +1395,17 @@ def moe_prefill_pair(torch, cfg, params, prompts, dev):
             "expert_sets_differ": [int((a != b).any(-1).sum()) for a, b in zip(sk, sp)]}
 
 
+def moe_tokens(path, kind):
+    """phase 5's T per call: K3 at 4096 (prefill) and 4 (decode); K4 per
+    expert at its capacities (k4_tokens)."""
+    if kind == "bitlinear":
+        return GEN_BATCH * GEN_PROMPT, GEN_BATCH
+    t = k4_tokens(moe_config())
+    return t["prefill"], t["decode"]
+
+
 def phase_moe_generate(torch, dev, out_dir):
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import bitlinear as bl
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sa_sweep as sa
@@ -1292,6 +1419,7 @@ def phase_moe_generate(torch, dev, out_dir):
     sa.sa_sweep_many.launches = 0
     bl.reset_counts()
     fa.flash_attention.launches = 0
+    autotune.clear_log()
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                       steps=steps, eos_id=eos, seed=SEED, device=dev, verbose=False)
     torch.cuda.synchronize()
@@ -1299,12 +1427,13 @@ def phase_moe_generate(torch, dev, out_dir):
                 "bitlinear": bl.bitlinear.launches,
                 "flash_attention": fa.flash_attention.launches,
                 "sa_sweep_many": sa.sa_sweep_many.launches}
-    by_schedule = {"bitlinear": dict(bl.bitlinear.by_schedule),
-                   "bitlinear_grouped": dict(bl.bitlinear_grouped.by_schedule)}
+    by_schedule = {"bitlinear": served(bl.bitlinear),
+                   "bitlinear_grouped": served(bl.bitlinear_grouped)}
     want = {"bitlinear_grouped": 3 * L * steps, "bitlinear": 4 * L * steps,
             "flash_attention": L, "sa_sweep_many": 0}
     check(launches == want, f"launches {launches}, want {want}")
     eng = res.engine
+    heuristic_launches(torch, dev, eng.artifact.manifest, by_schedule, moe_tokens, "phase 5")
     check(eng.compression["grouped_tensors"] == 3, f"compression {eng.compression}")
     toks = res.tokens
     check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + steps)
@@ -1354,6 +1483,70 @@ def phase_moe_generate(torch, dev, out_dir):
     }
     emit({"moe_generate": out})
     return out
+
+
+def phase_moe_tuned_generate(torch, dev, out_dir, heuristic):
+    """The tuned path on granite-moe: phase 5's serve again, tuned
+    (``tuned_serve``), so the tuner times K4's schedules on layer x expert
+    stacks and the Engine resolves them from the table.  The bf16 prefill
+    logits against the plain path are reported without a limit, as phase
+    5's (routing flips cascade); every schedule at these stacks is held
+    against its plain version in the K4 variant check."""
+    from repro_torch.kernels import autotune
+
+    cfg = moe_config()
+    res, out = tuned_serve(torch, dev, out_dir, cfg, moe_tokens)
+    check("bitlinear_grouped" in out["launches_tuning"]
+          and any("|bitlinear_grouped|" in k for k in out["winners"]),
+          "the tuner timed no grouped signature")
+    bf16 = moe_prefill_pair(torch, cfg, res.engine.params, res.prompts, dev)
+    check(bf16.pop("kernel_launches") == {"bitlinear": 4 * cfg.num_layers,
+                                          "bitlinear_grouped": 3 * cfg.num_layers,
+                                          "flash_attention": cfg.num_layers},
+          "tuned prefill did not run every kernel once per layer")
+    check(all(r["source"] == "cache" for r in autotune.last_resolutions()),
+          "the tuned prefill resolved outside the table")
+    autotune.clear_schedules()
+    autotune.clear_log()
+    out.update({
+        "ttft_s_heuristic": heuristic["ttft_s"],
+        "decode_ms_per_step_heuristic": heuristic["decode_ms_per_step"],
+        "heuristic_launches": heuristic["by_schedule"],
+        "prefill_logits_bf16": {"max_abs_diff": bf16["max_abs_diff"],
+                                "max_abs_logit": bf16["max_abs_logit"]},
+    })
+    emit({"moe_tuned_generate": out})
+    return out
+
+
+def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
+    """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
+    launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
+    their sum ("main", the tuned path) and the untuned serves' ("untuned";
+    phases 4, 5).  The tuned serves launched what their tables picked and
+    the untuned ones what the default rule picked (both checked in their
+    phases); here the tuner must have launched every schedule x bit
+    algebra, each being a candidate."""
+    def add(*counts):
+        out = {}
+        for c in counts:
+            for k, v in c.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    launch = {}
+    for kind, keys in (("bitlinear", k3v["timing"]), ("bitlinear_grouped", k4v["timing"])):
+        parts = {
+            "tuning": add(*(p["launches_tuning"].get(kind, {}) for p in (tuned, moe_tuned))),
+            "serving": add(*(p["launches_serving"].get(kind, {}) for p in (tuned, moe_tuned))),
+            "untuned": add(gen["bitlinear_by_schedule"] if kind == "bitlinear" else {},
+                           moe_gen["by_schedule"][kind]),
+        }
+        parts["main"] = add(parts["tuning"], parts["serving"])
+        missing = [k for k in keys if not parts["tuning"].get(k)]
+        check(not missing, f"{kind}: the tuner launched no {missing}")
+        launch[kind] = parts
+    return launch
 
 
 def main() -> int:
@@ -1432,6 +1625,9 @@ def main() -> int:
         t = time.time()
         moe_gen = phase_moe_generate(torch, dev, moe_dir)
         phases["moe_generate_s"] = time.time() - t
+        t = time.time()
+        moe_tuned = phase_moe_tuned_generate(torch, dev, moe_dir, moe_gen)
+        phases["moe_tuned_generate_s"] = time.time() - t
     finally:
         shutil.rmtree(moe_dir, ignore_errors=True)
     t = time.time()
@@ -1439,23 +1635,20 @@ def main() -> int:
     phases["paper_s"] = time.time() - t
     emit({"phase_s": phases})
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
-    # this slice's main path (tuning + tuned serving) launched every K3
-    # schedule and bit algebra; phase 5 launched both of K4's kernels
-    k3_main = tuned["launches_main_path"]
-    check(all(k3_main.values()), f"a K3 variant was not launched on the main path: {k3_main}")
-    k4_main = moe_gen["by_schedule"]["bitlinear_grouped"]
-    for mode in ("grid", "decode"):
-        check(sum(v for k, v in k4_main.items() if k.startswith(mode + "/")) > 0,
-              f"K4 {mode} was not launched in phase 5: {k4_main}")
+    launch = kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned)
 
-    def variants(timing, errs, launches, replaces, **extra):
-        return [dict({"mode": key.split("/")[0], "math": key.split("/")[1],
-                      "replaces": replaces[key.split("/")[0]],
-                      "launches": launches[key], "max_abs_err": errs[key],
-                      "timed_calls": tm["calls"], "timed_T": tm["T"], "ms": tm["ms"],
-                      "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-                      "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]},
-                     **{k: v[key] for k, v in extra.items()})
+    def variants(timing, errs, launches, replaces):
+        # launches: the tuned path's (tuning trials + tuned serving), then
+        # each part, and the untuned serves' (phases 4, 5)
+        return [{"mode": key.split("/")[0], "math": key.split("/")[1],
+                 "replaces": replaces[key.split("/")[0]],
+                 "launches": launches["main"].get(key, 0),
+                 **{f"launches_{part}": launches[part].get(key, 0)
+                    for part in ("tuning", "serving", "untuned")},
+                 "max_abs_err": errs[key],
+                 "timed_calls": tm["calls"], "timed_T": tm["T"], "ms": tm["ms"],
+                 "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]}
                 for key, tm in timing.items()]
     emit({"kernels": [
         {"name": "sa_sweep_many", "route": "cuda",
@@ -1479,19 +1672,16 @@ def main() -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
          "library_ms": k3["library_ms"],
-         # per schedule x bit algebra, launches from the tuned phase (tuning
-         # + serving), times summed in bf16 over phase 4's distinct calls
-         # that the schedule takes (decode: the T = 4 ones)
+         # per schedule x bit algebra (launches: see variants), times summed
+         # in bf16 over phase 4's distinct calls that the schedule takes
+         # (decode: the T = 4 ones)
          "sources": ["src/repro_torch/csrc/bitlinear.cu",
                      "src/repro_torch/csrc/bitlinear_decode.cu",
                      "src/repro_torch/csrc/bitlinear_stream.cu"],
-         "variants": variants(k3v["timing"], k3v["max_abs_err"], k3_main,
+         "variants": variants(k3v["timing"], k3v["max_abs_err"], launch["bitlinear"],
                               {"grid": "src/repro/kernels/bitlinear.py:417",
                                "decode": "src/repro/kernels/bitlinear.py:369",
-                               "stream": "src/repro/kernels/bitlinear.py:388"},
-                              launches_serving={k: tuned["launches_serving"].get(k, 0)
-                                                for k in k3_main},
-                              launches_phase4=gen["bitlinear_by_schedule"])},
+                               "stream": "src/repro/kernels/bitlinear.py:388"})},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:79",
@@ -1510,11 +1700,11 @@ def main() -> int:
          "ms": k4["timing"]["ms"], "plain_ms": k4["timing"]["plain_ms"],
          "bound_ms": k4["timing"]["bound_ms"], "bound_by": k4["timing"]["bound_by"],
          "library_ms": k4["timing"]["library_ms"],
-         # per schedule x bit algebra, launches from phase 5, times summed
+         # per schedule x bit algebra (launches: see variants), times summed
          # in bf16 over phase 5's distinct (stack, T) calls the schedule takes
          "sources": ["src/repro_torch/csrc/bitlinear.cu",
                      "src/repro_torch/csrc/bitlinear_decode.cu"],
-         "variants": variants(k4v["timing"], k4v["max_abs_err"], k4_main,
+         "variants": variants(k4v["timing"], k4v["max_abs_err"], launch["bitlinear_grouped"],
                               {"grid": "src/repro/kernels/bitlinear.py:558",
                                "decode": "src/repro/kernels/bitlinear.py:536"})},
         {"name": "sqa_sweep_many", "route": "cuda",

@@ -330,6 +330,7 @@ struct Args {
   const void* C;
   void* y;
   int E, T, n_r, n_c, tn, kb, K, td, block_t, rc;
+  size_t smem;  // dynamic shared memory of one block (block_smem)
   cudaStream_t stream;
 };
 
@@ -340,18 +341,28 @@ inline int group_rows(int T) {
   return T <= 1 ? 1 : T <= 2 ? 2 : T <= 4 ? 4 : 8;
 }
 
-// Dynamic shared memory of one block; kernels/bitlinear.py::smem_bytes
-// computes the same.
+// Columns per lane: one 32-column chunk for narrow C tiles, else four.
+inline int ncol_for(int td) { return td <= 32 ? 1 : 4; }
+
+// Dynamic shared memory of one block of MODE, the layout bitlinear_kernel
+// carves: [x rows (decode) | two M/C slots per warp (stream)] [each warp's
+// z buffer] [block sums].  The one definition of it: the launch checks it
+// against the budget, and bitlinear_smem_bytes (bitlinear.cu) hands it to
+// the Python side for admission.
 template <int MODE>
-inline size_t smem_bytes(const Args& a, int bt, int ncol, size_t xsize, size_t csize) {
+inline size_t block_smem(int T, int n_r, int tn, int kb, int K, int td, int r_chunk,
+                         size_t xsize, size_t csize) {
+  const int bt = group_rows<MODE>(T);
   const size_t W = warps_for<MODE>(bt);
-  size_t n = W * a.rc * bt * a.K * 4 + (size_t)bt * 32 * ncol * 4;
-  if (MODE == DECODE) n += align16((size_t)a.T * a.n_r * a.tn * xsize);
+  const size_t rc = MODE == DECODE ? 1 : r_chunk;
+  size_t n = W * rc * bt * K * 4 + (size_t)bt * 32 * ncol_for(td) * 4;
+  if (MODE == DECODE) n += align16((size_t)T * n_r * tn * xsize);
   if (MODE == STREAM)
-    n += W * 2 * (align16((size_t)a.rc * a.tn * a.kb) +
-                  align16((size_t)a.rc * a.K * a.td * csize));
+    n += W * 2 * (align16(rc * tn * kb) + align16(rc * K * td * csize));
   return n;
 }
+
+inline size_t x_size(int x_kind) { return x_kind == 0 ? 4 : x_kind == 1 ? 2 : 1; }
 
 inline int copy_width(size_t bytes, const void* base) {
   const uintptr_t b = reinterpret_cast<uintptr_t>(base);
@@ -367,15 +378,15 @@ cudaError_t launch_cfg(const Args& a) {
   const int row_block = MODE == GRID ? (BT == 1 ? 1 : a.block_t) : a.T;
   const dim3 grid(MODE == GRID ? (a.T + row_block - 1) / row_block : 1, a.E * a.n_c,
                   MODE == GRID ? (a.td + CW - 1) / CW : 1);
-  const size_t smem = smem_bytes<MODE>(a, BT, NCOL, sizeof(XT), sizeof(CT));
-  if (smem > 48 * 1024) {
+  if (a.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(bitlinear_kernel<XT, CT, BT, NCOL, BP, MODE>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)a.smem);
     if (err != cudaSuccess) return err;
   }
   const int m_vec = copy_width((size_t)a.tn * a.kb, a.mp);
   const int c_vec = copy_width((size_t)a.K * a.td * sizeof(CT), a.C);
-  bitlinear_kernel<XT, CT, BT, NCOL, BP, MODE><<<grid, W * 32, smem, a.stream>>>(
+  bitlinear_kernel<XT, CT, BT, NCOL, BP, MODE><<<grid, W * 32, a.smem, a.stream>>>(
       static_cast<const XT*>(a.x), a.mp, static_cast<const CT*>(a.C), static_cast<XT*>(a.y), a.T,
       a.n_r, a.n_c, a.tn, a.kb, a.K, a.td, row_block, a.rc, m_vec, c_vec);
   return cudaGetLastError();
@@ -383,7 +394,7 @@ cudaError_t launch_cfg(const Args& a) {
 
 template <int MODE, typename XT, typename CT, int BT, bool BP>
 cudaError_t launch_ncol(const Args& a) {
-  if (a.td <= 32) return launch_cfg<MODE, XT, CT, BT, 1, BP>(a);
+  if (ncol_for(a.td) == 1) return launch_cfg<MODE, XT, CT, BT, 1, BP>(a);
   return launch_cfg<MODE, XT, CT, BT, 4, BP>(a);
 }
 
@@ -416,25 +427,29 @@ cudaError_t launch_c(const Args& a, int c_bf16, int bitplane) {
 }
 
 // x_kind: 0 float32, 1 bfloat16, 2 int8 (y in x's dtype); c_bf16: C is
-// bfloat16 (else float32).  All pointers contiguous device memory.
+// bfloat16 (else float32).  All pointers contiguous device memory.  Returns
+// a cudaError_t, or minus the block's shared memory in bytes when that is
+// over smem_budget (nothing is launched then).
 template <int MODE>
 int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T, int n_r,
              int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16, int bitplane,
-             int block_t, int r_chunk, void* stream) {
+             int block_t, int r_chunk, int smem_budget, void* stream) {
   if (T <= 0 || E <= 0) return cudaSuccess;
   if ((long long)E * n_c > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
-  if (block_t < 1 || r_chunk < 1) return cudaErrorInvalidValue;
+  if (block_t < 1 || r_chunk < 1 || x_kind < 0 || x_kind > 2) return cudaErrorInvalidValue;
+  const int rc = MODE == DECODE ? 1 : r_chunk;
+  const size_t smem = block_smem<MODE>(T, n_r, tn, kb, K, td, rc, x_size(x_kind),
+                                       c_bf16 ? 2 : 4);
+  if (smem > (size_t)smem_budget) return -(int)(smem < 0x7fffffff ? smem : 0x7fffffff);
   const Args a{x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, block_t,
-               MODE == DECODE ? 1 : r_chunk, reinterpret_cast<cudaStream_t>(stream)};
+               rc, smem, reinterpret_cast<cudaStream_t>(stream)};
   switch (x_kind) {
     case 0:
       return launch_c<MODE, float>(a, c_bf16, bitplane);
     case 1:
       return launch_c<MODE, __nv_bfloat16>(a, c_bf16, bitplane);
-    case 2:
-      return launch_c<MODE, int8_t>(a, c_bf16, bitplane);
     default:
-      return cudaErrorInvalidValue;
+      return launch_c<MODE, int8_t>(a, c_bf16, bitplane);
   }
 }
 

@@ -12,10 +12,10 @@ extern "C" {
 // ignored: a block covers all T rows and takes one r tile at a time.
 int bitlinear_decode(const void* x, const uint8_t* m_packed, const void* C, void* y, int E, int T,
                      int n_r, int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16,
-                     int bitplane, int block_t, int r_chunk, void* stream) {
+                     int bitplane, int block_t, int r_chunk, int smem_budget, void* stream) {
   return bitlinear_impl::dispatch<bitlinear_impl::DECODE>(x, m_packed, C, y, E, T, n_r, n_c, tn,
                                                           kb, K, td, x_kind, c_bf16, bitplane,
-                                                          block_t, r_chunk, stream);
+                                                          block_t, r_chunk, smem_budget, stream);
 }
 
 }  // extern "C"

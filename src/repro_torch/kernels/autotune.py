@@ -232,26 +232,17 @@ def heuristic(kind: str, *, n_r: int, n_c: int, tn: int, kb: int, K: int, td: in
               smem_budget: int | None = None) -> Schedule:
     """Static cost-model default.  On the CPU (``interpret``) every mode is
     the plain version, so the jnp schedule with the dot formulation, as
-    JAX's interpret-mode default.  On the card, the port's own model (not
-    JAX's VMEM one), set from the per-schedule times measured on an H100
-    (PERF.md): at decode-sized T (<= 16) stream with r_chunk 2 for K3 and
-    decode for K4, both with the bitplane algebra, each only while its
-    block fits ``smem_budget`` (the card's opt-in shared memory); else the
-    grid at block_t 64, r_chunk 1, unpack."""
+    JAX's interpret-mode default.  On the card, the kernels' own default
+    rule, ``bitlinear.default_schedule`` (the one ``mode="auto"`` runs),
+    against ``smem_budget`` (default: the card's opt-in shared memory)."""
     if interpret is None:
         interpret = not torch.cuda.is_available()
     if interpret:
         return Schedule(mode="jnp", math="dot")
     budget = _bl.device_smem_budget() if smem_budget is None else smem_budget
-    if T <= 16:
-        rc = _bl.resolve_r_chunk(n_r, 2)
-        if kind == "bitlinear" and _bl.smem_bytes(
-                "stream", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
-                c_itemsize=c_itemsize, r_chunk=rc) <= budget:
-            return Schedule(mode="stream", math="bitplane", r_chunk=rc)
-        if _bl.decode_path_ok(T, n_r, tn, K, td, x_itemsize, budget):
-            return Schedule(mode="decode", math="bitplane")
-    return Schedule(mode="grid", math="unpack", block_t=64, r_chunk=1)
+    return Schedule(**_bl.default_schedule(kind == "bitlinear_grouped", T=T, n_r=n_r, tn=tn,
+                                           K=K, td=td, x_itemsize=x_itemsize,
+                                           c_itemsize=c_itemsize, budget=budget))
 
 
 def resolve(kind: str, *, n_r: int, n_c: int, tn: int, kb: int, K: int, td: int, T: int, dtype,

@@ -20,8 +20,15 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
   * stream (K3 only, as in JAX): one block per column tile; each warp
     double-buffers its chunks of ``r_chunk`` M and C tiles in shared memory
     with asynchronous copies.  ``block_t`` is ignored.
+  * auto: the card's default schedule for the call, :func:`default_schedule`
+    (its mode, block_t and r_chunk; the caller's math).  A serve without a
+    tuned table resolves the same rule (``autotune.heuristic``).
   * jnp: the plain version; the CPU route.  It is not served on the card:
     a CUDA tensor with ``mode="jnp"`` is refused.
+
+A block's shared memory is defined once, in ``csrc/bitlinear.cuh``
+(``block_smem``): the launch refuses a block over the budget, and
+:func:`smem_bytes` asks the built library for the same number.
 
 Bit algebra (``math``): unpack or bitplane (``z = 2 (x @ B) - rowsum(x)``);
 "dot" is unpack outside ``jnp``, as in JAX.  Activations are float32,
@@ -32,6 +39,7 @@ saturated); C is float32 or bfloat16.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +53,7 @@ __all__ = [
     "GROUPED_MODES",
     "MATHS",
     "decode_path_ok",
+    "default_schedule",
     "smem_bytes",
     "device_smem_budget",
     "resolve_r_chunk",
@@ -56,11 +65,23 @@ GROUPED_MODES = ("auto", "grid", "decode", "jnp")
 MATHS = ("unpack", "bitplane")
 
 _X_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_KIND_OF_ITEMSIZE = {4: 0, 2: 1, 1: 2}   # x: float32, bfloat16, int8
 _C_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535          # experts x column tiles share blockIdx.y
 _SOURCES = {"grid": "bitlinear", "decode": "bitlinear_decode", "stream": "bitlinear_stream"}
+_MODE_IDS = {"grid": 0, "decode": 1, "stream": 2}
 _FNS: dict = {}           # mode -> loaded C entry point
 _BUDGETS: dict = {}       # device index -> opt-in shared memory per block
+
+# The card's default schedule (default_schedule): up to SMALL_T rows, K3
+# streams and K4 decodes, in the bitplane algebra, while the block fits the
+# budget; above, the grid at DEFAULT_GRID_BLOCK_T rows.  Set from the times
+# of each schedule at T = 1 ... 64 that chip_smoke.py measures on an H100
+# (PERF.md): their register groups fit T up to 4 rows, where stream beats
+# the grid by 13-44% and decode ties or beats it by up to 7%; from 8 rows
+# on both use the grid's 8-row groups and tie or trail it.
+SMALL_T = 4
+DEFAULT_GRID_BLOCK_T = 64
 
 
 def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
@@ -72,32 +93,30 @@ def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
     return rc
 
 
-def _group_rows(mode: str, T: int) -> int:
-    if mode == "grid":
-        return 1 if T == 1 else 8
-    return 1 if T <= 1 else 2 if T <= 2 else 4 if T <= 4 else 8
-
-
-def _align16(n: int) -> int:
-    return (n + 15) // 16 * 16
-
-
 def smem_bytes(mode: str, *, T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
                c_itemsize: int, r_chunk: int = 1) -> int:
-    """Dynamic shared memory of one block of ``mode`` (``smem_bytes`` in
-    ``csrc/bitlinear.cuh``): the warps' z buffers and the block sums, plus
-    the staged x rows (decode) or each warp's two M/C slots (stream)."""
-    bt = _group_rows(mode, T)
-    warps = 32 if mode != "stream" and bt <= 2 else 16
-    rc = 1 if mode == "decode" else r_chunk
-    ncol = 1 if td <= 32 else 4
-    n = warps * rc * bt * K * 4 + bt * 32 * ncol * 4
-    if mode == "decode":
-        n += _align16(T * n_r * tn * x_itemsize)
-    if mode == "stream":
-        kb = (K + 7) // 8
-        n += warps * 2 * (_align16(rc * tn * kb) + _align16(rc * K * td * c_itemsize))
-    return n
+    """Dynamic shared memory of one block of ``mode`` (the warps' z
+    buffers and the block sums, plus the staged x rows for decode or each
+    warp's two M/C slots for stream), from the built kernels' own layout,
+    ``bitlinear_smem_bytes`` in ``csrc/bitlinear.cu``.  Needs the CUDA
+    toolchain: it builds the grid library on first use."""
+    return _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk)
+
+
+@functools.lru_cache(maxsize=4096)
+def _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk) -> int:
+    fn = _FNS.get("smem")
+    if fn is None:
+        fn = _build.load(_SOURCES["grid"]).bitlinear_smem_bytes
+        fn.argtypes = [ctypes.c_int] * 10
+        fn.restype = ctypes.c_longlong
+        _FNS["smem"] = fn
+    n = fn(_MODE_IDS[mode], T, n_r, tn, (K + 7) // 8, K, td, _KIND_OF_ITEMSIZE[x_itemsize],
+           int(c_itemsize == 2), r_chunk)
+    if n < 0:
+        raise ValueError(f"smem_bytes: bad arguments mode {mode!r}, x_itemsize {x_itemsize}, "
+                         f"r_chunk {r_chunk}")
+    return int(n)
 
 
 def device_smem_budget(device=None) -> int:
@@ -118,11 +137,30 @@ def decode_path_ok(T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
                       c_itemsize=4) <= budget
 
 
+def default_schedule(grouped: bool, *, T: int, n_r: int, tn: int, K: int, td: int,
+                     x_itemsize: int, c_itemsize: int, budget: int) -> dict:
+    """The card's default schedule of one call, the port's own cost model
+    (not JAX's VMEM one): up to ``SMALL_T`` rows K3 streams with r_chunk 2
+    and K4 decodes, both in the bitplane
+    algebra and only while the block fits ``budget`` bytes of shared
+    memory; otherwise the grid at ``DEFAULT_GRID_BLOCK_T`` rows, r_chunk 1,
+    unpack.  Returns the fields of an ``autotune.Schedule``."""
+    if grouped:
+        if T <= SMALL_T and decode_path_ok(T, n_r, tn, K, td, x_itemsize, budget):
+            return {"mode": "decode", "math": "bitplane", "block_t": 128, "r_chunk": 1}
+    elif T <= SMALL_T:
+        rc = resolve_r_chunk(n_r, 2)
+        if smem_bytes("stream", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
+                      c_itemsize=c_itemsize, r_chunk=rc) <= budget:
+            return {"mode": "stream", "math": "bitplane", "block_t": 128, "r_chunk": rc}
+    return {"mode": "grid", "math": "unpack", "block_t": DEFAULT_GRID_BLOCK_T, "r_chunk": 1}
+
+
 def _lib(mode: str):
     fn = _FNS.get(mode)
     if fn is None:
         fn = getattr(_build.load(_SOURCES[mode]), f"bitlinear_{mode}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[mode] = fn
     return fn
@@ -159,18 +197,10 @@ def _check(name, x, m_packed, C, lead: int, mode: str, math: str, modes) -> None
         raise ValueError(f"{name}: math {math!r} not in {MATHS + ('dot',)}")
 
 
-def _auto_mode(T, n_r, tn, K, td, x, block_t, budget) -> str:
-    """JAX's static rule: decode when the padded T fits one token block and
-    the decode working set fits the budget, else grid."""
-    if -(-T // 8) * 8 > block_t:
-        return "grid"
-    budget = device_smem_budget(x.device) if budget is None else budget
-    return "decode" if decode_path_ok(T, n_r, tn, K, td, x.element_size(), budget) else "grid"
-
-
 def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> None:
     """Launch ``csrc/bitlinear*.cu::bitlinear_<mode>`` on x's device and
-    stream; ``dims`` are (E, T, n_r, n_c, tn, kb, K, td)."""
+    stream; ``dims`` are (E, T, n_r, n_c, tn, kb, K, td).  The library
+    refuses a block over ``budget`` bytes of shared memory."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("m_packed", m_packed), ("C", C)):
@@ -183,19 +213,29 @@ def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget)
         raise ValueError(f"{name}: E * n_c = {E * n_c} exceeds {_MAX_GRID_Y}")
     if block_t < 1:
         raise ValueError(f"{name}: block_t {block_t} < 1")
-    need = smem_bytes(mode, T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x.element_size(),
-                      c_itemsize=C.element_size(), r_chunk=r_chunk)
-    budget = device_smem_budget(x.device) if budget is None else budget
-    if need > budget:
-        raise ValueError(f"{name}: mode {mode!r} needs {need} bytes of shared memory per "
-                         f"block, over the budget of {budget}")
     err = _lib(mode)(
         x.data_ptr(), m_packed.data_ptr(), C.data_ptr(), y.data_ptr(), *dims,
         _X_KINDS[x.dtype], int(C.dtype == torch.bfloat16), int(math == "bitplane"),
-        int(block_t), int(r_chunk), torch.cuda.current_stream(x.device).cuda_stream,
+        int(block_t), int(r_chunk), int(budget), torch.cuda.current_stream(x.device).cuda_stream,
     )
+    if err < 0:
+        raise ValueError(f"{name}: mode {mode!r} needs {-err} bytes of shared memory per "
+                         f"block, over the budget of {budget}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch of mode {mode!r} failed (cudaError {err})")
+
+
+def _card_schedule(grouped, mode, x, C, T, n_r, tn, K, td, block_t, r_chunk, budget):
+    """(mode, block_t, r_chunk, budget) of a call on the card: "auto" takes
+    the default rule's, the budget defaults to the card's opt-in limit."""
+    budget = device_smem_budget(x.device) if budget is None else budget
+    if mode == "auto":
+        s = default_schedule(grouped, T=T, n_r=n_r, tn=tn, K=K, td=td,
+                             x_itemsize=x.element_size(), c_itemsize=C.element_size(),
+                             budget=budget)
+        mode, block_t, r_chunk = s["mode"], s["block_t"], s["r_chunk"]
+    rc = resolve_r_chunk(n_r, r_chunk) if mode != "decode" else 1
+    return mode, block_t, rc, budget
 
 
 def _count(fn, mode: str, math: str) -> None:
@@ -208,9 +248,9 @@ def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t:
               smem_budget: int | None = None) -> torch.Tensor:
     """y (T, n_c*td) = x @ decompress(m_packed, C) for x (T, d_in),
     m_packed (n_r, n_c, tn, kb) uint8 and C (n_r, n_c, K, td); any T.
-    ``mode`` pins the schedule (module docstring); "auto" picks decode when
-    T fits one token block of ``block_t`` and the decode block fits
-    ``smem_budget`` bytes (default: the card's opt-in limit), else grid."""
+    ``mode`` pins the schedule (module docstring); "auto" runs
+    :func:`default_schedule`'s.  ``smem_budget`` is the shared memory a
+    block may take (default: the card's opt-in limit)."""
     _check("bitlinear", x, m_packed, C, 0, mode, math, MODES)
     if mode != "jnp" and math == "dot":
         math = "unpack"
@@ -222,15 +262,14 @@ def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t:
     T = x.shape[0]
     n_r, n_c, tn, kb = m_packed.shape
     K, td = C.shape[2], C.shape[3]
-    if mode == "auto":
-        mode = _auto_mode(T, n_r, tn, K, td, x, block_t, smem_budget)
-    rc = resolve_r_chunk(n_r, r_chunk) if mode != "decode" else 1
+    mode, block_t, rc, budget = _card_schedule(False, mode, x, C, T, n_r, tn, K, td, block_t,
+                                               r_chunk, smem_budget)
     x = x.contiguous()
     y = torch.empty((T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0:
         return y
     _launch("bitlinear", mode, x, m_packed, C, y, (1, T, n_r, n_c, tn, kb, K, td), math,
-            block_t, rc, smem_budget)
+            block_t, rc, budget)
     _count(bitlinear, mode, math)
     return y
 
@@ -242,7 +281,7 @@ def bitlinear_grouped(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
     e in one launch: x (E, T, d_in), m_packed (E, n_r, n_c, tn, kb) uint8,
     C (E, n_r, n_c, K, td) -> (E, T, n_c*td); any T (one T for all
     experts), any E >= 1.  Schedules grid, decode and jnp (no stream, as in
-    JAX); "auto" as in :func:`bitlinear`."""
+    JAX); "auto" and ``smem_budget`` as in :func:`bitlinear`."""
     _check("bitlinear_grouped", x, m_packed, C, 1, mode, math, GROUPED_MODES)
     if mode != "jnp" and math == "dot":
         math = "unpack"
@@ -254,15 +293,14 @@ def bitlinear_grouped(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
     E, T, _ = x.shape
     _, n_r, n_c, tn, kb = m_packed.shape
     K, td = C.shape[3], C.shape[4]
-    if mode == "auto":
-        mode = _auto_mode(T, n_r, tn, K, td, x, block_t, smem_budget)
-    rc = resolve_r_chunk(n_r, r_chunk) if mode != "decode" else 1
+    mode, block_t, rc, budget = _card_schedule(True, mode, x, C, T, n_r, tn, K, td, block_t,
+                                               r_chunk, smem_budget)
     x = x.contiguous()
     y = torch.empty((E, T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0 or E == 0:
         return y
     _launch("bitlinear_grouped", mode, x, m_packed, C, y, (E, T, n_r, n_c, tn, kb, K, td),
-            math, block_t, rc, smem_budget)
+            math, block_t, rc, budget)
     _count(bitlinear_grouped, mode, math)
     return y
 

@@ -22,6 +22,7 @@ from repro_torch.compression import CompressionPolicy, execute_plan, plan_compre
 from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.core import decomposition as tdec
 from repro_torch.kernels import autotune as at
+from repro_torch.kernels import bitlinear as tbl
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.autotune import Schedule
 from repro_torch.models import init_model
@@ -99,7 +100,22 @@ def test_heuristic_on_the_cpu_is_jax_s_interpret_default():
         Schedule("jnp", "dot")
 
 
-def test_heuristic_on_the_card_uses_the_shared_memory_budget():
+@pytest.fixture
+def layout(monkeypatch):
+    """A block's shared memory comes from the built CUDA library, which the
+    CPU has not; here a stand-in with the layout's growing terms, the staged
+    x rows of decode and the two M/C slots of stream's 16 warps.  The real
+    layout is held on the card (``tests/test_torch_cuda.py``)."""
+    def smem_bytes(mode, *, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk=1):
+        if mode == "decode":
+            return T * n_r * tn * x_itemsize
+        if mode == "stream":
+            return 16 * 2 * r_chunk * K * td * c_itemsize
+        return 0
+    monkeypatch.setattr(tbl, "smem_bytes", smem_bytes)
+
+
+def test_heuristic_on_the_card_uses_the_shared_memory_budget(layout):
     """The card's cost model: stream (K3) or decode (K4) at decode-sized T
     while the block fits the shared-memory budget, else the grid."""
     gate = dict(n_r=160, n_c=200, tn=32, kb=1, K=4, td=128, x_itemsize=2, c_itemsize=2,
@@ -108,6 +124,10 @@ def test_heuristic_on_the_card_uses_the_shared_memory_budget():
     assert at.heuristic("bitlinear_grouped", T=4, **gate) == Schedule("decode", "bitplane")
     assert at.heuristic("bitlinear", T=4096, **gate) == Schedule("grid", "unpack", 64, 1)
     assert at.heuristic("bitlinear_grouped", T=1280, **gate).mode == "grid"
+    # the measured cutoff: stream and decode up to 4 rows
+    assert at.heuristic("bitlinear_grouped", T=1, **gate).mode == "decode"
+    assert at.heuristic("bitlinear", T=5, **gate).mode == "grid"
+    assert at.heuristic("bitlinear_grouped", T=5, **gate).mode == "grid"
     # over the budget: the grid, whatever T
     tight = dict(gate, smem_budget=4096)
     assert at.heuristic("bitlinear", T=4, **tight).mode == "grid"
@@ -118,7 +138,7 @@ def test_heuristic_on_the_card_uses_the_shared_memory_budget():
     assert at.heuristic("bitlinear_grouped", T=16, **down).mode == "grid"
 
 
-def test_candidates_on_the_card_hold_no_plain_version_and_no_duplicates():
+def test_candidates_on_the_card_hold_no_plain_version_and_no_duplicates(layout):
     sig = dict(n_r=48, n_c=4, tn=32, kb=1, K=4, td=128, x_itemsize=2, c_itemsize=2,
                smem_budget=BUDGET)
     for kind in ("bitlinear", "bitlinear_grouped"):

@@ -295,13 +295,65 @@ def test_bitlinear_refuses_what_the_card_does_not_serve(dev):
     assert bl.bitlinear(x[:4].bfloat16(), mp, C, mode="auto").shape == (4, 128)
 
 
-def test_engine_serves_from_a_tuned_table(dev):
-    """tune_artifact on the card, then an Engine from the manifest: every
-    resolution comes from the table and no resolution names the plain
-    version."""
+def test_block_layout_is_what_the_launch_admits(dev):
+    """smem_bytes (the library's layout) is the exact budget a launch
+    takes: at that budget it launches, one byte under it is refused."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    for T, n_r, n_c, tn, K, td in SCHEDULE_SHAPES:
+        for xd, cd in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                       (torch.int8, torch.float32)):
+            x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, xd, cd)
+            for mode, rc in (("grid", 2), ("decode", 1), ("stream", 2)):
+                rc = bl.resolve_r_chunk(n_r, rc)
+                need = bl.smem_bytes(mode, T=T, n_r=n_r, tn=tn, K=K, td=td,
+                                     x_itemsize=x.element_size(), c_itemsize=C.element_size(),
+                                     r_chunk=rc)
+                y = bl.bitlinear(x, mp, C, mode=mode, r_chunk=rc, smem_budget=need)
+                _assert_variant(y, ref.bitlinear_ref(x, mp, C), xd, cd)
+                with pytest.raises(ValueError, match=f"needs {need} bytes of shared memory"):
+                    bl.bitlinear(x, mp, C, mode=mode, r_chunk=rc, smem_budget=need - 1)
+    # qwen3-32b's down (d_in 25,600) keeps 4 rows of bf16 x in 227 KiB, not 16
+    budget = bl.device_smem_budget(dev)
+    assert bl.decode_path_ok(4, 800, 32, 4, 128, 2, budget)
+    assert not bl.decode_path_ok(16, 800, 32, 4, 128, 2, budget)
+
+
+@pytest.mark.parametrize("T", [1, 4, 16, 40])
+def test_auto_runs_the_default_schedule(dev, T):
+    """mode="auto" launches what autotune.heuristic resolves (one rule),
+    in the caller's bit algebra; with a budget only the grid's block fits,
+    the grid."""
     from repro_torch.kernels import autotune
 
-    cfg = dataclasses.replace(reduced_for_smoke(get_config("qwen3-32b")), dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(10)
+    n_r, n_c, tn, K, td = 48, 4, 32, 4, 128
+    for grouped, fn, lead in ((False, bl.bitlinear, ()), (True, bl.bitlinear_grouped, (3,))):
+        x, mp, C = _variant_operands(g, dev, lead, T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                     torch.bfloat16)
+        want = autotune.heuristic("bitlinear_grouped" if grouped else "bitlinear", n_r=n_r,
+                                  n_c=n_c, tn=tn, kb=1, K=K, td=td, T=T, x_itemsize=2,
+                                  c_itemsize=2, interpret=False)
+        grid_only = bl.smem_bytes("grid", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=2,
+                                  c_itemsize=2)
+        for budget, mode in ((None, want.mode), (grid_only, "grid")):
+            before = dict(fn.by_schedule)
+            y = fn(x, mp, C, math="unpack", smem_budget=budget)
+            torch.cuda.synchronize()
+            ran = {k for k, v in fn.by_schedule.items() if v != before[k]}
+            assert ran == {f"{mode}/unpack"}
+            plain = ref.bitlinear_grouped_ref if grouped else ref.bitlinear_ref
+            _assert_variant(y, plain(x, mp, C), torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "granite-moe-1b-a400m"])
+def test_engine_serves_from_a_tuned_table(dev, arch):
+    """tune_artifact on the card, then an Engine from the manifest: every
+    resolution comes from the table and no resolution names the plain
+    version.  granite-moe tunes and resolves its layer x expert stacks
+    through the grouped kernel."""
+    from repro_torch.kernels import autotune
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype="bfloat16")
     values, _ = split(init_model(cfg, seed=0, device=dev))
     policy = CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
                                min_size=4096)
@@ -309,6 +361,8 @@ def test_engine_serves_from_a_tuned_table(dev):
     autotune.clear_schedules()
     table = autotune.tune_artifact(art, T_values=(2, 32), repeats=1, iters=2)
     assert table["entries"] and all(e["mode"] != "jnp" for e in table["entries"].values())
+    kinds = {k.split("|")[1] for k in table["entries"]}
+    assert kinds == ({"bitlinear", "bitlinear_grouped"} if cfg.num_experts else {"bitlinear"})
     autotune.clear_schedules()
     autotune.clear_log()
     try:
@@ -321,3 +375,4 @@ def test_engine_serves_from_a_tuned_table(dev):
     log = autotune.last_resolutions()
     assert log and all(r["source"] == "cache" for r in log)
     assert {r["key"] for r in log} <= set(table["entries"])
+    assert {r["key"].split("|")[1] for r in log} == kinds

@@ -35,13 +35,15 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
      shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
      and bf16; in bf16 also against f32 scores within K5's rounding bound.
-     Timed at the bf16 prefill shape beside its bound, the plain version
+     Timed at both bf16 prefill shapes beside its bound, the plain version
      and ``scaled_dot_product_attention``.
   4. Generation: ``serve_model`` restores phase 2's checkpoint through its
      manifest and generates 32 tokens for 4 prompts of 1024 tokens; K5
      must have been launched once (one layer, one prefill) and K3 once per
      compressed tensor per forward (prefill + 31 decode steps), per
-     schedule as its resolutions (the default rule) picked.  The prefill's
+     schedule as its resolutions (the default rule) picked.  Time to first
+     token is the median of the serve's prefill and two more of the same
+     prompts (all three and their spread are printed).  The prefill's
      logits are held against the plain path (kernels disabled), and the
      plain path's greedy tokens are compared (reported).
   4b. Tuned serving, this slice's main path: ``tune_artifact`` on phase 2's
@@ -72,7 +74,7 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      near-tied router choices and the flips cascade through the layers)
      their distance and, per layer, the tokens whose expert sets differ
      between the two paths are reported.  Launches per schedule must be
-     what the resolutions picked.
+     what the resolutions picked.  Time to first token as phase 4's.
   5b. Tuned MoE serving: phase 4b on phase 5's checkpoint, so the tuner
      times K4 on the layer x expert stacks and the Engine resolves K3 and
      K4 from the table: every resolution from it, launches per kernel and
@@ -93,8 +95,10 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      and every best cost must be the objective of its spins; nBOCSqa's mean
      final residual error must lie below RS's.
 
-Prints JSON lines along the way, the card's ``nvidia-smi`` name and power
-limit, a ``kernels`` line, and last ``{"ok": true, "device": ...}``.  Any
+Prints JSON lines along the way (early on, the -Xptxas -v registers,
+shared memory and spills of the tensor-core instantiations), the card's
+``nvidia-smi`` name and power limit, a ``kernels`` line, and last
+``{"ok": true, "device": ...}``.  Any
 failure exits non-zero without that line.  Needs one card; exits non-zero
 when CUDA is unavailable or when run outside the repository.
 """
@@ -104,6 +108,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -162,6 +167,41 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+TENSOR_CORE_KERNELS = {"flash_attention": "flash_mma_kernel",
+                       "bitlinear": "bitlinear_mma_kernel"}
+
+
+def tensor_core_ptxas(build_log):
+    """-Xptxas -v of the tensor-core instantiations, K5's bf16 body
+    (flash_mma_kernel<hd, warps>) and the grid's bf16 x bf16 body
+    (bitlinear_mma_kernel<k step, 16-column pairs, K padded, bitplane>):
+    {"source": {"kernel<args>": {registers, spills, static smem}}}.  Empty
+    for a source whose library was cached (nothing compiled)."""
+    out = {}
+    for src, kernel in TENSOR_CORE_KERNELS.items():
+        rows, cur = {}, None
+        for ln in build_log(src).splitlines():
+            if "Compiling entry function" in ln:
+                m = re.search(kernel + r"I((?:L[ib]\d+E)+)E", ln)
+                cur = (f"{kernel}<{','.join(re.findall(r'L[ib](\d+)E', m.group(1)))}>"
+                       if m else None)
+                if cur:
+                    rows[cur] = {}
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                rows[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                rows[cur]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                rows[cur]["static_smem"] = int(m.group(1)) if m else 0
+        out[src] = rows
+    return out
 
 
 def dyadic_problems(torch, g, P, n, dev):
@@ -816,6 +856,11 @@ def attention_f32_scores(torch, q, k, v, window):
     return p @ vr, p @ vr.abs()
 
 
+# K5's timed fixtures (bf16, the prefill shapes of phases 4 and 5) and the
+# key each one's timing goes under
+K5_TIMED = {"prefill_bf16": "timing", "moe_prefill_bf16": "timing_moe"}
+
+
 def phase_k5(torch, dev, flush):
     import torch.nn.functional as F
 
@@ -854,7 +899,7 @@ def phase_k5(torch, dev, flush):
                                         "max_err_over_bound": ratio,
                                         "max_bound": float(bound.max())}
             del o32, pv_abs, d32, bound
-        if label != "prefill_bf16":
+        if label not in K5_TIMED:
             continue
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, win), 3, flush)
@@ -866,12 +911,29 @@ def phase_k5(torch, dev, flush):
         pairs = S * (S + 1) // 2            # causal (query, key) pairs, window 0
         ops_ = 4 * B * H * hd * pairs       # q.k and p.v, 2 operations per mul-add
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
-        out["timing"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "library_max_abs_err": lib_err, "bound_ms": max(b_bytes, b_ops),
-                         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                         "bytes": nbytes, "operations": ops_}
+        out[K5_TIMED[label]] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                "library_max_abs_err": lib_err, "bound_ms": max(b_bytes, b_ops),
+                                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                                "bytes": nbytes, "operations": ops_}
         del q, k, v, o, r
     return out
+
+
+TTFT_REPEATS = 3
+
+
+def ttft_repeats(eng, prompts, first_s):
+    """Time to first token: ``ttft_s`` is the serve's own (``first_s``, the
+    serve's first prefill, as in earlier versions of this script);
+    ``ttft_median_s`` the median of it and TTFT_REPEATS - 1 more prefills
+    and first picks of the same prompts (``Engine.generate`` with one step,
+    host clock ending in a device sync), with every run and their spread."""
+    runs = [first_s]
+    for _ in range(TTFT_REPEATS - 1):
+        eng.generate(prompts, 1)
+        runs.append(eng.last_timing["prefill_s"])
+    return {"ttft_s": first_s, "ttft_median_s": statistics.median(runs), "ttft_runs_s": runs,
+            "ttft_spread_s": max(runs) - min(runs)}
 
 
 def phase_generate(torch, dev, out_dir):
@@ -900,14 +962,15 @@ def phase_generate(torch, dev, out_dir):
                 "bitlinear": bl.bitlinear.launches, "sa_sweep_many": sa.sa_sweep_many.launches}
     by_schedule = served(bl.bitlinear)
     eng = res.engine
-    heuristic_launches(torch, dev, eng.artifact.manifest, {"bitlinear": by_schedule},
-                       qwen_tokens, "phase 4")
+    tensor_cores = heuristic_launches(torch, dev, eng.artifact.manifest,
+                                      {"bitlinear": by_schedule}, qwen_tokens, "phase 4")
     n_tensors = eng.compression["tensors"]
     check(launches["flash_attention"] == cfg.num_layers,
           f"K5 launched {launches['flash_attention']} times, want {cfg.num_layers}")
     check(launches["bitlinear"] == n_tensors * GEN_STEPS,
           f"K3 launched {launches['bitlinear']} times, want {n_tensors} x {GEN_STEPS}")
     check(launches["sa_sweep_many"] == 0, "serving launched the annealer")
+    ttft = ttft_repeats(eng, res.prompts, res.timing["prefill_s"])
     toks = res.tokens
     check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
           and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
@@ -940,7 +1003,8 @@ def phase_generate(torch, dev, out_dir):
     out = {
         "launches": launches,
         "bitlinear_by_schedule": by_schedule,
-        "ttft_s": t["prefill_s"],
+        "tensor_core_launches": tensor_cores,
+        **ttft,
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
         "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
         "generate_wall_s": res.wall_s,
@@ -960,13 +1024,17 @@ TUNE_T = (GEN_BATCH, GEN_BATCH * GEN_PROMPT)
 TUNE_REPEATS, TUNE_ITERS = 3, 3
 
 
-def implied_launches(manifest, schedules, dev, tokens):
+def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False):
     """{kind: {"mode/math": n}}: the launches a serve of GEN_STEPS tokens
     makes when each call signature runs ``schedules[key]`` (a table's
     entries, or what a serve's resolution log says it resolved).  Per
     compressed tensor and layer: one prefill call and GEN_STEPS - 1 decode
-    calls, at the T that ``tokens(path, kind)`` gives as (prefill, decode)."""
+    calls, at the T that ``tokens(path, kind)`` gives as (prefill, decode).
+    With ``tensor_cores``, {kind: n}: the grid launches above SMALL_T rows,
+    each of which must run the grid's tensor-core body (the served tensors
+    are bf16 at the policies' tiles)."""
     from repro_torch.kernels import autotune
+    from repro_torch.kernels import bitlinear as bl
 
     want = {}
     for path, e in manifest["tensors"].items():
@@ -978,6 +1046,10 @@ def implied_launches(manifest, schedules, dev, tokens):
                                         dtype=dname, E=E, device=autotune.device_kind(dev),
                                         mode=autotune.pallas_mode(dev))
             s = schedules[key]
+            if tensor_cores:
+                on_mma = s["mode"] == "grid" and T > bl.SMALL_T
+                want[kind] = want.get(kind, 0) + n * layers * on_mma
+                continue
             k = f"{s['mode']}/{s['math']}"
             counts = want.setdefault(kind, {})
             counts[k] = counts.get(k, 0) + n * layers
@@ -1050,6 +1122,8 @@ def tuned_serve(torch, dev, out_dir, cfg, tokens):
     check({r["key"] for r in log} <= set(entries), "a resolution's key is not in the table")
     want = implied_launches(art.manifest, entries, dev, tokens)
     check(serving == want, f"launches per schedule {serving}, the table implies {want}")
+    tensor_core_launches(manifest=art.manifest, schedules=entries, dev=dev, tokens=tokens,
+                         label="tuned serve")
     check(fa.flash_attention.launches == cfg.num_layers,
           f"K5 launched {fa.flash_attention.launches} times, want {cfg.num_layers}")
     toks = res.tokens
@@ -1073,9 +1147,26 @@ def tuned_serve(torch, dev, out_dir, cfg, tokens):
     return res, out
 
 
+def tensor_core_launches(manifest, schedules, dev, tokens, label):
+    """Every grid launch of a serve above SMALL_T rows ran the tensor-core
+    body, by the library's own report (``tensor_core_launches``), and no
+    other launch did.  Returns {kind: n}."""
+    from repro_torch.kernels import bitlinear as bl
+
+    fns = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
+    want = implied_launches(manifest, schedules, dev, tokens, tensor_cores=True)
+    got = {k: fns[k].tensor_core_launches for k in want}
+    check(got == want and all(fn.tensor_core_launches == got.get(k, 0)
+                              for k, fn in fns.items()),
+          f"{label}: tensor-core launches {got}, the grid launches above T = {bl.SMALL_T} "
+          f"number {want}")
+    return got
+
+
 def heuristic_launches(torch, dev, manifest, by_kind, tokens, label):
     """A serve without a table launched, per kernel and schedule, what its
-    resolutions (the default rule) picked."""
+    resolutions (the default rule) picked, and its grid on the tensor cores
+    above SMALL_T rows.  Returns the tensor-core launches per kernel."""
     from repro_torch.kernels import autotune
 
     log = autotune.last_resolutions()
@@ -1084,6 +1175,7 @@ def heuristic_launches(torch, dev, manifest, by_kind, tokens, label):
     want = implied_launches(manifest, resolved_schedules(), dev, tokens)
     check(by_kind == want, f"{label}: launches per schedule {by_kind}, its resolutions imply "
                            f"{want}")
+    return tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label)
 
 
 def phase_tuned_generate(torch, dev, out_dir, heuristic):
@@ -1433,7 +1525,9 @@ def phase_moe_generate(torch, dev, out_dir):
             "flash_attention": L, "sa_sweep_many": 0}
     check(launches == want, f"launches {launches}, want {want}")
     eng = res.engine
-    heuristic_launches(torch, dev, eng.artifact.manifest, by_schedule, moe_tokens, "phase 5")
+    tensor_cores = heuristic_launches(torch, dev, eng.artifact.manifest, by_schedule,
+                                      moe_tokens, "phase 5")
+    ttft = ttft_repeats(eng, res.prompts, res.timing["prefill_s"])
     check(eng.compression["grouped_tensors"] == 3, f"compression {eng.compression}")
     toks = res.tokens
     check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + steps)
@@ -1468,7 +1562,8 @@ def phase_moe_generate(torch, dev, out_dir):
     out = {
         "launches": launches,
         "by_schedule": by_schedule,
-        "ttft_s": t["prefill_s"],
+        "tensor_core_launches": tensor_cores,
+        **ttft,
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
         "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
         "generate_wall_s": res.wall_s,
@@ -1549,6 +1644,24 @@ def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     return launch
 
 
+def main_path_smem(torch):
+    """Dynamic shared memory of one block of the tensor-core bodies at the
+    main path's shapes: K5 (two stages of 64-row K and V tiles, rows padded
+    by 8 bf16, as csrc/flash_attention.cu's mma_smem) at hd 128 and 64, and
+    the grid (the built library's own layout) at qwen's prefill (T = 4096,
+    tile 32 x 128, K = 4, 160 r tiles: wq) and granite's expert prefill
+    (T = 1,280 per expert, the same tile, 32 r tiles: gate/up)."""
+    from repro_torch.kernels import bitlinear as bl
+
+    return {
+        "flash_mma_kernel": {hd: 2 * 2 * 64 * (hd + 8) * 2 for hd in (128, 64)},
+        "bitlinear_mma_kernel": {
+            f"T={T},n_r={n_r}": bl.smem_bytes("grid", T=T, n_r=n_r, tn=32, K=4, td=128,
+                                              x_itemsize=2, c_itemsize=2)
+            for T, n_r in ((GEN_BATCH * GEN_PROMPT, 160), (1280, 32))},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1572,6 +1685,8 @@ def main() -> int:
     regs = {name: [ln.strip() for ln in _build.build_log(name).splitlines() if "registers" in ln]
             for name in _build.SOURCES}
     emit({"build": {"seconds": phases["build_s"], "ptxas": regs}})
+    emit({"ptxas_tensor_core": tensor_core_ptxas(_build.build_log),
+          "dynamic_smem_main_path": main_path_smem(torch)})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
     t = time.time()
@@ -1689,7 +1804,10 @@ def main() -> int:
          "launches_phase5": moe_gen["launches"]["flash_attention"], "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
-         "library_ms": k5["timing"]["library_ms"]},
+         "library_ms": k5["timing"]["library_ms"],
+         # the same at phase 5's prefill shape (4, 16, 8, 1024, 64)
+         "moe_prefill": {k: k5["timing_moe"][k] for k in
+                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "bitlinear_grouped", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:583",

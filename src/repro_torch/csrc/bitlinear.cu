@@ -1,7 +1,9 @@
-// Kernels K3 and K4, grid schedule: one block per (row block of block_t
-// rows, expert and column tile, 32*NCOL column chunk).  Replaces
-// repro/kernels/bitlinear.py::_kernel (call site :417) and
-// ::_grouped_kernel (:558).  The design and what bounds it:
+// Kernels K3 and K4, grid schedule: bf16 x with bf16 C on the tensor cores
+// (bitlinear_mma_kernel: a block per (row block, expert, four column tiles,
+// 128-column chunk)), every other call on the FMA pipes (bitlinear_kernel:
+// a block per (row block of block_t rows, expert and column tile, 32*NCOL
+// column chunk)).  Replaces repro/kernels/bitlinear.py::_kernel (call site
+// :417) and ::_grouped_kernel (:558).  The designs and what bounds them:
 // bitlinear.cuh.
 #include "bitlinear.cuh"
 
@@ -11,32 +13,37 @@ extern "C" {
 // 2 int8 (y in x's dtype); m_packed (E, n_r, n_c, tn, kb) uint8; C (E, n_r,
 // n_c, K, td) float32 (c_bf16 = 0) or bfloat16 (c_bf16 = 1); E = 1 for K3.
 // bitplane selects the bit algebra; block_t is the rows a block covers,
-// r_chunk the r tiles a warp takes at a time.  Returns cudaGetLastError()
-// of the launch, or minus the block's shared memory in bytes when that is
-// over smem_budget (nothing launched).
+// r_chunk the r tiles a warp (FMA body) or a step (tensor-core body) takes
+// at a time; up to small_t rows (kernels/bitlinear.py's SMALL_T) the grid
+// keeps the FMA body.  *tensor_cores is set to 1 when the launch ran the
+// tensor-core body, else 0.  Returns cudaGetLastError() of the launch,
+// cudaErrorMisalignedAddress for a tensor-core call whose x or C is not
+// 16-byte or M not 4-byte aligned, or minus the block's shared memory in
+// bytes when that is over smem_budget (nothing launched).
 int bitlinear_grid(const void* x, const uint8_t* m_packed, const void* C, void* y, int E, int T,
                    int n_r, int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16,
-                   int bitplane, int block_t, int r_chunk, int smem_budget, void* stream) {
-  return bitlinear_impl::dispatch<bitlinear_impl::GRID>(x, m_packed, C, y, E, T, n_r, n_c, tn,
-                                                        kb, K, td, x_kind, c_bf16, bitplane,
-                                                        block_t, r_chunk, smem_budget, stream);
+                   int bitplane, int block_t, int r_chunk, int smem_budget, int small_t,
+                   void* stream, int* tensor_cores) {
+  return bitlinear_impl::dispatch<bitlinear_impl::GRID>(
+      x, m_packed, C, y, E, T, n_r, n_c, tn, kb, K, td, x_kind, c_bf16, bitplane, block_t,
+      r_chunk, smem_budget, small_t, stream, tensor_cores);
 }
 
 // Dynamic shared memory in bytes of one block of schedule `mode` (0 grid,
 // 1 decode, 2 stream) for these shapes, as the launch computes it; -1 for
 // an unknown mode or x_kind.  kernels/bitlinear.py admits schedules by it.
 long long bitlinear_smem_bytes(int mode, int T, int n_r, int tn, int kb, int K, int td,
-                               int x_kind, int c_bf16, int r_chunk) {
+                               int x_kind, int c_bf16, int r_chunk, int small_t) {
   using namespace bitlinear_impl;
   if (x_kind < 0 || x_kind > 2 || r_chunk < 1) return -1;
   const size_t xs = x_size(x_kind), cs = c_bf16 ? 2 : 4;
   switch (mode) {
     case GRID:
-      return (long long)block_smem<GRID>(T, n_r, tn, kb, K, td, r_chunk, xs, cs);
+      return (long long)block_smem<GRID>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
     case DECODE:
-      return (long long)block_smem<DECODE>(T, n_r, tn, kb, K, td, r_chunk, xs, cs);
+      return (long long)block_smem<DECODE>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
     case STREAM:
-      return (long long)block_smem<STREAM>(T, n_r, tn, kb, K, td, r_chunk, xs, cs);
+      return (long long)block_smem<STREAM>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
     default:
       return -1;
   }

@@ -21,10 +21,11 @@
 // For int8 x both are exact; for floats they round differently.
 //
 // What bounds it: bytes at decode and small prefill T (C dominates: K*td
-// elements per (r, c) tile, 1/8 of the dense weight at K/tn = 1/8), and the
-// f32 FMA rate at large T, since K (3-4) is below the tensor cores'
-// k-minimum.  Every schedule keeps as many independent (r, c) tiles in
-// flight as the card holds:
+// elements per (r, c) tile, 1/8 of the dense weight at K/tn = 1/8); at
+// prefill T the operations, on the tensor cores for bf16 x with bf16 C (the
+// grid's mma body, below: K pads to 4 or 8 and 16/K' r tiles share one
+// z @ C product) and on the f32 FMA pipes for every other call.  The FMA
+// bodies keep as many independent (r, c) tiles in flight as the card holds:
 //   * a block owns (expert e, column tile c) -- blockIdx.y = e * n_c + c,
 //     all E experts in one launch, K3 is E = 1 -- and a set of rows and
 //     columns of it; its W warps take the r tiles in chunks of rc
@@ -42,6 +43,8 @@
 // The schedules differ in where the operands come from:
 //   grid    a block covers row_block rows (block_t) in register groups of
 //           BT and a 32*NCOL column chunk; x, M, C read from device memory.
+//           bf16 x with bf16 C above small_t rows: bitlinear_mma_kernel
+//           (its own design note below).
 //   decode  one block per (e, c) with all T rows and all td columns: the
 //           expert's x rows are staged once in shared memory, BT fits T.
 //   stream  one block per (e, c) as decode, x read from device memory; each
@@ -53,9 +56,9 @@
 //           the BBO tensors, tn = 8 and K = 3).
 // Ragged T is masked (rows >= T read zeros and are not written) and any K
 // works (K % 8 != 0 included).  Every expert of a grouped call has the same
-// T (the MoE dispatch layout pads each expert to its capacity).  wgmma, TMA
-// and a split of r across blocks for the fewest-column decode shapes are
-// later work.
+// T (the MoE dispatch layout pads each expert to its capacity).  wgmma and
+// TMA for the grid, and a split of r across blocks for the fewest-column
+// decode shapes, are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -324,6 +327,493 @@ __global__ void __launch_bounds__(MODE != STREAM && BT <= 2 ? 1024 : 512)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Grid schedule on the tensor cores: bf16 x and bf16 C
+// ---------------------------------------------------------------------------
+//
+// y (16 rows x td) accumulates over r in two mma.sync products per warp:
+//   z = x_r (16 x tn) @ M_r (tn x 8): m16n8k16 (m16n8k8 when tn % 16 != 0),
+//       the B-fragment unpacked from M's bits in registers (unpack: +-1;
+//       bitplane: {0,1}, and a second mma against ones gives the row sum s
+//       for z = 2 zb - s); column n of the 8 holds k = n - off of the tile,
+//       so with KP = 4 (K <= 4) two r tiles share one accumulator (offsets 0
+//       and 4) and with KP = 8 (K <= 8) one tile fills it;
+//   Z (16 x 16) = the z of GRP = 16 / KP consecutive r tiles, rounded to
+//       bf16 in registers (z.astype(c.dtype)) and repacked as an A-fragment;
+//   y += Z @ [C_r0; C_r1; ...] (16 x td): m16n8k16 against the stacked C
+//       tiles, K rows each padded with zero rows to KP, staged in shared
+//       memory and read with ldmatrix.trans.
+// The first product has n = 8, so an x fragment feeds few mma: x is the
+// traffic.  A block therefore owns rows_block rows of one expert and
+// MMA_NCB column tiles, whose warps share each staged x tile, and up to
+// 16 * NTP columns of each.  It walks its rows in passes of 16 * mt rows
+// (mt = min(MMA_ROW_TILES, ceil(T / 16)) row tiles); when T has fewer row
+// tiles, rs = MMA_ROW_TILES / mt warps share each (row tile, column tile)
+// and split every step's r tiles between them, their partial sums added in
+// warp order at the end, through the stages' shared memory.  Warp w owns
+// row tile w % mt, column tile (w / mt) % MMA_NCB and r phase
+// w / (mt * MMA_NCB).  Each step stages the x columns, M bits and stacked C
+// of tiles_step = rs * u * GRP r tiles (u = ceil(r_chunk / GRP) z groups
+// per warp) through cp.async into one of MMA_STAGES shared-memory stages,
+// so the next step's copy is in flight while this one is consumed.  Rows
+// past T, tiles past n_r, column tiles past n_c and C rows past K are
+// zero-filled, so 0 x garbage never makes a NaN.  Consecutive blocks take
+// consecutive column-tile blocks of one row block, sharing its x rows in L2.
+// The block's warps share each staged x tile (its MMA_NCB column-tile
+// warps) and C tile (its row-tile warps), so a step ends in a block
+// barrier.  Staging per warp, with no barrier in the r loop, copies x and C
+// once per warp instead: the 16-warp block's stages then need 283 KB, over
+// the card's 227 KB, and at 8 warps it ran 2.6x slower than this block
+// (BITLINEAR_MMA_VARIANT 3, tools/torch_grid_variants.py, PERF.md).
+// What holds it back (H100, qwen3-32b's gate at T = 4096, the same tool):
+// the staging alone moves x and C at ~2.7 TB/s with one step in flight and
+// takes as long as a dense bf16 matmul, and the mma work alone as long
+// again (each warp unpacks M's bits and reloads C's fragments for only 16
+// rows); they overlap little.  The constants below are the fastest of the
+// block shapes timed there; warp tiles of 32+ rows, wgmma and TMA are
+// later work.
+// Calls it takes: T > small_t (the launch's argument: kernels/bitlinear.py's
+// SMALL_T, where the default rule streams or decodes), K <= 8 (kb = 1),
+// tn % 8 == 0, td % 16 == 0; x and C must be 16-byte and M 4-byte aligned
+// (the wrapper clones a tensor that is not; the launch refuses it).  Up to
+// small_t rows the grid keeps the FMA body: its block is far smaller, so
+// the rule's fallback to the grid, for a call whose stream or decode block
+// does not fit, still has one that does.  Any other bf16 x bf16 call, and
+// every call with f32 or int8 x or f32 C, runs bitlinear_kernel's FMA body.
+
+// The block shape, and BITLINEAR_MMA_VARIANT: 0 the kernel; the others are
+// diagnostics that tools/torch_grid_variants.py builds with -D, as are
+// other shapes: 1 staging only (no mma; y is 0), 2 mma only (no
+// copies after the first stages, y wrong), 3 per-warp staging (each warp
+// copies its own x, M and C tiles and waits on no block barrier in the r
+// loop; x and C are then staged once per warp instead of once per block).
+#ifndef BITLINEAR_MMA_ROW_TILES
+#define BITLINEAR_MMA_ROW_TILES 4
+#endif
+#ifndef BITLINEAR_MMA_NCB
+#define BITLINEAR_MMA_NCB 4
+#endif
+#ifndef BITLINEAR_MMA_STAGES
+#define BITLINEAR_MMA_STAGES 2
+#endif
+#ifndef BITLINEAR_MMA_MIN_BLOCKS
+#define BITLINEAR_MMA_MIN_BLOCKS 1
+#endif
+#ifndef BITLINEAR_MMA_VARIANT
+#define BITLINEAR_MMA_VARIANT 0
+#endif
+constexpr int MMA_STAGES = BITLINEAR_MMA_STAGES;
+constexpr int MMA_ROW_TILES = BITLINEAR_MMA_ROW_TILES;   // row tiles (of 16) per pass
+constexpr int MMA_NCB = BITLINEAR_MMA_NCB;               // column tiles per block
+constexpr int MMA_WARPS = MMA_ROW_TILES * MMA_NCB;
+constexpr int MMA_MIN_BLOCKS = BITLINEAR_MMA_MIN_BLOCKS; // resident blocks per SM for registers
+constexpr bool MMA_WARP_STAGING = BITLINEAR_MMA_VARIANT == 3;
+
+__host__ __device__ __forceinline__ bool grid_on_mma(int T, int small_t, int tn, int kb, int K,
+                                                     int td, size_t xsize, size_t csize) {
+  return T > small_t && xsize == 2 && csize == 2 && kb == 1 && K >= 1 && K <= 8 && tn > 0 &&
+         tn % 8 == 0 && td > 0 && td % 16 == 0;
+}
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (d fixed per launch)
+struct FastDiv {
+  unsigned d, mul, shift;
+};
+inline FastDiv fast_div(unsigned d) {
+  unsigned p = 0;
+  while ((1u << p) < d) ++p;
+  const unsigned long long two_p = 1ull << (31 + p);
+  return {d, d == 1 ? 0u : (unsigned)((two_p + d - 1) / d), p == 0 ? 0u : p - 1};
+}
+__device__ __forceinline__ unsigned fdiv(unsigned n, const FastDiv& f) {
+  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shift;
+}
+// v / span for 0 <= v < MMA_NCB * span
+__device__ __forceinline__ int ncb_index(int v, int span) {
+  int q = 0;
+#pragma unroll
+  for (int k = 1; k < MMA_NCB; ++k) q += v >= k * span;
+  return q;
+}
+
+// The tensor-core grid's block geometry for T rows (see above).
+struct MmaGeom {
+  int mt, rs, u, kp, grp, tiles_step, cw, xld;
+  size_t x_bytes, c_bytes, m_bytes, stage, smem;
+};
+
+inline MmaGeom mma_geom(int T, int tn, int K, int td, int r_chunk) {
+  MmaGeom g;
+  const int mtiles = (T + 15) / 16;
+  g.mt = mtiles < MMA_ROW_TILES ? mtiles : MMA_ROW_TILES;
+  g.rs = MMA_ROW_TILES / g.mt;
+  g.kp = K <= 4 ? 4 : 8;
+  g.grp = 16 / g.kp;
+  g.u = (r_chunk + g.grp - 1) / g.grp;
+  g.tiles_step = g.rs * g.u * g.grp;
+  g.cw = td <= 64 ? 64 : 128;
+  if (MMA_WARP_STAGING) {   // a stage per warp: its row tile's x, its column tile's C and M
+    g.xld = g.u * g.grp * tn + 8;
+    g.x_bytes = align16((size_t)16 * g.xld * 2);
+    g.c_bytes = align16((size_t)g.u * 16 * (g.cw + 8) * 2);
+    g.m_bytes = align16((size_t)g.u * g.grp * tn);
+  } else {
+    g.xld = g.tiles_step * tn + 8;   // padded row: 16-byte rows land in distinct banks
+    g.x_bytes = align16((size_t)g.mt * 16 * g.xld * 2);
+    g.c_bytes = align16((size_t)MMA_NCB * g.rs * g.u * 16 * (g.cw + 8) * 2);
+    g.m_bytes = align16((size_t)MMA_NCB * g.tiles_step * tn);
+  }
+  g.stage = g.x_bytes + g.c_bytes + g.m_bytes;
+  const size_t stages =
+      MMA_STAGES * g.stage * (MMA_WARP_STAGING ? (size_t)g.mt * MMA_NCB * g.rs : 1);
+  // the partial sums of warps sharing a tile reuse the stages after the r loop
+  const size_t red = (size_t)(g.rs - 1) * g.mt * MMA_NCB * 16 * g.cw * 4;
+  g.smem = stages > red ? stages : red;
+  return g;
+}
+
+struct MmaParams {
+  int T, n_r, n_c, tn, K, td, rows_block, n_cb, mt, rs, u, xld;
+  int x_bytes, c_bytes, stage_bytes;
+  FastDiv xrow, tn8, crow, mrow;   // 16-byte x chunks per row, tn / 8, C chunks per row, tn / 4
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// src_bytes 0 zero-fills the destination
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(MMA_STAGES - 2) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d (16x8 f32) += a (16x8 bf16, row) . b (8x8 bf16, col)
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[2], uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two bf16 of M's column at tile rows (nn, nn + 1), the bytes at p (bit:
+// that column's mask): unpack +-1, bitplane {0, 1}; 0 when this lane's
+// column is not the tile's.
+template <bool BITPLANE>
+__device__ __forceinline__ uint32_t m_pair(const uint8_t* p, bool mine, uint32_t bit) {
+  const uint32_t two = *reinterpret_cast<const uint16_t*>(p);
+  if (!mine) return 0u;
+  const uint32_t off = BITPLANE ? 0u : 0xBF80u;   // bit clear: 0 or -1
+  const uint32_t on = 0x3F80u;                     // bit set: +1
+  return ((two & bit) ? on : off) | ((two & (bit << 8)) ? on << 16 : off << 16);
+}
+
+template <int KSTEP, int NTP, int KP, bool BITPLANE>
+__global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
+    bitlinear_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mp,
+                         const __nv_bfloat16* __restrict__ Cw, __nv_bfloat16* __restrict__ y,
+                         const MmaParams a) {
+  constexpr int GRP = 16 / KP;       // r tiles per Z fragment
+  constexpr int PER_HALF = 8 / KP;   // r tiles per 8-column half of Z
+  constexpr int CW = 16 * NTP;       // columns per block and column tile
+  constexpr int CLD = CW + 8;        // padded C row
+  constexpr int NT = 2 * NTP;        // n-tiles of 8 columns
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tn = a.tn, K = a.K, td = a.td, n_r = a.n_r, n_c = a.n_c, xld = a.xld;
+  const int mt = a.mt, rs = a.rs, u = a.u;
+
+  const int rb = blockIdx.x / a.n_cb, cb = blockIdx.x - rb * a.n_cb;   // row, column-tile block
+  const int e = blockIdx.y;
+  const int d_in = n_r * tn, d_out = n_c * td;
+  const int d0 = blockIdx.z * CW;
+  const int cw = min(CW, td - d0);
+  x += (size_t)e * a.T * d_in;
+  mp += (size_t)e * n_r * n_c * tn;
+  Cw += (size_t)e * n_r * n_c * K * td;
+  y += (size_t)e * a.T * d_out;
+
+  const int P = 16 * mt;
+  const int tiles_step = rs * u * GRP;
+  const int groups_step = rs * u;
+  const int nsteps = (n_r + tiles_step - 1) / tiles_step;
+  const int m_tile = warp % mt, cq = (warp / mt) % MMA_NCB, ph = warp / (mt * MMA_NCB);
+  const int c = cb * MMA_NCB + cq;   // this warp's column tile (idle past n_c)
+  float* red = reinterpret_cast<float*>(smem);   // after the r loop: partial sums
+  const uint32_t ones = 0x3F803F80u;   // two bf16 1.0
+
+  const int row_end = min(a.T, (rb + 1) * a.rows_block);
+  for (int row0 = rb * a.rows_block; row0 < row_end; row0 += P) {
+    // step s's x columns, M bits and stacked C into stage st
+    auto issue = [&](int s, int st) {
+      unsigned char* base = smem + (size_t)st * a.stage_bytes;
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+      __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(base + a.x_bytes);
+      uint8_t* ms = base + a.x_bytes + a.c_bytes;
+      const int tile0 = s * tiles_step;
+      const int xrow = a.xrow.d;
+      for (int i = threadIdx.x; i < P * xrow; i += blockDim.x) {
+        const int r = fdiv(i, a.xrow), c8 = i - r * xrow;
+        const int row = row0 + r;
+        const bool in = row < row_end && tile0 + (int)fdiv(c8, a.tn8) < n_r;
+        cp_async16_zfill(xs + r * xld + c8 * 8,
+                         x + (in ? (size_t)row * d_in + (size_t)tile0 * tn + c8 * 8 : 0),
+                         in ? 16 : 0);
+      }
+      const int crow = a.crow.d;
+      for (int i = threadIdx.x; i < MMA_NCB * groups_step * 16 * crow; i += blockDim.x) {
+        const int rr = fdiv(i, a.crow), c8 = i - rr * crow;
+        const int kz = rr & 15, j = kz / KP, k = kz - j * KP;
+        const int cqi = ncb_index(rr, groups_step * 16);
+        const int cc = cb * MMA_NCB + cqi;
+        const int r = tile0 + ((rr >> 4) - cqi * groups_step) * GRP + j;
+        const bool in = k < K && r < n_r && cc < n_c && d0 + c8 * 8 < td;
+        cp_async16_zfill(cs + rr * CLD + c8 * 8,
+                         Cw + (in ? (((size_t)r * n_c + cc) * K + k) * td + d0 + c8 * 8 : 0),
+                         in ? 16 : 0);
+      }
+      const int mrow = a.mrow.d;
+      for (int i = threadIdx.x; i < MMA_NCB * tiles_step * mrow; i += blockDim.x) {
+        const int jt = fdiv(i, a.mrow), b4 = i - jt * mrow;
+        const int cqi = ncb_index(jt, tiles_step);
+        const int cc = cb * MMA_NCB + cqi, tl = jt - cqi * tiles_step;
+        const bool in = tile0 + tl < n_r && cc < n_c;
+        cp_async4_zfill(ms + jt * tn + b4 * 4,
+                        mp + (in ? ((size_t)(tile0 + tl) * n_c + cc) * tn + b4 * 4 : 0),
+                        in ? 4 : 0);
+      }
+    };
+    // MMA_WARP_STAGING: step s's tiles of this warp alone into its slice of stage st
+    auto issue_warp = [&](int s, int st) {
+      if (c >= n_c) return;   // an idle warp reads nothing
+      unsigned char* base = smem + ((size_t)st * (blockDim.x >> 5) + warp) * a.stage_bytes;
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
+      __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(base + a.x_bytes);
+      uint8_t* ms = base + a.x_bytes + a.c_bytes;
+      const int tile0 = s * tiles_step + ph * u * GRP;
+      const int xrow = a.xrow.d;
+      for (int i = lane; i < 16 * xrow; i += 32) {
+        const int r = fdiv(i, a.xrow), c8 = i - r * xrow;
+        const int row = row0 + m_tile * 16 + r;
+        const bool in = row < row_end && tile0 + (int)fdiv(c8, a.tn8) < n_r;
+        cp_async16_zfill(xs + r * xld + c8 * 8,
+                         x + (in ? (size_t)row * d_in + (size_t)tile0 * tn + c8 * 8 : 0),
+                         in ? 16 : 0);
+      }
+      const int crow = a.crow.d;
+      for (int i = lane; i < u * 16 * crow; i += 32) {
+        const int rr = fdiv(i, a.crow), c8 = i - rr * crow;
+        const int kz = rr & 15, j = kz / KP, k = kz - j * KP;
+        const int r = tile0 + (rr >> 4) * GRP + j;
+        const bool in = k < K && r < n_r && c < n_c && d0 + c8 * 8 < td;
+        cp_async16_zfill(cs + rr * CLD + c8 * 8,
+                         Cw + (in ? (((size_t)r * n_c + c) * K + k) * td + d0 + c8 * 8 : 0),
+                         in ? 16 : 0);
+      }
+      const int mrow = a.mrow.d;
+      for (int i = lane; i < u * GRP * mrow; i += 32) {
+        const int jt = fdiv(i, a.mrow), b4 = i - jt * mrow;
+        const bool in = tile0 + jt < n_r && c < n_c;
+        cp_async4_zfill(ms + jt * tn + b4 * 4,
+                        mp + (in ? ((size_t)(tile0 + jt) * n_c + c) * tn + b4 * 4 : 0),
+                        in ? 4 : 0);
+      }
+    };
+    auto stage_in = [&](int s, int st) {
+      if (MMA_WARP_STAGING)
+        issue_warp(s, st);
+      else
+        issue(s, st);
+    };
+
+    float yacc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yacc[n][i] = 0.f;
+
+    __syncthreads();   // the previous pass is done with every stage and with red
+#pragma unroll
+    for (int s = 0; s < MMA_STAGES - 1; ++s) {
+      if (s < nsteps) stage_in(s, s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < nsteps; ++s) {
+      cp_async_wait_stages();   // step s has landed (this thread's copies)
+      if (MMA_WARP_STAGING)
+        __syncwarp();           // ... the warp's; its step s-1 slice is free
+      else
+        __syncthreads();        // ... every thread's; step s-1's stage is free
+      const int ahead = s + MMA_STAGES - 1;
+      if (ahead < nsteps && (BITLINEAR_MMA_VARIANT != 2 || ahead < MMA_STAGES))
+        stage_in(ahead, ahead % MMA_STAGES);
+      cp_async_commit();
+      if (c >= n_c || BITLINEAR_MMA_VARIANT == 1) continue;
+      // this warp's x rows, stacked C and M bits in the stage; lq: its first
+      // z group there (its own slice starts at its own first group)
+      const unsigned char* base;
+      const __nv_bfloat16 *xw, *cs;
+      const uint8_t* ms;
+      int lq;
+      if (MMA_WARP_STAGING) {
+        base = smem + ((size_t)(s % MMA_STAGES) * (blockDim.x >> 5) + warp) * a.stage_bytes;
+        xw = reinterpret_cast<const __nv_bfloat16*>(base);
+        cs = reinterpret_cast<const __nv_bfloat16*>(base + a.x_bytes);
+        ms = base + a.x_bytes + a.c_bytes;
+        lq = 0;
+      } else {
+        base = smem + (size_t)(s % MMA_STAGES) * a.stage_bytes;
+        xw = reinterpret_cast<const __nv_bfloat16*>(base) + (size_t)m_tile * 16 * xld;
+        cs = reinterpret_cast<const __nv_bfloat16*>(base + a.x_bytes) +
+             (size_t)cq * groups_step * 16 * CLD;
+        ms = base + a.x_bytes + a.c_bytes + (size_t)cq * tiles_step * tn;
+        lq = ph * u;
+      }
+      for (int uu = 0; uu < u; ++uu) {
+        const int q = ph * u + uu;            // this warp's z group in the step
+        const int tq = q * GRP;               // its first tile in the step
+        const int lt = (lq + uu) * GRP;       // ... in the staged tiles
+        if (s * tiles_step + tq >= n_r) break;
+        float zacc[2][4], sacc[2][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) zacc[hh][i] = sacc[hh][i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < GRP; ++j) {
+          if (s * tiles_step + tq + j < n_r) {
+            const int off = (j % PER_HALF) * KP;
+            const bool mine = g >= off && g < off + K;
+            const uint32_t bit = 1u << (mine ? g - off : 0);
+            const uint8_t* mbits = ms + (lt + j) * tn;
+            const __nv_bfloat16* xt = xw + (lt + j) * tn;
+            for (int ks = 0; ks < tn / KSTEP; ++ks) {
+              if (KSTEP == 16) {
+                uint32_t af[4];
+                ldmatrix_x4(af, xt + (lane & 15) * xld + ks * 16 + ((lane >> 4) << 3));
+                const uint32_t b0 = m_pair<BITPLANE>(mbits + ks * 16 + 2 * t4, mine, bit);
+                const uint32_t b1 = m_pair<BITPLANE>(mbits + ks * 16 + 8 + 2 * t4, mine, bit);
+                mma16816(zacc[j / PER_HALF], af, b0, b1);
+                if (BITPLANE) {
+                  const uint32_t o = mine ? ones : 0u;
+                  mma16816(sacc[j / PER_HALF], af, o, o);
+                }
+              } else {
+                uint32_t af[2];
+                ldmatrix_x2(af, xt + (lane & 15) * xld + ks * 8);
+                mma1688(zacc[j / PER_HALF], af,
+                        m_pair<BITPLANE>(mbits + ks * 8 + 2 * t4, mine, bit));
+                if (BITPLANE) mma1688(sacc[j / PER_HALF], af, mine ? ones : 0u);
+              }
+            }
+          }
+        }
+        if (BITPLANE) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) zacc[hh][i] = 2.f * zacc[hh][i] - sacc[hh][i];
+        }
+        // z rounded to C's dtype, as the A-fragment of Z (16 x 16)
+        const uint32_t za[4] = {pack_bf16(zacc[0][0], zacc[0][1]),
+                                pack_bf16(zacc[0][2], zacc[0][3]),
+                                pack_bf16(zacc[1][0], zacc[1][1]),
+                                pack_bf16(zacc[1][2], zacc[1][3])};
+        const __nv_bfloat16* ct = cs + (size_t)(lq + uu) * 16 * CLD;
+#pragma unroll
+        for (int p = 0; p < NTP; ++p) {
+          if (p * 16 < cw) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, ct + ((lane & 7) + (((lane >> 3) & 1) << 3)) * CLD + p * 16 +
+                                      ((lane >> 4) << 3));
+            mma16816(yacc[2 * p], za, bf[0], bf[1]);
+            mma16816(yacc[2 * p + 1], za, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait0();
+
+    // warps sharing a (row tile, column tile) add their partial sums in warp order
+    const int slot = cq * mt + m_tile;
+    if (rs > 1) {
+      __syncthreads();   // every warp is done with the stages red reuses
+      if (ph > 0) {
+        float* dst = red + (size_t)((ph - 1) * mt * MMA_NCB + slot) * NT * 4 * 32;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dst[(n * 4 + i) * 32 + lane] = yacc[n][i];
+      }
+      __syncthreads();
+      if (ph == 0) {
+        for (int p2 = 1; p2 < rs; ++p2) {
+          const float* src = red + (size_t)((p2 - 1) * mt * MMA_NCB + slot) * NT * 4 * 32;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) yacc[n][i] += src[(n * 4 + i) * 32 + lane];
+        }
+      }
+    }
+    if (ph == 0 && c < n_c) {
+      const int ra = row0 + m_tile * 16 + g, rb_ = ra + 8;
+      __nv_bfloat16* yc = y + (size_t)c * td + d0 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n * 8 < cw) {
+          if (ra < row_end)
+            *reinterpret_cast<__nv_bfloat162*>(yc + (size_t)ra * d_out + n * 8) =
+                __floats2bfloat162_rn(yacc[n][0], yacc[n][1]);
+          if (rb_ < row_end)
+            *reinterpret_cast<__nv_bfloat162*>(yc + (size_t)rb_ * d_out + n * 8) =
+                __floats2bfloat162_rn(yacc[n][2], yacc[n][3]);
+        }
+      }
+    }
+  }
+}
+
 struct Args {
   const void* x;
   const uint8_t* mp;
@@ -351,7 +841,9 @@ inline int ncol_for(int td) { return td <= 32 ? 1 : 4; }
 // the Python side for admission.
 template <int MODE>
 inline size_t block_smem(int T, int n_r, int tn, int kb, int K, int td, int r_chunk,
-                         size_t xsize, size_t csize) {
+                         size_t xsize, size_t csize, int small_t) {
+  if (MODE == GRID && grid_on_mma(T, small_t, tn, kb, K, td, xsize, csize))
+    return mma_geom(T, tn, K, td, r_chunk).smem;
   const int bt = group_rows<MODE>(T);
   const size_t W = warps_for<MODE>(bt);
   const size_t rc = MODE == DECODE ? 1 : r_chunk;
@@ -415,6 +907,59 @@ cudaError_t launch_bt(const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+template <int KSTEP, int NTP, int KP, bool BP>
+cudaError_t launch_mma_cfg(const Args& a) {
+  const MmaGeom g = mma_geom(a.T, a.tn, a.K, a.td, a.rc);
+  const int P = 16 * g.mt;
+  MmaParams p;
+  p.T = a.T;
+  p.n_r = a.n_r;
+  p.n_c = a.n_c;
+  p.tn = a.tn;
+  p.K = a.K;
+  p.td = a.td;
+  p.rows_block = P * ((a.block_t + P - 1) / P);   // block_t rounded up to whole passes
+  const int n_rb = (a.T + p.rows_block - 1) / p.rows_block;
+  p.n_cb = (a.n_c + MMA_NCB - 1) / MMA_NCB;
+  p.mt = g.mt;
+  p.rs = g.rs;
+  p.u = g.u;
+  p.xld = g.xld;
+  p.x_bytes = (int)g.x_bytes;
+  p.c_bytes = (int)g.c_bytes;
+  p.stage_bytes = (int)g.stage;
+  p.xrow = fast_div((MMA_WARP_STAGING ? g.u * g.grp : g.tiles_step) * a.tn / 8);
+  p.tn8 = fast_div(a.tn / 8);
+  p.crow = fast_div(min(g.cw, a.td) / 8);
+  p.mrow = fast_div(a.tn / 4);
+  if ((long long)n_rb * p.n_cb > 0x7fffffffLL || a.E > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(n_rb * p.n_cb, a.E, (a.td + g.cw - 1) / g.cw);
+  if (a.smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(bitlinear_mma_kernel<KSTEP, NTP, KP, BP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)a.smem);
+    if (err != cudaSuccess) return err;
+  }
+  bitlinear_mma_kernel<KSTEP, NTP, KP, BP><<<grid, g.mt * MMA_NCB * g.rs * 32, a.smem,
+                                             a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x), a.mp, static_cast<const __nv_bfloat16*>(a.C),
+      static_cast<__nv_bfloat16*>(a.y), p);
+  return cudaGetLastError();
+}
+
+template <int KSTEP, int NTP, bool BP>
+cudaError_t launch_mma_kp(const Args& a) {
+  return a.K <= 4 ? launch_mma_cfg<KSTEP, NTP, 4, BP>(a) : launch_mma_cfg<KSTEP, NTP, 8, BP>(a);
+}
+
+template <bool BP>
+cudaError_t launch_mma(const Args& a) {
+  if (a.tn % 16 == 0)
+    return a.td <= 64 ? launch_mma_kp<16, 4, BP>(a) : launch_mma_kp<16, 8, BP>(a);
+  return a.td <= 64 ? launch_mma_kp<8, 4, BP>(a) : launch_mma_kp<8, 8, BP>(a);
+}
+
 template <int MODE, typename XT, typename CT>
 cudaError_t launch_math(const Args& a, int bitplane) {
   return bitplane ? launch_bt<MODE, XT, CT, true>(a) : launch_bt<MODE, XT, CT, false>(a);
@@ -427,22 +972,37 @@ cudaError_t launch_c(const Args& a, int c_bf16, int bitplane) {
 }
 
 // x_kind: 0 float32, 1 bfloat16, 2 int8 (y in x's dtype); c_bf16: C is
-// bfloat16 (else float32).  All pointers contiguous device memory.  Returns
-// a cudaError_t, or minus the block's shared memory in bytes when that is
-// over smem_budget (nothing is launched then).
+// bfloat16 (else float32).  All pointers contiguous device memory.  small_t:
+// the grid runs the FMA body up to that many rows (grid_on_mma);
+// *tensor_cores is set to whether the launch took bitlinear_mma_kernel.
+// Returns a cudaError_t, or minus the block's shared memory in bytes when
+// that is over smem_budget (nothing is launched then).
 template <int MODE>
 int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T, int n_r,
              int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16, int bitplane,
-             int block_t, int r_chunk, int smem_budget, void* stream) {
+             int block_t, int r_chunk, int smem_budget, int small_t, void* stream,
+             int* tensor_cores) {
+  *tensor_cores = 0;
   if (T <= 0 || E <= 0) return cudaSuccess;
   if ((long long)E * n_c > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
   if (block_t < 1 || r_chunk < 1 || x_kind < 0 || x_kind > 2) return cudaErrorInvalidValue;
   const int rc = MODE == DECODE ? 1 : r_chunk;
-  const size_t smem = block_smem<MODE>(T, n_r, tn, kb, K, td, rc, x_size(x_kind),
-                                       c_bf16 ? 2 : 4);
+  const size_t xs = x_size(x_kind), cs = c_bf16 ? 2 : 4;
+  const bool mma = MODE == GRID && grid_on_mma(T, small_t, tn, kb, K, td, xs, cs);
+  // the tensor-core grid copies x and C in 16-byte and M in 4-byte units
+  if (mma && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(C) % 16 ||
+              reinterpret_cast<uintptr_t>(mp) % 4))
+    return cudaErrorMisalignedAddress;
+  const size_t smem = block_smem<MODE>(T, n_r, tn, kb, K, td, rc, xs, cs, small_t);
   if (smem > (size_t)smem_budget) return -(int)(smem < 0x7fffffff ? smem : 0x7fffffff);
   const Args a{x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, block_t,
                rc, smem, reinterpret_cast<cudaStream_t>(stream)};
+  if constexpr (MODE == GRID) {
+    if (mma) {
+      *tensor_cores = 1;
+      return bitplane ? launch_mma<true>(a) : launch_mma<false>(a);
+    }
+  }
   switch (x_kind) {
     case 0:
       return launch_c<MODE, float>(a, c_bf16, bitplane);

@@ -12,10 +12,11 @@ extern "C" {
 // covers all T rows).
 int bitlinear_stream(const void* x, const uint8_t* m_packed, const void* C, void* y, int E, int T,
                      int n_r, int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16,
-                     int bitplane, int block_t, int r_chunk, int smem_budget, void* stream) {
-  return bitlinear_impl::dispatch<bitlinear_impl::STREAM>(x, m_packed, C, y, E, T, n_r, n_c, tn,
-                                                          kb, K, td, x_kind, c_bf16, bitplane,
-                                                          block_t, r_chunk, smem_budget, stream);
+                     int bitplane, int block_t, int r_chunk, int smem_budget, int small_t,
+                     void* stream, int* tensor_cores) {
+  return bitlinear_impl::dispatch<bitlinear_impl::STREAM>(
+      x, m_packed, C, y, E, T, n_r, n_c, tn, kb, K, td, x_kind, c_bf16, bitplane, block_t,
+      r_chunk, smem_budget, small_t, stream, tensor_cores);
 }
 
 }  // extern "C"

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "load", "build_all", "build_log"]
+__all__ = ["SOURCES", "command", "load", "build_all", "build_log"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(
@@ -57,16 +57,22 @@ def _nvcc() -> str:
     return path
 
 
+def command(name: str, out: str, extra=()) -> list:
+    """The nvcc command that builds ``csrc/<name>.cu`` into the library
+    ``out``, with ``extra`` flags (e.g. ``-D`` switches) after its own."""
+    return [_nvcc(), *_COMMON, *SOURCES[name], *extra, "-o", out,
+            os.path.join(_CSRC, f"{name}.cu")]
+
+
 def _target(name: str) -> tuple[str, list]:
     src = os.path.join(_CSRC, f"{name}.cu")
-    flags = _COMMON + SOURCES[name]
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(_COMMON + SOURCES[name]).encode())
     for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
     out = os.path.join(_BUILD, f"lib{name}-{digest}.so")
-    return out, [_nvcc(), *flags, "-o", _tmp(out), src]
+    return out, command(name, _tmp(out))
 
 
 def _tmp(out: str) -> str:

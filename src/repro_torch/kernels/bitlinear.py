@@ -10,9 +10,14 @@ tensors they run the plain versions ``ref.bitlinear_ref`` and
 Schedules (``mode``), the names of the JAX kernels' so that a tuned
 ``kernel_schedules`` table means the same in both packages:
 
-  * grid: blocks of ``block_t`` rows (in register groups of 8) x one column
-    chunk; each warp takes ``r_chunk`` r tiles at a time and issues their x
-    and M loads before C consumes them.
+  * grid: blocks of ``block_t`` rows.  bf16 x with bf16 C at T > SMALL_T
+    (K <= 8, tn % 8 == 0, td % 16 == 0) runs on the tensor cores: a block
+    owns four column tiles, its warps one 16-row tile each, and every step
+    stages ``r_chunk`` r tiles (rounded up to whole mma groups) of x, M and
+    C in shared memory; z = x @ M and y += z @ C are mma.sync products.
+    ``tensor_core_launches`` counts the launches that the library reports
+    ran it.  Every other call runs the FMA body: register groups of 8 rows
+    x one column chunk, each warp taking ``r_chunk`` r tiles at a time.
   * decode: one block per (expert,) column tile with all T rows; the rows
     of x are staged once in shared memory, so it is admissible only while
     they fit (:func:`decode_path_ok`).  ``block_t`` and ``r_chunk`` are
@@ -79,7 +84,10 @@ _BUDGETS: dict = {}       # device index -> opt-in shared memory per block
 # of each schedule at T = 1 ... 64 that chip_smoke.py measures on an H100
 # (PERF.md): their register groups fit T up to 4 rows, where stream beats
 # the grid by 13-44% and decode ties or beats it by up to 7%; from 8 rows
-# on both use the grid's 8-row groups and tie or trail it.
+# on both use the grid's 8-row groups and tie or trail it.  The grid's
+# tensor-core body starts above the same cutoff (every launch and layout
+# query passes SMALL_T to the library), so the grid block the rule falls
+# back to at T <= SMALL_T is the small FMA one.
 SMALL_T = 4
 DEFAULT_GRID_BLOCK_T = 64
 
@@ -97,7 +105,8 @@ def smem_bytes(mode: str, *, T: int, n_r: int, tn: int, K: int, td: int, x_items
                c_itemsize: int, r_chunk: int = 1) -> int:
     """Dynamic shared memory of one block of ``mode`` (the warps' z
     buffers and the block sums, plus the staged x rows for decode or each
-    warp's two M/C slots for stream), from the built kernels' own layout,
+    warp's two M/C slots for stream; the tensor-core grid's three stages of
+    x, M and C and its partial sums), from the built kernels' own layout,
     ``bitlinear_smem_bytes`` in ``csrc/bitlinear.cu``.  Needs the CUDA
     toolchain: it builds the grid library on first use."""
     return _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk)
@@ -108,11 +117,11 @@ def _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk) -> int
     fn = _FNS.get("smem")
     if fn is None:
         fn = _build.load(_SOURCES["grid"]).bitlinear_smem_bytes
-        fn.argtypes = [ctypes.c_int] * 10
+        fn.argtypes = [ctypes.c_int] * 11
         fn.restype = ctypes.c_longlong
         _FNS["smem"] = fn
     n = fn(_MODE_IDS[mode], T, n_r, tn, (K + 7) // 8, K, td, _KIND_OF_ITEMSIZE[x_itemsize],
-           int(c_itemsize == 2), r_chunk)
+           int(c_itemsize == 2), r_chunk, SMALL_T)
     if n < 0:
         raise ValueError(f"smem_bytes: bad arguments mode {mode!r}, x_itemsize {x_itemsize}, "
                          f"r_chunk {r_chunk}")
@@ -160,7 +169,8 @@ def _lib(mode: str):
     fn = _FNS.get(mode)
     if fn is None:
         fn = getattr(_build.load(_SOURCES[mode]), f"bitlinear_{mode}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _FNS[mode] = fn
     return fn
@@ -197,10 +207,11 @@ def _check(name, x, m_packed, C, lead: int, mode: str, math: str, modes) -> None
         raise ValueError(f"{name}: math {math!r} not in {MATHS + ('dot',)}")
 
 
-def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> None:
+def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> bool:
     """Launch ``csrc/bitlinear*.cu::bitlinear_<mode>`` on x's device and
     stream; ``dims`` are (E, T, n_r, n_c, tn, kb, K, td).  The library
-    refuses a block over ``budget`` bytes of shared memory."""
+    refuses a block over ``budget`` bytes of shared memory.  Returns whether
+    the launch ran the grid's tensor-core body."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("m_packed", m_packed), ("C", C)):
@@ -213,16 +224,23 @@ def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget)
         raise ValueError(f"{name}: E * n_c = {E * n_c} exceeds {_MAX_GRID_Y}")
     if block_t < 1:
         raise ValueError(f"{name}: block_t {block_t} < 1")
+    # the tensor-core grid copies x and C in 16-byte and M in 4-byte units:
+    # a view that starts elsewhere in its buffer is cloned
+    if x.data_ptr() % 16 or m_packed.data_ptr() % 16 or C.data_ptr() % 16:
+        x, m_packed, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, m_packed, C))
+    tensor_cores = ctypes.c_int(0)
     err = _lib(mode)(
         x.data_ptr(), m_packed.data_ptr(), C.data_ptr(), y.data_ptr(), *dims,
         _X_KINDS[x.dtype], int(C.dtype == torch.bfloat16), int(math == "bitplane"),
-        int(block_t), int(r_chunk), int(budget), torch.cuda.current_stream(x.device).cuda_stream,
+        int(block_t), int(r_chunk), int(budget), SMALL_T,
+        torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(tensor_cores),
     )
     if err < 0:
         raise ValueError(f"{name}: mode {mode!r} needs {-err} bytes of shared memory per "
                          f"block, over the budget of {budget}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch of mode {mode!r} failed (cudaError {err})")
+    return bool(tensor_cores.value)
 
 
 def _card_schedule(grouped, mode, x, C, T, n_r, tn, K, td, block_t, r_chunk, budget):
@@ -238,9 +256,10 @@ def _card_schedule(grouped, mode, x, C, T, n_r, tn, K, td, block_t, r_chunk, bud
     return mode, block_t, rc, budget
 
 
-def _count(fn, mode: str, math: str) -> None:
+def _count(fn, mode: str, math: str, tensor_cores: bool) -> None:
     fn.launches += 1
     fn.by_schedule[f"{mode}/{math}"] += 1
+    fn.tensor_core_launches += tensor_cores
 
 
 def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t: int = 128,
@@ -268,9 +287,9 @@ def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t:
     y = torch.empty((T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0:
         return y
-    _launch("bitlinear", mode, x, m_packed, C, y, (1, T, n_r, n_c, tn, kb, K, td), math,
-            block_t, rc, budget)
-    _count(bitlinear, mode, math)
+    mma = _launch("bitlinear", mode, x, m_packed, C, y, (1, T, n_r, n_c, tn, kb, K, td), math,
+                  block_t, rc, budget)
+    _count(bitlinear, mode, math, mma)
     return y
 
 
@@ -299,17 +318,20 @@ def bitlinear_grouped(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
     y = torch.empty((E, T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0 or E == 0:
         return y
-    _launch("bitlinear_grouped", mode, x, m_packed, C, y, (E, T, n_r, n_c, tn, kb, K, td),
-            math, block_t, rc, budget)
-    _count(bitlinear_grouped, mode, math)
+    mma = _launch("bitlinear_grouped", mode, x, m_packed, C, y,
+                  (E, T, n_r, n_c, tn, kb, K, td), math, block_t, rc, budget)
+    _count(bitlinear_grouped, mode, math, mma)
     return y
 
 
 def reset_counts() -> None:
-    """Set every launch count of K3 and K4 to 0: the totals ``launches``
-    and the counts per schedule and bit algebra, ``by_schedule["mode/math"]``."""
+    """Set every launch count of K3 and K4 to 0: the totals ``launches``,
+    the counts per schedule and bit algebra, ``by_schedule["mode/math"]``,
+    and ``tensor_core_launches``, the grid launches (of ``launches``) that
+    the library reports ran its tensor-core body."""
     for fn, modes in ((bitlinear, MODES), (bitlinear_grouped, GROUPED_MODES)):
         fn.launches = 0
+        fn.tensor_core_launches = 0
         fn.by_schedule = {f"{m}/{a}": 0 for m in modes if m not in ("auto", "jnp")
                           for a in MATHS}
 

@@ -2,11 +2,14 @@
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention``.  For
 CUDA tensors ``flash_attention`` launches the hand-written kernel
-``csrc/flash_attention.cu`` (one block per (64-row query tile, head, batch
-row), kv tiles from the window's first to the diagonal, f32 online
-softmax); for CPU tensors it runs the plain version
+``csrc/flash_attention.cu`` (bf16 on the tensor cores with mma.sync, f32 on
+the FMA pipes; kv tiles from the window's first to the diagonal, online
+softmax in f32); for CPU tensors it runs the plain version
 ``ref.flash_attention_ref``.  Layouts: q (B, H, S, hd), k/v (B, KV, S, hd)
 -> o (B, H, S, hd) in q's dtype; query head h reads kv head h // (H // KV).
+The kernel addresses each tensor through its batch, head and sequence
+strides, so views of another layout (the model's (B, S, H, hd)) need no
+copies, and ``out`` receives o in the caller's layout.
 """
 
 from __future__ import annotations
@@ -27,16 +30,31 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 def _lib():
     fn = _build.load("flash_attention").flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                                  ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+def _addressable(t: torch.Tensor) -> bool:
+    """The kernel reads t through its (batch, head, sequence) strides with
+    hd contiguous; the bf16 body copies 16-byte rows with cp.async, so its
+    strides must be multiples of 8 elements and its data 16-byte aligned."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int = 0,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """o (B, H, S, hd) = causal softmax(q k^T / sqrt(hd)) v, restricted to
-    the last ``window`` positions when ``window > 0``; any S."""
+    the last ``window`` positions when ``window > 0``; any S.  q, k and v
+    may be strided views; o is written into ``out`` (a (B, H, S, hd) view
+    of the caller's buffer) when given, else into a new contiguous tensor,
+    and returned."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
             f"flash_attention: want q (B, H, S, hd), k/v (B, KV, S, hd); got "
@@ -57,21 +75,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     if hd not in HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if out is not None and (tuple(out.shape) != tuple(q.shape) or out.dtype != q.dtype
+                            or out.device != q.device):
+        raise ValueError(f"flash_attention: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}, want q's {tuple(q.shape)} {q.dtype} on {q.device}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window)
+        o = flash_attention_ref(q, k, v, window)
+        return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    o = torch.empty_like(q)
+    q, k, v = (t if _addressable(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    o = torch.empty_like(q, memory_format=torch.contiguous_format) if out is None else out
+    if not _addressable(o):
+        raise ValueError(f"flash_attention: out strides {o.stride()} are not addressable "
+                         "by the kernel (hd contiguous; bf16: multiples of 8, 16-byte aligned)")
     if B == 0 or S == 0:
         return o
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
     err = _lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, H, KV, S, hd, int(window), 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KV, S, hd, strides,
+        int(window), 1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

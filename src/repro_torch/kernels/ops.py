@@ -13,6 +13,8 @@ Each fused call takes its schedule from ``kernels.autotune`` (a tuned
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import quantized
 from repro_torch.kernels import autotune
 from repro_torch.kernels.bitlinear import bitlinear, bitlinear_grouped
@@ -32,12 +34,15 @@ __all__ = [
 def flash_attention_model_layout(qh, k, v, window: int):
     """The attention layer's layout: q (B, S, KV, rep, hd), k/v (B, S, KV,
     hd) -> (B, S, KV, rep, hd).  Heads are KV-major, so query head
-    h = g * rep + r reads kv head g = h // rep, as the kernel does."""
+    h = g * rep + r reads kv head g = h // rep, as the kernel does.  The
+    kernel reads (B, H, S, hd) views of the model's tensors and writes o
+    in the model's layout: no copies."""
     B, S, KV, rep, hd = qh.shape
-    q = qh.reshape(B, S, KV * rep, hd).transpose(1, 2).contiguous()
-    o = flash_attention(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
-                        window)
-    return o.transpose(1, 2).reshape(B, S, KV, rep, hd)
+    q = qh.reshape(B, S, KV * rep, hd)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window,
+                    out=o.transpose(1, 2))
+    return o.reshape(B, S, KV, rep, hd)
 
 
 def enable_kernels() -> None:

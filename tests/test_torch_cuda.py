@@ -7,6 +7,7 @@ the JAX package, so it runs where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import ctypes
 import dataclasses
 import math
 
@@ -263,9 +264,14 @@ def test_bitlinear_schedules_match_plain(dev, mode, opts, math_, cd, xd):
     for T, n_r, n_c, tn, K, td in SCHEDULE_SHAPES:
         x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, xd, cd)
         before = bl.bitlinear.by_schedule[f"{mode}/{math_}"]
+        tc_before = bl.bitlinear.tensor_core_launches
         yk = bl.bitlinear(x, mp, C, mode=mode, math=math_, **opts)
         torch.cuda.synchronize()
         assert bl.bitlinear.by_schedule[f"{mode}/{math_}"] == before + 1
+        # of these shapes only (40, 4, 3, 8, 3, 128) takes the tensor cores,
+        # and only for the grid with bf16 x and C
+        on_mma = mode == "grid" and xd == cd == torch.bfloat16 and T == 40
+        assert bl.bitlinear.tensor_core_launches == tc_before + on_mma
         _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), xd, cd)
 
 
@@ -376,3 +382,154 @@ def test_engine_serves_from_a_tuned_table(dev, arch):
     assert log and all(r["source"] == "cache" for r in log)
     assert {r["key"] for r in log} <= set(table["entries"])
     assert {r["key"].split("|")[1] for r in log} == kinds
+
+
+# ---------------------------------------------------------------------------
+# K5's bf16 body (tensor cores) and the grid's bf16 x bf16 body (tensor cores)
+# ---------------------------------------------------------------------------
+
+def _f32_score_attention(q, k, v, window):
+    """Attention from f32 scores with K5's one rounding of p to bf16:
+    (o, p @ |v|), both f32."""
+    B, H, S, hd = q.shape
+    rep = H // k.shape[1]
+    kr = k.float().repeat_interleave(rep, dim=1)
+    vr = v.float().repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) / math.sqrt(hd)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1).to(v.dtype).float()
+    return p @ vr, p @ vr.abs()
+
+
+@pytest.mark.parametrize("win", [0, 48])
+@pytest.mark.parametrize("S", [1, 63, 65, 1024])
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_bf16_tensor_core_body(dev, hd, rep, S, win):
+    """bf16 K5 against the plain version within the Pallas kernel's 5e-2, and
+    against f32 scores within its rounding bound 2^-8 (|o32| + 2 p@|v|)."""
+    B, KV = 2, 2
+    g = torch.Generator(device=dev).manual_seed(hd * 10_000 + rep * 1_000 + S + win)
+    q = torch.randn(B, KV * rep, S, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, KV, S, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, KV, S, hd, generator=g, device=dev).bfloat16()
+    o = fa.flash_attention(q, k, v, win)
+    torch.cuda.synchronize()
+    r = ref.flash_attention_ref(q, k, v, win)
+    torch.testing.assert_close(o.float(), r.float(), rtol=5e-2, atol=5e-2)
+    o32, pv_abs = _f32_score_attention(q, k, v, win)
+    bound = 2.0 ** -8 * (o32.abs() + 2.0 * pv_abs) + 2e-5
+    assert bool(((o.float() - o32).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_and_writes_the_model_layout(dev, dtype):
+    """The adapter hands K5 strided views of (B, S, H, hd) tensors and gets o
+    in that layout: the same bits as the contiguous (B, H, S, hd) call."""
+    B, S, KV, rep, hd = 2, 130, 2, 4, 64
+    g = torch.Generator(device=dev).manual_seed(11)
+    qh = torch.randn(B, S, KV, rep, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=g, device=dev).to(dtype)
+    before = fa.flash_attention.launches
+    o = ops.flash_attention_model_layout(qh, k, v, 0)
+    q = qh.reshape(B, S, KV * rep, hd).transpose(1, 2).contiguous()
+    want = fa.flash_attention(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert o.shape == (B, S, KV, rep, hd)
+    assert torch.equal(o, want.transpose(1, 2).reshape(B, S, KV, rep, hd))
+
+
+# the policies' (tn, K, td): attention tensors, qwen's BBO attn/w[kv], granite's experts
+POLICY_SHAPES = [(32, 4, 128), (8, 3, 128), (32, 8, 64)]
+
+
+@pytest.mark.parametrize("T", [1, 15, 17, 64, 1280, 4096])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+def test_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, math_, T):
+    """bf16 x and C through the grid at the policies' tiles: on the tensor
+    cores above T = 4, on the FMA body at T = 1 (the small-T fallback)."""
+    n_r, n_c = 24, 3
+    g = torch.Generator(device=dev).manual_seed(tn * 100 + K * 10 + T)
+    x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                 torch.bfloat16)
+    before = bl.bitlinear.by_schedule[f"grid/{math_}"]
+    tc_before = bl.bitlinear.tensor_core_launches
+    yk = bl.bitlinear(x, mp, C, mode="grid", math=math_)
+    torch.cuda.synchronize()
+    assert bl.bitlinear.by_schedule[f"grid/{math_}"] == before + 1
+    assert bl.bitlinear.tensor_core_launches == tc_before + (T > bl.SMALL_T)
+    _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1, 17, 1280])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+def test_grouped_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, math_, T):
+    E, n_r, n_c = 4, 8, 2
+    g = torch.Generator(device=dev).manual_seed(tn * 100 + K * 10 + T + 7)
+    x, mp, C = _variant_operands(g, dev, (E,), T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                 torch.bfloat16)
+    tc_before = bl.bitlinear_grouped.tensor_core_launches
+    yk = bl.bitlinear_grouped(x, mp, C, mode="grid", math=math_)
+    torch.cuda.synchronize()
+    assert bl.bitlinear_grouped.tensor_core_launches == tc_before + (T > bl.SMALL_T)
+    _assert_variant(yk, ref.bitlinear_grouped_ref(x, mp, C, math_), torch.bfloat16,
+                    torch.bfloat16)
+
+
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+def test_grid_ignores_nan_bytes_past_the_last_c_row(dev, tn, K, td, math_):
+    """C padded from K to the mma's 4 or 8 rows (and a ragged last group of r
+    tiles) must be zero-filled, not read: C sits at the start of a buffer
+    whose bytes past it are NaN, and y must stay finite."""
+    n_r, n_c, T = 3, 2, 33
+    n = n_r * n_c * K * td
+    buf = torch.full((n + 16 * td,), float("nan"), device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, mp, C0 = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                  torch.bfloat16)
+    C = buf[:n].view(n_r, n_c, K, td)
+    C.copy_(C0)
+    yk = bl.bitlinear(x, mp, C, mode="grid", math=math_)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(yk).all())
+    _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+def test_grid_takes_unaligned_views_onto_the_tensor_cores(dev, tn, K, td):
+    """x, M and C views that start 2 bytes into their buffers are cloned by
+    the wrapper, so the call still runs the tensor-core body; the library
+    itself refuses such pointers for that body."""
+    n_r, n_c, T = 5, 3, 33
+    g = torch.Generator(device=dev).manual_seed(13)
+    x0, mp0, C0 = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                    torch.bfloat16)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        view = buf[16 // t.element_size() - 1:][:t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x, mp, C = shifted(x0), shifted(mp0), shifted(C0)
+    assert x.data_ptr() % 16 and mp.data_ptr() % 4 and C.data_ptr() % 16
+    tc_before = bl.bitlinear.tensor_core_launches
+    yk = bl.bitlinear(x, mp, C, mode="grid")
+    torch.cuda.synchronize()
+    assert bl.bitlinear.tensor_core_launches == tc_before + 1
+    _assert_variant(yk, ref.bitlinear_ref(x0, mp0, C0), torch.bfloat16, torch.bfloat16)
+    y = torch.empty(T, n_c * td, dtype=torch.bfloat16, device=dev)
+    ran = ctypes.c_int(-1)
+    err = bl._lib("grid")(x.data_ptr(), mp0.data_ptr(), C0.data_ptr(), y.data_ptr(), 1, T, n_r,
+                          n_c, tn, 1, K, td, 1, 1, 0, 64, 1, bl.device_smem_budget(dev),
+                          bl.SMALL_T, torch.cuda.current_stream(dev).cuda_stream,
+                          ctypes.byref(ran))
+    assert err == 716 and ran.value == 0     # cudaErrorMisalignedAddress, nothing launched

@@ -110,3 +110,54 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
     with pytest.raises(NotImplementedError, match="head_dim 24"):
         z = torch.zeros(1, 2, 8, 24)
         tfa.flash_attention(z, z, z)
+
+
+def _old_contiguous_adapter(qh, k, v, win):
+    """The model-layout adapter as it was: contiguous (B, H, S, hd) copies in,
+    o transposed back out."""
+    B, S, KV, rep, hd = qh.shape
+    q = qh.reshape(B, S, KV * rep, hd).transpose(1, 2).contiguous()
+    o = tops.flash_attention(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+                             win)
+    return o.transpose(1, 2).reshape(B, S, KV, rep, hd)
+
+
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("win", [0, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_strided_adapter_matches_contiguous_path_and_jax_kernel(dtype, win, rep):
+    """The adapter now hands the kernel strided views and takes o in the
+    model's layout; on the plain version it gives the old contiguous path's
+    numbers, and the JAX Pallas kernel's (interpret mode) on the same inputs."""
+    B, S, KV, hd = 2, 16, 2, 16
+    rng = np.random.default_rng(31 + win + rep)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(rng, s, dtype) for s in
+                                    ((B, S, KV, rep, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    ot = tops.flash_attention_model_layout(qt, kt, vt, win)
+    assert ot.dtype == qt.dtype and tuple(ot.shape) == (B, S, KV, rep, hd)
+    assert ot.is_contiguous()
+    np.testing.assert_allclose(_np(ot), _np(_old_contiguous_adapter(qt, kt, vt, win)),
+                               rtol=1e-6, atol=1e-6)
+    qf = jnp.transpose(qj.reshape(B, S, KV * rep, hd), (0, 2, 1, 3))
+    oj = jops.flash_attention(qf, jnp.transpose(kj, (0, 2, 1, 3)), jnp.transpose(vj, (0, 2, 1, 3)),
+                              window=win, interpret=True, block_q=8, block_k=8)
+    oj = jnp.transpose(oj, (0, 2, 1, 3)).reshape(B, S, KV, rep, hd)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(_np(ot), _np(oj), rtol=tol, atol=tol)
+    assert tfa.flash_attention.launches == 0        # CPU tensors: the plain version
+
+
+def test_flash_attention_writes_into_out():
+    """``out`` receives o (any strided (B, H, S, hd) view) and is returned;
+    an out of another shape or dtype is refused."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)))
+    buf = torch.zeros(1, 8, 4, 16)
+    out = tfa.flash_attention(q, k, v, 3, out=buf.transpose(1, 2))
+    assert out.data_ptr() == buf.data_ptr()
+    np.testing.assert_array_equal(_np(buf.transpose(1, 2)), _np(tfa.flash_attention(q, k, v, 3)))
+    with pytest.raises(ValueError, match="out"):
+        tfa.flash_attention(q, k, v, out=torch.zeros(1, 4, 8, 8))
+    with pytest.raises(ValueError, match="out"):
+        tfa.flash_attention(q, k, v, out=torch.zeros(1, 4, 8, 16, dtype=torch.bfloat16))

@@ -16,7 +16,8 @@ from repro_torch.models.params import split
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "chip_smoke.py", _ROOT / "tools" / "torch_serve_profile.py",
-    _ROOT / "tools" / "torch_eigh_batch_probe.py", _ROOT / "tools" / "torch_moe_divergence.py"]
+    _ROOT / "tools" / "torch_eigh_batch_probe.py", _ROOT / "tools" / "torch_moe_divergence.py",
+    _ROOT / "tools" / "torch_grid_variants.py"]
 
 
 def _imported_roots(path):
@@ -130,3 +131,24 @@ def test_moe_entry_points_refuse_the_cpu_without_device(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compress_model(cfg, CompressionPolicy(tile_d=32, min_size=1024), str(tmp_path))
     assert not any(tmp_path.iterdir())
+
+
+def test_grid_variant_switches_are_the_headers():
+    """tools/torch_grid_variants.py builds its variants with -D switches;
+    each must be one that csrc/bitlinear.cuh defines, so a renamed switch
+    fails here instead of silently building the kernel as it is."""
+    import importlib.util
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_grid_variants", _ROOT / "tools" / "torch_grid_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "bitlinear.cuh").read_text()
+    defined = set(re.findall(r"^#ifndef (BITLINEAR_MMA_\w+)$", header, re.M))
+    named = tool.variants()
+    assert named["as_built"] == ([], True)
+    for name, (flags, _) in named.items():
+        for flag in flags:
+            macro = re.fullmatch(r"-D(\w+)=\d+", flag)
+            assert macro and macro.group(1) in defined, (name, flag)

@@ -1,0 +1,184 @@
+#!/usr/bin/env python3
+"""What holds back the K3/K4 grid's tensor-core body, on one GPU.
+
+    python3 tools/torch_grid_variants.py
+
+Builds ``src/repro_torch/csrc/bitlinear.cu`` once per variant under
+``build/grid_variants/`` (one ``nvcc`` each, all started together), each
+variant a set of ``-D`` switches that ``csrc/bitlinear.cuh`` defines, and
+times each variant's grid launch (bf16 x and C, unpack, block_t 64,
+r_chunk 1) on qwen3-32b's prefill tensors at T = 4096 (tile 32 x 128,
+K = 4: wq, gate and down) beside a dense bf16 ``torch.matmul``:
+
+  * ``as_built``: no switch;
+  * ``staging_only``: the same copies into shared memory, no mma
+    (``BITLINEAR_MMA_VARIANT=1``; its output is not checked);
+  * ``mma_only``: the mma work on the first stages' data, no further
+    copies (``=2``; not checked);
+  * ``rows{R}_cols{C}_stages{S}_blocks{B}``: other block shapes, R row
+    tiles x C column tiles of warps, S shared-memory stages and B resident
+    blocks per SM for the register budget;
+  * ``warp_staging_...``: each warp stages its own x, M and C tiles and
+    meets no block barrier in the r loop (``=3``), at the same shapes
+    (a shape whose stages do not fit the card's shared memory is reported
+    as refused, with the bytes it needs).
+
+Each checked variant is held against the plain version within 2e-2 of
+max|y|.  Prints the card, each variant's registers and spills of
+``bitlinear_mma_kernel`` (-Xptxas -v), then one JSON line per tensor: ms
+per variant (CUDA events, median of 5, L2 overwritten before each) and the
+matmul's.  Needs one CUDA card and nvcc; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(ROOT, "build", "grid_variants")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+SHAPES = {"wq": (5120, 8192), "gate": (5120, 25600), "down": (25600, 5120)}
+T, TN, K, TD = 4096, 32, 4, 128
+BUILT_SHAPE = (4, 4, 2, 1)
+OTHER_SHAPES = ((4, 2, 2, 2), (4, 2, 3, 2), (8, 2, 2, 1), (4, 4, 3, 1), (2, 4, 2, 2))
+WARP_STAGING_SHAPES = ((4, 4, 2, 1), (4, 2, 2, 1), (4, 2, 3, 1), (2, 4, 2, 1), (2, 2, 2, 2))
+
+
+def shape_flags(rows, cols, stages, blocks) -> list:
+    return [f"-DBITLINEAR_MMA_ROW_TILES={rows}", f"-DBITLINEAR_MMA_NCB={cols}",
+            f"-DBITLINEAR_MMA_STAGES={stages}", f"-DBITLINEAR_MMA_MIN_BLOCKS={blocks}"]
+
+
+def variants() -> dict:
+    """name -> (-D flags, output checked)."""
+    out = {"as_built": ([], True),
+           "staging_only": (["-DBITLINEAR_MMA_VARIANT=1"], False),
+           "mma_only": (["-DBITLINEAR_MMA_VARIANT=2"], False)}
+    for shape in OTHER_SHAPES:
+        out["rows{}_cols{}_stages{}_blocks{}".format(*shape)] = (shape_flags(*shape), True)
+    for shape in WARP_STAGING_SHAPES:
+        out["warp_staging_rows{}_cols{}_stages{}_blocks{}".format(*shape)] = (
+            ["-DBITLINEAR_MMA_VARIANT=3", *shape_flags(*shape)], True)
+    return out
+
+
+def ptxas(log: str) -> dict:
+    """Most registers and the spilled bytes over bitlinear_mma_kernel's instances."""
+    regs, spills, cur = 0, 0, False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = "bitlinear_mma_kernel" in ln
+        elif cur:
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            spills += int(m.group(1)) if m else 0
+            m = re.search(r"Used (\d+) registers", ln)
+            regs = max(regs, int(m.group(1))) if m else regs
+    return {"registers": regs, "spill_store_bytes": spills}
+
+
+def build(named: dict) -> tuple[dict, dict]:
+    """Compile every variant in parallel; (name -> entry point, name -> ptxas)."""
+    from repro_torch.kernels import _build
+
+    procs = {}
+    for name, (flags, _) in named.items():
+        d = os.path.join(OUT, name)
+        os.makedirs(d, exist_ok=True)
+        cmd = _build.command("bitlinear", os.path.join(d, "libgrid.so"), flags)
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+    fns, regs = {}, {}
+    for name, p in procs.items():
+        out, err = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{err[-4000:]}")
+        regs[name] = ptxas(out + err)
+        fn = ctypes.CDLL(os.path.join(OUT, name, "libgrid.so")).bitlinear_grid
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns, regs
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_grid_variants: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import quantized
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import ref
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    named = variants()
+    fns, regs = build(named)
+    print(json.dumps({"ptxas_bitlinear_mma_kernel": regs}), flush=True)
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def cuda_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    budget = bl.device_smem_budget(dev)
+    for tensor, (d_in, d_out) in SHAPES.items():
+        n_r, n_c = d_in // TN, d_out // TD
+        mp = torch.randint(0, 256, (n_r, n_c, TN, 1), generator=g, device=dev, dtype=torch.uint8)
+        C = (torch.randn(n_r, n_c, K, TD, generator=g, device=dev) * 0.2).bfloat16()
+        x = torch.randn(T, d_in, generator=g, device=dev).bfloat16()
+        y = torch.empty(T, d_out, dtype=torch.bfloat16, device=dev)
+        want = ref.bitlinear_ref(x, mp, C)
+        dense = quantized.decompress({"m_packed": mp, "C": C}, torch.bfloat16)
+        row = {"tensor": tensor, "T": T, "shape": [n_r, n_c, TN, K, TD],
+               "matmul_ms": cuda_ms(lambda: torch.matmul(x, dense))}
+        for name, fn in fns.items():
+            ran = ctypes.c_int(0)
+
+            def call(fn=fn, ran=ran):
+                return fn(x.data_ptr(), mp.data_ptr(), C.data_ptr(), y.data_ptr(), 1, T, n_r,
+                          n_c, TN, 1, K, TD, 1, 1, 0, 64, 1, budget, bl.SMALL_T, stream,
+                          ctypes.byref(ran))
+
+            err = call()
+            torch.cuda.synchronize()
+            if err < 0:
+                row[f"{name}_ms"] = None
+                row[f"{name}_refused_smem_bytes"] = -err
+                continue
+            if err or not ran.value:
+                raise RuntimeError(f"variant {name}: launch returned {err}, tensor cores "
+                                   f"{ran.value}")
+            if named[name][1]:
+                diff = float((y.float() - want.float()).abs().max())
+                if diff > 2e-2 * float(want.float().abs().max()):
+                    raise RuntimeError(f"variant {name} on {tensor}: |y - plain| {diff:.3g}")
+            row[f"{name}_ms"] = cuda_ms(call)
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,14 +24,17 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      default rule), is held against its plain version on the same inputs
      and timed beside its bound and a dense bf16 matmul.
   K3's variants: every schedule (grid at three (block_t, r_chunk), decode
-     where its x rows fit shared memory, stream at r_chunk 1 and 2) x bit
+     where its block fits shared memory, stream at r_chunk 1 and 2) x bit
      algebra (unpack, bitplane) x activations (f32, bf16, int8) x C (f32,
      bf16) against the plain version on phase 3's tensors at T = 1, 16,
      512, 4, 4096, the BBO tensors (tn = 8, K = 3) and a ragged T = 37:
      int8 equal (on a dyadic C grid where every f32 sum is exact), f32
      within 1e-4 + 1e-4 |y|, bf16 within 2e-2 of max |y|.  Each schedule x
      bit algebra timed in bf16 over phase 4's distinct calls, and over
-     phase 4's tensors at T = 1 ... 64 (the default rule's small-T cutoff).
+     phase 4's tensors at T = 1 ... 64 (the default rule's small-T cutoff);
+     each also as device time alone (``device_ms``: the card kept busy while
+     the host enqueues the call); each timed decode call's cluster size S
+     and GB/s are printed (``decode_calls``).
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
      shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
      and bf16; in bf16 also against f32 scores within K5's rounding bound.
@@ -41,7 +44,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      manifest and generates 32 tokens for 4 prompts of 1024 tokens; K5
      must have been launched once (one layer, one prefill) and K3 once per
      compressed tensor per forward (prefill + 31 decode steps), per
-     schedule as its resolutions (the default rule) picked.  Time to first
+     schedule as its resolutions (the default rule) picked, each decode
+     launch at the cluster size the rule gives its shape.  Time to first
      token is the median of the serve's prefill and two more of the same
      prompts (all three and their spread are printed).  The prefill's
      logits are held against the plain path (kernels disabled), and the
@@ -119,6 +123,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS = 67e12               # H100 SXM float32, outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
+SPIN_CYCLES = 200_000           # ~0.1 ms of the card's clock, longer than a call's host time
 
 SEED = 0
 BBO_ITERS = 32
@@ -143,14 +148,21 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(torch, fn, reps: int, flush, warmup: bool = True) -> float:
-    """Median device time of ``fn`` over ``reps`` launches, each after the
-    L2 cache was overwritten (a serving step finds its weights cold)."""
+def cuda_ms(torch, fn, reps: int, flush, warmup: bool = True, busy: bool = False) -> float:
+    """Median time between CUDA events around ``fn`` over ``reps`` launches,
+    each after the L2 cache was overwritten (a serving step finds its
+    weights cold).  A call whose device work is shorter than the host's
+    time in its Python wrapper (tens of µs) includes that host time.  With
+    ``busy`` the card is kept busy (``torch.cuda._sleep``) while the host
+    enqueues the call, so the events bracket device work alone (the
+    ``device_ms`` fields)."""
     if warmup:
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if busy:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -239,6 +251,8 @@ def phase_k1(torch, dev, flush):
         out[label] = {"P": P, "C": C, "S": S, "n": n, "identical": True, "max_abs_err": err}
         if label == "sq_main_shape":
             ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush)
+            device_ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush,
+                                busy=True)
             plain_ms = cuda_ms(torch, lambda: ref.sa_sweep_many_ref(h, B, x0, u, temps), 2, flush)
             nbytes = 4 * (P * n + P * n * n + P * C * n + P * C * S * n + P * S + P * C * n + P * C)
             # per spin step: field update (n mul-adds) + acceptance (~6 ops);
@@ -246,7 +260,8 @@ def phase_k1(torch, dev, flush):
             ops = P * C * (S * n * (2 * n + 6) + 4 * 2 * n * n)
             b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
             out["timing"] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                 "bytes": nbytes, "operations": ops,
             }
@@ -295,6 +310,8 @@ def phase_k2(torch, dev, flush):
         if label != "paper_shape":
             continue
         ms = cuda_ms(torch, lambda: sqa_sweep_many(h, B, X0, u, jp, SQA_TEMPERATURE), 10, flush)
+        device_ms = cuda_ms(torch, lambda: sqa_sweep_many(h, B, X0, u, jp, SQA_TEMPERATURE), 10,
+                            flush, busy=True)
         # the plain version is a Python loop of S*T*n = 12,288 steps, warm from the check
         plain_ms = cuda_ms(torch, lambda: ref.sqa_sweep_many_ref(h, B, X0, u, jp, SQA_TEMPERATURE),
                            1, flush, warmup=False)
@@ -306,7 +323,8 @@ def phase_k2(torch, dev, flush):
         ops = P * C * (S * T * n * (2 * n + 8) + T * 4 * 2 * n * n)
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
         out["timing"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops),
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
             "bytes": nbytes, "operations": ops, "ns_per_step": ms * 1e6 / (S * T * n),
         }
@@ -560,8 +578,9 @@ def phase_serve(torch, dev, params, artifact, flush):
     rows = []
     # "serve_t": the calls at T = 1, 16, 512; "generate": the distinct
     # (tensor, T) calls of phase 4, each once
-    totals = {part: {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    totals = {part: {"calls": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0, "library_device_ms": 0.0, "bytes_ms": 0.0,
+                     "ops_ms": 0.0}
               for part in ("serve_t", "generate")}
     max_err = 0.0
     for (path, T), x in inputs.items():
@@ -589,20 +608,24 @@ def phase_serve(torch, dev, params, artifact, flush):
         n_r, n_c, tn, kb = mp.shape
         K, td = C.shape[2], C.shape[3]
         ms = cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, **kw), 5, flush)
+        device_ms = cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, **kw), 5, flush, busy=True)
         plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C, sched.math), 2, flush)
         library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5, flush)
+        library_device_ms = cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5, flush, busy=True)
         nbytes = mp.numel() + C.numel() * C.element_size() + x.numel() * 2 + y.numel() * 2
         ops_ = 2 * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
         rows.append({"tensor": path, "T": T, "shape": [n_r, n_c, tn, K, td],
-                     "schedule": f"{sched.mode}/{sched.math}", "ms": ms,
+                     "schedule": f"{sched.mode}/{sched.math}", "ms": ms, "device_ms": device_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_device_ms": library_device_ms,
                      "bound_ms": max(b_bytes, b_ops),
                      "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                      "max_abs_err": kerr})
         tot = totals["serve_t" if T in SERVE_T else "generate"]
         tot["calls"] += 1
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+        for k, v in (("ms", ms), ("device_ms", device_ms), ("plain_ms", plain_ms),
+                     ("library_ms", library_ms), ("library_device_ms", library_device_ms),
                      ("bound_ms", max(b_bytes, b_ops)), ("bytes_ms", b_bytes),
                      ("ops_ms", b_ops)):
             tot[k] += v
@@ -709,10 +732,34 @@ def k3_bound(mp, C, T, x_itemsize):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
 
 
+def gbps(bytes_ms: float, ms: float) -> float:
+    """GB/s of a call that moves the bytes HBM_BYTES_PER_S moves in
+    ``bytes_ms`` milliseconds, in ``ms`` milliseconds."""
+    return bytes_ms / ms * HBM_BYTES_PER_S / 1e9
+
+
+def decode_call(bl, dev, mode, tensor, E, n_c, n_r, bytes_ms, device_ms):
+    """For a timed decode call: its tensor, the cluster size S the rule gives
+    it (what the launch ran) and the bytes it moved per second of device
+    time (each input read once, the output written once), against the
+    card's HBM_BYTES_PER_S."""
+    if mode != "decode":
+        return {}
+    return {"tensor": tensor, "S": bl.decode_cluster_size(E * n_c, n_r, bl.device_sms(dev)),
+            "GBps": gbps(bytes_ms, device_ms)}
+
+
+def decode_calls(timed):
+    """The timed decode calls of a variants phase, per bit algebra."""
+    return [{"math": key.split("/")[1],
+             **{k: r[k] for k in ("tensor", "T", "S", "ms", "device_ms", "GBps")}}
+            for key, rows in timed.items() if key.startswith("decode/") for r in rows]
+
+
 def sum_variants(timed):
-    """Per "mode/math": the sums of ms, plain_ms, library_ms and the bound
-    over the calls it ran, with bound_by from the summed bytes and ops, and
-    the kernel's ms summed per T."""
+    """Per "mode/math": the sums of ms, device_ms, plain_ms, library_ms,
+    library_device_ms and the bound over the calls it ran, with bound_by
+    from the summed bytes and ops, and the kernel's ms summed per T."""
     out = {}
     for key, rows in timed.items():
         b = sum(r["bytes_ms"] for r in rows)
@@ -720,7 +767,8 @@ def sum_variants(timed):
         Ts = sorted({r["T"] for r in rows})
         out[key] = {"calls": len(rows), "T": Ts,
                     **{k: sum(r[k] for r in rows)
-                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                       for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                 "library_device_ms", "bound_ms")},
                     "bound_by": "bytes" if b >= o else "operations",
                     "ms_by_T": {T: sum(r["ms"] for r in rows if r["T"] == T) for T in Ts}}
     return out
@@ -734,7 +782,8 @@ def sweep_small_t(torch, g, dev, fn, operands, modes, Ts, flush):
     """Per T: ms summed over ``operands`` [(lead, mp, C)] per "mode/math",
     in bf16, each schedule at the default rule's options (grid at its
     block_t, stream at r_chunk 2), a schedule only where every operand's
-    block fits; and the default rule's picks ("rule")."""
+    block fits; the same as device time alone ("device": {"mode/math":
+    ms}); and the default rule's picks ("rule")."""
     from repro_torch.kernels import bitlinear as bl
 
     budget = bl.device_smem_budget(dev)
@@ -752,14 +801,16 @@ def sweep_small_t(torch, g, dev, fn, operands, modes, Ts, flush):
                        <= budget for _, mp, C in operands)
 
         row = {"rule": sorted({"{mode}/{math}".format(**bl.default_schedule(
-            bool(lead), T=T, n_r=mp.shape[-4], tn=mp.shape[-2], K=C.shape[-2], td=C.shape[-1],
-            x_itemsize=2, c_itemsize=2, budget=budget)) for lead, mp, C in operands})}
+            T=T, n_r=mp.shape[-4], tn=mp.shape[-2], K=C.shape[-2], td=C.shape[-1], x_itemsize=2,
+            budget=budget)) for _, mp, C in operands})}
+        row["device"] = {}
         for mode in (m for m in modes if fits(m)):
             for math in MATHS:
-                row[f"{mode}/{math}"] = sum(
-                    cuda_ms(torch, lambda: fn(x, mp, C, mode=mode, math=math, **opts[mode]), 5,
-                            flush)
-                    for x, (_, mp, C) in zip(xs, operands))
+                for busy, into in ((False, row), (True, row["device"])):
+                    into[f"{mode}/{math}"] = sum(
+                        cuda_ms(torch, lambda: fn(x, mp, C, mode=mode, math=math, **opts[mode]),
+                                5, flush, busy=busy)
+                        for x, (_, mp, C) in zip(xs, operands))
         out[T] = row
     return out
 
@@ -800,6 +851,7 @@ def phase_k3_variants(torch, dev, weights, inputs, flush):
         K, td = C.shape[2], C.shape[3]
         w_dense = quantized.decompress(w, torch.bfloat16)
         library_ms = cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5, flush)
+        library_device_ms = cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5, flush, busy=True)
         del w_dense
         b_bytes, b_ops = k3_bound(mp, C, T, 2)
         for math in MATHS:
@@ -808,17 +860,21 @@ def phase_k3_variants(torch, dev, weights, inputs, flush):
                 if mode == "decode" and not bl.decode_path_ok(T, n_r, tn, K, td, 2,
                                                                budget):
                     continue
-                ms = cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, mode=mode, math=math), 5,
-                             flush)
+                ms, device_ms = (cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, mode=mode,
+                                                                     math=math), 5, flush,
+                                         busy=busy) for busy in (False, True))
                 timed[f"{mode}/{math}"].append(
-                    {"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops})
+                    {"T": T, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "library_device_ms": library_device_ms,
+                     "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops,
+                     **decode_call(bl, dev, mode, path, 1, mp.shape[1], n_r, b_bytes,
+                                   device_ms)})
     # the small-T cutoff of the default rule, over phase 4's tensors
     operands = [((), weights[p]["m_packed"], weights[p]["C"]) for p in sorted(weights)]
     sweep = sweep_small_t(torch, g, dev, bl.bitlinear, operands, ("grid", "decode", "stream"),
                           SWEEP_T, flush)
     out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed),
-           "small_t_ms": sweep}
+           "decode_calls": decode_calls(timed), "small_t_ms": sweep}
     emit({"k3_variants": out})
     return out
 
@@ -902,16 +958,19 @@ def phase_k5(torch, dev, flush):
         if label not in K5_TIMED:
             continue
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
+        device_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush, busy=True)
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, win), 3, flush)
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
                                                       enable_gqa=True)
         library_ms = cuda_ms(torch, sdpa, 10, flush)
+        library_device_ms = cuda_ms(torch, sdpa, 10, flush, busy=True)
         lib_err = float((sdpa().float() - r.float()).abs().max())
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
         pairs = S * (S + 1) // 2            # causal (query, key) pairs, window 0
         ops_ = 4 * B * H * hd * pairs       # q.k and p.v, 2 operations per mul-add
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
-        out[K5_TIMED[label]] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        out[K5_TIMED[label]] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                                "library_ms": library_ms, "library_device_ms": library_device_ms,
                                 "library_max_abs_err": lib_err, "bound_ms": max(b_bytes, b_ops),
                                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                                 "bytes": nbytes, "operations": ops_}
@@ -962,8 +1021,9 @@ def phase_generate(torch, dev, out_dir):
                 "bitlinear": bl.bitlinear.launches, "sa_sweep_many": sa.sa_sweep_many.launches}
     by_schedule = served(bl.bitlinear)
     eng = res.engine
-    tensor_cores = heuristic_launches(torch, dev, eng.artifact.manifest,
-                                      {"bitlinear": by_schedule}, qwen_tokens, "phase 4")
+    tensor_cores, clusters = heuristic_launches(torch, dev, eng.artifact.manifest,
+                                                {"bitlinear": by_schedule}, qwen_tokens,
+                                                "phase 4")
     n_tensors = eng.compression["tensors"]
     check(launches["flash_attention"] == cfg.num_layers,
           f"K5 launched {launches['flash_attention']} times, want {cfg.num_layers}")
@@ -1004,6 +1064,7 @@ def phase_generate(torch, dev, out_dir):
         "launches": launches,
         "bitlinear_by_schedule": by_schedule,
         "tensor_core_launches": tensor_cores,
+        "decode_clusters": clusters,
         **ttft,
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
         "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
@@ -1024,7 +1085,7 @@ TUNE_T = (GEN_BATCH, GEN_BATCH * GEN_PROMPT)
 TUNE_REPEATS, TUNE_ITERS = 3, 3
 
 
-def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False):
+def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clusters=False):
     """{kind: {"mode/math": n}}: the launches a serve of GEN_STEPS tokens
     makes when each call signature runs ``schedules[key]`` (a table's
     entries, or what a serve's resolution log says it resolved).  Per
@@ -1032,7 +1093,8 @@ def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False):
     calls, at the T that ``tokens(path, kind)`` gives as (prefill, decode).
     With ``tensor_cores``, {kind: n}: the grid launches above SMALL_T rows,
     each of which must run the grid's tensor-core body (the served tensors
-    are bf16 at the policies' tiles)."""
+    are bf16 at the policies' tiles).  With ``clusters``, {kind: {S: n}}:
+    the decode launches by the cluster size S the rule gives their shape."""
     from repro_torch.kernels import autotune
     from repro_torch.kernels import bitlinear as bl
 
@@ -1046,6 +1108,12 @@ def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False):
                                         dtype=dname, E=E, device=autotune.device_kind(dev),
                                         mode=autotune.pallas_mode(dev))
             s = schedules[key]
+            if clusters:
+                if s["mode"] == "decode":
+                    S = bl.decode_cluster_size(max(E, 1) * n_c, n_r, bl.device_sms(dev))
+                    counts = want.setdefault(kind, {})
+                    counts[S] = counts.get(S, 0) + n * layers
+                continue
             if tensor_cores:
                 on_mma = s["mode"] == "grid" and T > bl.SMALL_T
                 want[kind] = want.get(kind, 0) + n * layers * on_mma
@@ -1124,6 +1192,7 @@ def tuned_serve(torch, dev, out_dir, cfg, tokens):
     check(serving == want, f"launches per schedule {serving}, the table implies {want}")
     tensor_core_launches(manifest=art.manifest, schedules=entries, dev=dev, tokens=tokens,
                          label="tuned serve")
+    clusters = cluster_launches(art.manifest, entries, dev, tokens, "tuned serve")
     check(fa.flash_attention.launches == cfg.num_layers,
           f"K5 launched {fa.flash_attention.launches} times, want {cfg.num_layers}")
     toks = res.tokens
@@ -1141,6 +1210,7 @@ def tuned_serve(torch, dev, out_dir, cfg, tokens):
                         round(tr["seconds"] * 1e6, 1), bool(tr.get("plain"))]
                        for tr in v if "seconds" in tr] for k, v in trials.items()},
         "launches_tuning": tuning, "launches_serving": serving, "resolutions": len(log),
+        "decode_clusters": clusters,
         "ttft_s": t["prefill_s"],
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
     }
@@ -1163,10 +1233,26 @@ def tensor_core_launches(manifest, schedules, dev, tokens, label):
     return got
 
 
+def cluster_launches(manifest, schedules, dev, tokens, label):
+    """Every decode launch of a serve ran with the cluster size S that the
+    rule gives its shape, by the library's own report (``decode_clusters``).
+    Returns {kind: {S: n}}."""
+    from repro_torch.kernels import bitlinear as bl
+
+    fns = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
+    want = implied_launches(manifest, schedules, dev, tokens, clusters=True)
+    got = {k: dict(fn.decode_clusters) for k, fn in fns.items() if fn.decode_clusters}
+    check(got == {k: v for k, v in want.items() if v},
+          f"{label}: decode launches by cluster size {got}, the rule gives {want}")
+    return got
+
+
 def heuristic_launches(torch, dev, manifest, by_kind, tokens, label):
     """A serve without a table launched, per kernel and schedule, what its
-    resolutions (the default rule) picked, and its grid on the tensor cores
-    above SMALL_T rows.  Returns the tensor-core launches per kernel."""
+    resolutions (the default rule) picked, its grid on the tensor cores
+    above SMALL_T rows and its decode at the rule's cluster sizes.  Returns
+    the tensor-core launches per kernel and the decode launches per kernel
+    and cluster size."""
     from repro_torch.kernels import autotune
 
     log = autotune.last_resolutions()
@@ -1175,7 +1261,8 @@ def heuristic_launches(torch, dev, manifest, by_kind, tokens, label):
     want = implied_launches(manifest, resolved_schedules(), dev, tokens)
     check(by_kind == want, f"{label}: launches per schedule {by_kind}, its resolutions imply "
                            f"{want}")
-    return tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label)
+    return (tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label),
+            cluster_launches(manifest, resolved_schedules(), dev, tokens, label))
 
 
 def phase_tuned_generate(torch, dev, out_dir, heuristic):
@@ -1293,21 +1380,25 @@ def phase_k4(torch, dev, flush):
             continue
         w_dense = quantized.decompress({"m_packed": mp, "C": C}, torch.bfloat16)
         ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C, **kw), 10, flush)
+        device_ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C, **kw), 10, flush,
+                            busy=True)
         plain_ms = cuda_ms(torch, lambda: ref.bitlinear_grouped_ref(x, mp, C, sched.math), 3,
                            flush)
         library_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush)
+        library_device_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush, busy=True)
         nbytes = mp.numel() + C.numel() * C.element_size() + (x.numel() + yk.numel()) * 2
         ops_ = 2 * E * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
-        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(b_bytes, b_ops),
+        row = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_device_ms": library_device_ms, "bound_ms": max(b_bytes, b_ops),
                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
                "bytes": nbytes, "operations": ops_}
         out[label].update(row)
         timed.append(row)
         del w_dense
     # the kernels line sums phase 5's six distinct (stack, T) calls, each once
-    total = {k: sum(r[k] for r in timed) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total = {k: sum(r[k] for r in timed) for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                   "library_device_ms", "bound_ms")}
     b = sum(r["bytes"] for r in timed) / HBM_BYTES_PER_S
     o = sum(r["operations"] for r in timed) / BF16_FLOPS
     total.update({"calls": len(timed), "bound_by": "bytes" if b >= o else "operations",
@@ -1353,6 +1444,8 @@ def phase_k4_variants(torch, dev, flush):
             C = C0.to(torch.bfloat16)
             w_dense = quantized.decompress({"m_packed": mp, "C": C}, torch.bfloat16)
             library_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush)
+            library_device_ms = cuda_ms(torch, lambda: torch.bmm(x, w_dense), 10, flush,
+                                        busy=True)
             del w_dense
             nbytes = mp.numel() + C.numel() * 2 + E * T * (d_in + d_out) * 2
             ops_ = 2 * E * T * (n_r * tn * n_c * K + n_r * n_c * K * td)
@@ -1364,12 +1457,16 @@ def phase_k4_variants(torch, dev, flush):
                     if mode == "decode" and not bl.decode_path_ok(T, n_r, tn, K, td, 2,
                                                                    budget):
                         continue
-                    ms = cuda_ms(torch, lambda: bl.bitlinear_grouped(x, mp, C, mode=mode,
-                                                                     math=math), 10, flush)
+                    ms, device_ms = (cuda_ms(torch, lambda: bl.bitlinear_grouped(
+                        x, mp, C, mode=mode, math=math), 10, flush, busy=busy)
+                        for busy in (False, True))
                     timed[f"{mode}/{math}"].append(
-                        {"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                         "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops})
+                        {"T": T, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "library_device_ms": library_device_ms,
+                         "bound_ms": max(b_bytes, b_ops), "bytes_ms": b_bytes, "ops_ms": b_ops,
+                         **decode_call(bl, dev, mode, name, E, n_c, n_r, b_bytes, device_ms)})
     out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed),
+           "decode_calls": decode_calls(timed),
            "small_t_ms": sweep_small_t(torch, g, dev, bl.bitlinear_grouped, stacks_ops,
                                        ("grid", "decode"), SWEEP_T, flush)}
     emit({"k4_variants": out})
@@ -1525,8 +1622,8 @@ def phase_moe_generate(torch, dev, out_dir):
             "flash_attention": L, "sa_sweep_many": 0}
     check(launches == want, f"launches {launches}, want {want}")
     eng = res.engine
-    tensor_cores = heuristic_launches(torch, dev, eng.artifact.manifest, by_schedule,
-                                      moe_tokens, "phase 5")
+    tensor_cores, clusters = heuristic_launches(torch, dev, eng.artifact.manifest, by_schedule,
+                                                moe_tokens, "phase 5")
     ttft = ttft_repeats(eng, res.prompts, res.timing["prefill_s"])
     check(eng.compression["grouped_tensors"] == 3, f"compression {eng.compression}")
     toks = res.tokens
@@ -1563,6 +1660,7 @@ def phase_moe_generate(torch, dev, out_dir):
         "launches": launches,
         "by_schedule": by_schedule,
         "tensor_core_launches": tensor_cores,
+        "decode_clusters": clusters,
         **ttft,
         "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
         "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
@@ -1763,8 +1861,14 @@ def main() -> int:
                  "max_abs_err": errs[key],
                  "timed_calls": tm["calls"], "timed_T": tm["T"], "ms": tm["ms"],
                  "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]}
+                 "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+                 # the same without the host's time (the card kept busy)
+                 "device_ms": tm["device_ms"], "library_device_ms": tm["library_device_ms"]}
                 for key, tm in timing.items()]
+    # each timed decode call's cluster size and achieved bytes per second
+    emit({"decode_calls": {"bitlinear": k3v["decode_calls"],
+                           "bitlinear_grouped": k4v["decode_calls"],
+                           "GBps_card": HBM_BYTES_PER_S / 1e9}})
     emit({"kernels": [
         {"name": "sa_sweep_many", "route": "cuda",
          "source": "src/repro_torch/csrc/sa_sweep.cu",
@@ -1773,7 +1877,7 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in k1.values() if "max_abs_err" in v),
          "ms": k1["timing"]["ms"], "plain_ms": k1["timing"]["plain_ms"],
          "bound_ms": k1["timing"]["bound_ms"], "bound_by": k1["timing"]["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "device_ms": k1["timing"]["device_ms"], "library_device_ms": None,
          "launches_phase6": {k: v["launches"]["sa_sweep_many"]
                              for k, v in paper["algorithms"].items()}},
         {"name": "bitlinear", "route": "cuda",
@@ -1787,6 +1891,7 @@ def main() -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "bytes" if k3["bytes_ms"] >= k3["ops_ms"] else "operations",
          "library_ms": k3["library_ms"],
+         "device_ms": k3["device_ms"], "library_device_ms": k3["library_device_ms"],
          # per schedule x bit algebra (launches: see variants), times summed
          # in bf16 over phase 4's distinct calls that the schedule takes
          # (decode: the T = 4 ones)
@@ -1804,10 +1909,12 @@ def main() -> int:
          "launches_phase5": moe_gen["launches"]["flash_attention"], "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
-         "library_ms": k5["timing"]["library_ms"],
+         "library_ms": k5["timing"]["library_ms"], "device_ms": k5["timing"]["device_ms"],
+         "library_device_ms": k5["timing"]["library_device_ms"],
          # the same at phase 5's prefill shape (4, 16, 8, 1024, 64)
          "moe_prefill": {k: k5["timing_moe"][k] for k in
-                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+                         ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                          "library_device_ms")}},
         {"name": "bitlinear_grouped", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:583",
@@ -1817,7 +1924,8 @@ def main() -> int:
          "timed_calls": k4["timing"]["calls"],
          "ms": k4["timing"]["ms"], "plain_ms": k4["timing"]["plain_ms"],
          "bound_ms": k4["timing"]["bound_ms"], "bound_by": k4["timing"]["bound_by"],
-         "library_ms": k4["timing"]["library_ms"],
+         "library_ms": k4["timing"]["library_ms"], "device_ms": k4["timing"]["device_ms"],
+         "library_device_ms": k4["timing"]["library_device_ms"],
          # per schedule x bit algebra (launches: see variants), times summed
          # in bf16 over phase 5's distinct (stack, T) calls the schedule takes
          "sources": ["src/repro_torch/csrc/bitlinear.cu",
@@ -1832,7 +1940,7 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in k2.values() if "max_abs_err" in v),
          "ms": k2["timing"]["ms"], "plain_ms": k2["timing"]["plain_ms"],
          "bound_ms": k2["timing"]["bound_ms"], "bound_by": k2["timing"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "device_ms": k2["timing"]["device_ms"], "library_device_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -30,8 +30,9 @@ int bitlinear_grid(const void* x, const uint8_t* m_packed, const void* C, void* 
 }
 
 // Dynamic shared memory in bytes of one block of schedule `mode` (0 grid,
-// 1 decode, 2 stream) for these shapes, as the launch computes it; -1 for
-// an unknown mode or x_kind.  kernels/bitlinear.py admits schedules by it.
+// 2 stream) for these shapes, as the launch computes it; -1 for an unknown
+// mode or x_kind (decode's: bitlinear_decode_smem_bytes in
+// bitlinear_decode.cu).  kernels/bitlinear.py admits schedules by it.
 long long bitlinear_smem_bytes(int mode, int T, int n_r, int tn, int kb, int K, int td,
                                int x_kind, int c_bf16, int r_chunk, int small_t) {
   using namespace bitlinear_impl;
@@ -40,8 +41,6 @@ long long bitlinear_smem_bytes(int mode, int T, int n_r, int tn, int kb, int K, 
   switch (mode) {
     case GRID:
       return (long long)block_smem<GRID>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
-    case DECODE:
-      return (long long)block_smem<DECODE>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
     case STREAM:
       return (long long)block_smem<STREAM>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
     default:

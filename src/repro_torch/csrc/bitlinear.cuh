@@ -1,12 +1,13 @@
 // Fused compressed linear layer y = (x @ M) @ C (kernel K3), and its
 // grouped form y_e = (x_e @ M_e) @ C_e over a stack of E experts (kernel K4):
-// the device code shared by the three schedules, one source each
-// (bitlinear.cu: grid; bitlinear_decode.cu: decode; bitlinear_stream.cu:
-// stream), so nvcc builds them in parallel.
+// the device code of the grid and stream schedules and what every schedule
+// shares, one source each (bitlinear.cu: grid; bitlinear_stream.cu: stream),
+// so nvcc builds them in parallel.  The decode schedule is a kernel of its
+// own, bitlinear_decode.cuh (built as bitlinear_decode.cu).
 //
 // Replaces the Pallas TPU kernels repro/kernels/bitlinear.py::bitlinear
-// (grid _kernel, decode _decode_kernel, stream _stream_kernel) and
-// ::bitlinear_grouped (_grouped_kernel, _grouped_decode_kernel).  The
+// (grid _kernel, stream _stream_kernel) and ::bitlinear_grouped
+// (_grouped_kernel).  The
 // weight is stored per (row tile r, column tile c) as a bit-packed sign
 // matrix M[r, c] in {-1,+1}^{tn x K} (uint8, LSB-first, kb = ceil(K/8)
 // bytes per row) and a small real factor C[r, c] (K x td).  For every r, c:
@@ -20,12 +21,12 @@
 // row sum s, one correction per (row, k) instead of a sign per element.
 // For int8 x both are exact; for floats they round differently.
 //
-// What bounds it: bytes at decode and small prefill T (C dominates: K*td
-// elements per (r, c) tile, 1/8 of the dense weight at K/tn = 1/8); at
-// prefill T the operations, on the tensor cores for bf16 x with bf16 C (the
-// grid's mma body, below: K pads to 4 or 8 and 16/K' r tiles share one
-// z @ C product) and on the f32 FMA pipes for every other call.  The FMA
-// bodies keep as many independent (r, c) tiles in flight as the card holds:
+// What bounds it: bytes at small prefill T (C dominates: K*td elements per
+// (r, c) tile, 1/8 of the dense weight at K/tn = 1/8); at prefill T the
+// operations, on the tensor cores for bf16 x with bf16 C (the grid's mma
+// body, below: K pads to 4 or 8 and 16/K' r tiles share one z @ C product)
+// and on the f32 FMA pipes for every other call.  The FMA bodies keep as
+// many independent (r, c) tiles in flight as the card holds:
 //   * a block owns (expert e, column tile c) -- blockIdx.y = e * n_c + c,
 //     all E experts in one launch, K3 is E = 1 -- and a set of rows and
 //     columns of it; its W warps take the r tiles in chunks of rc
@@ -45,9 +46,8 @@
 //           BT and a 32*NCOL column chunk; x, M, C read from device memory.
 //           bf16 x with bf16 C above small_t rows: bitlinear_mma_kernel
 //           (its own design note below).
-//   decode  one block per (e, c) with all T rows and all td columns: the
-//           expert's x rows are staged once in shared memory, BT fits T.
-//   stream  one block per (e, c) as decode, x read from device memory; each
+//   stream  one block per (e, c) with all T rows and all td columns, x read
+//           from device memory; each
 //           warp double-buffers its r chunks of M and C in two shared-memory
 //           slots filled with cp.async: the copy of chunk i+1 is issued
 //           before chunk i is consumed (commit_group / wait_group 1).
@@ -57,8 +57,7 @@
 // Ragged T is masked (rows >= T read zeros and are not written) and any K
 // works (K % 8 != 0 included).  Every expert of a grouped call has the same
 // T (the MoE dispatch layout pads each expert to its capacity).  wgmma and
-// TMA for the grid, and a split of r across blocks for the fewest-column
-// decode shapes, are later work.
+// TMA for the grid are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -211,7 +210,7 @@ __device__ __forceinline__ void copy_tiles(unsigned char* dst, const unsigned ch
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// Warps per block: 32 for register groups of 1-2 rows, else 16 (the
+// Warps per block: 32 for the grid's register groups of 1 row, else 16 (the
 // accumulators need the registers); stream always 16, since each warp keeps
 // two slots of M and C in shared memory.
 template <int MODE>
@@ -240,16 +239,9 @@ __global__ void __launch_bounds__(MODE != STREAM && BT <= 2 ? 1024 : 512)
   Cw += (size_t)e * n_r * n_c * c_tile;
   y += (size_t)e * T * d_out;
 
-  // shared memory: [x rows (decode) | M/C slots (stream)] [z buffers] [sums]
+  // shared memory: [M/C slots (stream)] [z buffers] [sums]
   unsigned char* p = smem;
   const XT* xs = x;
-  if (MODE == DECODE) {
-    XT* xsm = reinterpret_cast<XT*>(p);
-    for (size_t i = threadIdx.x; i < (size_t)T * d_in; i += blockDim.x) xsm[i] = x[i];
-    p += align16((size_t)T * d_in * sizeof(XT));
-    xs = xsm;
-    __syncthreads();
-  }
   const size_t m_slot = align16((size_t)rc * m_tile);
   const size_t c_slot = align16((size_t)rc * c_tile * sizeof(CT));
   unsigned char* slot0 = p + (size_t)warp * 2 * (m_slot + c_slot);
@@ -373,12 +365,12 @@ __global__ void __launch_bounds__(MODE != STREAM && BT <= 2 ? 1024 : 512)
 // block shapes timed there; warp tiles of 32+ rows, wgmma and TMA are
 // later work.
 // Calls it takes: T > small_t (the launch's argument: kernels/bitlinear.py's
-// SMALL_T, where the default rule streams or decodes), K <= 8 (kb = 1),
+// SMALL_T, up to which the default rule decodes), K <= 8 (kb = 1),
 // tn % 8 == 0, td % 16 == 0; x and C must be 16-byte and M 4-byte aligned
 // (the wrapper clones a tensor that is not; the launch refuses it).  Up to
 // small_t rows the grid keeps the FMA body: its block is far smaller, so
-// the rule's fallback to the grid, for a call whose stream or decode block
-// does not fit, still has one that does.  Any other bf16 x bf16 call, and
+// the rule's fallback to the grid, for a call whose decode block does not
+// fit, still has one that does.  Any other bf16 x bf16 call, and
 // every call with f32 or int8 x or f32 C, runs bitlinear_kernel's FMA body.
 
 // The block shape, and BITLINEAR_MMA_VARIANT: 0 the kernel; the others are
@@ -824,7 +816,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The rows of one register group: grid keeps {1, 8}; decode and stream fit T.
+// The rows of one register group: grid keeps {1, 8}; stream fits T.
 template <int MODE>
 inline int group_rows(int T) {
   if (MODE == GRID) return T == 1 ? 1 : 8;
@@ -835,10 +827,12 @@ inline int group_rows(int T) {
 inline int ncol_for(int td) { return td <= 32 ? 1 : 4; }
 
 // Dynamic shared memory of one block of MODE, the layout bitlinear_kernel
-// carves: [x rows (decode) | two M/C slots per warp (stream)] [each warp's
-// z buffer] [block sums].  The one definition of it: the launch checks it
-// against the budget, and bitlinear_smem_bytes (bitlinear.cu) hands it to
-// the Python side for admission.
+// carves: [two M/C slots per warp (stream)] [each warp's z buffer] [block
+// sums]; the tensor-core grid's is mma_geom's and decode's decode_geom's
+// (bitlinear_decode.cuh specialises block_smem<DECODE>).  The one
+// definition of it: the launch checks it against the budget, and
+// bitlinear_smem_bytes (bitlinear.cu; decode's bitlinear_decode_smem_bytes,
+// bitlinear_decode.cu) hands it to the Python side for admission.
 template <int MODE>
 inline size_t block_smem(int T, int n_r, int tn, int kb, int K, int td, int r_chunk,
                          size_t xsize, size_t csize, int small_t) {
@@ -846,9 +840,8 @@ inline size_t block_smem(int T, int n_r, int tn, int kb, int K, int td, int r_ch
     return mma_geom(T, tn, K, td, r_chunk).smem;
   const int bt = group_rows<MODE>(T);
   const size_t W = warps_for<MODE>(bt);
-  const size_t rc = MODE == DECODE ? 1 : r_chunk;
+  const size_t rc = r_chunk;
   size_t n = W * rc * bt * K * 4 + (size_t)bt * 32 * ncol_for(td) * 4;
-  if (MODE == DECODE) n += align16((size_t)T * n_r * tn * xsize);
   if (MODE == STREAM)
     n += W * 2 * (align16(rc * tn * kb) + align16(rc * K * td * csize));
   return n;
@@ -986,7 +979,7 @@ int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, in
   if (T <= 0 || E <= 0) return cudaSuccess;
   if ((long long)E * n_c > 65535) return cudaErrorInvalidConfiguration;  // gridDim.y
   if (block_t < 1 || r_chunk < 1 || x_kind < 0 || x_kind > 2) return cudaErrorInvalidValue;
-  const int rc = MODE == DECODE ? 1 : r_chunk;
+  const int rc = r_chunk;
   const size_t xs = x_size(x_kind), cs = c_bf16 ? 2 : 4;
   const bool mma = MODE == GRID && grid_on_mma(T, small_t, tn, kb, K, td, xs, cs);
   // the tensor-core grid copies x and C in 16-byte and M in 4-byte units

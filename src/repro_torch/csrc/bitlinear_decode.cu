@@ -1,22 +1,39 @@
-// Kernels K3 and K4, decode schedule: one block per (expert, column tile)
-// with every r tile reduced inside it and the expert's T activation rows
-// staged once in shared memory; the register group fits T (1, 2, 4 or 8
-// rows).  Replaces repro/kernels/bitlinear.py::_decode_kernel (call site
-// :369) and ::_grouped_decode_kernel (:536).  The design and what bounds it:
-// bitlinear.cuh.
-#include "bitlinear.cuh"
+// Kernels K3 and K4, decode schedule: bitlinear_decode_kernel, a block per
+// (expert, column tile) with r split across the blocks of a thread-block
+// cluster, a producer warp streaming the tiles into shared memory with bulk
+// copies, consumer warps with a lane-parallel body.  Replaces
+// repro/kernels/bitlinear.py::_decode_kernel (call site :369) and
+// ::_grouped_decode_kernel (:536).  The design and what bounds it:
+// bitlinear_decode.cuh.
+#include "bitlinear_decode.cuh"
 
 extern "C" {
 
-// Arguments as bitlinear_grid (bitlinear.cu); block_t and r_chunk are
-// ignored: a block covers all T rows and takes one r tile at a time.
+// x (E, T, n_r*tn) and y (E, T, n_c*td): x_kind 0 float32, 1 bfloat16,
+// 2 int8 (y in x's dtype); m_packed (E, n_r, n_c, tn, kb) uint8; C (E, n_r,
+// n_c, K, td) float32 (c_bf16 = 0) or bfloat16 (c_bf16 = 1); E = 1 for K3.
+// bitplane selects the bit algebra; clusters is S >= 1, the blocks of a
+// cluster that split each (expert, column tile)'s r tiles
+// (kernels/bitlinear.py::decode_cluster_size; above 8 a non-portable
+// cluster).  Returns cudaGetLastError() of the launch (the launch's own
+// error for an S the card cannot run), cudaErrorInvalidValue for bad
+// arguments, or minus the block's shared memory in bytes when that is over
+// smem_budget (nothing launched).
 int bitlinear_decode(const void* x, const uint8_t* m_packed, const void* C, void* y, int E, int T,
                      int n_r, int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16,
-                     int bitplane, int block_t, int r_chunk, int smem_budget, int small_t,
-                     void* stream, int* tensor_cores) {
-  return bitlinear_impl::dispatch<bitlinear_impl::DECODE>(
-      x, m_packed, C, y, E, T, n_r, n_c, tn, kb, K, td, x_kind, c_bf16, bitplane, block_t,
-      r_chunk, smem_budget, small_t, stream, tensor_cores);
+                     int bitplane, int clusters, int smem_budget, void* stream) {
+  return bitlinear_impl::decode_dispatch(x, m_packed, C, y, E, T, n_r, n_c, tn, kb, K, td, x_kind,
+                                         c_bf16, bitplane, clusters, smem_budget, stream);
+}
+
+// Dynamic shared memory in bytes of one decode block for these shapes, as
+// the launch computes it (block_smem<DECODE>: independent of n_r); -1 for an
+// unknown x_kind.  kernels/bitlinear.py admits the schedule by it.
+long long bitlinear_decode_smem_bytes(int T, int tn, int kb, int K, int td, int x_kind,
+                                      int c_bf16) {
+  using namespace bitlinear_impl;
+  if (x_kind < 0 || x_kind > 2) return -1;
+  return (long long)block_smem<DECODE>(T, 0, tn, kb, K, td, 1, x_size(x_kind), c_bf16 ? 2 : 4, 0);
 }
 
 }  // extern "C"

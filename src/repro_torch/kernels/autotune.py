@@ -240,9 +240,8 @@ def heuristic(kind: str, *, n_r: int, n_c: int, tn: int, kb: int, K: int, td: in
     if interpret:
         return Schedule(mode="jnp", math="dot")
     budget = _bl.device_smem_budget() if smem_budget is None else smem_budget
-    return Schedule(**_bl.default_schedule(kind == "bitlinear_grouped", T=T, n_r=n_r, tn=tn,
-                                           K=K, td=td, x_itemsize=x_itemsize,
-                                           c_itemsize=c_itemsize, budget=budget))
+    return Schedule(**_bl.default_schedule(T=T, n_r=n_r, tn=tn, K=K, td=td,
+                                           x_itemsize=x_itemsize, budget=budget))
 
 
 def resolve(kind: str, *, n_r: int, n_c: int, tn: int, kb: int, K: int, td: int, T: int, dtype,

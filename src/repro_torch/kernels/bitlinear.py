@@ -18,9 +18,14 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
     ``tensor_core_launches`` counts the launches that the library reports
     ran it.  Every other call runs the FMA body: register groups of 8 rows
     x one column chunk, each warp taking ``r_chunk`` r tiles at a time.
-  * decode: one block per (expert,) column tile with all T rows; the rows
-    of x are staged once in shared memory, so it is admissible only while
-    they fit (:func:`decode_path_ok`).  ``block_t`` and ``r_chunk`` are
+  * decode: a kernel of its own.  Each (expert,) column tile's r tiles are
+    split across the S blocks of a thread-block cluster (S from
+    :func:`decode_cluster_size`); a producer warp streams
+    the tiles (C, M and the T rows of x over them) into a ring of
+    shared-memory stages, four consumer warps reduce them, and rank 0 adds
+    the blocks' partial sums.  Its shared memory grows with T, K and td, not
+    with d_in (:func:`decode_path_ok`).  ``decode_clusters`` counts its
+    launches by the S passed to the launch.  ``block_t`` and ``r_chunk`` are
     ignored.
   * stream (K3 only, as in JAX): one block per column tile; each warp
     double-buffers its chunks of ``r_chunk`` M and C tiles in shared memory
@@ -32,8 +37,9 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
     a CUDA tensor with ``mode="jnp"`` is refused.
 
 A block's shared memory is defined once, in ``csrc/bitlinear.cuh``
-(``block_smem``): the launch refuses a block over the budget, and
-:func:`smem_bytes` asks the built library for the same number.
+(``block_smem``; decode's in ``csrc/bitlinear_decode.cuh``): the launch
+refuses a block over the budget, and :func:`smem_bytes` asks the built
+library for the same number.
 
 Bit algebra (``math``): unpack or bitplane (``z = 2 (x @ B) - rowsum(x)``);
 "dot" is unpack outside ``jnp``, as in JAX.  Activations are float32,
@@ -58,6 +64,7 @@ __all__ = [
     "GROUPED_MODES",
     "MATHS",
     "decode_path_ok",
+    "decode_cluster_size",
     "default_schedule",
     "smem_bytes",
     "device_smem_budget",
@@ -77,19 +84,38 @@ _SOURCES = {"grid": "bitlinear", "decode": "bitlinear_decode", "stream": "bitlin
 _MODE_IDS = {"grid": 0, "decode": 1, "stream": 2}
 _FNS: dict = {}           # mode -> loaded C entry point
 _BUDGETS: dict = {}       # device index -> opt-in shared memory per block
+_SMS: dict = {}           # device index -> streaming multiprocessors
 
-# The card's default schedule (default_schedule): up to SMALL_T rows, K3
-# streams and K4 decodes, in the bitplane algebra, while the block fits the
-# budget; above, the grid at DEFAULT_GRID_BLOCK_T rows.  Set from the times
-# of each schedule at T = 1 ... 64 that chip_smoke.py measures on an H100
-# (PERF.md): their register groups fit T up to 4 rows, where stream beats
-# the grid by 13-44% and decode ties or beats it by up to 7%; from 8 rows
-# on both use the grid's 8-row groups and tie or trail it.  The grid's
-# tensor-core body starts above the same cutoff (every launch and layout
-# query passes SMALL_T to the library), so the grid block the rule falls
-# back to at T <= SMALL_T is the small FMA one.
+# The card's default schedule (default_schedule): up to SMALL_T rows, K3 and
+# K4 decode, in the bitplane algebra, while the block fits the budget;
+# above, the grid at DEFAULT_GRID_BLOCK_T rows.  Set from the times of each
+# schedule at T = 1 ... 64 that chip_smoke.py measures on an H100 (PERF.md,
+# small_t_ms's device times, the host's time in the wrapper left out, summed
+# over each kernel's main-path tensors): at T = 1, 2 and
+# 4 decode took 0.25-0.30 ms for qwen3-32b's 8 K3 tensors against stream's
+# 0.46-0.57 and the grid's 0.57-1.04, and 0.036-0.040 ms for granite's 3
+# K4 stacks against the grid's 0.046-0.056.  At 8 rows K3's decode still
+# led (0.55 against the grid's 0.79) but K4's grid led (0.043 against
+# 0.050), and from 16 rows the grid led both, so the cutoff stayed at 4.
+# The grid's tensor-core body starts above the same cutoff (every launch
+# and layout query passes SMALL_T to the library), so the grid block the
+# rule falls back to at T <= SMALL_T is the small FMA one.
 SMALL_T = 4
 DEFAULT_GRID_BLOCK_T = 64
+
+# The decode launch's split of r (decode_cluster_size): as many blocks as
+# the card holds at once, DECODE_BLOCKS_PER_SM per SM (what a decode block's
+# registers and shared memory allow at T <= 4), each keeping at least
+# DECODE_MIN_TILES r tiles, in clusters of up to the portable 8 blocks, or
+# 16 where even 16 fill less than the card (qwen's BBO attn/w[kv]).  Set
+# from tools/torch_decode_variants.py's times at every S on an H100
+# (PERF.md): a split past one wave of blocks (qwen's gate at S = 2), below
+# 32 r tiles a block (granite's stacks at S = 2) or to a non-portable 9
+# (qwen's down: 0.046 ms against 0.034 at 8) was slower.
+DECODE_BLOCKS_PER_SM = 3
+DECODE_MIN_TILES = 32
+DECODE_PORTABLE_CLUSTER = 8
+DECODE_MAX_CLUSTER = 16
 
 
 def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
@@ -103,25 +129,38 @@ def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
 
 def smem_bytes(mode: str, *, T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
                c_itemsize: int, r_chunk: int = 1) -> int:
-    """Dynamic shared memory of one block of ``mode`` (the warps' z
-    buffers and the block sums, plus the staged x rows for decode or each
-    warp's two M/C slots for stream; the tensor-core grid's three stages of
-    x, M and C and its partial sums), from the built kernels' own layout,
-    ``bitlinear_smem_bytes`` in ``csrc/bitlinear.cu``.  Needs the CUDA
-    toolchain: it builds the grid library on first use."""
+    """Dynamic shared memory of one block of ``mode`` (grid and stream: the
+    warps' z buffers and the block sums, plus each warp's two M/C slots for
+    stream; the tensor-core grid's stages of x, M and C and its partial
+    sums; decode: its ring of stages, z buffers, partial-y slots and
+    barriers, independent of n_r and r_chunk), from the built kernels' own
+    layout, ``bitlinear_smem_bytes`` in ``csrc/bitlinear.cu`` (decode:
+    ``bitlinear_decode_smem_bytes`` in ``csrc/bitlinear_decode.cu``).  Needs
+    the CUDA toolchain: it builds the schedule's library on first use."""
     return _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk)
 
 
 @functools.lru_cache(maxsize=4096)
 def _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk) -> int:
-    fn = _FNS.get("smem")
+    # grid and stream ask the grid library, decode its own
+    lib_mode = "decode" if mode == "decode" else "grid"
+    key = f"smem/{lib_mode}"
+    fn = _FNS.get(key)
     if fn is None:
-        fn = _build.load(_SOURCES["grid"]).bitlinear_smem_bytes
-        fn.argtypes = [ctypes.c_int] * 11
+        lib = _build.load(_SOURCES[lib_mode])
+        if lib_mode == "decode":
+            fn = lib.bitlinear_decode_smem_bytes
+            fn.argtypes = [ctypes.c_int] * 7
+        else:
+            fn = lib.bitlinear_smem_bytes
+            fn.argtypes = [ctypes.c_int] * 11
         fn.restype = ctypes.c_longlong
-        _FNS["smem"] = fn
-    n = fn(_MODE_IDS[mode], T, n_r, tn, (K + 7) // 8, K, td, _KIND_OF_ITEMSIZE[x_itemsize],
-           int(c_itemsize == 2), r_chunk, SMALL_T)
+        _FNS[key] = fn
+    kind, c_bf16 = _KIND_OF_ITEMSIZE[x_itemsize], int(c_itemsize == 2)
+    if mode == "decode":
+        n = fn(T, tn, (K + 7) // 8, K, td, kind, c_bf16)
+    else:
+        n = fn(_MODE_IDS[mode], T, n_r, tn, (K + 7) // 8, K, td, kind, c_bf16, r_chunk, SMALL_T)
     if n < 0:
         raise ValueError(f"smem_bytes: bad arguments mode {mode!r}, x_itemsize {x_itemsize}, "
                          f"r_chunk {r_chunk}")
@@ -137,31 +176,50 @@ def device_smem_budget(device=None) -> int:
     return _BUDGETS[idx]
 
 
+def device_sms(device=None) -> int:
+    """The card's streaming multiprocessors (132 on an H100 SXM)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _SMS:
+        _SMS[idx] = int(torch.cuda.get_device_properties(idx).multi_processor_count)
+    return _SMS[idx]
+
+
+def decode_cluster_size(blocks: int, n_r: int, sms: int) -> int:
+    """S, the blocks of a thread-block cluster that split the n_r r tiles of
+    each (expert, column tile) in a decode launch over ``blocks`` = E * n_c
+    such pairs: the most whose blocks still run in one wave (blocks * S <=
+    DECODE_BLOCKS_PER_SM * sms) and keep ``DECODE_MIN_TILES`` r tiles a
+    block, taken from 1 ... ``DECODE_PORTABLE_CLUSTER`` and
+    ``DECODE_MAX_CLUSTER``; at least 1.  The one definition of S and its
+    caps: the wrapper passes it to every decode launch."""
+    S = min(n_r // DECODE_MIN_TILES, DECODE_BLOCKS_PER_SM * sms // max(1, blocks))
+    if S >= DECODE_MAX_CLUSTER:
+        return DECODE_MAX_CLUSTER
+    return max(1, min(DECODE_PORTABLE_CLUSTER, S))
+
+
 def decode_path_ok(T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
                    budget: int) -> bool:
-    """Counterpart of JAX's ``_decode_path_ok``: the decode block keeps all
-    T rows of x in shared memory; it is admissible when what it keeps there
-    fits ``budget`` bytes.  (No bound on n_r: the r loop is not unrolled.)"""
+    """Counterpart of JAX's ``_decode_path_ok``: the decode block keeps its
+    ring of stages (the C and M tiles of a few r tiles and the T rows of x
+    over them), z buffers and each warp's T rows of partial sums in shared
+    memory; it is admissible when that fits ``budget`` bytes (f32 C, the
+    larger).  It grows with T, K and td, never with n_r or d_in."""
     return smem_bytes("decode", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
                       c_itemsize=4) <= budget
 
 
-def default_schedule(grouped: bool, *, T: int, n_r: int, tn: int, K: int, td: int,
-                     x_itemsize: int, c_itemsize: int, budget: int) -> dict:
-    """The card's default schedule of one call, the port's own cost model
-    (not JAX's VMEM one): up to ``SMALL_T`` rows K3 streams with r_chunk 2
-    and K4 decodes, both in the bitplane
-    algebra and only while the block fits ``budget`` bytes of shared
-    memory; otherwise the grid at ``DEFAULT_GRID_BLOCK_T`` rows, r_chunk 1,
-    unpack.  Returns the fields of an ``autotune.Schedule``."""
-    if grouped:
-        if T <= SMALL_T and decode_path_ok(T, n_r, tn, K, td, x_itemsize, budget):
-            return {"mode": "decode", "math": "bitplane", "block_t": 128, "r_chunk": 1}
-    elif T <= SMALL_T:
-        rc = resolve_r_chunk(n_r, 2)
-        if smem_bytes("stream", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
-                      c_itemsize=c_itemsize, r_chunk=rc) <= budget:
-            return {"mode": "stream", "math": "bitplane", "block_t": 128, "r_chunk": rc}
+def default_schedule(*, T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
+                     budget: int) -> dict:
+    """The card's default schedule of one K3 or K4 call, the port's own cost
+    model (not JAX's VMEM one): up to ``SMALL_T`` rows decode in the
+    bitplane algebra, while its block fits ``budget`` bytes of shared
+    memory (:func:`decode_path_ok`); otherwise the grid at
+    ``DEFAULT_GRID_BLOCK_T`` rows, r_chunk 1, unpack.  Returns the fields of
+    an ``autotune.Schedule``."""
+    if T <= SMALL_T and decode_path_ok(T, n_r, tn, K, td, x_itemsize, budget):
+        return {"mode": "decode", "math": "bitplane", "block_t": 128, "r_chunk": 1}
     return {"mode": "grid", "math": "unpack", "block_t": DEFAULT_GRID_BLOCK_T, "r_chunk": 1}
 
 
@@ -169,7 +227,12 @@ def _lib(mode: str):
     fn = _FNS.get(mode)
     if fn is None:
         fn = getattr(_build.load(_SOURCES[mode]), f"bitlinear_{mode}")
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+        # decode takes (..., bitplane, clusters, smem_budget, stream); grid
+        # and stream (..., bitplane, block_t, r_chunk, smem_budget, small_t,
+        # stream, *tensor_cores)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+                       if mode == "decode" else
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
         _FNS[mode] = fn
@@ -207,11 +270,13 @@ def _check(name, x, m_packed, C, lead: int, mode: str, math: str, modes) -> None
         raise ValueError(f"{name}: math {math!r} not in {MATHS + ('dot',)}")
 
 
-def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> bool:
+def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> int:
     """Launch ``csrc/bitlinear*.cu::bitlinear_<mode>`` on x's device and
     stream; ``dims`` are (E, T, n_r, n_c, tn, kb, K, td).  The library
-    refuses a block over ``budget`` bytes of shared memory.  Returns whether
-    the launch ran the grid's tensor-core body."""
+    refuses a block over ``budget`` bytes of shared memory.  Returns for
+    decode the cluster size S it was launched with (the rule's), else
+    whether the library reports that the launch ran the grid's tensor-core
+    body."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("m_packed", m_packed), ("C", C)):
@@ -228,38 +293,44 @@ def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget)
     # a view that starts elsewhere in its buffer is cloned
     if x.data_ptr() % 16 or m_packed.data_ptr() % 16 or C.data_ptr() % 16:
         x, m_packed, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, m_packed, C))
-    tensor_cores = ctypes.c_int(0)
+    ran = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if mode == "decode":
+        S = decode_cluster_size(E * n_c, n_r, device_sms(x.device))
+        opts = (S, int(budget), stream)
+    else:
+        opts = (int(block_t), int(r_chunk), int(budget), SMALL_T, stream, ctypes.byref(ran))
     err = _lib(mode)(
         x.data_ptr(), m_packed.data_ptr(), C.data_ptr(), y.data_ptr(), *dims,
-        _X_KINDS[x.dtype], int(C.dtype == torch.bfloat16), int(math == "bitplane"),
-        int(block_t), int(r_chunk), int(budget), SMALL_T,
-        torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(tensor_cores),
+        _X_KINDS[x.dtype], int(C.dtype == torch.bfloat16), int(math == "bitplane"), *opts,
     )
     if err < 0:
         raise ValueError(f"{name}: mode {mode!r} needs {-err} bytes of shared memory per "
                          f"block, over the budget of {budget}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch of mode {mode!r} failed (cudaError {err})")
-    return bool(tensor_cores.value)
+    return S if mode == "decode" else ran.value
 
 
-def _card_schedule(grouped, mode, x, C, T, n_r, tn, K, td, block_t, r_chunk, budget):
+def _card_schedule(mode, x, T, n_r, tn, K, td, block_t, r_chunk, budget):
     """(mode, block_t, r_chunk, budget) of a call on the card: "auto" takes
     the default rule's, the budget defaults to the card's opt-in limit."""
     budget = device_smem_budget(x.device) if budget is None else budget
     if mode == "auto":
-        s = default_schedule(grouped, T=T, n_r=n_r, tn=tn, K=K, td=td,
-                             x_itemsize=x.element_size(), c_itemsize=C.element_size(),
+        s = default_schedule(T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x.element_size(),
                              budget=budget)
         mode, block_t, r_chunk = s["mode"], s["block_t"], s["r_chunk"]
     rc = resolve_r_chunk(n_r, r_chunk) if mode != "decode" else 1
     return mode, block_t, rc, budget
 
 
-def _count(fn, mode: str, math: str, tensor_cores: bool) -> None:
+def _count(fn, mode: str, math: str, ran: int) -> None:
     fn.launches += 1
     fn.by_schedule[f"{mode}/{math}"] += 1
-    fn.tensor_core_launches += tensor_cores
+    if mode == "decode":
+        fn.decode_clusters[ran] = fn.decode_clusters.get(ran, 0) + 1
+    else:
+        fn.tensor_core_launches += ran
 
 
 def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t: int = 128,
@@ -281,15 +352,15 @@ def bitlinear(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor, block_t:
     T = x.shape[0]
     n_r, n_c, tn, kb = m_packed.shape
     K, td = C.shape[2], C.shape[3]
-    mode, block_t, rc, budget = _card_schedule(False, mode, x, C, T, n_r, tn, K, td, block_t,
-                                               r_chunk, smem_budget)
+    mode, block_t, rc, budget = _card_schedule(mode, x, T, n_r, tn, K, td, block_t, r_chunk,
+                                               smem_budget)
     x = x.contiguous()
     y = torch.empty((T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0:
         return y
-    mma = _launch("bitlinear", mode, x, m_packed, C, y, (1, T, n_r, n_c, tn, kb, K, td), math,
+    ran = _launch("bitlinear", mode, x, m_packed, C, y, (1, T, n_r, n_c, tn, kb, K, td), math,
                   block_t, rc, budget)
-    _count(bitlinear, mode, math, mma)
+    _count(bitlinear, mode, math, ran)
     return y
 
 
@@ -312,26 +383,28 @@ def bitlinear_grouped(x: torch.Tensor, m_packed: torch.Tensor, C: torch.Tensor,
     E, T, _ = x.shape
     _, n_r, n_c, tn, kb = m_packed.shape
     K, td = C.shape[3], C.shape[4]
-    mode, block_t, rc, budget = _card_schedule(True, mode, x, C, T, n_r, tn, K, td, block_t,
-                                               r_chunk, smem_budget)
+    mode, block_t, rc, budget = _card_schedule(mode, x, T, n_r, tn, K, td, block_t, r_chunk,
+                                               smem_budget)
     x = x.contiguous()
     y = torch.empty((E, T, n_c * td), dtype=x.dtype, device=x.device)
     if T == 0 or E == 0:
         return y
-    mma = _launch("bitlinear_grouped", mode, x, m_packed, C, y,
+    ran = _launch("bitlinear_grouped", mode, x, m_packed, C, y,
                   (E, T, n_r, n_c, tn, kb, K, td), math, block_t, rc, budget)
-    _count(bitlinear_grouped, mode, math, mma)
+    _count(bitlinear_grouped, mode, math, ran)
     return y
 
 
 def reset_counts() -> None:
     """Set every launch count of K3 and K4 to 0: the totals ``launches``,
     the counts per schedule and bit algebra, ``by_schedule["mode/math"]``,
-    and ``tensor_core_launches``, the grid launches (of ``launches``) that
-    the library reports ran its tensor-core body."""
+    ``tensor_core_launches``, the grid launches (of ``launches``) that the
+    library reports ran its tensor-core body, and ``decode_clusters``,
+    {S: decode launches with clusters of S blocks}."""
     for fn, modes in ((bitlinear, MODES), (bitlinear_grouped, GROUPED_MODES)):
         fn.launches = 0
         fn.tensor_core_launches = 0
+        fn.decode_clusters = {}
         fn.by_schedule = {f"{m}/{a}": 0 for m in modes if m not in ("auto", "jnp")
                           for a in MATHS}
 

@@ -103,12 +103,14 @@ def test_heuristic_on_the_cpu_is_jax_s_interpret_default():
 @pytest.fixture
 def layout(monkeypatch):
     """A block's shared memory comes from the built CUDA library, which the
-    CPU has not; here a stand-in with the layout's growing terms, the staged
-    x rows of decode and the two M/C slots of stream's 16 warps.  The real
+    CPU has not; here a stand-in with the layout's growing terms: decode's
+    eight stages of a 4 KiB target (one tile with its T rows of x at least)
+    and its four warps' T rows of 128-column partial sums, which grow with T
+    and not with n_r; the two M/C slots of stream's 16 warps.  The real
     layout is held on the card (``tests/test_torch_cuda.py``)."""
     def smem_bytes(mode, *, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk=1):
         if mode == "decode":
-            return T * n_r * tn * x_itemsize
+            return 8 * max(4096, K * td * c_itemsize + T * tn * x_itemsize) + 4 * T * 128 * 4
         if mode == "stream":
             return 16 * 2 * r_chunk * K * td * c_itemsize
         return 0
@@ -116,15 +118,16 @@ def layout(monkeypatch):
 
 
 def test_heuristic_on_the_card_uses_the_shared_memory_budget(layout):
-    """The card's cost model: stream (K3) or decode (K4) at decode-sized T
-    while the block fits the shared-memory budget, else the grid."""
+    """The card's cost model: decode (K3 and K4) at decode-sized T while its
+    block fits the shared-memory budget, else the grid."""
     gate = dict(n_r=160, n_c=200, tn=32, kb=1, K=4, td=128, x_itemsize=2, c_itemsize=2,
                 interpret=False, smem_budget=BUDGET)
-    assert at.heuristic("bitlinear", T=4, **gate) == Schedule("stream", "bitplane", 128, 2)
+    assert at.heuristic("bitlinear", T=4, **gate) == Schedule("decode", "bitplane")
     assert at.heuristic("bitlinear_grouped", T=4, **gate) == Schedule("decode", "bitplane")
     assert at.heuristic("bitlinear", T=4096, **gate) == Schedule("grid", "unpack", 64, 1)
     assert at.heuristic("bitlinear_grouped", T=1280, **gate).mode == "grid"
-    # the measured cutoff: stream and decode up to 4 rows
+    # the measured cutoff: decode up to 4 rows
+    assert at.heuristic("bitlinear", T=1, **gate).mode == "decode"
     assert at.heuristic("bitlinear_grouped", T=1, **gate).mode == "decode"
     assert at.heuristic("bitlinear", T=5, **gate).mode == "grid"
     assert at.heuristic("bitlinear_grouped", T=5, **gate).mode == "grid"
@@ -132,8 +135,10 @@ def test_heuristic_on_the_card_uses_the_shared_memory_budget(layout):
     tight = dict(gate, smem_budget=4096)
     assert at.heuristic("bitlinear", T=4, **tight).mode == "grid"
     assert at.heuristic("bitlinear_grouped", T=4, **tight).mode == "grid"
-    # down (d_in 25,600) keeps its 4 x 25,600 bf16 rows in 227 KiB, not 16
+    # down (d_in 25,600): the decode block does not grow with d_in, so it
+    # decodes like gate; above the cutoff the grid
     down = dict(gate, n_r=800, n_c=40)
+    assert at.heuristic("bitlinear", T=4, **down).mode == "decode"
     assert at.heuristic("bitlinear_grouped", T=4, **down).mode == "decode"
     assert at.heuristic("bitlinear_grouped", T=16, **down).mode == "grid"
 

@@ -291,10 +291,10 @@ def test_bitlinear_grouped_schedules_match_plain(dev, mode, math_, xd):
 
 
 def test_bitlinear_refuses_what_the_card_does_not_serve(dev):
-    x = torch.zeros(64, 25600, dtype=torch.float32, device=dev)
+    x = torch.zeros(128, 25600, dtype=torch.float32, device=dev)
     mp = torch.zeros(800, 1, 32, 1, dtype=torch.uint8, device=dev)
     C = torch.zeros(800, 1, 4, 128, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):      # x rows beyond 227 KiB
+    with pytest.raises(ValueError, match="shared memory"):      # 128 rows of partial y per warp
         bl.bitlinear(x, mp, C, mode="decode")
     with pytest.raises(ValueError, match="jnp"):                # the plain version
         bl.bitlinear(x, mp, C, mode="jnp")
@@ -318,17 +318,77 @@ def test_block_layout_is_what_the_launch_admits(dev):
                 _assert_variant(y, ref.bitlinear_ref(x, mp, C), xd, cd)
                 with pytest.raises(ValueError, match=f"needs {need} bytes of shared memory"):
                     bl.bitlinear(x, mp, C, mode=mode, r_chunk=rc, smem_budget=need - 1)
-    # qwen3-32b's down (d_in 25,600) keeps 4 rows of bf16 x in 227 KiB, not 16
+    # decode stages a few r tiles at a time, not every row of x: its block
+    # does not grow with d_in, and qwen3-32b's down (d_in 25,600) fits at
+    # T = 4 and 16 in every activation dtype
     budget = bl.device_smem_budget(dev)
-    assert bl.decode_path_ok(4, 800, 32, 4, 128, 2, budget)
-    assert not bl.decode_path_ok(16, 800, 32, 4, 128, 2, budget)
+    for xs in (4, 2, 1):
+        sizes = {bl.smem_bytes("decode", T=4, n_r=n_r, tn=32, K=4, td=128, x_itemsize=xs,
+                               c_itemsize=4) for n_r in (8, 160, 800)}
+        assert len(sizes) == 1
+        assert bl.decode_path_ok(4, 800, 32, 4, 128, xs, budget)
+        assert bl.decode_path_ok(16, 800, 32, 4, 128, xs, budget)
+
+
+# (E, T, n_r, n_c, tn, K, td): r tiles that no S divides evenly (S = 8 over
+# n_r = 7 leaves a block without tiles), E = 32, BBO's 8-byte M tiles (tn = 8,
+# K = 3), T > 8 in row groups with kb = 2, td > 128 in two column chunks (C
+# read from device memory), and tn, td that fit no vector (direct loads)
+DECODE_SHAPES = [(1, 4, 7, 3, 32, 4, 128), (32, 3, 5, 2, 32, 4, 128), (1, 5, 11, 2, 8, 3, 128),
+                 (1, 37, 6, 2, 16, 9, 48), (1, 1, 9, 3, 16, 9, 160), (2, 4, 13, 2, 12, 3, 20)]
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("S", [1, 2, 8, 16, None])
+def test_decode_matches_plain_at_every_cluster_size(dev, monkeypatch, S, math_, cd, xd):
+    """The decode kernel against the plain version with r split over
+    clusters of S blocks (16: non-portable; None: the rule's S, else the
+    rule pinned to S), counted by the S of the launch."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    want = [bl.decode_cluster_size(E * n_c, n_r, bl.device_sms(dev)) if S is None else S
+            for E, T, n_r, n_c, tn, K, td in DECODE_SHAPES]
+    if S is not None:
+        monkeypatch.setattr(bl, "decode_cluster_size", lambda *a: S)
+    for (E, T, n_r, n_c, tn, K, td), want_s in zip(DECODE_SHAPES, want):
+        lead = (E,) if E > 1 else ()
+        fn, plain = ((bl.bitlinear_grouped, ref.bitlinear_grouped_ref) if lead
+                     else (bl.bitlinear, ref.bitlinear_ref))
+        x, mp, C = _variant_operands(g, dev, lead, T, n_r, n_c, tn, K, td, xd, cd)
+        before = dict(fn.decode_clusters)
+        yk = fn(x, mp, C, mode="decode", math=math_)
+        torch.cuda.synchronize()
+        assert fn.decode_clusters.get(want_s, 0) == before.get(want_s, 0) + 1
+        assert sum(fn.decode_clusters.values()) == sum(before.values()) + 1
+        _assert_variant(yk, plain(x, mp, C, math_), xd, cd)
+
+
+@pytest.mark.parametrize("S", [1, 8, None])
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16])
+def test_decode_launches_give_identical_bits(dev, monkeypatch, xd, S):
+    """Partial sums are added in a fixed order (warps, then cluster ranks):
+    two launches on the same inputs give the same bits (S: the rule pinned
+    to it; None: the rule's)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    if S is not None:
+        monkeypatch.setattr(bl, "decode_cluster_size", lambda *a: S)
+    for E, T, n_r, n_c, tn, K, td in ((1, 4, 160, 4, 32, 4, 128), (32, 4, 32, 4, 32, 4, 128),
+                                      (1, 4, 640, 8, 8, 3, 128)):
+        lead = (E,) if E > 1 else ()
+        fn = bl.bitlinear_grouped if lead else bl.bitlinear
+        x, mp, C = _variant_operands(g, dev, lead, T, n_r, n_c, tn, K, td, xd, xd)
+        y0 = fn(x, mp, C, mode="decode", math="bitplane")
+        y1 = fn(x, mp, C, mode="decode", math="bitplane")
+        torch.cuda.synchronize()
+        assert torch.equal(y0, y1)
 
 
 @pytest.mark.parametrize("T", [1, 4, 16, 40])
 def test_auto_runs_the_default_schedule(dev, T):
-    """mode="auto" launches what autotune.heuristic resolves (one rule),
-    in the caller's bit algebra; with a budget only the grid's block fits,
-    the grid."""
+    """mode="auto" launches what autotune.heuristic resolves (one rule:
+    decode up to SMALL_T rows, else the grid), in the caller's bit algebra;
+    with a budget only the grid's block fits, the grid."""
     from repro_torch.kernels import autotune
 
     g = torch.Generator(device=dev).manual_seed(10)
@@ -339,6 +399,7 @@ def test_auto_runs_the_default_schedule(dev, T):
         want = autotune.heuristic("bitlinear_grouped" if grouped else "bitlinear", n_r=n_r,
                                   n_c=n_c, tn=tn, kb=1, K=K, td=td, T=T, x_itemsize=2,
                                   c_itemsize=2, interpret=False)
+        assert want.mode == ("decode" if T <= bl.SMALL_T else "grid")
         grid_only = bl.smem_bytes("grid", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=2,
                                   c_itemsize=2)
         for budget, mode in ((None, want.mode), (grid_only, "grid")):

@@ -17,7 +17,8 @@ _ROOT = pathlib.Path(__file__).resolve().parents[1]
 _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "chip_smoke.py", _ROOT / "tools" / "torch_serve_profile.py",
     _ROOT / "tools" / "torch_eigh_batch_probe.py", _ROOT / "tools" / "torch_moe_divergence.py",
-    _ROOT / "tools" / "torch_grid_variants.py"]
+    _ROOT / "tools" / "torch_grid_variants.py", _ROOT / "tools" / "torch_decode_variants.py",
+    _ROOT / "tools" / "torch_decode_ab.py"]
 
 
 def _imported_roots(path):
@@ -148,6 +149,27 @@ def test_grid_variant_switches_are_the_headers():
     defined = set(re.findall(r"^#ifndef (BITLINEAR_MMA_\w+)$", header, re.M))
     named = tool.variants()
     assert named["as_built"] == ([], True)
+    for name, (flags, _) in named.items():
+        for flag in flags:
+            macro = re.fullmatch(r"-D(\w+)=\d+", flag)
+            assert macro and macro.group(1) in defined, (name, flag)
+
+
+def test_decode_variant_switches_are_the_headers():
+    """tools/torch_decode_variants.py builds its variants with -D switches;
+    each must be one that csrc/bitlinear_decode.cuh defines."""
+    import importlib.util
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_decode_variants", _ROOT / "tools" / "torch_decode_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "bitlinear_decode.cuh").read_text()
+    defined = set(re.findall(r"^#ifndef (BITLINEAR_DECODE_\w+)$", header, re.M))
+    named = tool.variants()
+    assert named["as_built"] == ([], True)
+    assert {"copies_only", "body_only"} <= set(named)
     for name, (flags, _) in named.items():
         for flag in flags:
             macro = re.fullmatch(r"-D(\w+)=\d+", flag)

@@ -5,9 +5,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, then:
 
+  0. expf, as the annealers' libraries compile it, over every float
+     z <= 0: it must never decrease (their acceptance thresholds,
+     csrc/anneal_step.cuh, are exact iff so).
   1. K1 (csrc/sa_sweep.cu) against its plain PyTorch version on dyadic
-     fixtures at the BBO pool's shape: spins and energies must be
-     bit-identical.
+     fixtures at the BBO pool's shape and at the paper's BBO loop (phase
+     6: 25 and 4 runs x 10 reads x 64 sweeps): spins and energies must be
+     bit-identical.  Timed at those three shapes beside its bytes,
+     operations and chain bounds (the longest dependent path at 4 cycles a
+     step) and its threshold pass alone.
   2. The main path at full width: ``compress_model`` on qwen3-32b's
      published widths with depth cut to one layer, a policy that refines
      ``attn/w[kv]`` with BBO (tn=8, K=3: n=24 spins, 10,240 tiles in one
@@ -86,8 +92,9 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
 
   K2 (csrc/sqa_sweep.cu) against its plain PyTorch version on dyadic
      fixtures at the paper's nBOCSqa solve (P, C, T, S, n) = (25, 10, 8, 64,
-     24) and at edge shapes (T = 1, 2, 3, 16; n = 33, 40; C = 1, 13): spins
-     and energies must be bit-identical.  Timed at the paper's shape.
+     24) and at edge shapes (T = 1, 2, 3, 13, 16; n = 5, 33, 40; C = 1,
+     13; fewer wavefront groups than slices): spins and energies must be
+     bit-identical.  Timed at the paper's shape as K1.
   6. The paper's experiment at the paper's size (configs/paper_vgg.py):
      the shrunk-VGG instance 0 (8 x 100, K = 3, n = 24 spins), its exact
      optimum by brute force over all 2^24 codes, then ``run_bbo_batch`` for
@@ -124,6 +131,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS = 67e12               # H100 SXM float32, outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
 SPIN_CYCLES = 200_000           # ~0.1 ms of the card's clock, longer than a call's host time
+ADD_CYCLES = 4                  # latency of one dependent f32 add (the annealers' chain bound)
 
 SEED = 0
 BBO_ITERS = 32
@@ -224,61 +232,139 @@ def dyadic_problems(torch, g, P, n, dev):
     return h.float().contiguous(), (B + B.transpose(1, 2)).float().contiguous()
 
 
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (MHz), as nvidia-smi reports it."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+
+
+def anneal_bounds(nbytes: int, ops: int, chain_steps: int) -> dict:
+    """The least times of an annealing launch: its bytes over the card's
+    memory rate, its operations over the f32 rate, and its chain (the
+    longest path of its dependency graph, each step one dependent f32 add
+    of 4 cycles at the highest SM clock).  ``bound_ms`` is the largest."""
+    b = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / F32_FLOPS * 1e3,
+         "chain_bound_ms": chain_steps * ADD_CYCLES / (sm_clock_mhz() * 1e3)}
+    by = max(("bytes", "bytes_ms"), ("operations", "ops_ms"), ("chain", "chain_bound_ms"),
+             key=lambda kv: b[kv[1]])
+    return {**b, "bound_ms": b[by[1]], "bound_by": by[0], "bytes": nbytes, "operations": ops,
+            "chain_steps": chain_steps}
+
+
+def threshold_device_ms(torch, lib, u, temps, t, C, n, flush):
+    """Device time of the threshold pass alone (csrc/anneal_step.cuh) on
+    u's uniforms: a K1 launch's with temps (P, S), a K2's with t."""
+    import ctypes
+
+    fn = lib.anneal_thresholds_f32
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    theta = torch.empty_like(u)
+
+    def run():
+        err = fn(u.data_ptr(), temps.data_ptr() if temps is not None else None, t,
+                 theta.data_ptr(), u.shape[0] * u.shape[1], u[0, 0].numel(), n, C, u.shape[2],
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"threshold pass: cudaError {err}")
+    return cuda_ms(torch, run, 10, flush, busy=True)
+
+
+def phase_expf(torch, dev):
+    """The count of floats z <= 0 at which expf, as each annealer's library
+    compiles it, decreases: 0 makes the acceptance thresholds exact."""
+    from repro_torch.kernels import sa_sweep as sa
+
+    out = {}
+    for lib in ("sa_sweep", "sqa_sweep"):
+        t = time.time()
+        out[lib] = sa.expf_decreases(dev, lib)
+        out[f"{lib}_s"] = time.time() - t
+        check(out[lib] == 0, f"expf decreases at {out[lib]} floats z <= 0 ({lib})")
+    out["floats_checked"] = 0xFF800000 - 0x80000000 + 2
+    return out
+
+
+# K1's fixtures (P, C, S, n, schedule): the BBO pool's solve (10,240 tiles x
+# 4 reads x 24 sweeps at T = 0.1), a geometric schedule at n = 40 (two spins
+# per lane at 32 lanes), and the paper's BBO loop (phase 6: 25 or 4 runs x
+# 10 reads x 64 sweeps on ising's annealing schedule); all but the second
+# are timed
+K1_FIXTURES = {
+    "sq_main_shape": (10240, 4, 24, 24, "const"),
+    "sa_geometric": (512, 4, 32, 40, "geom"),
+    "sa_phase6_25": (25, 10, 64, 24, "anneal"),
+    "sa_phase6_4": (4, 10, 64, 24, "anneal"),
+}
+
+
 def phase_k1(torch, dev, flush):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.sa_sweep import sa_sweep_many
+    from repro_torch.core import ising
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.sa_sweep import direct_acceptance, lanes_per_chain, sa_sweep_many
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
-    # the BBO pool's solve: P tiles x 4 reads x 24 sweeps at T=0.1, n=24
-    for label, (P, C, S, n, schedule) in {
-        "sq_main_shape": (10240, 4, 24, 24, "const"),
-        "sa_geometric": (512, 4, 32, 40, "geom"),
-    }.items():
+    for label, (P, C, S, n, schedule) in K1_FIXTURES.items():
         h, B = dyadic_problems(torch, g, P, n, dev)
         x0 = (2.0 * torch.randint(0, 2, (P, C, n), generator=g, device=dev) - 1.0).contiguous()
         u = torch.rand((P, C, S, n), generator=g, device=dev)
         if schedule == "const":
             temps = torch.full((P, S), 0.1, device=dev)
-        else:
+        elif schedule == "geom":
             temps = torch.logspace(1.0, -1.5, S, device=dev).expand(P, S).contiguous()
+        else:
+            temps = ising._temperature_schedule(h, B, S).float().contiguous()
         xk, ek = sa_sweep_many(h, B, x0, u, temps)
         xr, er = ref.sa_sweep_many_ref(h, B, x0, u, temps)
         torch.cuda.synchronize()
         err = max(float((xk - xr).abs().max()), float((ek - er).abs().max()))
         check(torch.equal(xk, xr), f"K1 spins differ from the plain version ({label})")
         check(torch.equal(ek, er), f"K1 energies differ from the plain version ({label})")
-        out[label] = {"P": P, "C": C, "S": S, "n": n, "identical": True, "max_abs_err": err}
+        out[label] = {"P": P, "C": C, "S": S, "n": n, "identical": True, "max_abs_err": err,
+                      "lanes_per_chain": lanes_per_chain(P, C, n),
+                      "direct_acceptance": direct_acceptance(P, C),
+                      "flipped": float((xk != x0).float().mean())}
+        if label == "sa_geometric":
+            continue
+        ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush)
+        device_ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush,
+                            busy=True)
+        plain_ms = cuda_ms(torch, lambda: ref.sa_sweep_many_ref(h, B, x0, u, temps), 2, flush)
+        nbytes = 4 * (P * n + P * n * n + P * C * n + P * C * S * n + P * S + P * C * n + P * C)
+        # per spin step: field update (n mul-adds) + acceptance (~6 ops);
+        # per chain: initial field and final energy (2 n^2 mul-adds each)
+        ops = P * C * (S * n * (2 * n + 6) + 4 * 2 * n * n)
+        timing = {
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            # the threshold pass alone (none runs where the steps decide directly)
+            "threshold_device_ms": None if direct_acceptance(P, C) else threshold_device_ms(
+                torch, _build.load("sa_sweep"), u, temps, 0.0, C, n, flush),
+            "ns_per_step": device_ms * 1e6 / (S * n),
+            **anneal_bounds(nbytes, ops, S * n),
+        }
         if label == "sq_main_shape":
-            ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush)
-            device_ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush,
-                                busy=True)
-            plain_ms = cuda_ms(torch, lambda: ref.sa_sweep_many_ref(h, B, x0, u, temps), 2, flush)
-            nbytes = 4 * (P * n + P * n * n + P * C * n + P * C * S * n + P * S + P * C * n + P * C)
-            # per spin step: field update (n mul-adds) + acceptance (~6 ops);
-            # per chain: initial field and final energy (2 n^2 mul-adds each)
-            ops = P * C * (S * n * (2 * n + 6) + 4 * 2 * n * n)
-            b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
-            out["timing"] = {
-                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                "bound_ms": max(b_bytes, b_ops),
-                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                "bytes": nbytes, "operations": ops,
-            }
+            out["timing"] = timing
+        else:
+            out.setdefault("timing_phase6", {})[label] = timing
     return out
 
 
 # K2's fixtures (P, C, T, S, n): the paper's nBOCSqa solve (25 runs x 10
 # reads, 8 replicas, 64 sweeps, 24 spins), then edge shapes: T = 1 (a
 # replica is its own neighbour), T = 2 (both neighbours the same), T not a
-# power of two, n > 32 (two spins per lane), C > 8 (a second row of
-# blocks) and C = 1
+# power of two, n > 32 (more spins per lane), C > 8 (a second row of
+# blocks), C = 1, n < T, and more slices than the wavefront's groups
 K2_FIXTURES = {
     "paper_shape": (25, 10, 8, 64, 24),
     "c1_t3_n40": (1, 1, 3, 5, 40),
     "c13_t1": (7, 13, 1, 4, 24),
     "c9_t2_n8": (2, 9, 2, 6, 8),
     "t16_n33": (3, 4, 16, 3, 33),
+    "t13_n5": (2, 3, 13, 4, 5),       # n < T: skew 1
+    "t8_n40": (2, 5, 8, 4, 40),       # fewer groups (4) than slices: fields pass between groups
 }
 SQA_TEMPERATURE, SQA_GAMMA0 = 0.05, 3.0
 BF_TOPK = 1024
@@ -286,8 +372,8 @@ BF_TOPK = 1024
 
 def phase_k2(torch, dev, flush):
     from repro_torch.core import ising
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.sqa_sweep import sqa_sweep_many
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.sqa_sweep import sqa_sweep_many, wavefront_schedule
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     out = {}
@@ -305,8 +391,10 @@ def phase_k2(torch, dev, flush):
         err = max(float((Xk - Xr).abs().max()), float((Ek - Er).abs().max()))
         check(torch.equal(Xk, Xr), f"K2 spins differ from the plain version ({label})")
         check(torch.equal(Ek, Er), f"K2 energies differ from the plain version ({label})")
+        G, d = wavefront_schedule(T, n)
         out[label] = {"P": P, "C": C, "T": T, "S": S, "n": n, "identical": True,
-                      "max_abs_err": err, "flipped": float((Xk != X0).float().mean())}
+                      "max_abs_err": err, "flipped": float((Xk != X0).float().mean()),
+                      "groups": G, "skew": d}
         if label != "paper_shape":
             continue
         ms = cuda_ms(torch, lambda: sqa_sweep_many(h, B, X0, u, jp, SQA_TEMPERATURE), 10, flush)
@@ -321,12 +409,16 @@ def phase_k2(torch, dev, flush):
         # replica coupling (~8 ops); per replica: initial field and final
         # energy (2 n^2 mul-adds each)
         ops = P * C * (S * T * n * (2 * n + 8) + T * 4 * 2 * n * n)
-        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+        wave = d * (S * T - 1) + n           # the wavefront's steps per chain
         out["timing"] = {
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "bytes": nbytes, "operations": ops, "ns_per_step": ms * 1e6 / (S * T * n),
+            "threshold_device_ms": threshold_device_ms(
+                torch, _build.load("sqa_sweep"), u, None, SQA_TEMPERATURE, C, n, flush),
+            # per step of the plain order, and per step of the wavefront
+            "ns_per_step": device_ms * 1e6 / (S * T * n),
+            "wavefront_steps": wave, "ns_per_wavefront_step": device_ms * 1e6 / wave,
+            # the dependency graph's longest path: S*n spins plus T - 1 slices
+            **anneal_bounds(nbytes, ops, S * n + T - 1),
         }
     return out
 
@@ -1742,6 +1834,20 @@ def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     return launch
 
 
+# an annealer's timing in the kernels line: its three least times apart
+ANNEAL_KEYS = ("ms", "device_ms", "plain_ms", "threshold_device_ms", "ns_per_step",
+               "bytes_ms", "ops_ms", "chain_bound_ms")
+
+
+def contract_bound(tm) -> dict:
+    """An annealer's least time in the kernels line: the larger of its bytes
+    and operations bounds, as every kernel's, with its chain bound beside."""
+    by = "bytes" if tm["bytes_ms"] >= tm["ops_ms"] else "operations"
+    return {"bound_ms": max(tm["bytes_ms"], tm["ops_ms"]), "bound_by": by,
+            "chain_bound_ms": tm["chain_bound_ms"],
+            "threshold_device_ms": tm["threshold_device_ms"]}
+
+
 def main_path_smem(torch):
     """Dynamic shared memory of one block of the tensor-core bodies at the
     main path's shapes: K5 (two stages of 64-row K and V tiles, rows padded
@@ -1787,6 +1893,10 @@ def main() -> int:
           "dynamic_smem_main_path": main_path_smem(torch)})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
+    t = time.time()
+    expf = phase_expf(torch, dev)
+    phases["expf_check_s"] = time.time() - t
+    emit({"expf_monotone": expf})
     t = time.time()
     k1 = phase_k1(torch, dev, flush)
     phases["k1_check_s"] = time.time() - t
@@ -1876,8 +1986,11 @@ def main() -> int:
          "launches": k1_launches,
          "max_abs_err": max(v["max_abs_err"] for v in k1.values() if "max_abs_err" in v),
          "ms": k1["timing"]["ms"], "plain_ms": k1["timing"]["plain_ms"],
-         "bound_ms": k1["timing"]["bound_ms"], "bound_by": k1["timing"]["bound_by"],
+         **contract_bound(k1["timing"]),
          "library_ms": None, "device_ms": k1["timing"]["device_ms"], "library_device_ms": None,
+         # the same at phase 6's shapes (25 and 4 runs x 10 reads x 64 sweeps)
+         "phase6": {label: {k: tm[k] for k in ANNEAL_KEYS}
+                    for label, tm in k1["timing_phase6"].items()},
          "launches_phase6": {k: v["launches"]["sa_sweep_many"]
                              for k, v in paper["algorithms"].items()}},
         {"name": "bitlinear", "route": "cuda",
@@ -1939,7 +2052,7 @@ def main() -> int:
          "launches": paper["algorithms"]["nbocsqa"]["launches"]["sqa_sweep_many"],
          "max_abs_err": max(v["max_abs_err"] for v in k2.values() if "max_abs_err" in v),
          "ms": k2["timing"]["ms"], "plain_ms": k2["timing"]["plain_ms"],
-         "bound_ms": k2["timing"]["bound_ms"], "bound_by": k2["timing"]["bound_by"],
+         **contract_bound(k2["timing"]),
          "library_ms": None, "device_ms": k2["timing"]["device_ms"], "library_device_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,9 @@ the hand-written CUDA kernel ``csrc/sa_sweep.cu`` for CUDA tensors and runs
 the plain version (``ref.sa_sweep_many_ref``) for CPU tensors; both consume
 the same pre-drawn uniforms and initial spins, so they realise the same
 Metropolis chains.  ``sq_sweep_many`` is the constant-temperature path.
+``lanes_per_chain`` is the kernel's schedule rule; ``expf_decreases`` counts
+on the card the floats at which the kernel's ``expf`` would break the
+exactness of its acceptance thresholds (``csrc/anneal_step.cuh``).
 """
 
 from __future__ import annotations
@@ -16,10 +19,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sa_sweep_many_ref
 
-__all__ = ["sa_sweep_many", "sq_sweep_many", "max_spins"]
+__all__ = ["sa_sweep_many", "sq_sweep_many", "max_spins", "lanes_per_chain", "direct_acceptance",
+           "expf_decreases"]
 
 _SMEM_BYTES = 232448      # shared memory one block may use on Hopper
-_MAX_WARPS = 8            # chains per block (csrc/sa_sweep.cu kMaxWarps)
+_MAX_WARPS = 8            # warps per block (csrc/sa_sweep.cu kMaxWarps)
+_MAX_SPL = 8              # spins per lane (the kernel's largest template)
+_FILL_CHAINS = 4096       # chains from which the card is full at 8 chains per warp
 
 
 def max_spins(chains: int) -> int:
@@ -32,12 +38,60 @@ def max_spins(chains: int) -> int:
     return n
 
 
+def lanes_per_chain(P: int, C: int, n: int) -> int:
+    """Lanes per chain (4, 8, 16 or 32) of a launch of P problems x C chains
+    of n spins.  A warp holds chains of one problem.  When the chains fill
+    the card (>= _FILL_CHAINS) the kernel is bound by the instructions it
+    issues, and packing 32 / L chains per warp makes one acceptance, one
+    shuffle and the field updates of each lane serve them all: as few lanes
+    as the problem's chains allow.  When chains are few, one chain's
+    dependent path sets the time, and 32 lanes keep each step's field
+    update to ceil(n / 32) spins per lane.  Never fewer lanes than 8 spins
+    per lane allow."""
+    lanes = 32
+    if P * C >= _FILL_CHAINS:
+        per_warp = 1
+        while per_warp * 2 <= min(C, 8):
+            per_warp *= 2
+        lanes = 32 // per_warp
+    while lanes < 32 and -(-n // lanes) > _MAX_SPL:
+        lanes *= 2
+    return lanes
+
+
+def direct_acceptance(P: int, C: int) -> bool:
+    """Whether a launch's steps evaluate the acceptance (a division and
+    expf) on their uniforms instead of thresholds found before the sweeps
+    (``csrc/anneal_step.cuh``).  When the chains fill the card the kernel is
+    bound by what it issues: one step's evaluation serves the 32 / L chains
+    of a warp, where the threshold pass evaluates the same two
+    multi-function-unit operations ~8 times per uniform.  When chains are
+    few, one chain's dependent path sets the time and the threshold takes
+    the division and expf off it."""
+    return P * C >= _FILL_CHAINS
+
+
 def _lib():
     lib = _build.load("sa_sweep")
     fn = lib.sa_sweep_many_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def expf_decreases(device, library: str = "sa_sweep") -> int:
+    """The number of floats z <= 0 at which ``expf``, as ``csrc/<library>.cu``
+    compiles it, decreases: every one of them, counted on the card.  The
+    annealers' acceptance thresholds are exact iff it is 0."""
+    lib = _build.load(library)
+    fn = lib.anneal_expf_decreases
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    err = fn(out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"expf_decreases: CUDA launch failed (cudaError {err})")
+    return int(out.item())
 
 
 def sa_sweep_many(h, B, x0, rand, temps):
@@ -71,9 +125,13 @@ def sa_sweep_many(h, B, x0, rand, temps):
     e = torch.empty((P, C), dtype=torch.float32, device=h.device)
     if P == 0 or C == 0:
         return x, e
+    lanes, direct = lanes_per_chain(P, C, n), direct_acceptance(P, C)
+    # the acceptance thresholds of the uniforms (none where steps decide directly)
+    theta = None if direct else torch.empty_like(rand)
     err = _lib()(
         h.data_ptr(), B.data_ptr(), x0.data_ptr(), rand.data_ptr(),
-        temps.data_ptr(), x.data_ptr(), e.data_ptr(), P, C, S, n,
+        temps.data_ptr(), None if theta is None else theta.data_ptr(), x.data_ptr(),
+        e.data_ptr(), P, C, S, n, lanes, int(direct),
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     if err != 0:

@@ -5,6 +5,10 @@ paper's "QA" solver.  ``sqa_sweep_many`` launches the hand-written CUDA
 kernel ``csrc/sqa_sweep.cu`` for CUDA tensors and runs the plain version
 (``ref.sqa_sweep_many_ref``) for CPU tensors; both consume the same initial
 replicas, pre-drawn uniforms and couplings, so they realise the same chains.
+``wavefront_schedule`` gives the kernel its groups and skew: the rows
+(sweep, slice) of a chain run as a wavefront, row r starting spin i at step
+d*r + i, which keeps every addition and every neighbour read of the
+sequential order.
 """
 
 from __future__ import annotations
@@ -16,15 +20,40 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sqa_sweep_many_ref
 
-__all__ = ["sqa_sweep_many", "max_spins"]
+__all__ = ["sqa_sweep_many", "max_spins", "wavefront_schedule", "wavefront_skew"]
 
 _SMEM_BYTES = 232448      # shared memory one block may use on Hopper
-_MAX_WARPS = 8            # chains per block (csrc/sqa_sweep.cu kMaxWarps)
+_MAX_WARPS = 8            # chains per block of the slice-at-a-time kernel (max_spins)
+_MAX_GROUPS = 8           # rows in flight per chain (csrc/sqa_sweep.cu kMaxGroups), a warp each
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wavefront_skew(T: int, n: int, G: int) -> int:
+    """The least skew d at which row r (= sweep * T + slice) of a chain of
+    T slices of n spins may run spin i at step d*r + i on G groups.  Step
+    (r, i) needs (r, i - 1), (r - 1, i) and the whole of row r - T, and
+    reads X[q + 1, i] as row r - T + 1 left it: d >= ceil(n / T) keeps
+    every dependency, and d >= ceil(n / G) lets each group finish a row
+    before its next one (row r + G) starts."""
+    return max(_cdiv(n, T), _cdiv(n, G))
+
+
+def wavefront_schedule(T: int, n: int) -> tuple[int, int]:
+    """(G, d) for a chain of T slices of n spins: G = min(T, 8) groups (a
+    warp each), group g running rows g, g + G, ..., at skew d
+    (``wavefront_skew``)."""
+    G = min(T, _MAX_GROUPS)
+    return G, wavefront_skew(T, n, G)
 
 
 def max_spins(chains: int, n_trotter: int) -> int:
-    """Largest n the kernel takes: B (n*n floats) plus each warp's replicas
-    and fields (2*T*n floats) in shared memory, and at most 256 spins."""
+    """Largest n the kernel takes: B (n*n floats) plus, for min(chains, 8)
+    chains, the replicas and fields (2*T*n floats) in shared memory (a
+    block holds one chain since the wavefront design: the bound is kept as
+    it was), and at most 256 spins."""
     w = min(chains, _MAX_WARPS)
     n = 256
     while n > 0 and 4 * (n * n + w * 2 * n_trotter * n) > _SMEM_BYTES:
@@ -35,7 +64,7 @@ def max_spins(chains: int, n_trotter: int) -> int:
 def _lib():
     lib = _build.load("sqa_sweep")
     fn = lib.sqa_sweep_many_f32
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -75,9 +104,11 @@ def sqa_sweep_many(h, B, X0, rand, jperps, temperature: float = 0.05):
     E = torch.empty((P, C, T), dtype=torch.float32, device=h.device)
     if P == 0 or C == 0:
         return X, E
+    G, d = wavefront_schedule(T, n)
+    theta = torch.empty_like(rand)      # the acceptance thresholds of the uniforms
     err = _lib()(
         h.data_ptr(), B.data_ptr(), X0.data_ptr(), rand.data_ptr(), jperps.data_ptr(),
-        X.data_ptr(), E.data_ptr(), P, C, T, S, n, temperature,
+        theta.data_ptr(), X.data_ptr(), E.data_ptr(), P, C, T, S, n, G, d, temperature,
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     if err != 0:

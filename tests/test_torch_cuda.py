@@ -48,7 +48,12 @@ def _dyadic_problems(rng, P, n):
     return h.astype(np.float32), B.astype(np.float32)
 
 
-@pytest.mark.parametrize("P,C,S,n", [(64, 4, 24, 24), (16, 3, 8, 40), (8, 10, 4, 100)])
+# (64, 4) and (8, 10) run 32 lanes per chain; (4096, 10, ., 24) 4 lanes, 8
+# chains per warp; (4100, 4, ., 24) 8 lanes; (410, 10, ., 100) 16 lanes; (25,
+# 10, 64, 24) is the paper's BBO loop (phase 6)
+@pytest.mark.parametrize("P,C,S,n", [(64, 4, 24, 24), (16, 3, 8, 40), (8, 10, 4, 100),
+                                     (25, 10, 64, 24), (4096, 10, 4, 24), (4100, 4, 4, 24),
+                                     (410, 10, 4, 100)])
 def test_sa_sweep_kernel_bit_identical(dev, P, C, S, n):
     rng = np.random.default_rng(P * n + C)
     h, B = _dyadic_problems(rng, P, n)
@@ -65,8 +70,12 @@ def test_sa_sweep_kernel_bit_identical(dev, P, C, S, n):
     assert torch.equal(ek, er)
 
 
+# the wavefront's shapes: T = 1 (the sequential sweep), T = 2, 3, 8 (every
+# slice in flight), n < T (T = 13, n = 5: skew 1), and fewer groups than
+# slices (T = 16; T = 8 at n = 40): fields pass between groups
 @pytest.mark.parametrize("P,C,T,S,n", [(1, 1, 3, 5, 40), (7, 13, 1, 4, 24), (2, 9, 2, 6, 8),
-                                       (3, 4, 16, 3, 33), (25, 10, 8, 16, 24)])
+                                       (3, 4, 16, 3, 33), (25, 10, 8, 16, 24), (2, 3, 13, 5, 5),
+                                       (2, 3, 16, 3, 24), (2, 5, 8, 3, 40)])
 def test_sqa_sweep_kernel_bit_identical(dev, P, C, T, S, n):
     rng = np.random.default_rng(P * n + C * T)
     h, B = _dyadic_problems(rng, P, n)
@@ -81,6 +90,36 @@ def test_sqa_sweep_kernel_bit_identical(dev, P, C, T, S, n):
     Xr, Er = ref.sqa_sweep_many_ref(*args, temperature=0.05)
     assert torch.equal(Xk, Xr)
     assert torch.equal(Ek, Er)
+
+
+@pytest.mark.parametrize("kernel", ["sa", "sqa"])
+def test_annealers_on_rounded_sums_match_plain_decisions(dev, kernel):
+    """Normal h and B: the kernels' fields sum in index order, the plain
+    versions' through einsum, so only the spins' flips are compared where
+    both start from the same fields: h alone (B = 0)."""
+    rng = np.random.default_rng(3)
+    P, C, T, S, n = 25, 10, 8, 16, 24
+    h = rng.standard_normal((P, n)).astype(np.float32)
+    B = np.zeros((P, n, n), np.float32)
+    if kernel == "sa":
+        x0 = np.where(rng.random((P, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+        u = rng.random((P, C, S, n), dtype=np.float32)
+        temps = np.broadcast_to(np.geomspace(3.0, 0.05, S, dtype=np.float32), (P, S)).copy()
+        args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
+        out, want = sa.sa_sweep_many(*args), ref.sa_sweep_many_ref(*args)
+    else:
+        X0 = np.where(rng.random((P, C, T, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+        u = rng.random((P, C, S, T, n), dtype=np.float32)
+        jp = np.geomspace(2.0, 1e-3, S).astype(np.float32)
+        args = [torch.from_numpy(a).to(dev) for a in (h, B, X0, u, jp)]
+        out, want = sqa.sqa_sweep_many(*args, 0.3), ref.sqa_sweep_many_ref(*args, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0])
+
+
+@pytest.mark.parametrize("library", ["sa_sweep", "sqa_sweep"])
+def test_expf_never_decreases_below_zero(dev, library):
+    assert sa.expf_decreases(dev, library) == 0
 
 
 def test_sqa_sweep_kernel_refuses_shapes_beyond_shared_memory(dev):

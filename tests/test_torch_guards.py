@@ -18,7 +18,8 @@ _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "chip_smoke.py", _ROOT / "tools" / "torch_serve_profile.py",
     _ROOT / "tools" / "torch_eigh_batch_probe.py", _ROOT / "tools" / "torch_moe_divergence.py",
     _ROOT / "tools" / "torch_grid_variants.py", _ROOT / "tools" / "torch_decode_variants.py",
-    _ROOT / "tools" / "torch_decode_ab.py"]
+    _ROOT / "tools" / "torch_decode_ab.py", _ROOT / "tools" / "torch_anneal_ab.py",
+    _ROOT / "tools" / "torch_anneal_variants.py"]
 
 
 def _imported_roots(path):
@@ -174,3 +175,23 @@ def test_decode_variant_switches_are_the_headers():
         for flag in flags:
             macro = re.fullmatch(r"-D(\w+)=\d+", flag)
             assert macro and macro.group(1) in defined, (name, flag)
+
+
+def test_anneal_variants_are_the_kernels_text():
+    """tools/torch_anneal_variants.py builds K2's variants by substituting
+    text of csrc/sqa_sweep.cu; each substituted text must be in the source
+    once, so an edited kernel fails here instead of building a variant that
+    is the kernel as it is."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_anneal_variants", _ROOT / "tools" / "torch_anneal_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = (_ROOT / "src" / "repro_torch" / "csrc" / "sqa_sweep.cu").read_text()
+    named = tool.variants()
+    assert named["as_built"] == []
+    assert {"no_barrier", "no_neighbours", "no_shuffle"} <= set(named)
+    for name, subs in named.items():
+        for old, new in subs:
+            assert source.count(old) == 1 and new != old, name

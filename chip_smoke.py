@@ -30,7 +30,7 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      default rule), is held against its plain version on the same inputs
      and timed beside its bound and a dense bf16 matmul.
   K3's variants: every schedule (grid at three (block_t, r_chunk), decode
-     where its block fits shared memory, stream at r_chunk 1 and 2) x bit
+     where its block fits shared memory, stream at r_chunk 1, 2, 4, 8) x bit
      algebra (unpack, bitplane) x activations (f32, bf16, int8) x C (f32,
      bf16) against the plain version on phase 3's tensors at T = 1, 16,
      512, 4, 4096, the BBO tensors (tn = 8, K = 3) and a ragged T = 37:
@@ -40,7 +40,12 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      phase 4's tensors at T = 1 ... 64 (the default rule's small-T cutoff);
      each also as device time alone (``device_ms``: the card kept busy while
      the host enqueues the call); each timed decode call's cluster size S
-     and GB/s are printed (``decode_calls``).
+     and GB/s are printed (``decode_calls``).  Stream is timed apart at
+     r_chunk 1, 2, 4, 8 on qwen's eight T = 4 calls and granite-moe's four
+     K3 tensors (``stream_calls``: each call's S, the parts that went
+     through a tensor map, as the library reports them and as
+     ``bitlinear.stream_tensor_maps`` predicts, ``ms``, ``device_ms``,
+     GB/s).
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
      shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
      and bf16; in bf16 also against f32 scores within K5's rounding bound.
@@ -734,7 +739,7 @@ CDTYPES = ("float32", "bfloat16")
 MATHS = ("unpack", "bitplane")
 # each schedule also at other block_t / r_chunk (decode takes neither)
 MODE_OPTIONS = {"grid": ({}, {"block_t": 64, "r_chunk": 4}, {"block_t": 256, "r_chunk": 2}),
-                "decode": ({},), "stream": ({}, {"r_chunk": 2})}
+                "decode": ({},), "stream": ({}, {"r_chunk": 2}, {"r_chunk": 4}, {"r_chunk": 8})}
 
 
 def variant_inputs(torch, g, dev, x_shape, C, xd, cd, tn):
@@ -841,6 +846,74 @@ def decode_call(bl, dev, mode, tensor, E, n_c, n_r, bytes_ms, device_ms):
             "GBps": gbps(bytes_ms, device_ms)}
 
 
+# granite-moe-1b-a400m's K3 tensors (attention; d_in, d_out) at the default
+# policy's tile 32 x 128, K = 4; stream's timed r_chunk values
+GRANITE_K3 = {"attn/wq": (1024, 1024), "attn/wk": (1024, 512), "attn/wv": (1024, 512),
+              "attn/wo": (1024, 1024)}
+STREAM_TIMED_R_CHUNKS = (1, 2, 4, 8)
+
+
+def stream_calls(torch, g, dev, weights, inputs, flush):
+    """Stream (bf16, bitplane) at every r_chunk of STREAM_TIMED_R_CHUNKS on
+    qwen's eight T = 4 calls (phase 4's weights and inputs) and on
+    granite-moe's four K3 tensors (random weights at their shapes): per call
+    the rule's S and the launch's (counted by the wrapper), the parts that
+    went through a tensor map (the library's report, checked against
+    ``stream_tensor_maps``), ``ms``, ``device_ms`` and GB/s of device time;
+    and the sums per model and r_chunk."""
+    from repro_torch.kernels import bitlinear as bl
+
+    calls = [("qwen", path, weights[path]["m_packed"], weights[path]["C"], x)
+             for (path, T), x in sorted(inputs.items()) if T == GEN_BATCH]
+    for name, (d_in, d_out) in GRANITE_K3.items():
+        n_r, n_c = d_in // 32, d_out // 128
+        mp = torch.randint(0, 256, (n_r, n_c, 32, 1), generator=g, device=dev, dtype=torch.uint8)
+        C = (torch.randn((n_r, n_c, 4, 128), generator=g, device=dev) * 0.2).to(torch.bfloat16)
+        x = torch.randn((GEN_BATCH, d_in), generator=g, device=dev).to(torch.bfloat16)
+        calls.append(("granite", name, mp, C, x))
+    rows, sums = [], {}
+    for model, name, mp, C, x in calls:
+        n_r, n_c, tn, _ = mp.shape
+        K, td = C.shape[2], C.shape[3]
+        b_bytes, _ = k3_bound(mp, C, GEN_BATCH, 2)
+        for rc in STREAM_TIMED_R_CHUNKS:
+            rc = bl.resolve_r_chunk(n_r, rc)
+            geo = bl.stream_geometry(T=GEN_BATCH, tn=tn, K=K, td=td, x_itemsize=2, c_itemsize=2,
+                                     r_chunk=rc)
+            smem = bl.smem_bytes("stream", T=GEN_BATCH, n_r=n_r, tn=tn, K=K, td=td,
+                                 x_itemsize=2, c_itemsize=2, r_chunk=rc)
+            check(smem == geo["smem"], f"stream {name} r_chunk {rc}: library layout {smem} "
+                                       f"!= stream_geometry's {geo['smem']}")
+            S = bl.stream_cluster_size(n_c * geo["col_chunks"] * geo["row_blocks"], n_r, rc,
+                                       bl.device_sms(dev),
+                                       bl.stream_blocks_per_sm(geo["bt"], smem,
+                                                               bl.device_sm_smem(dev)))
+            want = "+".join(k for k, v in geo["maps"].items() if v) or "none"
+            before = (dict(bl.bitlinear.stream_clusters), dict(bl.bitlinear.stream_maps))
+            bl.bitlinear(x, mp, C, mode="stream", math="bitplane", r_chunk=rc)
+            torch.cuda.synchronize()
+            check(bl.bitlinear.stream_clusters.get(S, 0) == before[0].get(S, 0) + 1,
+                  f"stream {name} r_chunk {rc}: not launched at the rule's S = {S}")
+            check(bl.bitlinear.stream_maps.get(want, 0) == before[1].get(want, 0) + 1,
+                  f"stream {name} r_chunk {rc}: the library staged other parts than {want}")
+            ms, device_ms = (cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, mode="stream",
+                                                                 math="bitplane", r_chunk=rc),
+                                     10, flush, busy=busy) for busy in (False, True))
+            rows.append({"model": model, "tensor": name, "T": GEN_BATCH, "r_chunk": rc, "S": S,
+                         "blocks": n_c * geo["col_chunks"] * geo["row_blocks"] * S,
+                         "stages": geo["stages"], "maps": want, "ms": ms,
+                         "device_ms": device_ms, "GBps": gbps(b_bytes, device_ms)})
+            tot = sums.setdefault(f"{model}/r_chunk={rc}",
+                                  {"calls": 0, "ms": 0.0, "device_ms": 0.0, "bytes_ms": 0.0})
+            tot["calls"] += 1
+            tot["ms"] += ms
+            tot["device_ms"] += device_ms
+            tot["bytes_ms"] += b_bytes
+    for tot in sums.values():
+        tot["GBps"] = gbps(tot.pop("bytes_ms"), tot["device_ms"])
+    return {"calls": rows, "sums": sums}
+
+
 def decode_calls(timed):
     """The timed decode calls of a variants phase, per bit algebra."""
     return [{"math": key.split("/")[1],
@@ -873,13 +946,14 @@ SWEEP_T = (1, 2, 4, 8, 16, 32, 64)
 def sweep_small_t(torch, g, dev, fn, operands, modes, Ts, flush):
     """Per T: ms summed over ``operands`` [(lead, mp, C)] per "mode/math",
     in bf16, each schedule at the default rule's options (grid at its
-    block_t, stream at r_chunk 2), a schedule only where every operand's
-    block fits; the same as device time alone ("device": {"mode/math":
-    ms}); and the default rule's picks ("rule")."""
+    block_t, stream at the tuner's first r_chunk), a schedule only where
+    every operand's block fits; the same as device time alone ("device":
+    {"mode/math": ms}); and the default rule's picks ("rule")."""
     from repro_torch.kernels import bitlinear as bl
 
     budget = bl.device_smem_budget(dev)
-    opts = {"grid": {"block_t": bl.DEFAULT_GRID_BLOCK_T}, "decode": {}, "stream": {"r_chunk": 2}}
+    opts = {"grid": {"block_t": bl.DEFAULT_GRID_BLOCK_T}, "decode": {},
+            "stream": {"r_chunk": bl.STREAM_R_CHUNKS[0]}}
     out = {}
     for T in Ts:
         xs = [torch.randn(lead + (T, mp.shape[-4] * mp.shape[-2]), generator=g,
@@ -966,7 +1040,8 @@ def phase_k3_variants(torch, dev, weights, inputs, flush):
     sweep = sweep_small_t(torch, g, dev, bl.bitlinear, operands, ("grid", "decode", "stream"),
                           SWEEP_T, flush)
     out = {"checks": checks, "max_abs_err": errs, "timing": sum_variants(timed),
-           "decode_calls": decode_calls(timed), "small_t_ms": sweep}
+           "decode_calls": decode_calls(timed), "small_t_ms": sweep,
+           "stream_calls": stream_calls(torch, g, dev, weights, inputs, flush)}
     emit({"k3_variants": out})
     return out
 
@@ -1979,6 +2054,8 @@ def main() -> int:
     emit({"decode_calls": {"bitlinear": k3v["decode_calls"],
                            "bitlinear_grouped": k4v["decode_calls"],
                            "GBps_card": HBM_BYTES_PER_S / 1e9}})
+    # each timed stream call's cluster size, tensor-mapped parts and GB/s
+    emit({"stream_calls": {**k3v["stream_calls"], "GBps_card": HBM_BYTES_PER_S / 1e9}})
     emit({"kernels": [
         {"name": "sa_sweep_many", "route": "cuda",
          "source": "src/repro_torch/csrc/sa_sweep.cu",
@@ -2010,7 +2087,10 @@ def main() -> int:
          # (decode: the T = 4 ones)
          "sources": ["src/repro_torch/csrc/bitlinear.cu",
                      "src/repro_torch/csrc/bitlinear_decode.cu",
-                     "src/repro_torch/csrc/bitlinear_stream.cu"],
+                     "src/repro_torch/csrc/bitlinear_stream.cu",
+                     "src/repro_torch/csrc/bitlinear_stream.cuh",
+                     "src/repro_torch/csrc/bitlinear_ring.cuh",
+                     "src/repro_torch/csrc/bitlinear_common.cuh"],
          "variants": variants(k3v["timing"], k3v["max_abs_err"], launch["bitlinear"],
                               {"grid": "src/repro/kernels/bitlinear.py:417",
                                "decode": "src/repro/kernels/bitlinear.py:369",
@@ -2042,7 +2122,9 @@ def main() -> int:
          # per schedule x bit algebra (launches: see variants), times summed
          # in bf16 over phase 5's distinct (stack, T) calls the schedule takes
          "sources": ["src/repro_torch/csrc/bitlinear.cu",
-                     "src/repro_torch/csrc/bitlinear_decode.cu"],
+                     "src/repro_torch/csrc/bitlinear_decode.cu",
+                     "src/repro_torch/csrc/bitlinear_ring.cuh",
+                     "src/repro_torch/csrc/bitlinear_common.cuh"],
          "variants": variants(k4v["timing"], k4v["max_abs_err"], launch["bitlinear_grouped"],
                               {"grid": "src/repro/kernels/bitlinear.py:558",
                                "decode": "src/repro/kernels/bitlinear.py:536"})},

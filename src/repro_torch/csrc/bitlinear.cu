@@ -24,28 +24,21 @@ int bitlinear_grid(const void* x, const uint8_t* m_packed, const void* C, void* 
                    int n_r, int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16,
                    int bitplane, int block_t, int r_chunk, int smem_budget, int small_t,
                    void* stream, int* tensor_cores) {
-  return bitlinear_impl::dispatch<bitlinear_impl::GRID>(
+  return bitlinear_impl::dispatch(
       x, m_packed, C, y, E, T, n_r, n_c, tn, kb, K, td, x_kind, c_bf16, bitplane, block_t,
       r_chunk, smem_budget, small_t, stream, tensor_cores);
 }
 
-// Dynamic shared memory in bytes of one block of schedule `mode` (0 grid,
-// 2 stream) for these shapes, as the launch computes it; -1 for an unknown
-// mode or x_kind (decode's: bitlinear_decode_smem_bytes in
-// bitlinear_decode.cu).  kernels/bitlinear.py admits schedules by it.
-long long bitlinear_smem_bytes(int mode, int T, int n_r, int tn, int kb, int K, int td,
-                               int x_kind, int c_bf16, int r_chunk, int small_t) {
+// Dynamic shared memory in bytes of one grid block for these shapes, as the
+// launch computes it; -1 for an unknown x_kind (decode's and stream's:
+// bitlinear_decode_smem_bytes and bitlinear_stream_smem_bytes in their own
+// sources).  kernels/bitlinear.py admits schedules by it.
+long long bitlinear_smem_bytes(int T, int tn, int kb, int K, int td, int x_kind, int c_bf16,
+                               int r_chunk, int small_t) {
   using namespace bitlinear_impl;
   if (x_kind < 0 || x_kind > 2 || r_chunk < 1) return -1;
-  const size_t xs = x_size(x_kind), cs = c_bf16 ? 2 : 4;
-  switch (mode) {
-    case GRID:
-      return (long long)block_smem<GRID>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
-    case STREAM:
-      return (long long)block_smem<STREAM>(T, n_r, tn, kb, K, td, r_chunk, xs, cs, small_t);
-    default:
-      return -1;
-  }
+  return (long long)block_smem(T, tn, kb, K, td, r_chunk, x_size(x_kind), c_bf16 ? 2 : 4,
+                               small_t);
 }
 
 }  // extern "C"

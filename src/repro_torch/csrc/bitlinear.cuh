@@ -1,13 +1,14 @@
 // Fused compressed linear layer y = (x @ M) @ C (kernel K3), and its
 // grouped form y_e = (x_e @ M_e) @ C_e over a stack of E experts (kernel K4):
-// the device code of the grid and stream schedules and what every schedule
-// shares, one source each (bitlinear.cu: grid; bitlinear_stream.cu: stream),
-// so nvcc builds them in parallel.  The decode schedule is a kernel of its
-// own, bitlinear_decode.cuh (built as bitlinear_decode.cu).
+// the device code of the grid schedule (built as bitlinear.cu).  The decode
+// and stream schedules are kernels of their own, bitlinear_decode.cuh and
+// bitlinear_stream.cuh (built as bitlinear_decode.cu and bitlinear_stream.cu,
+// so nvcc builds the three in parallel), sharing their body through
+// bitlinear_ring.cuh; the scalar helpers all three use are in
+// bitlinear_common.cuh.
 //
 // Replaces the Pallas TPU kernels repro/kernels/bitlinear.py::bitlinear
-// (grid _kernel, stream _stream_kernel) and ::bitlinear_grouped
-// (_grouped_kernel).  The
+// (grid _kernel) and ::bitlinear_grouped (_grouped_kernel).  The
 // weight is stored per (row tile r, column tile c) as a bit-packed sign
 // matrix M[r, c] in {-1,+1}^{tn x K} (uint8, LSB-first, kb = ceil(K/8)
 // bytes per row) and a small real factor C[r, c] (K x td).  For every r, c:
@@ -28,8 +29,10 @@
 // and on the f32 FMA pipes for every other call.  The FMA bodies keep as
 // many independent (r, c) tiles in flight as the card holds:
 //   * a block owns (expert e, column tile c) -- blockIdx.y = e * n_c + c,
-//     all E experts in one launch, K3 is E = 1 -- and a set of rows and
-//     columns of it; its W warps take the r tiles in chunks of rc
+//     all E experts in one launch, K3 is E = 1 -- and a row block of
+//     row_block rows (block_t) in register groups of BT and a 32*NCOL column
+//     chunk of it; x, M and C are read from device memory; its W warps take
+//     the r tiles in chunks of rc
 //     consecutive tiles, warp w the chunks w, w + W, ..., with no block
 //     barrier inside the loop (the TPU's sequential "arbitrary" r axis
 //     becomes this strided loop);
@@ -41,73 +44,17 @@
 //     accumulates z @ C into BT x NCOL f32 registers, C read coalesced;
 //   * the W partial sums are added in warp order through shared memory
 //     (deterministic), and y is written once.
-// The schedules differ in where the operands come from:
-//   grid    a block covers row_block rows (block_t) in register groups of
-//           BT and a 32*NCOL column chunk; x, M, C read from device memory.
-//           bf16 x with bf16 C above small_t rows: bitlinear_mma_kernel
-//           (its own design note below).
-//   stream  one block per (e, c) with all T rows and all td columns, x read
-//           from device memory; each
-//           warp double-buffers its r chunks of M and C in two shared-memory
-//           slots filled with cp.async: the copy of chunk i+1 is issued
-//           before chunk i is consumed (commit_group / wait_group 1).
-//           16-byte copies where the tile size allows it, else 4-byte
-//           copies, else plain byte loads (an M tile is tn*kb bytes: 8 B for
-//           the BBO tensors, tn = 8 and K = 3).
+// bf16 x with bf16 C above small_t rows runs bitlinear_mma_kernel instead
+// (its own design note below).
 // Ragged T is masked (rows >= T read zeros and are not written) and any K
 // works (K % 8 != 0 included).  Every expert of a grouped call has the same
 // T (the MoE dispatch layout pads each expert to its capacity).  wgmma and
 // TMA for the grid are later work.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitlinear_common.cuh"
 
 namespace bitlinear_impl {
-
-enum { GRID = 0, DECODE = 1, STREAM = 2 };
-
-template <typename XT>
-struct Acc {
-  using type = float;
-};
-template <>
-struct Acc<int8_t> {
-  using type = int;
-};
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ int ld(const int8_t* p) { return static_cast<int>(*p); }
-
-__device__ __forceinline__ float as_f32(float z) { return z; }
-// exact: |z| <= 128 * tn is far below 2^24
-__device__ __forceinline__ float as_f32(int z) { return __int2float_rn(z); }
-
-// z rounded to C's dtype (round to nearest), as the Pallas kernels' z.astype(c.dtype)
-template <typename CT>
-__device__ __forceinline__ float to_c(float z);
-template <>
-__device__ __forceinline__ float to_c<float>(float z) { return z; }
-template <>
-__device__ __forceinline__ float to_c<__nv_bfloat16>(float z) {
-  return __bfloat162float(__float2bfloat16_rn(z));
-}
-
-template <typename XT>
-__device__ __forceinline__ XT store_y(float acc);
-template <>
-__device__ __forceinline__ float store_y<float>(float acc) { return acc; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_y<__nv_bfloat16>(float acc) {
-  return __float2bfloat16_rn(acc);
-}
-template <>
-__device__ __forceinline__ int8_t store_y<int8_t>(float acc) {
-  // toward zero, then saturate (cvt.rzi saturates to the int32 range itself)
-  return static_cast<int8_t>(max(-128, min(127, __float2int_rz(acc))));
-}
 
 // z = x[0:tn] @ M[:, k] for one row and one k (bit `bit` of byte `byte`)
 template <typename XT, bool BITPLANE>
@@ -131,7 +78,7 @@ __device__ __forceinline__ typename Acc<XT>::type z_dot(const XT* xr, const uint
 
 // One chunk of nr consecutive r tiles for one warp.  xg points at row 0 of
 // the register group and column r0*tn; tile j of M is m + j*m_stride and of
-// C is cw + j*c_stride (device memory or a stream slot).
+// C is cw + j*c_stride (device memory).
 template <typename XT, typename CT, int BT, int NCOL, bool BITPLANE>
 __device__ __forceinline__ void consume(const XT* xg, int x_stride, int rows, const uint8_t* m,
                                         size_t m_stride, const CT* cw, size_t c_stride, int nr,
@@ -168,62 +115,22 @@ __device__ __forceinline__ void consume(const XT* xg, int x_stride, int rows, co
   __syncwarp();
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// n tiles of `tile` bytes, src tiles src_stride bytes apart, packed in dst;
-// the warp's lanes split the copy in units of `vec` bytes
-__device__ __forceinline__ void copy_tiles(unsigned char* dst, const unsigned char* src,
-                                           size_t src_stride, size_t tile, int n, int vec,
-                                           int lane) {
-  if (vec == 1) {
-    for (size_t u = lane; u < (size_t)n * tile; u += 32) {
-      const size_t j = u / tile, o = u - j * tile;
-      dst[j * tile + o] = src[j * src_stride + o];
-    }
-    return;
-  }
-  const size_t units = tile / vec;
-  for (size_t u = lane; u < (size_t)n * units; u += 32) {
-    const size_t j = u / units, o = (u - j * units) * vec;
-    if (vec == 16)
-      cp_async16(dst + j * tile + o, src + j * src_stride + o);
-    else
-      cp_async4(dst + j * tile + o, src + j * src_stride + o);
-  }
-}
+// Warps per block: 32 for register groups of 1 row, else 16 (the
+// accumulators need the registers).
+__host__ __device__ __forceinline__ int warps_for(int bt) { return bt <= 2 ? 32 : 16; }
 
-__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-// Warps per block: 32 for the grid's register groups of 1 row, else 16 (the
-// accumulators need the registers); stream always 16, since each warp keeps
-// two slots of M and C in shared memory.
-template <int MODE>
-__host__ __device__ __forceinline__ int warps_for(int bt) {
-  return MODE != STREAM && bt <= 2 ? 32 : 16;
-}
-
-template <typename XT, typename CT, int BT, int NCOL, bool BITPLANE, int MODE>
-__global__ void __launch_bounds__(MODE != STREAM && BT <= 2 ? 1024 : 512)
+template <typename XT, typename CT, int BT, int NCOL, bool BITPLANE>
+__global__ void __launch_bounds__(BT <= 2 ? 1024 : 512)
     bitlinear_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ mp,
                      const CT* __restrict__ Cw, XT* __restrict__ y, int T, int n_r, int n_c,
-                     int tn, int kb, int K, int td, int row_block, int rc, int m_vec,
-                     int c_vec) {
+                     int tn, int kb, int K, int td, int row_block, int rc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -239,62 +146,27 @@ __global__ void __launch_bounds__(MODE != STREAM && BT <= 2 ? 1024 : 512)
   Cw += (size_t)e * n_r * n_c * c_tile;
   y += (size_t)e * T * d_out;
 
-  // shared memory: [M/C slots (stream)] [z buffers] [sums]
-  unsigned char* p = smem;
-  const XT* xs = x;
-  const size_t m_slot = align16((size_t)rc * m_tile);
-  const size_t c_slot = align16((size_t)rc * c_tile * sizeof(CT));
-  unsigned char* slot0 = p + (size_t)warp * 2 * (m_slot + c_slot);
-  unsigned char* slot1 = slot0 + m_slot + c_slot;
-  if (MODE == STREAM) p += (size_t)W * 2 * (m_slot + c_slot);
-  float* zbuf = reinterpret_cast<float*>(p) + (size_t)warp * rc * BT * K;
-  float* sums = reinterpret_cast<float*>(p) + (size_t)W * rc * BT * K;
+  // shared memory: [z buffers] [sums]
+  float* zbuf = reinterpret_cast<float*>(smem) + (size_t)warp * rc * BT * K;
+  float* sums = reinterpret_cast<float*>(smem) + (size_t)W * rc * BT * K;
 
   const int CW = 32 * NCOL;
   const int t_end = min(T, (int)(blockIdx.x + 1) * row_block);
   for (int d0 = blockIdx.z * CW; d0 < td; d0 += gridDim.z * CW) {
     for (int g = blockIdx.x * row_block; g < t_end; g += BT) {
       const int rows = min(BT, t_end - g);
-      const XT* xg = xs + (size_t)g * d_in;
+      const XT* xg = x + (size_t)g * d_in;
       float acc[BT][NCOL];
 #pragma unroll
       for (int t = 0; t < BT; ++t)
 #pragma unroll
         for (int jj = 0; jj < NCOL; ++jj) acc[t][jj] = 0.f;
 
-      if (MODE == STREAM) {
-        auto issue = [&](unsigned char* slot, int r0) {
-          const int nr = min(rc, n_r - r0);
-          copy_tiles(slot, mp + ((size_t)r0 * n_c + c) * m_tile, (size_t)n_c * m_tile, m_tile,
-                     nr, m_vec, lane);
-          copy_tiles(slot + m_slot,
-                     reinterpret_cast<const unsigned char*>(Cw + ((size_t)r0 * n_c + c) * c_tile),
-                     (size_t)n_c * c_tile * sizeof(CT), c_tile * sizeof(CT), nr, c_vec, lane);
-        };
-        int r0 = warp * rc;
-        if (r0 < n_r) issue(slot0, r0);
-        cp_async_commit();
-        for (int i = 0; r0 < n_r; ++i, r0 += W * rc) {
-          // overlapped copy: chunk i+1 is in flight while chunk i is consumed
-          if (r0 + W * rc < n_r) issue((i & 1) ? slot0 : slot1, r0 + W * rc);
-          cp_async_commit();
-          cp_async_wait1();
-          __syncwarp();
-          const unsigned char* s = (i & 1) ? slot1 : slot0;
-          consume<XT, CT, BT, NCOL, BITPLANE>(
-              xg + (size_t)r0 * tn, d_in, rows, s, m_tile,
-              reinterpret_cast<const CT*>(s + m_slot), c_tile, min(rc, n_r - r0), tn, kb, K, td,
-              d0, zbuf, acc, lane);
-        }
-        cp_async_wait0();
-        __syncwarp();
-      } else {
-        for (int r0 = warp * rc; r0 < n_r; r0 += W * rc) {
-          consume<XT, CT, BT, NCOL, BITPLANE>(
-              xg + (size_t)r0 * tn, d_in, rows, mp + ((size_t)r0 * n_c + c) * m_tile,
-              (size_t)n_c * m_tile, Cw + ((size_t)r0 * n_c + c) * c_tile, (size_t)n_c * c_tile,
-              min(rc, n_r - r0), tn, kb, K, td, d0, zbuf, acc, lane);
-        }
+      for (int r0 = warp * rc; r0 < n_r; r0 += W * rc) {
+        consume<XT, CT, BT, NCOL, BITPLANE>(
+            xg + (size_t)r0 * tn, d_in, rows, mp + ((size_t)r0 * n_c + c) * m_tile,
+            (size_t)n_c * m_tile, Cw + ((size_t)r0 * n_c + c) * c_tile, (size_t)n_c * c_tile,
+            min(rc, n_r - r0), tn, kb, K, td, d0, zbuf, acc, lane);
       }
 
       // deterministic block reduction: warps add their partials in order
@@ -470,9 +342,6 @@ struct MmaParams {
   FastDiv xrow, tn8, crow, mrow;   // 16-byte x chunks per row, tn / 8, C chunks per row, tn / 4
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // src_bytes 0 zero-fills the destination
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
@@ -816,88 +685,54 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The rows of one register group: grid keeps {1, 8}; stream fits T.
-template <int MODE>
-inline int group_rows(int T) {
-  if (MODE == GRID) return T == 1 ? 1 : 8;
-  return T <= 1 ? 1 : T <= 2 ? 2 : T <= 4 ? 4 : 8;
-}
+// The rows of one register group: 1 for a single row, else 8.
+inline int group_rows(int T) { return T == 1 ? 1 : 8; }
 
 // Columns per lane: one 32-column chunk for narrow C tiles, else four.
 inline int ncol_for(int td) { return td <= 32 ? 1 : 4; }
 
-// Dynamic shared memory of one block of MODE, the layout bitlinear_kernel
-// carves: [two M/C slots per warp (stream)] [each warp's z buffer] [block
-// sums]; the tensor-core grid's is mma_geom's and decode's decode_geom's
-// (bitlinear_decode.cuh specialises block_smem<DECODE>).  The one
-// definition of it: the launch checks it against the budget, and
-// bitlinear_smem_bytes (bitlinear.cu; decode's bitlinear_decode_smem_bytes,
-// bitlinear_decode.cu) hands it to the Python side for admission.
-template <int MODE>
-inline size_t block_smem(int T, int n_r, int tn, int kb, int K, int td, int r_chunk,
-                         size_t xsize, size_t csize, int small_t) {
-  if (MODE == GRID && grid_on_mma(T, small_t, tn, kb, K, td, xsize, csize))
+// Dynamic shared memory of one grid block, the layout bitlinear_kernel
+// carves: [each warp's z buffer] [block sums]; the tensor-core body's is
+// mma_geom's.  The one definition of it: the launch checks it against the
+// budget, and bitlinear_smem_bytes (bitlinear.cu) hands it to the Python
+// side for admission.
+inline size_t block_smem(int T, int tn, int kb, int K, int td, int r_chunk, size_t xsize,
+                         size_t csize, int small_t) {
+  if (grid_on_mma(T, small_t, tn, kb, K, td, xsize, csize))
     return mma_geom(T, tn, K, td, r_chunk).smem;
-  const int bt = group_rows<MODE>(T);
-  const size_t W = warps_for<MODE>(bt);
+  const int bt = group_rows(T);
+  const size_t W = warps_for(bt);
   const size_t rc = r_chunk;
-  size_t n = W * rc * bt * K * 4 + (size_t)bt * 32 * ncol_for(td) * 4;
-  if (MODE == STREAM)
-    n += W * 2 * (align16(rc * tn * kb) + align16(rc * K * td * csize));
-  return n;
+  return W * rc * bt * K * 4 + (size_t)bt * 32 * ncol_for(td) * 4;
 }
 
-inline size_t x_size(int x_kind) { return x_kind == 0 ? 4 : x_kind == 1 ? 2 : 1; }
-
-inline int copy_width(size_t bytes, const void* base) {
-  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
-  if (bytes % 16 == 0 && b % 16 == 0) return 16;
-  if (bytes % 4 == 0 && b % 4 == 0) return 4;
-  return 1;
-}
-
-template <int MODE, typename XT, typename CT, int BT, int NCOL, bool BP>
+template <typename XT, typename CT, int BT, int NCOL, bool BP>
 cudaError_t launch_cfg(const Args& a) {
-  const int W = warps_for<MODE>(BT);
+  const int W = warps_for(BT);
   const int CW = 32 * NCOL;
-  const int row_block = MODE == GRID ? (BT == 1 ? 1 : a.block_t) : a.T;
-  const dim3 grid(MODE == GRID ? (a.T + row_block - 1) / row_block : 1, a.E * a.n_c,
-                  MODE == GRID ? (a.td + CW - 1) / CW : 1);
+  const int row_block = BT == 1 ? 1 : a.block_t;
+  const dim3 grid((a.T + row_block - 1) / row_block, a.E * a.n_c, (a.td + CW - 1) / CW);
   if (a.smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(bitlinear_kernel<XT, CT, BT, NCOL, BP, MODE>,
+    cudaError_t err = cudaFuncSetAttribute(bitlinear_kernel<XT, CT, BT, NCOL, BP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)a.smem);
     if (err != cudaSuccess) return err;
   }
-  const int m_vec = copy_width((size_t)a.tn * a.kb, a.mp);
-  const int c_vec = copy_width((size_t)a.K * a.td * sizeof(CT), a.C);
-  bitlinear_kernel<XT, CT, BT, NCOL, BP, MODE><<<grid, W * 32, a.smem, a.stream>>>(
+  bitlinear_kernel<XT, CT, BT, NCOL, BP><<<grid, W * 32, a.smem, a.stream>>>(
       static_cast<const XT*>(a.x), a.mp, static_cast<const CT*>(a.C), static_cast<XT*>(a.y), a.T,
-      a.n_r, a.n_c, a.tn, a.kb, a.K, a.td, row_block, a.rc, m_vec, c_vec);
+      a.n_r, a.n_c, a.tn, a.kb, a.K, a.td, row_block, a.rc);
   return cudaGetLastError();
 }
 
-template <int MODE, typename XT, typename CT, int BT, bool BP>
+template <typename XT, typename CT, int BT, bool BP>
 cudaError_t launch_ncol(const Args& a) {
-  if (ncol_for(a.td) == 1) return launch_cfg<MODE, XT, CT, BT, 1, BP>(a);
-  return launch_cfg<MODE, XT, CT, BT, 4, BP>(a);
+  if (ncol_for(a.td) == 1) return launch_cfg<XT, CT, BT, 1, BP>(a);
+  return launch_cfg<XT, CT, BT, 4, BP>(a);
 }
 
-template <int MODE, typename XT, typename CT, bool BP>
+template <typename XT, typename CT, bool BP>
 cudaError_t launch_bt(const Args& a) {
-  switch (group_rows<MODE>(a.T)) {
-    case 1:
-      return launch_ncol<MODE, XT, CT, 1, BP>(a);
-    case 8:
-      return launch_ncol<MODE, XT, CT, 8, BP>(a);
-    default:
-      break;
-  }
-  if constexpr (MODE != GRID) {
-    if (group_rows<MODE>(a.T) == 2) return launch_ncol<MODE, XT, CT, 2, BP>(a);
-    return launch_ncol<MODE, XT, CT, 4, BP>(a);
-  }
-  return cudaErrorInvalidValue;
+  return group_rows(a.T) == 1 ? launch_ncol<XT, CT, 1, BP>(a) : launch_ncol<XT, CT, 8, BP>(a);
 }
 
 template <int KSTEP, int NTP, int KP, bool BP>
@@ -953,15 +788,15 @@ cudaError_t launch_mma(const Args& a) {
   return a.td <= 64 ? launch_mma_kp<8, 4, BP>(a) : launch_mma_kp<8, 8, BP>(a);
 }
 
-template <int MODE, typename XT, typename CT>
+template <typename XT, typename CT>
 cudaError_t launch_math(const Args& a, int bitplane) {
-  return bitplane ? launch_bt<MODE, XT, CT, true>(a) : launch_bt<MODE, XT, CT, false>(a);
+  return bitplane ? launch_bt<XT, CT, true>(a) : launch_bt<XT, CT, false>(a);
 }
 
-template <int MODE, typename XT>
+template <typename XT>
 cudaError_t launch_c(const Args& a, int c_bf16, int bitplane) {
-  return c_bf16 ? launch_math<MODE, XT, __nv_bfloat16>(a, bitplane)
-                : launch_math<MODE, XT, float>(a, bitplane);
+  return c_bf16 ? launch_math<XT, __nv_bfloat16>(a, bitplane)
+                : launch_math<XT, float>(a, bitplane);
 }
 
 // x_kind: 0 float32, 1 bfloat16, 2 int8 (y in x's dtype); c_bf16: C is
@@ -970,8 +805,7 @@ cudaError_t launch_c(const Args& a, int c_bf16, int bitplane) {
 // *tensor_cores is set to whether the launch took bitlinear_mma_kernel.
 // Returns a cudaError_t, or minus the block's shared memory in bytes when
 // that is over smem_budget (nothing is launched then).
-template <int MODE>
-int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T, int n_r,
+inline int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, int T, int n_r,
              int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16, int bitplane,
              int block_t, int r_chunk, int smem_budget, int small_t, void* stream,
              int* tensor_cores) {
@@ -981,28 +815,26 @@ int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E, in
   if (block_t < 1 || r_chunk < 1 || x_kind < 0 || x_kind > 2) return cudaErrorInvalidValue;
   const int rc = r_chunk;
   const size_t xs = x_size(x_kind), cs = c_bf16 ? 2 : 4;
-  const bool mma = MODE == GRID && grid_on_mma(T, small_t, tn, kb, K, td, xs, cs);
+  const bool mma = grid_on_mma(T, small_t, tn, kb, K, td, xs, cs);
   // the tensor-core grid copies x and C in 16-byte and M in 4-byte units
   if (mma && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(C) % 16 ||
               reinterpret_cast<uintptr_t>(mp) % 4))
     return cudaErrorMisalignedAddress;
-  const size_t smem = block_smem<MODE>(T, n_r, tn, kb, K, td, rc, xs, cs, small_t);
+  const size_t smem = block_smem(T, tn, kb, K, td, rc, xs, cs, small_t);
   if (smem > (size_t)smem_budget) return -(int)(smem < 0x7fffffff ? smem : 0x7fffffff);
   const Args a{x, mp, C, y, E, T, n_r, n_c, tn, kb, K, td, block_t,
                rc, smem, reinterpret_cast<cudaStream_t>(stream)};
-  if constexpr (MODE == GRID) {
-    if (mma) {
-      *tensor_cores = 1;
-      return bitplane ? launch_mma<true>(a) : launch_mma<false>(a);
-    }
+  if (mma) {
+    *tensor_cores = 1;
+    return bitplane ? launch_mma<true>(a) : launch_mma<false>(a);
   }
   switch (x_kind) {
     case 0:
-      return launch_c<MODE, float>(a, c_bf16, bitplane);
+      return launch_c<float>(a, c_bf16, bitplane);
     case 1:
-      return launch_c<MODE, __nv_bfloat16>(a, c_bf16, bitplane);
+      return launch_c<__nv_bfloat16>(a, c_bf16, bitplane);
     default:
-      return launch_c<MODE, int8_t>(a, c_bf16, bitplane);
+      return launch_c<int8_t>(a, c_bf16, bitplane);
   }
 }
 

@@ -27,13 +27,13 @@ int bitlinear_decode(const void* x, const uint8_t* m_packed, const void* C, void
 }
 
 // Dynamic shared memory in bytes of one decode block for these shapes, as
-// the launch computes it (block_smem<DECODE>: independent of n_r); -1 for an
+// the launch computes it (decode_geom: independent of n_r); -1 for an
 // unknown x_kind.  kernels/bitlinear.py admits the schedule by it.
 long long bitlinear_decode_smem_bytes(int T, int tn, int kb, int K, int td, int x_kind,
                                       int c_bf16) {
   using namespace bitlinear_impl;
   if (x_kind < 0 || x_kind > 2) return -1;
-  return (long long)block_smem<DECODE>(T, 0, tn, kb, K, td, 1, x_size(x_kind), c_bf16 ? 2 : 4, 0);
+  return (long long)decode_geom(T, tn, kb, K, td, x_size(x_kind), c_bf16 ? 2 : 4).smem;
 }
 
 }  // extern "C"

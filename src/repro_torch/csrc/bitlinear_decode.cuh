@@ -56,11 +56,7 @@
 // BITLINEAR_DECODE_STAGES, _STAGE_BYTES, _MIN_BLOCKS.
 #pragma once
 
-#include <cooperative_groups.h>
-
-#include <type_traits>
-
-#include "bitlinear.cuh"
+#include "bitlinear_ring.cuh"
 
 #ifndef BITLINEAR_DECODE_STAGES
 #define BITLINEAR_DECODE_STAGES 2
@@ -87,15 +83,6 @@ constexpr int dec_min_blocks(int bt) {
   return BITLINEAR_DECODE_MIN_BLOCKS ? BITLINEAR_DECODE_MIN_BLOCKS : bt <= 4 ? 3 : 2;
 }
 
-// Columns per lane: one 32-column chunk for narrow C tiles, else 128-column
-// chunks of 4 contiguous columns per lane (blockIdx.z walks the chunks).
-__host__ __device__ __forceinline__ int dec_cols(int td) { return td <= 32 ? 1 : 4; }
-
-// Rows of a register group: T up to 8, else groups of 8.
-__host__ __device__ __forceinline__ int dec_rows(int T) {
-  return T <= 1 ? 1 : T <= 2 ? 2 : T <= 4 ? 4 : 8;
-}
-
 // The block's layout: [DEC_STAGES stages: C tiles | M tiles | x rows]
 // [per-warp z buffers] [per-warp partial y slots] [full, empty mbarriers].
 // A stage has rs r tiles, a warp's quarter of them one z batch of z_batch's
@@ -110,14 +97,12 @@ struct DecodeGeom {
 
 inline DecodeGeom decode_geom(int T, int tn, int kb, int K, int td, size_t xsize, size_t csize) {
   DecodeGeom g;
-  g.ns = (int)((tn + 16 / xsize - 1) / (16 / xsize));
-  g.ls = 1;
-  while (g.ls < g.ns && g.ls < 32) g.ls <<= 1;
+  z_lanes(tn, xsize, &g.ns, &g.ls);
   const int pairs = (K + 1) / 2;
   const int full = 32 / g.ls > pairs ? 32 / g.ls / pairs : 1;   // tiles in one pass of z_batch
   const size_t c_tile = (size_t)K * td * csize, m_tile = (size_t)tn * kb,
                x_tile = (size_t)tn * xsize;
-  g.stage_c = c_tile % 16 == 0 && td <= 32 * dec_cols(td);
+  g.stage_c = c_tile % 16 == 0 && td <= 32 * ring_cols(td);
   g.stage_m = m_tile % 16 == 0;
   g.stage_x = x_tile % 16 == 0;
   const size_t per = (g.stage_c ? c_tile : 0) + (g.stage_m ? m_tile : 0) +
@@ -131,18 +116,10 @@ inline DecodeGeom decode_geom(int T, int tn, int kb, int K, int td, size_t xsize
   g.m_bytes = g.stage_m ? g.rs * m_tile : 0;
   g.x_bytes = g.stage_x ? (size_t)T * g.rs * x_tile : 0;
   g.stage = g.c_bytes + g.m_bytes + g.x_bytes;
-  g.zbuf = align16((size_t)DEC_WARPS * g.batch * dec_rows(T) * K * 4);
-  g.slots = (size_t)DEC_WARPS * T * 32 * dec_cols(td) * 4;
+  g.zbuf = align16((size_t)DEC_WARPS * g.batch * ring_rows(T) * K * 4);
+  g.slots = (size_t)DEC_WARPS * T * 32 * ring_cols(td) * 4;
   g.smem = DEC_STAGES * g.stage + g.zbuf + g.slots + 2 * DEC_STAGES * 8;
   return g;
-}
-
-// The one definition of the decode block's shared memory: the launch checks
-// it against the budget and bitlinear_decode_smem_bytes hands it to Python.
-template <>
-inline size_t block_smem<DECODE>(int T, int, int tn, int kb, int K, int td, int, size_t xsize,
-                                 size_t csize, int) {
-  return decode_geom(T, tn, kb, K, td, xsize, csize).smem;
 }
 
 struct DecodeParams {
@@ -154,283 +131,10 @@ struct DecodeParams {
   unsigned stage_bytes, m_off, x_off, zbuf_off, slots_off, bar_off;
 };
 
-// --- mbarriers and bulk copies ---------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// --- the lane-parallel body --------------------------------------------------
-
-// element i of a 16-byte vector of XT, as the accumulator type
-template <typename XT>
-__device__ __forceinline__ typename Acc<XT>::type vec_elem(const uint4& w, int i);
-template <>
-__device__ __forceinline__ float vec_elem<float>(const uint4& w, int i) {
-  const uint32_t u = i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-  return __uint_as_float(u);
-}
-template <>
-__device__ __forceinline__ float vec_elem<__nv_bfloat16>(const uint4& w, int i) {
-  const uint32_t u = (i >> 1) == 0 ? w.x : (i >> 1) == 1 ? w.y : (i >> 1) == 2 ? w.z : w.w;
-  return __uint_as_float((i & 1) ? u & 0xffff0000u : u << 16);
-}
-template <>
-__device__ __forceinline__ int vec_elem<int8_t>(const uint4& w, int i) {
-  const uint32_t u = (i >> 2) == 0 ? w.x : (i >> 2) == 1 ? w.y : (i >> 2) == 2 ? w.z : w.w;
-  return static_cast<int>(u << (24 - 8 * (i & 3))) >> 24;
-}
-
-// The VX = 16 / sizeof(XT) bytes of M for the rows of one x slice (kb = 1),
-// as one vector load; byte i is (w >> 8 (i % 4)) of word i / 4.
-template <int VX>
-__device__ __forceinline__ uint4 m_vec_load(const uint8_t* p) {
-  if constexpr (VX == 16) return *reinterpret_cast<const uint4*>(p);
-  if constexpr (VX == 8) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    return make_uint4(v.x, v.y, 0u, 0u);
-  }
-  return make_uint4(*reinterpret_cast<const uint32_t*>(p), 0u, 0u, 0u);
-}
-__device__ __forceinline__ uint32_t vec_byte(const uint4& w, int i) {
-  const uint32_t u = (i >> 2) == 0 ? w.x : (i >> 2) == 1 ? w.y : (i >> 2) == 2 ? w.z : w.w;
-  return (u >> (8 * (i & 3))) & 0xffu;
-}
-
-// byte kbyte of the M rows n0 ... n0 + VX - 1 of a tile (n of them in it),
-// packed as vec_byte reads them: one vector load where kb = 1 and the rows
-// are aligned (vec), else byte loads
-template <int VX>
-__device__ __forceinline__ uint4 m_slice(const uint8_t* mt, int n0, int n, int kb, int kbyte,
-                                         bool vec) {
-  if (vec) return m_vec_load<VX>(mt + n0);
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int i = 0; i < VX; ++i)
-    if (i < n) w[i >> 2] |= (uint32_t)mt[(size_t)(n0 + i) * kb + kbyte] << (8 * (i & 3));
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// 16 bytes of x at p (n elements of the tile row there) as vec_elem reads
-// them: one vector load (vec), else element loads with zeros past n
-template <typename XT>
-__device__ __forceinline__ uint4 x_slice(const XT* p, int n, bool vec) {
-  if (vec) return *reinterpret_cast<const uint4*>(p);
-  constexpr int VX = 16 / sizeof(XT);
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int i = 0; i < VX; ++i) {
-    if (i < n) {
-      uint32_t b;
-      if constexpr (sizeof(XT) == 4)
-        b = reinterpret_cast<const uint32_t*>(p)[i];
-      else if constexpr (sizeof(XT) == 2)
-        b = reinterpret_cast<const uint16_t*>(p)[i];
-      else
-        b = reinterpret_cast<const uint8_t*>(p)[i];
-      w[(i * (int)sizeof(XT)) >> 2] |= b << (8 * ((i * (int)sizeof(XT)) & 3));
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// bit b of m as +-1 (unpack) or {0, 1} (bitplane), so that z += x * sign is
-// z +- x (or z + x, z) rounded once: the sign is formed once per (row of M,
-// k) and serves all BT rows of x; nm = ~m
-template <typename A, bool BP>
-__device__ __forceinline__ A sign_of(uint32_t m, uint32_t nm, int b) {
-  if constexpr (std::is_floating_point<A>::value) {
-    return BP ? __uint_as_float((uint32_t)(static_cast<int>(m << (31 - b)) >> 31) & 0x3f800000u)
-              : __uint_as_float(0x3f800000u | ((nm << (31 - b)) & 0x80000000u));
-  } else {
-    return BP ? static_cast<int>((m >> b) & 1u) : static_cast<int>(((m >> b) & 1u) << 1) - 1;
-  }
-}
-__device__ __forceinline__ float madd(float x, float f, float z) { return fmaf(x, f, z); }
-__device__ __forceinline__ int madd(int x, int f, int z) { return x * f + z; }
-
-template <int BT>
-__device__ __forceinline__ void store_z(float* zp, const float (&o)[BT]) {
-  if constexpr (BT % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < BT / 4; ++q)
-      reinterpret_cast<float4*>(zp)[q] = make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2],
-                                                     o[4 * q + 3]);
-  } else if constexpr (BT == 2) {
-    *reinterpret_cast<float2*>(zp) = make_float2(o[0], o[1]);
-  } else {
-    zp[0] = o[0];
-  }
-}
-
-// z of a batch of nb tiles x BT rows, rounded to C's dtype, into
-// zbuf[(j K + k) BT + t].  xg: x at row 0 of the group and tile 0 (row
-// stride x_row, tile stride tn); mg: M of tile 0 (tile stride m_str).  The
-// work is units (tile j, pair of k) of ls lanes each, 32 / ls units at a
-// time: lane s0 of a unit takes the 16-byte slices s0, s0 + ls, ... of the
-// tile's tn columns for all BT rows, decodes each of its M bits once into a
-// factor for the BT rows, and the unit's lanes add their partials with xor
-// shuffles.
-template <typename XT, typename CT, int BT, bool BP>
-__device__ __forceinline__ void z_batch(const XT* xg, size_t x_row, const uint8_t* mg,
-                                        size_t m_str, int nb, int rows, const DecodeParams& p,
-                                        float* zbuf, int lane) {
-  using A = typename Acc<XT>::type;
-  constexpr int VX = 16 / sizeof(XT);
-  const int tn = p.tn, K = p.K, LS = p.ls, NS = p.ns;
-  const int pairs = (K + 1) >> 1, units = nb * pairs, s0 = lane & (LS - 1);
-  for (int u = lane / LS; u - lane / LS < units; u += 32 / LS) {
-    const int j = u / pairs, k0 = 2 * (u - j * pairs);
-    const bool valid = u < units;
-    const XT* xt = xg + (size_t)j * tn;
-    const uint8_t* mt = mg + (size_t)j * m_str;
-    A z[BT][2], srow[BT];
-#pragma unroll
-    for (int t = 0; t < BT; ++t) z[t][0] = z[t][1] = srow[t] = 0;
-    if (valid) {
-      for (int s = s0; s < NS; s += LS) {
-        const int n0 = s * VX, n = tn - n0;
-        const uint4 mw = m_slice<VX>(mt, n0, n, p.kb, k0 >> 3, p.m_vec);
-        uint4 xw[BT];
-#pragma unroll
-        for (int t = 0; t < BT; ++t)
-          xw[t] = t < rows ? x_slice<XT>(xt + (size_t)t * x_row + n0, n, p.x_vec)
-                           : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-        for (int i = 0; i < VX; ++i) {
-          const uint32_t m = vec_byte(mw, i) >> (k0 & 7), nm = ~m;
-          A xv[BT];
-#pragma unroll
-          for (int t = 0; t < BT; ++t) xv[t] = vec_elem<XT>(xw[t], i);
-          if (BP) {
-#pragma unroll
-            for (int t = 0; t < BT; ++t) srow[t] += xv[t];
-          }
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            const A f = sign_of<A, BP>(m, nm, kk);
-#pragma unroll
-            for (int t = 0; t < BT; ++t) z[t][kk] = madd(xv[t], f, z[t][kk]);
-          }
-        }
-      }
-    }
-    // the unit's lanes add their partials (all 32 lanes take part)
-    for (int off = LS >> 1; off > 0; off >>= 1) {
-#pragma unroll
-      for (int t = 0; t < BT; ++t) {
-        z[t][0] += __shfl_xor_sync(0xffffffffu, z[t][0], off);
-        z[t][1] += __shfl_xor_sync(0xffffffffu, z[t][1], off);
-        if (BP) srow[t] += __shfl_xor_sync(0xffffffffu, srow[t], off);
-      }
-    }
-    if (s0 == 0 && valid) {
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        if (k0 + kk < K) {
-          float o[BT];
-#pragma unroll
-          for (int t = 0; t < BT; ++t)
-            o[t] = t < rows ? to_c<CT>(as_f32(BP ? A(2) * z[t][kk] - srow[t] : z[t][kk])) : 0.f;
-          store_z<BT>(zbuf + (j * K + k0 + kk) * BT, o);
-        }
-      }
-    }
-  }
-}
-
-template <int BT>
-__device__ __forceinline__ void load_z(float (&zt)[BT], const float* zp) {
-  if constexpr (BT % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < BT / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(zp)[q];
-      zt[4 * q] = v.x, zt[4 * q + 1] = v.y, zt[4 * q + 2] = v.z, zt[4 * q + 3] = v.w;
-    }
-  } else if constexpr (BT == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(zp);
-    zt[0] = v.x, zt[1] = v.y;
-  } else {
-    zt[0] = zp[0];
-  }
-}
-
-// V columns of C's row at p (n of them in the tile)
-template <typename CT, int V>
-__device__ __forceinline__ void load_c(float (&cv)[V], const CT* p, int n, bool vec) {
-  if constexpr (V == 4) {
-    if (vec) {
-      if constexpr (sizeof(CT) == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(p);
-        cv[0] = v.x, cv[1] = v.y, cv[2] = v.z, cv[3] = v.w;
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(p);
-        cv[0] = __uint_as_float(v.x << 16), cv[1] = __uint_as_float(v.x & 0xffff0000u);
-        cv[2] = __uint_as_float(v.y << 16), cv[3] = __uint_as_float(v.y & 0xffff0000u);
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int v = 0; v < V; ++v) cv[v] = v < n ? ld(p + v) : 0.f;
-}
-
-// acc[t][v] += z[j][k][t] * C[j][k][d + v] over the batch's tiles
-template <typename CT, int BT, int V>
-__device__ __forceinline__ void zc_batch(const CT* cg, size_t c_str, int nb, int K, int td,
-                                         int d, bool c_vec, const float* zbuf,
-                                         float (&acc)[BT][V]) {
-  const int n = td - d;   // this lane's columns in the tile (<= 0: none)
-  if (n <= 0) return;
-  for (int j = 0; j < nb; ++j) {
-    const CT* ct = cg + (size_t)j * c_str + d;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float cv[V], zt[BT];
-      load_c<CT, V>(cv, ct + (size_t)k * td, n, c_vec);
-      load_z<BT>(zt, zbuf + (j * K + k) * BT);
-#pragma unroll
-      for (int t = 0; t < BT; ++t)
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[t][v] = fmaf(zt[t], cv[v], acc[t][v]);
-    }
-  }
-}
-
 template <typename XT, typename CT, int BT, int V, bool BP>
 __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
     bitlinear_decode_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ mp,
                             const CT* __restrict__ Cw, XT* __restrict__ y, const DecodeParams p) {
-  namespace cg = cooperative_groups;
   constexpr int CW = 32 * V;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -445,7 +149,6 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
   y += (size_t)e * T * d_out;
 
   // this block's r tiles [rb, re) and their stages of rs tiles
-  cg::cluster_group cluster = cg::this_cluster();
   const int S = gridDim.x, rank = blockIdx.x;
   const int rb = (int)((long long)n_r * rank / S), re = (int)((long long)n_r * (rank + 1) / S);
   const int rs = p.rs, n_st = (re - rb + rs - 1) / rs;
@@ -531,7 +234,7 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
                                     min(BT, T - g0), p, zbuf, lane);
           __syncwarp();
           if (BITLINEAR_DECODE_VARIANT != 3)
-            zc_batch<CT, BT, V>(cs, c_str, nb, K, td, d, p.c_vec, zbuf, acc);
+            zc_batch<CT, BT, V>(cs + d, c_str, td, nb, K, td - d, p.c_vec, zbuf, acc);
           __syncwarp();
           if (multi) {
 #pragma unroll
@@ -554,25 +257,13 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
     }
   }
 
-  // block reduction: one barrier, then the warps' slots added in warp order
-  __syncthreads();
+  // block reduction (warp order), then the cluster's (rank order) into y
   const int n = T * CW;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float s = slots[i];
-    for (int w = 1; w < DEC_WARPS; ++w) s += slots[(size_t)w * n + i];
-    slots[i] = s;
-  }
-  // cluster reduction: rank 0 adds the ranks' partials in rank order
-  if (S > 1) cluster.sync();
-  if (rank == 0) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int t = i / CW, col = d0 + (i - t * CW);
-      float s = slots[i];
-      for (int k = 1; k < S; ++k) s += cluster.map_shared_rank(slots, k)[i];
-      if (col < td) y[(size_t)t * d_out + (size_t)c * td + col] = store_y<XT>(s);
-    }
-  }
-  if (S > 1) cluster.sync();   // the other ranks' slots stay until rank 0 has read them
+  block_reduce(slots, n, DEC_WARPS);
+  cluster_reduce(slots, n, S, rank, [&](int i, float s) {
+    const int t = i / CW, col = d0 + (i - t * CW);
+    if (col < td) y[(size_t)t * d_out + (size_t)c * td + col] = store_y<XT>(s);
+  });
 }
 
 struct DecodeArgs {
@@ -620,7 +311,7 @@ cudaError_t launch_decode_cfg(const DecodeArgs& a) {
 
 template <typename XT, typename CT, int BT, bool BP>
 cudaError_t launch_decode_v(const DecodeArgs& a) {
-  return dec_cols(a.p.td) == 1 ? launch_decode_cfg<XT, CT, BT, 1, BP>(a)
+  return ring_cols(a.p.td) == 1 ? launch_decode_cfg<XT, CT, BT, 1, BP>(a)
                                : launch_decode_cfg<XT, CT, BT, 4, BP>(a);
 }
 
@@ -640,8 +331,6 @@ cudaError_t launch_decode_x(const DecodeArgs& a, int c_bf16, int bitplane) {
                     : launch_decode_bt<XT, __nv_bfloat16, false>(a);
   return bitplane ? launch_decode_bt<XT, float, true>(a) : launch_decode_bt<XT, float, false>(a);
 }
-
-inline bool aligned(const void* p, size_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
 // See bitlinear_decode (bitlinear_decode.cu) for the arguments.
 inline int decode_dispatch(const void* x, const uint8_t* mp, const void* C, void* y, int E,
@@ -670,7 +359,7 @@ inline int decode_dispatch(const void* x, const uint8_t* mp, const void* C, void
   p.stage_x = g.stage_x && aligned(x, 16);
   p.x_vec = tn % VX == 0 && (p.stage_x || ((size_t)n_r * tn * xs % 16 == 0 && aligned(x, 16)));
   p.m_vec = kb == 1 && tn % VX == 0 && (p.stage_m || aligned(mp, 16));
-  p.c_vec = dec_cols(td) == 4 && td % 4 == 0 && aligned(C, 16);
+  p.c_vec = ring_cols(td) == 4 && td % 4 == 0 && aligned(C, 16);
   p.stage_bytes = (unsigned)g.stage;
   p.m_off = (unsigned)g.c_bytes;
   p.x_off = (unsigned)(g.c_bytes + g.m_bytes);

@@ -305,14 +305,16 @@ def candidates(kind: str, *, n_r: int, n_c: int, tn: int, kb: int, K: int, td: i
     """The schedule points :func:`tune` times for one call signature.  On
     the CPU every mode runs the plain version, so only the jnp formulations
     are candidates.  On the card: grid over block_t x r_chunk, decode when
-    its x rows fit the budget, stream (2D only) over the first two r_chunks
-    when its slots fit; r_chunk values are divisors of n_r, and a field the
-    mode ignores is left at its default, so no two candidates make the
-    same launch."""
+    its x rows fit the budget, stream (2D only) at
+    ``bitlinear.STREAM_R_CHUNKS`` (not JAX's first two r_chunks: larger
+    chunks led on the card) when its block fits; r_chunk values are
+    divisors of n_r, and a field the mode ignores is left at its default,
+    so no two candidates make the same launch."""
     if interpret:
         return [Schedule(mode="jnp", math=m) for m in ("unpack", "dot", "bitplane")]
     budget = _bl.device_smem_budget() if smem_budget is None else smem_budget
     r_chunks = sorted({_bl.resolve_r_chunk(n_r, c) for c in (1, 2, 4, 8)})
+    stream_rcs = sorted({_bl.resolve_r_chunk(n_r, c) for c in _bl.STREAM_R_CHUNKS})
     # rows per grid block are min(block_t, T rounded up to 8): block_t
     # values past that give the same launch
     Tp = -(-T // 8) * 8
@@ -330,7 +332,7 @@ def candidates(kind: str, *, n_r: int, n_c: int, tn: int, kb: int, K: int, td: i
         if fits("decode"):
             out.append(Schedule("decode", math))
         if not grouped:
-            out += [Schedule("stream", math, 128, rc) for rc in r_chunks[:2] if fits("stream", rc)]
+            out += [Schedule("stream", math, 128, rc) for rc in stream_rcs if fits("stream", rc)]
     return out
 
 

@@ -3,9 +3,10 @@ grouped per-expert form (kernel K4).
 
 Counterpart of ``repro/kernels/bitlinear.py::bitlinear`` and
 ``::bitlinear_grouped``.  For CUDA tensors they launch the hand-written
-kernels ``csrc/bitlinear*.cu`` (design in ``csrc/bitlinear.cuh``); for CPU
-tensors they run the plain versions ``ref.bitlinear_ref`` and
-``ref.bitlinear_grouped_ref`` with the requested bit algebra.
+kernels ``csrc/bitlinear*.cu`` (designs in ``csrc/bitlinear.cuh``, grid;
+``bitlinear_decode.cuh``; ``bitlinear_stream.cuh``); for CPU tensors they
+run the plain versions ``ref.bitlinear_ref`` and ``ref.bitlinear_grouped_ref``
+with the requested bit algebra.
 
 Schedules (``mode``), the names of the JAX kernels' so that a tuned
 ``kernel_schedules`` table means the same in both packages:
@@ -27,19 +28,27 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
     with d_in (:func:`decode_path_ok`).  ``decode_clusters`` counts its
     launches by the S passed to the launch.  ``block_t`` and ``r_chunk`` are
     ignored.
-  * stream (K3 only, as in JAX): one block per column tile; each warp
-    double-buffers its chunks of ``r_chunk`` M and C tiles in shared memory
-    with asynchronous copies.  ``block_t`` is ignored.
+  * stream (K3 only, as in JAX): a kernel of its own.  Each column tile's r
+    tiles are split across the S blocks of a thread-block cluster in whole
+    chunks of ``r_chunk`` tiles (S from :func:`stream_cluster_size`); one
+    producer thread copies each chunk's C tiles, M tiles and x rows into a
+    ring stage with one tensor-map copy per part (the parts TMA's rules
+    admit, :func:`stream_tensor_maps`; the others are read from device
+    memory), consumer warps take the stages in turn with decode's body, and
+    rank 0 adds the blocks' partial sums.  A block covers at most
+    ``STREAM_ROWS`` rows (:func:`stream_geometry`).  ``stream_clusters`` and
+    ``stream_maps`` count its launches by S and by the parts that went
+    through a tensor map.  ``block_t`` is ignored.
   * auto: the card's default schedule for the call, :func:`default_schedule`
     (its mode, block_t and r_chunk; the caller's math).  A serve without a
     tuned table resolves the same rule (``autotune.heuristic``).
   * jnp: the plain version; the CPU route.  It is not served on the card:
     a CUDA tensor with ``mode="jnp"`` is refused.
 
-A block's shared memory is defined once, in ``csrc/bitlinear.cuh``
-(``block_smem``; decode's in ``csrc/bitlinear_decode.cuh``): the launch
-refuses a block over the budget, and :func:`smem_bytes` asks the built
-library for the same number.
+A block's shared memory is defined once per schedule, in its header
+(``block_smem``, ``decode_geom``, ``stream_geom``): the launch refuses a
+block over the budget, and :func:`smem_bytes` asks the built library for
+the same number.
 
 Bit algebra (``math``): unpack or bitplane (``z = 2 (x @ B) - rowsum(x)``);
 "dot" is unpack outside ``jnp``, as in JAX.  Activations are float32,
@@ -65,6 +74,10 @@ __all__ = [
     "MATHS",
     "decode_path_ok",
     "decode_cluster_size",
+    "stream_cluster_size",
+    "stream_geometry",
+    "stream_tensor_maps",
+    "tensor_map_ok",
     "default_schedule",
     "smem_bytes",
     "device_smem_budget",
@@ -81,10 +94,10 @@ _KIND_OF_ITEMSIZE = {4: 0, 2: 1, 1: 2}   # x: float32, bfloat16, int8
 _C_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535          # experts x column tiles share blockIdx.y
 _SOURCES = {"grid": "bitlinear", "decode": "bitlinear_decode", "stream": "bitlinear_stream"}
-_MODE_IDS = {"grid": 0, "decode": 1, "stream": 2}
 _FNS: dict = {}           # mode -> loaded C entry point
 _BUDGETS: dict = {}       # device index -> opt-in shared memory per block
 _SMS: dict = {}           # device index -> streaming multiprocessors
+_SM_SMEM: dict = {}       # device index -> shared memory per SM
 
 # The card's default schedule (default_schedule): up to SMALL_T rows, K3 and
 # K4 decode, in the bitplane algebra, while the block fits the budget;
@@ -117,6 +130,31 @@ DECODE_MIN_TILES = 32
 DECODE_PORTABLE_CLUSTER = 8
 DECODE_MAX_CLUSTER = 16
 
+# The stream block (csrc/bitlinear_stream.cuh; stream_geometry mirrors its
+# layout): STREAM_WARPS consumer warps; a ring of stages of one r chunk each,
+# as many as STREAM_RING_BYTES holds, a multiple of STREAM_WARPS up to
+# STREAM_STAGES; at most STREAM_ROWS rows of x; STREAM_MIN_BLOCKS resident
+# blocks per SM promised by its registers (0: stream_min_blocks's rule).
+# Its launch's split of r (stream_cluster_size): as many blocks as the card
+# holds at once (stream_blocks_per_sm), each keeping at least
+# STREAM_MIN_TILES r tiles, in clusters of up to STREAM_PORTABLE_CLUSTER
+# blocks, or STREAM_MAX_CLUSTER.
+STREAM_WARPS = 4
+STREAM_STAGES = 8
+STREAM_RING_BYTES = 49152
+STREAM_ROWS = 32
+STREAM_MIN_BLOCKS = 0
+STREAM_MIN_TILES = 8
+STREAM_PORTABLE_CLUSTER = 8
+STREAM_MAX_CLUSTER = 16
+# The card's stream candidates for the tuner, and the r_chunk chip_smoke.py's
+# small-T sweep times stream at: the two r_chunks that led the stream
+# kernel's sweep (tools/torch_stream_ab.py on an H100 at 700 W; PERF.md): at
+# T = 4, qwen3-32b's eight K3 calls took 0.62, 0.40, 0.30 and 0.31 ms at
+# r_chunk 1, 2, 4, 8 (device time), granite-moe's four 0.050, 0.045, 0.045,
+# 0.052.  JAX's tuner takes the first two of 1, 2, 4, 8.
+STREAM_R_CHUNKS = (4, 8)
+
 
 def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
     """Largest divisor of n_r that is <= the requested chunk (JAX's
@@ -129,38 +167,40 @@ def resolve_r_chunk(n_r: int, r_chunk: int) -> int:
 
 def smem_bytes(mode: str, *, T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
                c_itemsize: int, r_chunk: int = 1) -> int:
-    """Dynamic shared memory of one block of ``mode`` (grid and stream: the
-    warps' z buffers and the block sums, plus each warp's two M/C slots for
-    stream; the tensor-core grid's stages of x, M and C and its partial
-    sums; decode: its ring of stages, z buffers, partial-y slots and
-    barriers, independent of n_r and r_chunk), from the built kernels' own
-    layout, ``bitlinear_smem_bytes`` in ``csrc/bitlinear.cu`` (decode:
-    ``bitlinear_decode_smem_bytes`` in ``csrc/bitlinear_decode.cu``).  Needs
-    the CUDA toolchain: it builds the schedule's library on first use."""
+    """Dynamic shared memory of one block of ``mode`` (grid: the warps' z
+    buffers and the block sums, or the tensor-core body's stages of x, M and
+    C and its partial sums; decode: its ring of stages, z buffers, partial-y
+    slots and barriers, independent of n_r and r_chunk; stream: the same,
+    its stages of r_chunk tiles), from the built kernels' own layout: each
+    schedule's library, ``bitlinear_smem_bytes`` in ``csrc/bitlinear.cu``,
+    ``bitlinear_decode_smem_bytes`` and ``bitlinear_stream_smem_bytes`` in
+    theirs.  Needs the CUDA toolchain: it builds the schedule's library on
+    first use."""
     return _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk)
+
+
+# each library's layout query: (C function, argument count)
+_SMEM_FNS = {"grid": ("bitlinear_smem_bytes", 9), "decode": ("bitlinear_decode_smem_bytes", 7),
+             "stream": ("bitlinear_stream_smem_bytes", 8)}
 
 
 @functools.lru_cache(maxsize=4096)
 def _smem_bytes(mode, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk) -> int:
-    # grid and stream ask the grid library, decode its own
-    lib_mode = "decode" if mode == "decode" else "grid"
-    key = f"smem/{lib_mode}"
+    key = f"smem/{mode}"
     fn = _FNS.get(key)
     if fn is None:
-        lib = _build.load(_SOURCES[lib_mode])
-        if lib_mode == "decode":
-            fn = lib.bitlinear_decode_smem_bytes
-            fn.argtypes = [ctypes.c_int] * 7
-        else:
-            fn = lib.bitlinear_smem_bytes
-            fn.argtypes = [ctypes.c_int] * 11
+        name, nargs = _SMEM_FNS[mode]
+        fn = getattr(_build.load(_SOURCES[mode]), name)
+        fn.argtypes = [ctypes.c_int] * nargs
         fn.restype = ctypes.c_longlong
         _FNS[key] = fn
-    kind, c_bf16 = _KIND_OF_ITEMSIZE[x_itemsize], int(c_itemsize == 2)
+    kind, c_bf16, kb = _KIND_OF_ITEMSIZE[x_itemsize], int(c_itemsize == 2), (K + 7) // 8
     if mode == "decode":
-        n = fn(T, tn, (K + 7) // 8, K, td, kind, c_bf16)
+        n = fn(T, tn, kb, K, td, kind, c_bf16)
+    elif mode == "stream":
+        n = fn(T, tn, kb, K, td, kind, c_bf16, r_chunk)
     else:
-        n = fn(_MODE_IDS[mode], T, n_r, tn, (K + 7) // 8, K, td, kind, c_bf16, r_chunk, SMALL_T)
+        n = fn(T, tn, kb, K, td, kind, c_bf16, r_chunk, SMALL_T)
     if n < 0:
         raise ValueError(f"smem_bytes: bad arguments mode {mode!r}, x_itemsize {x_itemsize}, "
                          f"r_chunk {r_chunk}")
@@ -185,6 +225,16 @@ def device_sms(device=None) -> int:
     return _SMS[idx]
 
 
+def device_sm_smem(device=None) -> int:
+    """The card's shared memory per SM, 1 KiB of it reserved per resident
+    block (228 KiB on an H100)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in _SM_SMEM:
+        _SM_SMEM[idx] = int(torch.cuda.get_device_properties(idx).shared_memory_per_multiprocessor)
+    return _SM_SMEM[idx]
+
+
 def decode_cluster_size(blocks: int, n_r: int, sms: int) -> int:
     """S, the blocks of a thread-block cluster that split the n_r r tiles of
     each (expert, column tile) in a decode launch over ``blocks`` = E * n_c
@@ -197,6 +247,101 @@ def decode_cluster_size(blocks: int, n_r: int, sms: int) -> int:
     if S >= DECODE_MAX_CLUSTER:
         return DECODE_MAX_CLUSTER
     return max(1, min(DECODE_PORTABLE_CLUSTER, S))
+
+
+def tensor_map_ok(esize: int, box, strides, base: int = 0) -> bool:
+    """TMA's rules for one tensor map (``csrc/bitlinear_stream.cuh::
+    stream_map_ok``, mirrored): the inner box (``box[0]`` elements of
+    ``esize`` bytes) a multiple of 16 bytes, every box dimension in
+    1 ... 256, every global stride (bytes, dims 1 ...) a multiple of 16
+    bytes, and the global address ``base`` 16-byte aligned."""
+    return (base % 16 == 0 and box[0] * esize % 16 == 0 and all(1 <= b <= 256 for b in box)
+            and all(s % 16 == 0 for s in strides))
+
+
+def stream_tensor_maps(*, T: int, tn: int, K: int, td: int, x_itemsize: int, c_itemsize: int,
+                       r_chunk: int) -> dict:
+    """The parts a stream launch copies through a tensor map (at 16-byte
+    aligned bases; the wrapper clones a view that is not), by
+    :func:`tensor_map_ok` on the kernel's views: C as {td, K, n_c, n_r}, box
+    {the chunk's columns, K, 1, r_chunk}; M as bytes {tn kb, n_c, n_r}, box
+    {tn kb, 1, r_chunk}; x as {tn, n_r, T}, box {tn, r_chunk, the block's
+    rows}.  Every stride is a multiple of dim 1's, so n_r and n_c do not
+    matter.  {"C": bool, "M": bool, "x": bool}."""
+    g = _stream_shape(T, td)
+    mt = tn * ((K + 7) // 8)
+    return {"C": tensor_map_ok(c_itemsize, (g["cbox"], K, 1, r_chunk),
+                               (td * c_itemsize, K * td * c_itemsize, K * td * c_itemsize)),
+            "M": tensor_map_ok(1, (mt, 1, r_chunk), (mt, mt)),
+            "x": tensor_map_ok(x_itemsize, (tn, r_chunk, g["rows"]),
+                               (tn * x_itemsize, tn * x_itemsize))}
+
+
+def _stream_shape(T: int, td: int) -> dict:
+    rows = min(T, STREAM_ROWS)
+    cols = 32 if td <= 32 else 128
+    return {"rows": rows, "row_blocks": -(-T // rows), "cols": cols,
+            "col_chunks": -(-td // cols), "cbox": min(td, cols),
+            "bt": 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8}
+
+
+def stream_geometry(*, T: int, tn: int, K: int, td: int, x_itemsize: int, c_itemsize: int,
+                    r_chunk: int) -> dict:
+    """The stream block's geometry and layout, as ``csrc/bitlinear_stream.cuh::
+    stream_geom`` computes it (the library's ``bitlinear_stream_smem_bytes``
+    is the number a launch checks; the card tests hold the two equal): the
+    rows a block covers and the row blocks, the column chunks, the ring's
+    stages (each part of a stage 128-byte aligned; a multiple of the
+    consumer warps, which take the stages in turn) and the block's shared
+    memory [stages] [z buffers] [partial-y slots] [barriers]."""
+    g = _stream_shape(T, td)
+    maps = stream_tensor_maps(T=T, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
+                              c_itemsize=c_itemsize, r_chunk=r_chunk)
+
+    def a128(n):
+        return -(-n // 128) * 128
+
+    c_b = a128(r_chunk * K * g["cbox"] * c_itemsize) if maps["C"] else 0
+    m_b = a128(r_chunk * tn * ((K + 7) // 8)) if maps["M"] else 0
+    x_b = a128(g["rows"] * r_chunk * tn * x_itemsize) if maps["x"] else 0
+    stage = c_b + m_b + x_b
+    fit = min(STREAM_STAGES, STREAM_RING_BYTES // stage if stage else STREAM_STAGES)
+    ns = max(STREAM_WARPS, fit - fit % STREAM_WARPS)
+    zbuf = -(-STREAM_WARPS * r_chunk * K * g["bt"] * 4 // 16) * 16
+    slots = STREAM_WARPS * g["rows"] * g["cols"] * 4
+    return {**g, "maps": maps, "stage_bytes": stage, "stages": ns,
+            "smem": ns * stage + zbuf + slots + 2 * ns * 8}
+
+
+def stream_min_blocks(bt: int) -> int:
+    """Resident stream blocks per SM that the kernel's registers promise
+    (``csrc/bitlinear_stream.cuh::stream_min_blocks``, its launch bounds) for
+    register groups of ``bt`` rows: 3 up to 4 rows, else 2."""
+    return STREAM_MIN_BLOCKS or (3 if bt <= 4 else 2)
+
+
+def stream_blocks_per_sm(bt: int, smem: int, sm_smem: int) -> int:
+    """Stream blocks of ``smem`` bytes of shared memory each that one SM
+    holds at once: what the registers promise (:func:`stream_min_blocks`)
+    and ``sm_smem`` (the SM's shared memory, :func:`device_sm_smem`, 1 KiB
+    of it reserved per block) allow; at least 1."""
+    return max(1, min(stream_min_blocks(bt), sm_smem // (smem + 1024)))
+
+
+def stream_cluster_size(blocks: int, n_r: int, r_chunk: int, sms: int, per_sm: int) -> int:
+    """S, the blocks of a thread-block cluster that split each column tile's
+    r chunks in a stream launch of ``blocks`` = n_c x column chunks x row
+    blocks such groups, ``per_sm`` of whose blocks an SM holds
+    (:func:`stream_blocks_per_sm`): the most whose blocks still run in one
+    wave (blocks * S <= per_sm x ``sms``), each keeping whole r chunks (S <=
+    ceil(n_r / r_chunk)) and at least ``STREAM_MIN_TILES`` r tiles, taken
+    from 1 ... ``STREAM_PORTABLE_CLUSTER`` and ``STREAM_MAX_CLUSTER``; at
+    least 1.  The one definition of S: the wrapper passes it to every
+    stream launch."""
+    S = min(-(-n_r // r_chunk), n_r // STREAM_MIN_TILES, per_sm * sms // max(1, blocks))
+    if S >= STREAM_MAX_CLUSTER:
+        return STREAM_MAX_CLUSTER
+    return max(1, min(STREAM_PORTABLE_CLUSTER, S))
 
 
 def decode_path_ok(T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,
@@ -223,20 +368,31 @@ def default_schedule(*, T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: 
     return {"mode": "grid", "math": "unpack", "block_t": DEFAULT_GRID_BLOCK_T, "r_chunk": 1}
 
 
+# each entry point's arguments after (x, m_packed, C, y): decode (E, T, ...,
+# bitplane, clusters, smem_budget, stream); stream (T, ..., bitplane,
+# r_chunk, clusters, smem_budget, stream, *maps); grid (E, T, ..., bitplane,
+# block_t, r_chunk, smem_budget, small_t, stream, *tensor_cores)
+_ARGTYPES = {"decode": [ctypes.c_int] * 13 + [ctypes.c_void_p],
+             "stream": [ctypes.c_int] * 13 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+             "grid": [ctypes.c_int] * 15 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]}
+# the stream entry point's maps bits, and a failed tensor-map encode's code
+_MAP_BITS = (("C", 1), ("M", 2), ("x", 4))
+_ENCODE_ERROR = 20000
+
+
 def _lib(mode: str):
     fn = _FNS.get(mode)
     if fn is None:
         fn = getattr(_build.load(_SOURCES[mode]), f"bitlinear_{mode}")
-        # decode takes (..., bitplane, clusters, smem_budget, stream); grid
-        # and stream (..., bitplane, block_t, r_chunk, smem_budget, small_t,
-        # stream, *tensor_cores)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-                       if mode == "decode" else
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.argtypes = [ctypes.c_void_p] * 4 + _ARGTYPES[mode]
         fn.restype = ctypes.c_int
         _FNS[mode] = fn
     return fn
+
+
+def _parts(maps: int) -> str:
+    """The stream entry point's maps bits as "C+M+x" ("none": no part)."""
+    return "+".join(n for n, b in _MAP_BITS if maps & b) or "none"
 
 
 def _check(name, x, m_packed, C, lead: int, mode: str, math: str, modes) -> None:
@@ -270,13 +426,13 @@ def _check(name, x, m_packed, C, lead: int, mode: str, math: str, modes) -> None
         raise ValueError(f"{name}: math {math!r} not in {MATHS + ('dot',)}")
 
 
-def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget) -> int:
+def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget):
     """Launch ``csrc/bitlinear*.cu::bitlinear_<mode>`` on x's device and
     stream; ``dims`` are (E, T, n_r, n_c, tn, kb, K, td).  The library
     refuses a block over ``budget`` bytes of shared memory.  Returns for
-    decode the cluster size S it was launched with (the rule's), else
-    whether the library reports that the launch ran the grid's tensor-core
-    body."""
+    decode the cluster size S it was launched with (the rule's), for stream
+    (S, the parts that went through a tensor map), else whether the library
+    reports that the launch ran the grid's tensor-core body."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("m_packed", m_packed), ("C", C)):
@@ -289,8 +445,9 @@ def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget)
         raise ValueError(f"{name}: E * n_c = {E * n_c} exceeds {_MAX_GRID_Y}")
     if block_t < 1:
         raise ValueError(f"{name}: block_t {block_t} < 1")
-    # the tensor-core grid copies x and C in 16-byte and M in 4-byte units:
-    # a view that starts elsewhere in its buffer is cloned
+    # the tensor-core grid copies x and C in 16-byte and M in 4-byte units,
+    # stream's tensor maps need 16-byte aligned bases: a view that starts
+    # elsewhere in its buffer is cloned
     if x.data_ptr() % 16 or m_packed.data_ptr() % 16 or C.data_ptr() % 16:
         x, m_packed, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, m_packed, C))
     ran = ctypes.c_int(0)
@@ -298,6 +455,15 @@ def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget)
     if mode == "decode":
         S = decode_cluster_size(E * n_c, n_r, device_sms(x.device))
         opts = (S, int(budget), stream)
+    elif mode == "stream":
+        dims = dims[1:]   # K3 only: no expert axis
+        g = _stream_shape(T, td)
+        smem = smem_bytes("stream", T=T, n_r=n_r, tn=tn, K=K, td=td, x_itemsize=x.element_size(),
+                          c_itemsize=C.element_size(), r_chunk=r_chunk)
+        per_sm = stream_blocks_per_sm(g["bt"], smem, device_sm_smem(x.device))
+        S = stream_cluster_size(n_c * g["col_chunks"] * g["row_blocks"], n_r, r_chunk,
+                                device_sms(x.device), per_sm)
+        opts = (int(r_chunk), S, int(budget), stream, ctypes.byref(ran))
     else:
         opts = (int(block_t), int(r_chunk), int(budget), SMALL_T, stream, ctypes.byref(ran))
     err = _lib(mode)(
@@ -307,8 +473,13 @@ def _launch(name, mode, x, m_packed, C, y, dims, math, block_t, r_chunk, budget)
     if err < 0:
         raise ValueError(f"{name}: mode {mode!r} needs {-err} bytes of shared memory per "
                          f"block, over the budget of {budget}")
+    if mode == "stream" and err >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: a tensor map of mode 'stream' failed to encode "
+                           f"(CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch of mode {mode!r} failed (cudaError {err})")
+    if mode == "stream":
+        return S, _parts(ran.value)
     return S if mode == "decode" else ran.value
 
 
@@ -324,11 +495,15 @@ def _card_schedule(mode, x, T, n_r, tn, K, td, block_t, r_chunk, budget):
     return mode, block_t, rc, budget
 
 
-def _count(fn, mode: str, math: str, ran: int) -> None:
+def _count(fn, mode: str, math: str, ran) -> None:
     fn.launches += 1
     fn.by_schedule[f"{mode}/{math}"] += 1
     if mode == "decode":
         fn.decode_clusters[ran] = fn.decode_clusters.get(ran, 0) + 1
+    elif mode == "stream":
+        S, parts = ran
+        fn.stream_clusters[S] = fn.stream_clusters.get(S, 0) + 1
+        fn.stream_maps[parts] = fn.stream_maps.get(parts, 0) + 1
     else:
         fn.tensor_core_launches += ran
 
@@ -399,12 +574,16 @@ def reset_counts() -> None:
     """Set every launch count of K3 and K4 to 0: the totals ``launches``,
     the counts per schedule and bit algebra, ``by_schedule["mode/math"]``,
     ``tensor_core_launches``, the grid launches (of ``launches``) that the
-    library reports ran its tensor-core body, and ``decode_clusters``,
-    {S: decode launches with clusters of S blocks}."""
+    library reports ran its tensor-core body, ``decode_clusters``, {S:
+    decode launches with clusters of S blocks}, and for K3
+    ``stream_clusters``, the same of stream, and ``stream_maps``, {"C+M+x":
+    stream launches whose parts named there went through a tensor map}."""
     for fn, modes in ((bitlinear, MODES), (bitlinear_grouped, GROUPED_MODES)):
         fn.launches = 0
         fn.tensor_core_launches = 0
         fn.decode_clusters = {}
+        fn.stream_clusters = {}
+        fn.stream_maps = {}
         fn.by_schedule = {f"{m}/{a}": 0 for m in modes if m not in ("auto", "jnp")
                           for a in MATHS}
 

@@ -106,13 +106,16 @@ def layout(monkeypatch):
     CPU has not; here a stand-in with the layout's growing terms: decode's
     eight stages of a 4 KiB target (one tile with its T rows of x at least)
     and its four warps' T rows of 128-column partial sums, which grow with T
-    and not with n_r; the two M/C slots of stream's 16 warps.  The real
-    layout is held on the card (``tests/test_torch_cuda.py``)."""
+    and not with n_r; stream's layout as its Python mirror computes it
+    (``bitlinear.stream_geometry``: a ring of r_chunk-tile stages, at most
+    32 rows of x).  The real layout is held on the card
+    (``tests/test_torch_cuda.py``)."""
     def smem_bytes(mode, *, T, n_r, tn, K, td, x_itemsize, c_itemsize, r_chunk=1):
         if mode == "decode":
             return 8 * max(4096, K * td * c_itemsize + T * tn * x_itemsize) + 4 * T * 128 * 4
         if mode == "stream":
-            return 16 * 2 * r_chunk * K * td * c_itemsize
+            return tbl.stream_geometry(T=T, tn=tn, K=K, td=td, x_itemsize=x_itemsize,
+                                       c_itemsize=c_itemsize, r_chunk=r_chunk)["smem"]
         return 0
     monkeypatch.setattr(tbl, "smem_bytes", smem_bytes)
 

@@ -297,7 +297,8 @@ SCHEDULE_SHAPES = [(1, 3, 2, 16, 3, 160), (13, 3, 2, 16, 9, 160), (40, 4, 3, 8, 
 @pytest.mark.parametrize("math_", ["unpack", "bitplane"])
 @pytest.mark.parametrize("mode,opts", [("grid", {}), ("grid", {"block_t": 16, "r_chunk": 2}),
                                        ("decode", {}), ("stream", {}),
-                                       ("stream", {"r_chunk": 2})])
+                                       ("stream", {"r_chunk": 2}), ("stream", {"r_chunk": 4}),
+                                       ("stream", {"r_chunk": 8})])
 def test_bitlinear_schedules_match_plain(dev, mode, opts, math_, cd, xd):
     g = torch.Generator(device=dev).manual_seed(7)
     for T, n_r, n_c, tn, K, td in SCHEDULE_SHAPES:
@@ -421,6 +422,105 @@ def test_decode_launches_give_identical_bits(dev, monkeypatch, xd, S):
         y1 = fn(x, mp, C, mode="decode", math="bitplane")
         torch.cuda.synchronize()
         assert torch.equal(y0, y1)
+
+
+# (T, n_r, n_c, tn, K, td): ragged T in one and several register groups, T
+# past a block's STREAM_ROWS (several row blocks, the last partial), qwen's
+# tile and the BBO tile (M from device memory), C wider than one column chunk
+# (a box reaching past td), r tiles no r_chunk divides, and int8-sized tiles
+STREAM_SHAPES = [(3, 6, 2, 32, 4, 128), (13, 5, 3, 16, 9, 160), (37, 12, 2, 32, 4, 128),
+                 (70, 9, 2, 8, 3, 128), (300, 4, 2, 32, 4, 64), (5, 7, 3, 16, 3, 32),
+                 (4, 40, 3, 32, 4, 128)]
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("rc", [1, 3, 8])
+def test_stream_matches_plain_at_ragged_and_long_t(dev, rc, math_, xd):
+    """Stream against the plain version at T in one, several and partial
+    register groups and row blocks, counted by the wrapper at the rule's S
+    with the parts the Python rule predicts."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    for T, n_r, n_c, tn, K, td in STREAM_SHAPES:
+        for cd in (torch.float32, torch.bfloat16):
+            x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, xd, cd)
+            rcr = bl.resolve_r_chunk(n_r, rc)
+            geo = bl.stream_geometry(T=T, tn=tn, K=K, td=td, x_itemsize=x.element_size(),
+                                     c_itemsize=C.element_size(), r_chunk=rcr)
+            if geo["smem"] > bl.device_smem_budget(dev):
+                continue
+            parts = "+".join(k for k, v in geo["maps"].items() if v) or "none"
+            before = dict(bl.bitlinear.stream_maps)
+            yk = bl.bitlinear(x, mp, C, mode="stream", math=math_, r_chunk=rc)
+            torch.cuda.synchronize()
+            assert bl.bitlinear.stream_maps.get(parts, 0) == before.get(parts, 0) + 1
+            _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), xd, cd)
+
+
+@pytest.mark.parametrize("rc", [1, 4])
+@pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16])
+def test_stream_launches_give_identical_bits(dev, xd, rc):
+    """Partial sums are added in a fixed order (a warp's stages, the warps,
+    then the cluster's ranks): two launches give the same bits, at qwen's
+    gate-like and the BBO tiles' shapes, whose launches split r over
+    clusters."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    for T, n_r, n_c, tn, K, td in ((4, 160, 4, 32, 4, 128), (4, 640, 8, 8, 3, 128),
+                                   (37, 96, 2, 32, 4, 128)):
+        x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, xd, xd)
+        y0 = bl.bitlinear(x, mp, C, mode="stream", math="bitplane", r_chunk=rc)
+        y1 = bl.bitlinear(x, mp, C, mode="stream", math="bitplane", r_chunk=rc)
+        torch.cuda.synchronize()
+        assert torch.equal(y0, y1)
+        _assert_variant(y0, ref.bitlinear_ref(x, mp, C, "bitplane"), xd, xd)
+
+
+def test_stream_layout_is_the_python_mirror(dev):
+    """The library's layout (shared memory, the parts it maps) is what
+    bitlinear.stream_geometry and stream_tensor_maps compute, which the CPU
+    tests hold to TMA's rules."""
+    lib = bl._build.load("bitlinear_stream")
+    lib.bitlinear_stream_layout_maps.argtypes = [ctypes.c_int] * 8
+    lib.bitlinear_stream_layout_maps.restype = ctypes.c_int
+    for T in (1, 4, 37, 4096):
+        for tn, K, td in ((32, 4, 128), (8, 3, 128), (16, 9, 160), (16, 3, 20)):
+            for xs, cs in ((2, 2), (4, 4), (1, 4)):
+                for rc in (1, 2, 8):
+                    geo = bl.stream_geometry(T=T, tn=tn, K=K, td=td, x_itemsize=xs,
+                                             c_itemsize=cs, r_chunk=rc)
+                    assert bl.smem_bytes("stream", T=T, n_r=64, tn=tn, K=K, td=td,
+                                         x_itemsize=xs, c_itemsize=cs, r_chunk=rc) == geo["smem"]
+                    bits = lib.bitlinear_stream_layout_maps(T, tn, (K + 7) // 8, K, td,
+                                                            {4: 0, 2: 1, 1: 2}[xs], int(cs == 2),
+                                                            rc)
+                    assert {k: bool(bits & b) for k, b in bl._MAP_BITS} == geo["maps"]
+
+
+def test_stream_map_cache_encodes_a_new_map_for_a_new_shape(dev):
+    """M's and C's tensor maps are cached by every field of the encoding: a
+    repeated call encodes none, and a tensor of another shape at the same
+    address encodes new ones (and computes with them)."""
+    lib = bl._build.load("bitlinear_stream")
+    lib.bitlinear_stream_map_encodes.restype = ctypes.c_longlong
+    g = torch.Generator(device=dev).manual_seed(18)
+    n_r, n_c, tn, K, td = 8, 4, 32, 4, 128
+    x, mp, C = _variant_operands(g, dev, (), 4, n_r, n_c, tn, K, td, torch.bfloat16,
+                                 torch.bfloat16)
+    bl.bitlinear(x, mp, C, mode="stream", r_chunk=2)
+    torch.cuda.synchronize()
+    first = lib.bitlinear_stream_map_encodes()
+    y = bl.bitlinear(x, mp, C, mode="stream", r_chunk=2)
+    torch.cuda.synchronize()
+    assert lib.bitlinear_stream_map_encodes() == first           # both maps from the cache
+    _assert_variant(y, ref.bitlinear_ref(x, mp, C), torch.bfloat16, torch.bfloat16)
+    # the same buffers viewed as (4, 8, ...): same addresses, other dims
+    mp2, C2 = mp.view(4, 2 * n_c, tn, 1), C.view(4, 2 * n_c, K, td)
+    x2 = x[:, :4 * tn].contiguous()
+    assert mp2.data_ptr() == mp.data_ptr() and C2.data_ptr() == C.data_ptr()
+    y2 = bl.bitlinear(x2, mp2, C2, mode="stream", r_chunk=2)
+    torch.cuda.synchronize()
+    assert lib.bitlinear_stream_map_encodes() == first + 2       # a new C and a new M map
+    _assert_variant(y2, ref.bitlinear_ref(x2, mp2, C2), torch.bfloat16, torch.bfloat16)
 
 
 @pytest.mark.parametrize("T", [1, 4, 16, 40])

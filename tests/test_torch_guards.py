@@ -19,7 +19,8 @@ _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "tools" / "torch_eigh_batch_probe.py", _ROOT / "tools" / "torch_moe_divergence.py",
     _ROOT / "tools" / "torch_grid_variants.py", _ROOT / "tools" / "torch_decode_variants.py",
     _ROOT / "tools" / "torch_decode_ab.py", _ROOT / "tools" / "torch_anneal_ab.py",
-    _ROOT / "tools" / "torch_anneal_variants.py"]
+    _ROOT / "tools" / "torch_anneal_variants.py", _ROOT / "tools" / "torch_stream_ab.py",
+    _ROOT / "tools" / "torch_stream_variants.py", _ROOT / "tools" / "torch_serve_ab.py"]
 
 
 def _imported_roots(path):
@@ -175,6 +176,50 @@ def test_decode_variant_switches_are_the_headers():
         for flag in flags:
             macro = re.fullmatch(r"-D(\w+)=\d+", flag)
             assert macro and macro.group(1) in defined, (name, flag)
+
+
+def test_stream_variant_switches_are_the_headers():
+    """tools/torch_stream_variants.py builds its variants with -D switches;
+    each must be one that csrc/bitlinear_stream.cuh defines."""
+    import importlib.util
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_stream_variants", _ROOT / "tools" / "torch_stream_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "bitlinear_stream.cuh").read_text()
+    defined = set(re.findall(r"^#ifndef (BITLINEAR_STREAM_\w+)$", header, re.M))
+    named = tool.variants()
+    assert named["as_built"] == ([], True)
+    assert {"copies_only", "body_only"} <= set(named)
+    for name, (flags, _) in named.items():
+        for flag in flags:
+            macro = re.fullmatch(r"-D(\w+)=\d+", flag)
+            assert macro and macro.group(1) in defined, (name, flag)
+
+
+def test_stream_layout_constants_are_the_headers():
+    """kernels/bitlinear.py's stream_geometry mirrors csrc/bitlinear_stream.cuh's
+    layout: its constants are the header's defaults."""
+    import re
+
+    from repro_torch.kernels import bitlinear as bl
+
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "bitlinear_stream.cuh").read_text()
+    defaults = dict(re.findall(r"^#define BITLINEAR_STREAM_(\w+) (\d+)$", header, re.M))
+    assert int(defaults["WARPS"]) == bl.STREAM_WARPS
+    assert int(defaults["STAGES"]) == bl.STREAM_STAGES
+    assert int(defaults["RING_BYTES"]) == bl.STREAM_RING_BYTES
+    assert int(defaults["ROWS"]) == bl.STREAM_ROWS
+    # the residency the launch bounds promise, which stream_cluster_size counts on
+    assert int(defaults["MIN_BLOCKS"]) == bl.STREAM_MIN_BLOCKS
+    rule = re.search(r"stream_min_blocks\(int bt\) \{\s*return BITLINEAR_STREAM_MIN_BLOCKS \? "
+                     r"BITLINEAR_STREAM_MIN_BLOCKS : bt <= (\d+) \? (\d+) : (\d+);", header)
+    assert rule, "stream_min_blocks's rule not found in the header"
+    cut, small, large = (int(v) for v in rule.groups())
+    for bt in (1, 2, 4, 8):
+        assert bl.stream_min_blocks(bt) == (small if bt <= cut else large), bt
 
 
 def test_anneal_variants_are_the_kernels_text():

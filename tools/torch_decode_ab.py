@@ -5,21 +5,21 @@
     python3 tools/torch_decode_ab.py --parent build/parent
 
 Builds the earlier checkout's ``src/repro_torch/csrc/bitlinear_decode.cu``
-(the decode body of ``bitlinear_kernel``, before it became a kernel of its
-own: its C entry point takes ``block_t``, ``r_chunk``, ``small_t`` and an
-``int*``) into ``build/decode_ab/``, and this tree's through
+into ``build/decode_ab/``, and this tree's through
 ``repro_torch.kernels._build``.  Both run the decode schedule on
 ``chip_smoke.py``'s T = 4 decode calls (bf16 x and C, bitplane): qwen3-32b's
 eight compressed tensors (K3; tile 32 x 128, K = 4, the BBO attn/w[kv] at
 8 x 128, K = 3) and granite-moe-1b-a400m's three expert stacks (K4, 32
-experts).  Both are called through their C entry points, this tree's at
-the rule's cluster size (``bitlinear.decode_cluster_size``), and timed in
-the order earlier, this, this, earlier, as device time (CUDA events,
-median of 20, the L2 overwritten before each launch and the card kept busy
-while the host enqueues it, so neither side's host time counts).  Each
-output is held against the plain version within 2e-2 of max|y|.  Prints
-the card, one JSON line per call and the sums per kernel.  Needs one CUDA
-card and nvcc; imports nothing of JAX.
+experts).  Both are called through their C entry points (the decode
+kernel's own, ``clusters``, ``smem_budget``, ``stream``) at the rule's
+cluster size (``bitlinear.decode_cluster_size``), and
+timed in the order earlier, this, this, earlier, as device time (CUDA
+events, median of 20, the L2 overwritten before each launch and the card
+kept busy while the host enqueues it, so neither side's host time counts).
+Each output is held against the plain version within 2e-2 of max|y|, and
+``identical`` says whether the two sides gave the same bits.  Prints the
+card, one JSON line per call and the sums per kernel.  Needs one CUDA card
+and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -45,7 +45,6 @@ SHAPES = {"k3/head": (1, 5120, 151936, 32, 4), "k3/wq": (1, 5120, 8192, 32, 4),
           "k4/gate": (32, 1024, 512, 32, 4), "k4/up": (32, 1024, 512, 32, 4),
           "k4/down": (32, 512, 1024, 32, 4)}
 SPIN_CYCLES = 200_000      # ~0.1 ms: longer than the host takes to enqueue a launch
-SMALL_T = 4                # the earlier entry point's small_t argument
 
 
 def earlier_entry(parent: str):
@@ -60,8 +59,7 @@ def earlier_entry(parent: str):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr[-4000:]}")
     fn = ctypes.CDLL(lib).bitlinear_decode
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,12 +113,11 @@ def main() -> int:
         x = torch.randn(E, T, d_in, generator=g, device=dev).bfloat16()
         y = torch.empty(E, T, d_out, dtype=torch.bfloat16, device=dev)
         S = bl.decode_cluster_size(E * n_c, n_r, sms)
-        ran = ctypes.c_int(0)
         head = (x.data_ptr(), mp.data_ptr(), C.data_ptr(), y.data_ptr(), E, T, n_r, n_c, tn, 1, K,
                 TD, 1, 1, 1)
 
         def run_earlier():
-            err = earlier(*head, 128, 1, budget, SMALL_T, stream, ctypes.byref(ran))
+            err = earlier(*head, S, budget, stream)
             if err:
                 raise RuntimeError(f"{name}: earlier launch returned {err}")
 
@@ -131,17 +128,19 @@ def main() -> int:
 
         want = ref.bitlinear_grouped_ref(x, mp, C, "bitplane").float()
         scale = float(want.abs().max())
-        errs = {}
+        errs, outs = {}, {}
         for side, fn in (("earlier", run_earlier), ("this", run_this)):
             y.zero_()
             fn()
             torch.cuda.synchronize()
+            outs[side] = y.clone()
             errs[side] = float((y.float() - want).abs().max()) / scale
             if errs[side] > 2e-2:
                 raise RuntimeError(f"{name}: {side} kernel off by {errs[side]:.3g} of max|y|")
         e1, t1, t2, e2 = timed(run_earlier), timed(run_this), timed(run_this), timed(run_earlier)
         print(json.dumps({"call": name, "S": S, "earlier_ms": [e1, e2], "this_ms": [t1, t2],
-                          "rel_err": errs}), flush=True)
+                          "rel_err": errs,
+                          "identical": torch.equal(outs["earlier"], outs["this"])}), flush=True)
         tot = sums.setdefault(name.split("/")[0], {"earlier_ms": 0.0, "this_ms": 0.0})
         tot["earlier_ms"] += (e1 + e2) / 2
         tot["this_ms"] += (t1 + t2) / 2

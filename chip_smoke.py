@@ -47,10 +47,10 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      ``bitlinear.stream_tensor_maps`` predicts, ``ms``, ``device_ms``,
      GB/s).
   K5 (csrc/flash_attention.cu) against its plain version at the prefill
-     shapes of phases 4 and 5 and on a sliding-window fixture, each in f32
-     and bf16; in bf16 also against f32 scores within K5's rounding bound.
-     Timed at both bf16 prefill shapes beside its bound, the plain version
-     and ``scaled_dot_product_attention``.
+     shapes of phases 4, 5 and 7 and on a sliding-window fixture, each in
+     f32 and bf16; in bf16 also against f32 scores within K5's rounding
+     bound.  Timed at the three bf16 prefill shapes beside its bound, the
+     plain version and ``scaled_dot_product_attention``.
   4. Generation: ``serve_model`` restores phase 2's checkpoint through its
      manifest and generates 32 tokens for 4 prompts of 1024 tokens; K5
      must have been launched once (one layer, one prefill) and K3 once per
@@ -110,6 +110,23 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      beat the brute-force optimum, every trajectory must be non-increasing
      and every best cost must be the objective of its spins; nBOCSqa's mean
      final residual error must lie below RS's.
+  7. Hybrid SSM serving at full width and depth (run before phase 6):
+     ``compress_model`` on zamba2-1.2b (38 layers: 6 groups of 5 Mamba2
+     SSD blocks and one ``ssm_attn`` block, a remainder of 2 SSD blocks;
+     the shared attention block's one parameter tree called 6 times; random
+     weights from seed 0) with the default policy: 155,648 tiles of 32 x 131
+     (every in_proj: 8,384 = 2^6 x 131 columns) and 94,208 of 32 x 128, no
+     kernel launched.  Then K3 at those tiles (and mamba2-130m's in_proj
+     tile, 32 x 419) in every schedule x bit algebra x activation x C dtype
+     against the plain version, each launch on the path the rules predict
+     (td 131 and 419 run the grid's FMA body; stream maps the parts
+     ``stream_tensor_maps`` admits), and in_proj and out_proj at T = 4 and
+     4096 timed.  Then ``serve_model`` from the checkpoint, as phase 4: K3
+     launched 118 x 32 times (each compressed layer slice, and each of the
+     shared block's 7 weights 6 times, per forward), per schedule as the
+     resolutions picked, K5 6 times (window 4,096 >= S); bf16 prefill
+     logits within 5e-2 of max|logit| of the plain path, with the distance
+     of the two residual streams after every block reported.
 
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
@@ -772,16 +789,23 @@ def variant_error(torch, yk, yp, xd, cd):
     return err, err <= BF16_TOL * float(yp.float().abs().max())
 
 
-def hold_variants(torch, fn, plain, label, x, mp, C, xd, cd, modes, errs):
+def hold_variants(torch, fn, plain, label, x, mp, C, xd, cd, modes, errs, paths=None):
     """Every mode x math x options of ``fn`` against ``plain`` on (x, mp,
     C).  A variant whose block needs more shared memory than the card has
     is skipped (decode keeps every row of x there); any other refusal or
-    failure fails the run.  Returns the variants held."""
+    failure fails the run.  Each launch must have taken the path the rules
+    predict, by the library's report: the grid's tensor-core body where
+    ``bitlinear.grid_on_tensor_cores`` says so (else the FMA body), and stream's
+    tensor maps for the parts ``bitlinear.stream_tensor_maps`` admits;
+    ``paths`` (a dict) counts them ("tensor_cores", "fma", "stream_maps").
+    Returns the variants held."""
     from repro_torch.kernels import bitlinear as bl
 
     T = x.shape[-2]
     n_r, tn, K, td = mp.shape[-4], mp.shape[-2], C.shape[-2], C.shape[-1]
+    xs, cs = x.element_size(), C.element_size()
     budget = bl.device_smem_budget(x.device)
+    paths = {} if paths is None else paths
     ran = 0
     for math in MATHS:
         yp = plain(x, mp, C, math)
@@ -789,13 +813,28 @@ def hold_variants(torch, fn, plain, label, x, mp, C, xd, cd, modes, errs):
             for opts in MODE_OPTIONS[mode]:
                 rc = bl.resolve_r_chunk(n_r, opts.get("r_chunk", 1))
                 if bl.smem_bytes(mode, T=T, n_r=n_r, tn=tn, K=K, td=td,
-                                 x_itemsize=x.element_size(), c_itemsize=C.element_size(),
-                                 r_chunk=rc) > budget:
+                                 x_itemsize=xs, c_itemsize=cs, r_chunk=rc) > budget:
                     continue
-                before = fn.launches
+                before = (fn.launches, fn.tensor_core_launches, dict(fn.stream_maps))
                 yk = fn(x, mp, C, mode=mode, math=math, **opts)
                 torch.cuda.synchronize()
-                check(fn.launches == before + 1, f"{label} {mode}/{math}: not launched once")
+                check(fn.launches == before[0] + 1, f"{label} {mode}/{math}: not launched once")
+                on_mma = mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, xs, cs)
+                check(fn.tensor_core_launches == before[1] + on_mma,
+                      f"{label} {xd} x, {cd} C, {mode}/{math} {opts}: the library's "
+                      f"tensor-core report is not the rule's {on_mma}")
+                if mode == "grid":
+                    key = "tensor_cores" if on_mma else "fma"
+                    paths[key] = paths.get(key, 0) + 1
+                if mode == "stream":
+                    maps = bl.stream_tensor_maps(T=T, tn=tn, K=K, td=td, x_itemsize=xs,
+                                                 c_itemsize=cs, r_chunk=rc)
+                    want = "+".join(k for k, v in maps.items() if v) or "none"
+                    check(fn.stream_maps.get(want, 0) == before[2].get(want, 0) + 1,
+                          f"{label} {xd} x, {cd} C, stream/{math} {opts}: the library mapped "
+                          f"other parts than {want}")
+                    sm = paths.setdefault("stream_maps", {})
+                    sm[want] = sm.get(want, 0) + 1
                 check(yk.dtype == x.dtype and yk.shape == yp.shape,
                       f"{label} {mode}/{math} {opts}: bad output {yk.dtype} {tuple(yk.shape)}")
                 err, ok = variant_error(torch, yk, yp, xd, cd)
@@ -1047,12 +1086,18 @@ def phase_k3_variants(torch, dev, weights, inputs, flush):
 
 
 def attention_shapes(cfg):
-    """K5's fixtures: the prefill shapes of phases 4 and 5 in both dtypes,
-    and the sliding-window shape of tests/test_kernels.py in both dtypes."""
+    """K5's fixtures: the prefill shapes of phases 4, 5 and 7 in both dtypes
+    (phase 7's zamba2 shared block: MHA, window 4,096 >= S), and the
+    sliding-window shape of tests/test_kernels.py in both dtypes."""
     prefill = (GEN_BATCH, cfg.num_heads, cfg.num_kv_heads, GEN_PROMPT, cfg.resolved_head_dim, 0)
     m = moe_config()
     moe_prefill = (GEN_BATCH, m.num_heads, m.num_kv_heads, GEN_PROMPT, m.resolved_head_dim, 0)
+    z = zamba_config()
+    zamba_prefill = (GEN_BATCH, z.num_heads, z.num_kv_heads, GEN_PROMPT, z.resolved_head_dim,
+                     z.sliding_window)
     return {
+        "zamba2_prefill_f32": (*zamba_prefill, "float32"),
+        "zamba2_prefill_bf16": (*zamba_prefill, "bfloat16"),
         "prefill_bf16": (*prefill, "bfloat16"),
         "prefill_f32": (*prefill, "float32"),
         "window_f32": (1, 8, 8, 256, 64, 64, "float32"),
@@ -1079,9 +1124,10 @@ def attention_f32_scores(torch, q, k, v, window):
     return p @ vr, p @ vr.abs()
 
 
-# K5's timed fixtures (bf16, the prefill shapes of phases 4 and 5) and the
-# key each one's timing goes under
-K5_TIMED = {"prefill_bf16": "timing", "moe_prefill_bf16": "timing_moe"}
+# K5's timed fixtures (bf16, the prefill shapes of phases 4, 5 and 7) and
+# the key each one's timing goes under
+K5_TIMED = {"prefill_bf16": "timing", "moe_prefill_bf16": "timing_moe",
+            "zamba2_prefill_bf16": "timing_zamba2"}
 
 
 def phase_k5(torch, dev, flush):
@@ -1127,13 +1173,15 @@ def phase_k5(torch, dev, flush):
         ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
         device_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush, busy=True)
         plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, win), 3, flush)
+        check(win == 0 or win >= S, f"K5 {label}: SDPA's causal mask is not window {win}")
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
                                                       enable_gqa=True)
         library_ms = cuda_ms(torch, sdpa, 10, flush)
         library_device_ms = cuda_ms(torch, sdpa, 10, flush, busy=True)
         lib_err = float((sdpa().float() - r.float()).abs().max())
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
-        pairs = S * (S + 1) // 2            # causal (query, key) pairs, window 0
+        # causal (query, key) pairs within the window (0: none)
+        pairs = sum(min(i + 1, win) if win > 0 else i + 1 for i in range(S))
         ops_ = 4 * B * H * hd * pairs       # q.k and p.v, 2 operations per mul-add
         b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
         out[K5_TIMED[label]] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
@@ -1252,16 +1300,24 @@ TUNE_T = (GEN_BATCH, GEN_BATCH * GEN_PROMPT)
 TUNE_REPEATS, TUNE_ITERS = 3, 3
 
 
-def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clusters=False):
+def layer_slices(path, e):
+    """How many times one forward calls a compressed tensor: once per layer
+    of its stack (a remainder layer's or an unstacked tensor's once)."""
+    return e["group_dims"][0] if e.get("group_dims") else 1
+
+
+def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clusters=False,
+                     uses=layer_slices):
     """{kind: {"mode/math": n}}: the launches a serve of GEN_STEPS tokens
     makes when each call signature runs ``schedules[key]`` (a table's
     entries, or what a serve's resolution log says it resolved).  Per
-    compressed tensor and layer: one prefill call and GEN_STEPS - 1 decode
-    calls, at the T that ``tokens(path, kind)`` gives as (prefill, decode).
-    With ``tensor_cores``, {kind: n}: the grid launches above SMALL_T rows,
-    each of which must run the grid's tensor-core body (the served tensors
-    are bf16 at the policies' tiles).  With ``clusters``, {kind: {S: n}}:
-    the decode launches by the cluster size S the rule gives their shape."""
+    compressed tensor and each of its ``uses(path, entry)`` calls a
+    forward: one prefill call and GEN_STEPS - 1 decode calls, at the T that
+    ``tokens(path, kind)`` gives as (prefill, decode).  With
+    ``tensor_cores``, {kind: n}: the grid launches that must run the grid's
+    tensor-core body (``bitlinear.grid_on_tensor_cores``; the served tensors
+    are bf16).  With ``clusters``, {kind: {S: n}}: the decode launches by the
+    cluster size S the rule gives their shape."""
     from repro_torch.kernels import autotune
     from repro_torch.kernels import bitlinear as bl
 
@@ -1269,7 +1325,7 @@ def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clust
     for path, e in manifest["tensors"].items():
         E, n_r, n_c, tn, _, K, td, dname = autotune._entry_geometry(e)
         kind = "bitlinear_grouped" if E else "bitlinear"
-        layers = e["group_dims"][0] if e.get("group_dims") else 1
+        layers = uses(path, e)
         for T, n in zip(tokens(path, kind), (1, GEN_STEPS - 1)):
             key = autotune.schedule_key(kind, n_r=n_r, n_c=n_c, tn=tn, K=K, td=td, T=T,
                                         dtype=dname, E=E, device=autotune.device_kind(dev),
@@ -1282,7 +1338,9 @@ def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clust
                     counts[S] = counts.get(S, 0) + n * layers
                 continue
             if tensor_cores:
-                on_mma = s["mode"] == "grid" and T > bl.SMALL_T
+                size = 2 if dname == "bfloat16" else 4
+                on_mma = s["mode"] == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, size,
+                                                                         size)
                 want[kind] = want.get(kind, 0) + n * layers * on_mma
                 continue
             k = f"{s['mode']}/{s['math']}"
@@ -1384,52 +1442,52 @@ def tuned_serve(torch, dev, out_dir, cfg, tokens):
     return res, out
 
 
-def tensor_core_launches(manifest, schedules, dev, tokens, label):
-    """Every grid launch of a serve above SMALL_T rows ran the tensor-core
-    body, by the library's own report (``tensor_core_launches``), and no
-    other launch did.  Returns {kind: n}."""
+def tensor_core_launches(manifest, schedules, dev, tokens, label, uses=layer_slices):
+    """Every grid launch of a serve that the rule puts on the tensor cores
+    ran the tensor-core body, by the library's own report
+    (``tensor_core_launches``), and no other launch did.  Returns {kind: n}."""
     from repro_torch.kernels import bitlinear as bl
 
     fns = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
-    want = implied_launches(manifest, schedules, dev, tokens, tensor_cores=True)
+    want = implied_launches(manifest, schedules, dev, tokens, tensor_cores=True, uses=uses)
     got = {k: fns[k].tensor_core_launches for k in want}
     check(got == want and all(fn.tensor_core_launches == got.get(k, 0)
                               for k, fn in fns.items()),
-          f"{label}: tensor-core launches {got}, the grid launches above T = {bl.SMALL_T} "
-          f"number {want}")
+          f"{label}: tensor-core launches {got}, the grid launches the rule puts on the "
+          f"tensor cores number {want}")
     return got
 
 
-def cluster_launches(manifest, schedules, dev, tokens, label):
+def cluster_launches(manifest, schedules, dev, tokens, label, uses=layer_slices):
     """Every decode launch of a serve ran with the cluster size S that the
     rule gives its shape, by the library's own report (``decode_clusters``).
     Returns {kind: {S: n}}."""
     from repro_torch.kernels import bitlinear as bl
 
     fns = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
-    want = implied_launches(manifest, schedules, dev, tokens, clusters=True)
+    want = implied_launches(manifest, schedules, dev, tokens, clusters=True, uses=uses)
     got = {k: dict(fn.decode_clusters) for k, fn in fns.items() if fn.decode_clusters}
     check(got == {k: v for k, v in want.items() if v},
           f"{label}: decode launches by cluster size {got}, the rule gives {want}")
     return got
 
 
-def heuristic_launches(torch, dev, manifest, by_kind, tokens, label):
+def heuristic_launches(torch, dev, manifest, by_kind, tokens, label, uses=layer_slices):
     """A serve without a table launched, per kernel and schedule, what its
     resolutions (the default rule) picked, its grid on the tensor cores
-    above SMALL_T rows and its decode at the rule's cluster sizes.  Returns
-    the tensor-core launches per kernel and the decode launches per kernel
-    and cluster size."""
+    where the rule puts it there and its decode at the rule's cluster
+    sizes.  Returns the tensor-core launches per kernel and the decode
+    launches per kernel and cluster size."""
     from repro_torch.kernels import autotune
 
     log = autotune.last_resolutions()
     check(log and all(r["source"] == "heuristic" for r in log),
           f"{label}: resolutions {[r['source'] for r in log]}, want the default rule")
-    want = implied_launches(manifest, resolved_schedules(), dev, tokens)
+    want = implied_launches(manifest, resolved_schedules(), dev, tokens, uses=uses)
     check(by_kind == want, f"{label}: launches per schedule {by_kind}, its resolutions imply "
                            f"{want}")
-    return (tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label),
-            cluster_launches(manifest, resolved_schedules(), dev, tokens, label))
+    return (tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label, uses),
+            cluster_launches(manifest, resolved_schedules(), dev, tokens, label, uses))
 
 
 def phase_tuned_generate(torch, dev, out_dir, heuristic):
@@ -1879,6 +1937,336 @@ def phase_moe_tuned_generate(torch, dev, out_dir, heuristic):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: zamba2-1.2b whole (SSM groups and the shared attention block)
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-1.2b"
+
+
+def zamba_config():
+    """zamba2-1.2b at its published widths and depth, bf16."""
+    from repro_torch.configs import get_config
+
+    return get_config(ZAMBA_ARCH)
+
+
+def zamba_shared_calls(cfg):
+    """The shared block's calls per forward: one per ``ssm_attn`` layer."""
+    return sum(k == "ssm_attn"
+               for k in cfg.block_pattern * cfg.num_groups + cfg.remainder_pattern)
+
+
+def zamba_uses(cfg):
+    """Calls per forward of a compressed tensor of zamba2: a layer stack's
+    once per layer, the shared block's once per ``ssm_attn`` layer."""
+    n = zamba_shared_calls(cfg)
+
+    def uses(path, e):
+        return n if path.startswith("shared/") else layer_slices(path, e)
+
+    return uses
+
+
+def zamba_tokens(path, kind):
+    """phase 7's T per call: 4096 at prefill (the head is the tied
+    embedding, not compressed) and 4 at decode."""
+    return GEN_BATCH * GEN_PROMPT, GEN_BATCH
+
+
+def zamba_pools(cfg):
+    """{(tile_n, tile_d, K): tiles} that the default policy makes of
+    zamba2: every in_proj at 32 x pick_tile(d_in_proj, 128) (8,384 = 2^6 x
+    131 columns: td 131), every out_proj and the shared block's seven
+    weights at 32 x 128; K = 4."""
+    from repro_torch.core.compress import pick_tile
+
+    d, di, L = cfg.d_model, cfg.d_inner, cfg.num_layers
+    d_in_proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + cfg.ssm_nheads
+    td = pick_tile(d_in_proj, 128)
+    q, kv = cfg.num_heads * cfg.resolved_head_dim, cfg.num_kv_heads * cfg.resolved_head_dim
+    shared = 2 * d * q + 2 * d * kv + 3 * d * cfg.d_ff
+    return {(32, td, 4): L * d * d_in_proj // (32 * td),
+            (32, 128, 4): (L * di * d + shared) // (32 * 128)}
+
+
+def phase_zamba_compress(torch, dev, out_dir):
+    """The whole zamba2-1.2b (published widths, nothing cut, random weights
+    from seed 0) through ``compress_model`` with the default policy: the
+    pools by tile shape must be what the config gives (155,648 tiles of 32 x
+    131, 94,208 of 32 x 128), chunked below the eigh limit, and no kernel
+    may launch.  Returns (the report, the compressed values)."""
+    from repro_torch.compression import CompressionPolicy
+    from repro_torch.compression.execute import EIGH_MAX_BATCH
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.compress import compress_model
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = zamba_config()
+    emit({"zamba2_config": {
+        "arch": cfg.name, "num_layers": cfg.num_layers,
+        "pattern": f"{cfg.num_groups} x {'+'.join(cfg.block_pattern)}, remainder "
+                   f"{'+'.join(cfg.remainder_pattern)}",
+        "widths": "published (d_model 2048, d_inner 4096, 64 SSM heads of 64, state 64, "
+                  "1 group, conv 4, chunk 256; shared block 32x64 q heads, 32 kv heads, "
+                  "d_ff 8192, window 4096; vocab 32000, tied, bf16)",
+        "reduced": []}})
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    t0 = time.time()
+    cvalues, artifact = compress_model(cfg, CompressionPolicy(), out_dir, seed=SEED, device=dev,
+                                       values=values, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    del values
+    check((sa.sa_sweep_many.launches, bl.bitlinear.launches, bl.bitlinear_grouped.launches,
+           fa.flash_attention.launches) == (0, 0, 0, 0), "compression launched a kernel")
+    m = artifact.manifest
+    pools = {(p["tile_n"], p["tile_d"], p["K"]): p for p in m["pools"]}
+    got = {k: p["num_tiles"] for k, p in pools.items()}
+    want = zamba_pools(cfg)
+    check(got == want == {(32, 131, 4): 155648, (32, 128, 4): 94208},
+          f"pools {got}, the config gives {want}")
+    for p in pools.values():
+        check(p["chunk_policy"] == "auto" and max(p["chunk_sizes"]) <= EIGH_MAX_BATCH
+              and p["chunks"] == -(-p["num_tiles"] // EIGH_MAX_BATCH),
+              f"auto chunking gave {p['chunks']} chunks of at most {max(p['chunk_sizes'])} "
+              f"tiles (bound {EIGH_MAX_BATCH})")
+    n_blocks = len(cfg.block_pattern) + len(cfg.remainder_pattern)
+    in_proj = [e for p, e in m["tensors"].items() if p.endswith("/in_proj/w")]
+    check(len(m["tensors"]) == 2 * n_blocks + 7 and len(in_proj) == n_blocks
+          and all(e["tile_d"] == 131 for e in in_proj),
+          f"compressed tensors {sorted(m['tensors'])}")
+    out = {"wall_s": wall,
+           "pools": [{"tile": [tn, td], "K": K, "num_tiles": p["num_tiles"],
+                      "chunks": p["chunks"], "max_chunk": max(p["chunk_sizes"]),
+                      "method": p["method"]} for (tn, td, K), p in sorted(pools.items())],
+           "eigh_max_batch": EIGH_MAX_BATCH,
+           "tensors": {p: {"tile": [e["tile_n"], e["tile_d"]], "rel_err": e["rel_err"],
+                           "ratio": e["orig_bytes"] / e["new_bytes"],
+                           "group_dims": e["group_dims"]} for p, e in m["tensors"].items()},
+           "totals": m["totals"]}
+    emit({"zamba2_compress": out})
+    return out, cvalues
+
+
+# K3 at phase 7's tiles: (label, tensor, T).  zamba2's in_proj (64 x 64 tiles
+# of 32 x 131, K = 4) and out_proj (128 x 16 of 32 x 128) from the
+# checkpoint's layer 0 at decode and prefill T, and mamba2-130m's in_proj
+# tile (24 x 8 of 32 x 419: C rows past three 128-column chunks) at T = 4
+ZAMBA_K3 = (("in_proj_T4", "in_proj", GEN_BATCH),
+            ("in_proj_T4096", "in_proj", GEN_BATCH * GEN_PROMPT),
+            ("out_proj_T4", "out_proj", GEN_BATCH),
+            ("out_proj_T4096", "out_proj", GEN_BATCH * GEN_PROMPT),
+            ("mamba2_in_proj_T4", "mamba2_in_proj", GEN_BATCH))
+
+
+def phase_zamba_k3(torch, dev, cvalues, flush):
+    """K3 at phase 7's tiles before anything is served from them: every
+    schedule x bit algebra x activation x C dtype against the plain version
+    (phase 3's limits), each launch on the path the rules predict (the
+    grid's FMA body at td 131 and 419; stream's maps by
+    ``stream_tensor_maps``); then zamba2's in_proj and out_proj at T = 4 and
+    4096 at the default rule's schedule, timed beside their bound, the
+    plain version and a dense bf16 matmul."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantized
+    from repro_torch.core.compress import pick_tile
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import bitlinear as bl
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    ssm0 = cvalues["groups"]["0"]["ssm"]
+    weights = {name: {k: v[0] for k, v in ssm0[name]["w"].items()}
+               for name in ("in_proj", "out_proj")}
+    m2 = get_config("mamba2-130m")
+    d_in_proj = 2 * m2.d_inner + 2 * m2.ssm_ngroups * m2.ssm_state + m2.ssm_nheads
+    td = pick_tile(d_in_proj, 128)
+    n_r, n_c = m2.d_model // 32, d_in_proj // td
+    weights["mamba2_in_proj"] = {
+        "m_packed": torch.randint(0, 256, (n_r, n_c, 32, 1), generator=g, device=dev,
+                                  dtype=torch.uint8),
+        "C": (torch.randn((n_r, n_c, 4, td), generator=g, device=dev) * 0.2).to(torch.bfloat16)}
+    check(tuple(weights["in_proj"]["C"].shape) == (64, 64, 4, 131)
+          and tuple(weights["mamba2_in_proj"]["C"].shape) == (24, 8, 4, 419),
+          f"in_proj tiles {tuple(weights['in_proj']['C'].shape)}, mamba2's "
+          f"{tuple(weights['mamba2_in_proj']['C'].shape)}")
+    errs, checks = {}, {}
+    for label, name, T in ZAMBA_K3:
+        w = weights[name]
+        mp = w["m_packed"]
+        ran, paths = 0, {}
+        for xd in XDTYPES:
+            for cd in CDTYPES:
+                x, C = variant_inputs(torch, g, dev, (T, mp.shape[0] * mp.shape[2]), w["C"],
+                                      xd, cd, mp.shape[2])
+                ran += hold_variants(torch, bl.bitlinear, ref.bitlinear_ref, label, x, mp, C,
+                                     xd, cd, ("grid", "decode", "stream"), errs, paths)
+        checks[label] = {"tensor": name, "T": T,
+                         "shape": list(mp.shape[:3]) + list(w["C"].shape[2:]),
+                         "variants_held": ran, "paths": paths}
+    timing = {}
+    for label, name, T in ZAMBA_K3:
+        if name == "mamba2_in_proj":
+            continue
+        w = weights[name]
+        mp, C = w["m_packed"], w["C"]
+        n_r, _, tn, _ = mp.shape
+        K, td = C.shape[2], C.shape[3]
+        x = torch.randn((T, n_r * tn), generator=g, device=dev).to(torch.bfloat16)
+        sched = autotune.resolve_fused(x, mp, C)
+        kw = sched.kwargs()
+        w_dense = quantized.decompress(w, torch.bfloat16)
+        ms, device_ms = (cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, **kw), 5, flush,
+                                 busy=busy) for busy in (False, True))
+        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C, sched.math), 2, flush)
+        library_ms, library_device_ms = (cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5,
+                                                 flush, busy=busy) for busy in (False, True))
+        del w_dense
+        b_bytes, b_ops = k3_bound(mp, C, T, 2)
+        timing[label] = {
+            "T": T, "shape": [n_r, mp.shape[1], tn, K, td],
+            "schedule": f"{sched.mode}/{sched.math}",
+            "tensor_cores": sched.mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, 2, 2),
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    autotune.clear_log()
+    out = {"checks": checks, "max_abs_err": errs, "timing": timing}
+    emit({"zamba2_k3": out})
+    return out
+
+
+def zamba_prefill(torch, cfg, eng, prompts, dev, setup):
+    """The engine's prefill after ``setup()`` chose the path: ((the last
+    position's logits in f32, [(block kind, the residual stream after each
+    block)]), the K3 and K5 launches it made).  The blocks' outputs are read
+    by wrapping ``transformer._apply_block``."""
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_cache
+    from repro_torch.models import transformer
+
+    block, hs = transformer._apply_block, []
+
+    def tap(h, p, kind, *a, **k):
+        out = block(h, p, kind, *a, **k)
+        hs.append((kind, out[0]))
+        return out
+
+    setup()
+    before = (bl.bitlinear.launches, fa.flash_attention.launches)
+    transformer._apply_block = tap
+    try:
+        with torch.inference_mode():
+            logits, _ = eng.prefill(eng.params, {"tokens": prompts},
+                                    init_cache(cfg, prompts.shape[0],
+                                               prompts.shape[1] + GEN_STEPS, device=dev))
+        torch.cuda.synchronize()
+    finally:
+        transformer._apply_block = block
+    return (logits.float(), hs), {"bitlinear": bl.bitlinear.launches - before[0],
+                                  "flash_attention": fa.flash_attention.launches - before[1]}
+
+
+def phase_zamba_generate(torch, dev, out_dir):
+    """``serve_model`` from phase 7's checkpoint: 32 tokens for 4 prompts of
+    1024 tokens.  K3 launches once per compressed layer slice and shared-block
+    call per forward (118), per schedule as its resolutions picked; K5 once
+    per ``ssm_attn`` layer per prefill (6).  The bf16 prefill logits are held
+    against the plain path within LOGIT_TOL of max|logit|."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.serving import Engine
+
+    cfg = zamba_config()
+    uses, n_shared = zamba_uses(cfg), zamba_shared_calls(cfg)
+    eos = cfg.vocab_size                     # never emitted: launch counts are fixed
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    autotune.clear_log()
+    res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                      steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    launches = {"bitlinear": bl.bitlinear.launches,
+                "bitlinear_grouped": bl.bitlinear_grouped.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "sa_sweep_many": sa.sa_sweep_many.launches}
+    eng = res.engine
+    per_forward = sum(uses(p, e) for p, e in eng.artifact.manifest["tensors"].items())
+    want = {"bitlinear": per_forward * GEN_STEPS, "bitlinear_grouped": 0,
+            "flash_attention": n_shared, "sa_sweep_many": 0}
+    check(per_forward == 2 * cfg.num_layers + 7 * n_shared == 118 and launches == want,
+          f"launches {launches}, want {want} ({per_forward} K3 calls a forward)")
+    by_schedule = served(bl.bitlinear)
+    tensor_cores, clusters = heuristic_launches(torch, dev, eng.artifact.manifest,
+                                                {"bitlinear": by_schedule}, zamba_tokens,
+                                                "phase 7", uses)
+    ttft = ttft_repeats(eng, res.prompts, res.timing["prefill_s"])
+    toks = res.tokens
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+          and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"generated tokens {tuple(toks.shape)} out of shape or range")
+
+    # bf16 prefill logits with the kernels against the plain path, and where
+    # along the layers the two residual streams part
+    (lk, hk), launched = zamba_prefill(torch, cfg, eng, res.prompts, dev, ops.enable_kernels)
+    (lp, hp), _ = zamba_prefill(torch, cfg, eng, res.prompts, dev, ops.disable_kernels)
+    check(launched == {"bitlinear": per_forward, "flash_attention": n_shared},
+          f"the kernel prefill launched {launched}")
+    check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
+          "prefill logits are not finite")
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    layers = [{"kind": kind, "rel_diff": float((a.float() - b.float()).abs().max())
+               / float(b.float().abs().max())} for (kind, a), (_, b) in zip(hk, hp)]
+    del hk, hp
+    check(err <= LOGIT_TOL * scale,
+          f"zamba2 prefill logits kernels vs plain: {err:.3g} > {LOGIT_TOL} x {scale:.3g}; "
+          f"per layer {layers}")
+    before = (fa.flash_attention.launches, bl.bitlinear.launches)
+    plain = Engine(cfg, eng.params, max_len=GEN_PROMPT + GEN_STEPS, batch=GEN_BATCH, eos_id=eos,
+                   artifact=eng.artifact, use_fused_bitlinear=False)
+    toks_plain = plain.generate(res.prompts, GEN_STEPS)
+    check((fa.flash_attention.launches, bl.bitlinear.launches) == before,
+          "the plain path launched a kernel")
+    same = (toks[:, GEN_PROMPT:] == toks_plain[:, GEN_PROMPT:]).float()
+    t = res.timing
+    out = {
+        "launches": launches,
+        "bitlinear_by_schedule": by_schedule,
+        "tensor_core_launches": tensor_cores,
+        "decode_clusters": clusters,
+        **ttft,
+        "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+        "decode_tokens_per_s": GEN_BATCH * t["decode_steps"] / t["decode_s"],
+        "generate_wall_s": res.wall_s,
+        "prefill_logits": {"max_abs_diff": err, "max_abs_logit": scale,
+                           "tol": LOGIT_TOL * scale},
+        # per layer: max|h - h_plain| / max|h_plain| of the residual stream
+        # after the block (ssm_attn: after the shared block)
+        "prefill_layers": layers,
+        "greedy_agreement": {"first_token": float(same[:, 0].mean()),
+                             "all_tokens": float(same.mean())},
+        "plain_timing": plain.last_timing,
+        "compression": eng.compression,
+    }
+    emit({"zamba2_generate": out})
+    return out
+
+
 def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
     launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
@@ -2028,6 +2416,21 @@ def main() -> int:
         phases["moe_tuned_generate_s"] = time.time() - t
     finally:
         shutil.rmtree(moe_dir, ignore_errors=True)
+    zamba_dir = os.path.join(ROOT, "build", "chip_smoke_zamba2_ckpt")
+    shutil.rmtree(zamba_dir, ignore_errors=True)
+    try:
+        t = time.time()
+        _, cvalues = phase_zamba_compress(torch, dev, zamba_dir)
+        phases["zamba2_compress_s"] = time.time() - t
+        t = time.time()
+        zamba_k3 = phase_zamba_k3(torch, dev, cvalues, flush)
+        phases["zamba2_k3_s"] = time.time() - t
+        del cvalues
+        t = time.time()
+        zamba_gen = phase_zamba_generate(torch, dev, zamba_dir)
+        phases["zamba2_generate_s"] = time.time() - t
+    finally:
+        shutil.rmtree(zamba_dir, ignore_errors=True)
     t = time.time()
     paper = phase_paper(torch, dev)
     phases["paper_s"] = time.time() - t
@@ -2075,6 +2478,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bitlinear.py:438",
          "launches": gen["launches"]["bitlinear"], "launches_phase3": k3_layer_launches,
          "launches_phase5": moe_gen["launches"]["bitlinear"],
+         "launches_phase7": zamba_gen["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -2094,12 +2498,17 @@ def main() -> int:
          "variants": variants(k3v["timing"], k3v["max_abs_err"], launch["bitlinear"],
                               {"grid": "src/repro/kernels/bitlinear.py:417",
                                "decode": "src/repro/kernels/bitlinear.py:369",
-                               "stream": "src/repro/kernels/bitlinear.py:388"})},
+                               "stream": "src/repro/kernels/bitlinear.py:388"}),
+         # phase 7: zamba2's in_proj (tile 32 x 131) and out_proj at T = 4 and
+         # 4096, at the default rule's schedule, and the worst error of every
+         # variant held at phase 7's tiles
+         "zamba2": {**zamba_k3["timing"], "max_abs_err": zamba_k3["max_abs_err"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:79",
          "launches": gen["launches"]["flash_attention"],
-         "launches_phase5": moe_gen["launches"]["flash_attention"], "max_abs_err": k5_err,
+         "launches_phase5": moe_gen["launches"]["flash_attention"],
+         "launches_phase7": zamba_gen["launches"]["flash_attention"], "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
          "library_ms": k5["timing"]["library_ms"], "device_ms": k5["timing"]["device_ms"],
@@ -2107,7 +2516,11 @@ def main() -> int:
          # the same at phase 5's prefill shape (4, 16, 8, 1024, 64)
          "moe_prefill": {k: k5["timing_moe"][k] for k in
                          ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-                          "library_device_ms")}},
+                          "library_device_ms")},
+         # the same at phase 7's prefill shape (4, 32, 32, 1024, 64), window 4096
+         "zamba2_prefill": {k: k5["timing_zamba2"][k] for k in
+                            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                             "device_ms", "library_device_ms")}},
         {"name": "bitlinear_grouped", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:583",

@@ -12,7 +12,8 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
 ``kernel_schedules`` table means the same in both packages:
 
   * grid: blocks of ``block_t`` rows.  bf16 x with bf16 C at T > SMALL_T
-    (K <= 8, tn % 8 == 0, td % 16 == 0) runs on the tensor cores: a block
+    (K <= 8, tn % 8 == 0, td % 16 == 0: :func:`grid_on_tensor_cores`) runs
+    on the tensor cores: a block
     owns four column tiles, its warps one 16-row tile each, and every step
     stages ``r_chunk`` r tiles (rounded up to whole mma groups) of x, M and
     C in shared memory; z = x @ M and y += z @ C are mma.sync products.
@@ -73,6 +74,7 @@ __all__ = [
     "GROUPED_MODES",
     "MATHS",
     "decode_path_ok",
+    "grid_on_tensor_cores",
     "decode_cluster_size",
     "stream_cluster_size",
     "stream_geometry",
@@ -342,6 +344,17 @@ def stream_cluster_size(blocks: int, n_r: int, r_chunk: int, sms: int, per_sm: i
     if S >= STREAM_MAX_CLUSTER:
         return STREAM_MAX_CLUSTER
     return max(1, min(STREAM_PORTABLE_CLUSTER, S))
+
+
+def grid_on_tensor_cores(T: int, tn: int, K: int, td: int, x_itemsize: int,
+                         c_itemsize: int) -> bool:
+    """Whether a grid launch runs the tensor-core body, as
+    ``csrc/bitlinear.cuh::grid_on_mma`` decides (mirrored; the library
+    reports each launch's body, ``tensor_core_launches``): bf16 x and C
+    above ``SMALL_T`` rows, K <= 8, tn % 8 == 0 and td % 16 == 0.  Every
+    other grid call runs the FMA body (e.g. zamba2's in_proj, td 131)."""
+    return (T > SMALL_T and x_itemsize == 2 and c_itemsize == 2 and 1 <= K <= 8
+            and tn % 8 == 0 and td % 16 == 0)
 
 
 def decode_path_ok(T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,

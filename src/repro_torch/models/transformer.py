@@ -7,10 +7,13 @@ with weights drawn from a ``torch.Generator``.  ``forward`` runs the groups
 in a Python loop (JAX scans them), slicing each group's parameters and
 cache out of the stacked trees; compressed ``{m_packed, C}`` leaves slice
 the same way: a compressed expert stack (L, E, ...) slices to the grouped
-(E, ...) form that ``models/moe.py`` runs through kernel K4.  Dense
-attention blocks (both ``parallel_block`` settings) and attention + MoE
-blocks (``attn_moe``) are ported; SSM blocks and the shared attention
-block come with later slices (ROADMAP.md).
+(E, ...) form that ``models/moe.py`` runs through kernel K4.  Every block
+kind of ``repro`` is ported: dense attention (both ``parallel_block``
+settings), attention + MoE (``attn_moe``), Mamba2 SSD (``ssm``,
+``models/ssm.py``) and the hybrid ``ssm_attn``, which runs the SSM and then
+zamba2's *shared* attention block: one parameter tree ``p["shared"]``
+reused by every invocation, its KV cache per invocation (window-sized, a
+ring, once ``max_len`` reaches ``sliding_window``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator as make_generator
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.params import Param
 
 __all__ = ["init_model", "forward", "init_cache", "model_dtype"]
@@ -31,21 +34,17 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (attn and attn_moe only; ROADMAP.md, "
-        "Queue 1)"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
-    if kind not in ("attn", "attn_moe"):
-        raise _not_ported(kind)
     d, dev = cfg.d_model, generator.device
+    if kind in ("ssm", "ssm_attn"):
+        return {"norm1": layers.init_rms_norm(d, dtype, dev),
+                "ssm": ssm.init_ssm(generator, cfg, dtype)}
+    if kind not in ("attn", "attn_moe"):
+        raise ValueError(kind)
     p = {
         "norm1": layers.init_rms_norm(d, dtype, dev),
         "attn": attn_lib.init_attention(generator, cfg, dtype),
@@ -58,16 +57,45 @@ def _init_block(generator, kind: str, cfg: ModelConfig, dtype) -> dict:
     return p
 
 
-def _apply_block(h, p, kind: str, cfg: ModelConfig, *, cache, pos_offset, window,
-                 attend_cache=False):
+def _init_shared_attn(generator, cfg: ModelConfig, dtype) -> dict:
+    d, dev = cfg.d_model, generator.device
+    return {
+        "norm1": layers.init_rms_norm(d, dtype, dev),
+        "attn": attn_lib.init_attention(generator, cfg, dtype),
+        "norm2": layers.init_rms_norm(d, dtype, dev),
+        "mlp": layers.init_mlp(generator, d, cfg.d_ff, dtype, cfg.use_bias),
+    }
+
+
+def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_offset,
+                 window, attend_cache=False):
     """Returns (h, new_cache, aux); aux (the MoE balance loss) is 0.0 for
-    attention blocks.  With ``parallel_block`` both kinds run the dense MLP
-    beside attention, as ``repro`` does."""
-    if kind not in ("attn", "attn_moe"):
-        raise _not_ported(kind)
+    every block but ``attn_moe``.  With ``parallel_block`` both attention
+    kinds run the dense MLP beside attention, as ``repro`` does.
+    ``ssm_attn`` runs the SSM, then the shared attention block with the
+    ``shared`` parameters."""
     aux = 0.0
-    kv = cache["kv"] if cache is not None else None
-    kw = dict(pos_offset=pos_offset, cache=kv, window=window, attend_cache=attend_cache)
+    kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
+    if kind in ("ssm", "ssm_attn"):
+        sc = cache["ssm"] if cache is not None else None
+        s, new_sc = ssm.ssm_block(layers.rms_norm(h, p["norm1"], cfg.norm_eps), p["ssm"], cfg,
+                                  cache=sc)
+        h = h + s
+        new_cache = {"ssm": new_sc} if cache is not None else None
+        if kind == "ssm_attn":
+            kv = cache["kv"] if cache is not None else None
+            a, new_kv = attn_lib.attention(
+                layers.rms_norm(h, shared["norm1"], cfg.norm_eps), shared["attn"], cfg,
+                cache=kv, **kw,
+            )
+            h = h + a
+            h = h + layers.mlp(layers.rms_norm(h, shared["norm2"], cfg.norm_eps), shared["mlp"])
+            if cache is not None:
+                new_cache["kv"] = new_kv
+        return h, new_cache, aux
+    if kind not in ("attn", "attn_moe"):
+        raise ValueError(kind)
+    kw["cache"] = cache["kv"] if cache is not None else None
     if cfg.parallel_block:
         n = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
         a, new_kv = attn_lib.attention(n, p["attn"], cfg, **kw)
@@ -86,13 +114,14 @@ def _apply_block(h, p, kind: str, cfg: ModelConfig, *, cache, pos_offset, window
     return h, ({"kv": new_kv} if cache is not None else None), aux
 
 
-def _apply_group(h, gp, cfg: ModelConfig, *, cache, pos_offset, window, attend_cache=False):
+def _apply_group(h, gp, cfg: ModelConfig, shared=None, *, cache, pos_offset, window,
+                 attend_cache=False):
     aux = 0.0
     new_cache = {} if cache is not None else None
     for i, kind in enumerate(cfg.block_pattern):
         key = f"{i}"
         h, nc, a = _apply_block(
-            h, gp[key], kind, cfg, cache=None if cache is None else cache[key],
+            h, gp[key], kind, cfg, shared, cache=None if cache is None else cache[key],
             pos_offset=pos_offset, window=window, attend_cache=attend_cache,
         )
         if cache is not None:
@@ -117,8 +146,6 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None):
     """A Param tree (values + logical axes; use ``params.split``) on
     ``device`` (default: the GPU)."""
     device = resolve_device(device)
-    if cfg.shared_attn:
-        raise NotImplementedError("shared attention blocks are not ported yet")
     dtype = model_dtype(cfg)
     g = make_generator(device, seed)
     groups = _stack([
@@ -135,6 +162,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None):
             f"{i}": _init_block(g, kind, cfg, dtype)
             for i, kind in enumerate(cfg.remainder_pattern)
         }
+    if cfg.shared_attn:
+        p["shared"] = _init_shared_attn(g, cfg, dtype)
     if not cfg.tie_embeddings:
         p["head"] = layers.init_dense(g, cfg.d_model, cfg.vocab_size, ("embed", "vocab"), dtype)
     return p
@@ -145,9 +174,15 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None):
 # ---------------------------------------------------------------------------
 
 def _init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    if kind not in ("attn", "attn_moe"):
-        raise _not_ported(kind)
-    return {"kv": attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)}
+    c = {}
+    if kind in ("attn", "attn_moe"):
+        c["kv"] = attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)
+    if kind in ("ssm", "ssm_attn"):
+        c["ssm"] = ssm.init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "ssm_attn":
+        kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+        c["kv"] = attn_lib.init_kv_cache(cfg, batch, kv_len, dtype, device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, stacked: bool = True, device=None):
@@ -218,14 +253,13 @@ def forward(
     ``init_cache`` are accepted."""
     p = _values(params)
     dtype = model_dtype(cfg)
-    if cfg.shared_attn:
-        raise NotImplementedError("shared attention blocks are not ported yet (ROADMAP.md)")
 
     if "tokens" in inputs:
         h = layers.embed_lookup(inputs["tokens"], p["embed"]).to(dtype)
     else:
         h = inputs["embeds"].to(dtype)
     window = cfg.sliding_window if window is None else window
+    shared = p.get("shared")
     kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
 
     aux_total = 0.0
@@ -237,7 +271,7 @@ def forward(
             gc = None
         else:
             gc = gcache[g] if cache_is_list else _index(gcache, g)
-        h, nc, aux = _apply_group(h, _index(p["groups"], g), cfg, cache=gc, **kw)
+        h, nc, aux = _apply_group(h, _index(p["groups"], g), cfg, shared, cache=gc, **kw)
         aux_total = aux_total + aux
         if cache is not None:
             new_groups.append(nc)
@@ -250,7 +284,7 @@ def forward(
         new_rem = {}
         for i, kind in enumerate(cfg.remainder_pattern):
             h, nc, aux = _apply_block(
-                h, p["rem"][f"{i}"], kind, cfg,
+                h, p["rem"][f"{i}"], kind, cfg, shared,
                 cache=None if rcache is None else rcache[f"{i}"], **kw,
             )
             aux_total = aux_total + aux

@@ -303,3 +303,21 @@ def test_partial_bitlinear_hook_feeds_the_einsum_form():
     assert calls == [(3, 2, 8)]
     with pytest.raises(ValueError, match="clear_bitlinear"):
         tq.register_bitlinear(None)
+
+
+@pytest.mark.parametrize("T,tn,K,td,sizes,want", [
+    (4096, 32, 4, 128, (2, 2), True),      # the policies' tile, prefill
+    (4096, 32, 4, 131, (2, 2), False),     # zamba2's in_proj: td no multiple of 16
+    (4096, 32, 4, 419, (2, 2), False),     # mamba2-130m's in_proj
+    (40, 32, 4, 37, (2, 2), False),        # the reduced configs' in_proj
+    (4, 32, 4, 128, (2, 2), False),        # T <= SMALL_T: the small FMA block
+    (4096, 32, 4, 128, (4, 2), False),     # f32 x
+    (4096, 32, 4, 128, (2, 4), False),     # f32 C
+    (4096, 16, 9, 160, (2, 2), False),     # K > 8
+    (4096, 12, 3, 128, (2, 2), False),     # tn no multiple of 8
+])
+def test_grid_tensor_core_rule_mirrors_the_library(T, tn, K, td, sizes, want):
+    """``grid_on_tensor_cores`` is ``csrc/bitlinear.cuh::grid_on_mma``'s rule
+    (the card tests hold it to each launch's report): odd tile widths run
+    the FMA body at every T."""
+    assert tbl.grid_on_tensor_cores(T, tn, K, td, *sizes) is want

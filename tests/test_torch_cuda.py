@@ -22,7 +22,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sa_sweep as sa
 from repro_torch.kernels import sqa_sweep as sqa
-from repro_torch.models import init_model
+from repro_torch.models import forward, init_cache, init_model
 from repro_torch.models.params import split
 from repro_torch.serving import Engine
 
@@ -185,6 +185,7 @@ def test_bitlinear_grouped_kernel_matches_plain(dev, E, T, K, dtype):
     (1, 2, 2, 64, 128, 32),
     (2, 8, 2, 100, 128, 0),     # ragged S: the last query and kv tiles are partial
     (1, 4, 2, 1, 64, 0),        # one position
+    (2, 4, 4, 200, 64, 4096),   # MHA, a window past S (zamba2's shared block)
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, H, KV, S, hd, win, dtype):
@@ -257,6 +258,49 @@ def test_engine_serves_moe_through_the_grouped_kernel(dev):
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
 
 
+def test_zamba2_forward_through_the_kernels_matches_plain(dev):
+    """Reduced bf16 zamba2 (14 layers: two groups and a remainder) compressed
+    on the card (in_proj at td 37): a 40-token prefill through K3 and K5
+    (one launch per shared-block call) and a decode step through K3 against
+    the plain path, within 5e-2 of max|logit|, as chip_smoke.py holds the
+    whole model."""
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("zamba2-1.2b")), dtype="bfloat16",
+                              num_layers=14)
+    values, _ = split(init_model(cfg, seed=0, device=dev))
+    policy = CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                               min_size=4096)
+    cvals, art = execute_plan(plan_compression(values, policy), values, seed=0, device=dev)
+    tensors = art.manifest["tensors"]
+    assert tensors["groups/0/ssm/in_proj/w"]["tile_d"] == 37
+    n_shared = cfg.num_groups       # one ssm_attn layer a group, none in the remainder
+    per_forward = sum(n_shared if p.startswith("shared/") else
+                      (e["group_dims"][0] if e["group_dims"] else 1) for p, e in tensors.items())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=dev)
+
+    def run(kernels):
+        if kernels:
+            ops.enable_kernels()
+        try:
+            cache = init_cache(cfg, 2, 44, device=dev)
+            with torch.inference_mode():
+                l0, cache, _ = forward(cvals, {"tokens": tokens}, cfg, cache=cache)
+                l1, _, _ = forward(cvals, {"tokens": tokens[:, :1]}, cfg, cache=cache,
+                                   pos_offset=40)
+        finally:
+            ops.disable_kernels()
+        return l0.float(), l1.float()
+
+    before = (fa.flash_attention.launches, bl.bitlinear.launches)
+    kernel = run(True)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - before[0],
+            bl.bitlinear.launches - before[1]) == (n_shared, 2 * per_forward)
+    plain = run(False)
+    for k, p in zip(kernel, plain):
+        assert bool(torch.isfinite(k).all())
+        assert (k - p).abs().max().item() <= 5e-2 * p.abs().max().item()
+
+
 # ---------------------------------------------------------------------------
 # K3/K4 schedules x bit algebras x activation dtypes, and the autotuner
 # ---------------------------------------------------------------------------
@@ -288,8 +332,17 @@ def _assert_variant(yk, yr, xd, cd):
         assert (yk.float() - yr.float()).abs().max().item() <= 2e-2 * scale
 
 
+# the last three: tile widths that are no multiple of 16 (zamba2's in_proj
+# td 131, mamba2-130m's 419, the reduced configs' 37) at tn 32, K 4
 SCHEDULE_SHAPES = [(1, 3, 2, 16, 3, 160), (13, 3, 2, 16, 9, 160), (40, 4, 3, 8, 3, 128),
-                   (4, 5, 2, 16, 4, 48)]
+                   (4, 5, 2, 16, 4, 48), (4, 8, 3, 32, 4, 131), (40, 6, 2, 32, 4, 37),
+                   (4, 5, 2, 32, 4, 419)]
+
+
+def _on_tensor_cores(mode, T, tn, K, td, xd, cd):
+    """Whether a call runs the grid's tensor-core body, by the Python mirror
+    of the library's rule."""
+    return mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, xd.itemsize, cd.itemsize)
 
 
 @pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
@@ -309,8 +362,9 @@ def test_bitlinear_schedules_match_plain(dev, mode, opts, math_, cd, xd):
         torch.cuda.synchronize()
         assert bl.bitlinear.by_schedule[f"{mode}/{math_}"] == before + 1
         # of these shapes only (40, 4, 3, 8, 3, 128) takes the tensor cores,
-        # and only for the grid with bf16 x and C
-        on_mma = mode == "grid" and xd == cd == torch.bfloat16 and T == 40
+        # and only for the grid with bf16 x and C; td 37 runs the FMA body
+        on_mma = _on_tensor_cores(mode, T, tn, K, td, xd, cd)
+        assert on_mma == (mode == "grid" and xd == cd == torch.bfloat16 and (T, td) == (40, 128))
         assert bl.bitlinear.tensor_core_launches == tc_before + on_mma
         _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), xd, cd)
 
@@ -373,9 +427,13 @@ def test_block_layout_is_what_the_launch_admits(dev):
 # (E, T, n_r, n_c, tn, K, td): r tiles that no S divides evenly (S = 8 over
 # n_r = 7 leaves a block without tiles), E = 32, BBO's 8-byte M tiles (tn = 8,
 # K = 3), T > 8 in row groups with kb = 2, td > 128 in two column chunks (C
-# read from device memory), and tn, td that fit no vector (direct loads)
+# read from device memory), tn, td that fit no vector (direct loads), and
+# odd td: zamba2's in_proj tile (td 131: a C tile of 1,048 bf16 bytes, not
+# staged), mamba2-130m's (td 419, four column chunks) and the reduced
+# configs' (td 37)
 DECODE_SHAPES = [(1, 4, 7, 3, 32, 4, 128), (32, 3, 5, 2, 32, 4, 128), (1, 5, 11, 2, 8, 3, 128),
-                 (1, 37, 6, 2, 16, 9, 48), (1, 1, 9, 3, 16, 9, 160), (2, 4, 13, 2, 12, 3, 20)]
+                 (1, 37, 6, 2, 16, 9, 48), (1, 1, 9, 3, 16, 9, 160), (2, 4, 13, 2, 12, 3, 20),
+                 (1, 4, 8, 3, 32, 4, 131), (1, 4, 24, 8, 32, 4, 419), (1, 3, 6, 2, 32, 4, 37)]
 
 
 @pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
@@ -427,10 +485,13 @@ def test_decode_launches_give_identical_bits(dev, monkeypatch, xd, S):
 # (T, n_r, n_c, tn, K, td): ragged T in one and several register groups, T
 # past a block's STREAM_ROWS (several row blocks, the last partial), qwen's
 # tile and the BBO tile (M from device memory), C wider than one column chunk
-# (a box reaching past td), r tiles no r_chunk divides, and int8-sized tiles
+# (a box reaching past td), r tiles no r_chunk divides, int8-sized tiles,
+# and odd td (zamba2's 131, whose bf16 C map TMA refuses; mamba2-130m's 419
+# in four column chunks; the reduced configs' 37)
 STREAM_SHAPES = [(3, 6, 2, 32, 4, 128), (13, 5, 3, 16, 9, 160), (37, 12, 2, 32, 4, 128),
                  (70, 9, 2, 8, 3, 128), (300, 4, 2, 32, 4, 64), (5, 7, 3, 16, 3, 32),
-                 (4, 40, 3, 32, 4, 128)]
+                 (4, 40, 3, 32, 4, 128), (4, 8, 3, 32, 4, 131), (4, 24, 8, 32, 4, 419),
+                 (37, 6, 2, 32, 4, 37)]
 
 
 @pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
@@ -604,7 +665,7 @@ def _f32_score_attention(q, k, v, window):
     return p @ vr, p @ vr.abs()
 
 
-@pytest.mark.parametrize("win", [0, 48])
+@pytest.mark.parametrize("win", [0, 48, 4096])
 @pytest.mark.parametrize("S", [1, 63, 65, 1024])
 @pytest.mark.parametrize("rep", [1, 8])
 @pytest.mark.parametrize("hd", [64, 128])
@@ -646,14 +707,19 @@ def test_flash_attention_reads_and_writes_the_model_layout(dev, dtype):
 
 # the policies' (tn, K, td): attention tensors, qwen's BBO attn/w[kv], granite's experts
 POLICY_SHAPES = [(32, 4, 128), (8, 3, 128), (32, 8, 64)]
+# the default policy's in_proj tiles of zamba2 (td 131) and mamba2-130m (td
+# 419) and the reduced configs' (td 37): the FMA body at every T, td being
+# no multiple of 16
+ODD_TILES = [(32, 4, 131), (32, 4, 419), (32, 4, 37)]
 
 
 @pytest.mark.parametrize("T", [1, 15, 17, 64, 1280, 4096])
 @pytest.mark.parametrize("math_", ["unpack", "bitplane"])
-@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES + ODD_TILES)
 def test_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, math_, T):
     """bf16 x and C through the grid at the policies' tiles: on the tensor
-    cores above T = 4, on the FMA body at T = 1 (the small-T fallback)."""
+    cores above T = 4 where td is a multiple of 16, on the FMA body at T = 1
+    (the small-T fallback) and at the odd tile widths."""
     n_r, n_c = 24, 3
     g = torch.Generator(device=dev).manual_seed(tn * 100 + K * 10 + T)
     x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, torch.bfloat16,
@@ -663,13 +729,14 @@ def test_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, math_, T):
     yk = bl.bitlinear(x, mp, C, mode="grid", math=math_)
     torch.cuda.synchronize()
     assert bl.bitlinear.by_schedule[f"grid/{math_}"] == before + 1
-    assert bl.bitlinear.tensor_core_launches == tc_before + (T > bl.SMALL_T)
+    assert bl.bitlinear.tensor_core_launches == tc_before + _on_tensor_cores(
+        "grid", T, tn, K, td, torch.bfloat16, torch.bfloat16)
     _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), torch.bfloat16, torch.bfloat16)
 
 
 @pytest.mark.parametrize("T", [1, 17, 1280])
 @pytest.mark.parametrize("math_", ["unpack", "bitplane"])
-@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES + ODD_TILES)
 def test_grouped_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, math_, T):
     E, n_r, n_c = 4, 8, 2
     g = torch.Generator(device=dev).manual_seed(tn * 100 + K * 10 + T + 7)
@@ -678,13 +745,14 @@ def test_grouped_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, ma
     tc_before = bl.bitlinear_grouped.tensor_core_launches
     yk = bl.bitlinear_grouped(x, mp, C, mode="grid", math=math_)
     torch.cuda.synchronize()
-    assert bl.bitlinear_grouped.tensor_core_launches == tc_before + (T > bl.SMALL_T)
+    assert bl.bitlinear_grouped.tensor_core_launches == tc_before + _on_tensor_cores(
+        "grid", T, tn, K, td, torch.bfloat16, torch.bfloat16)
     _assert_variant(yk, ref.bitlinear_grouped_ref(x, mp, C, math_), torch.bfloat16,
                     torch.bfloat16)
 
 
 @pytest.mark.parametrize("math_", ["unpack", "bitplane"])
-@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES + ODD_TILES)
 def test_grid_ignores_nan_bytes_past_the_last_c_row(dev, tn, K, td, math_):
     """C padded from K to the mma's 4 or 8 rows (and a ragged last group of r
     tiles) must be zero-filled, not read: C sits at the start of a buffer

@@ -136,6 +136,26 @@ def test_moe_entry_points_refuse_the_cpu_without_device(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+def test_hybrid_entry_points_refuse_the_cpu_without_device(tmp_path):
+    """zamba2-1.2b (SSM groups and the shared attention block) and
+    mamba2-130m build, cache and serve on the GPU unless asked for the CPU."""
+    _cpu_only()
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import init_cache
+
+    for arch in ("zamba2-1.2b", "mamba2-130m"):
+        cfg = reduced_for_smoke(get_config(arch))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_model(cfg, seed=0)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_cache(cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_model(cfg, compress=True, batch=1, prompt_len=4, steps=2)
+        assert init_cache(cfg, 1, 8, device="cpu")["groups"]["0"]["ssm"]["state"].device.type \
+            == "cpu"
+    assert not any(tmp_path.iterdir())
+
+
 def test_grid_variant_switches_are_the_headers():
     """tools/torch_grid_variants.py builds its variants with -D switches;
     each must be one that csrc/bitlinear.cuh defines, so a renamed switch

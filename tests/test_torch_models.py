@@ -25,9 +25,10 @@ from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.core import quantized as tq
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
-from repro_torch.models import forward, init_cache
+from repro_torch.models import forward, init_cache, init_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
+from repro_torch.models.params import split as t_split
 
 torch.set_num_threads(1)
 
@@ -310,10 +311,105 @@ def test_both_cache_forms_give_the_same_logits(qwen):
         assert torch.equal(a, b)
 
 
-def test_unported_blocks_raise_naming_the_roadmap():
-    cfg = reduced_for_smoke(get_config("mamba2-130m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttransformer._apply_block(torch.zeros(1, 1, 64), {}, "ssm", cfg, cache=None,
-                                  pos_offset=0, window=0)
+# ---------------------------------------------------------------------------
+# SSM and hybrid models: mamba2-130m, and zamba2-1.2b's SSM groups with the
+# shared attention block (14 layers: two groups of six and a remainder of two)
+# ---------------------------------------------------------------------------
+
+HYBRIDS = {"zamba2-1.2b": {"num_layers": 14}, "mamba2-130m": {}}
+
+
+@pytest.fixture(scope="module", params=sorted(HYBRIDS))
+def hybrid(request):
+    arch = request.param
+    jcfg, tcfg = _cfgs(arch, **HYBRIDS[arch])
+    jvals = j_split(j_init_model(jax.random.PRNGKey(0), jcfg))[0]
+    policy = jc.CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                                  min_size=4096)
+    jcv, _ = jc.execute_plan(jc.plan_compression(jvals, policy), jvals,
+                             key=jax.random.PRNGKey(0))
+    return {"arch": arch, "jcfg": jcfg, "tcfg": tcfg, "jvals": jvals, "tvals": _carry(jvals),
+            "jcv": jcv, "tcv": _carry(jcv)}
+
+
+def test_hybrid_parameter_tree_matches_jax(hybrid):
+    """The port's own init has JAX's paths, shapes and dtypes, so the
+    policies pick the same tensors in both packages.  Its size is JAX's
+    tree's, which is ``cfg.param_count()`` less the final norm's second d
+    and plus each SSM layer's conv bias (the analytic count leaves it out)."""
+    tcfg = hybrid["tcfg"]
+    own = bridge.to_numpy(t_split(init_model(tcfg, seed=0, device="cpu"))[0])
+    want = dict(j_tree_paths(hybrid["jvals"]))
+    assert {p: (v.shape, v.dtype) for p, v in own.items()} == {
+        p: (np.asarray(v).shape, np.asarray(v).dtype) for p, v in want.items()}
+    n_ssm = sum(k in ("ssm", "ssm_attn") for k in
+                tcfg.block_pattern * tcfg.num_groups + tcfg.remainder_pattern)
+    conv_dim = tcfg.d_inner + 2 * tcfg.ssm_ngroups * tcfg.ssm_state
+    real = sum(v.size for v in own.values())
+    assert real == sum(np.asarray(v).size for v in want.values())
+    assert real == tcfg.param_count() - tcfg.d_model + n_ssm * conv_dim
+    assert ("shared/attn/wq/w" in own) == tcfg.shared_attn
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+@pytest.mark.parametrize("hooks", [False, True])
+def test_hybrid_forward_matches_jax_dense_and_compressed(hybrid, compressed, hooks):
+    jcfg, tcfg = hybrid["jcfg"], hybrid["tcfg"]
+    jvals, tvals = ((hybrid["jcv"], hybrid["tcv"]) if compressed
+                    else (hybrid["jvals"], hybrid["tvals"]))
+    if compressed:      # in_proj (d_out 296 = 8 x 37) tiles at td = 37
+        w = tvals["groups"]["0"]["ssm"]["in_proj"]["w"]
+        assert w["C"].shape[-1] == 37
+    jt, tt = _tokens(tcfg, 2, 40, seed=4)
+    jl, _, _ = j_forward(jvals, {"tokens": jt}, jcfg)
+    if hooks:
+        tops.enable_kernels()
+    tl, tc_, aux = forward(tvals, {"tokens": tt}, tcfg)
+    assert tc_ is None and float(aux) == 0.0
+    _close(tl, jl, LOGIT_TOL)
+    jl, _, _ = j_forward(jvals, {"tokens": jt}, jcfg, last_only=True)
+    tl, _, _ = forward(tvals, {"tokens": tt}, tcfg, last_only=True)
+    _close(tl, jl, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_hybrid_cached_prefill_and_decode_match_jax_in_both_cache_forms(hybrid, stacked):
+    """A 40-token prefill (past zamba2's reduced window of 32: the shared
+    block's cache is a 32-slot ring) into both cache forms, then decode
+    steps.  The SSM state the prefill wrote in place must carry into every
+    step, and the caches must end equal to JAX's."""
+    jcfg, tcfg, jvals, tvals = (hybrid[k] for k in ("jcfg", "tcfg", "jcv", "tcv"))
+    B, P, L = 2, 40, 46
+    jt, tt = _tokens(tcfg, B, P + 4, seed=5)
+    jcache = j_init_cache(jcfg, B, L, stacked=stacked)
+    tcache = init_cache(tcfg, B, L, stacked=stacked, device="cpu")
+    if tcfg.shared_attn:                 # the ssm_attn block's kv cache: a ring
+        kv = tcache["groups"]["5"]["kv"] if stacked else tcache["groups"][0]["5"]["kv"]
+        assert kv["k"].shape[-3] == tcfg.sliding_window == 32
+    jl, jcache, _ = j_forward(jvals, {"tokens": jt[:, :P]}, jcfg, cache=jcache,
+                              unroll_groups=not stacked)
+    tl, tcache, _ = forward(tvals, {"tokens": tt[:, :P]}, tcfg, cache=tcache)
+    _close(tl, jl, LOGIT_TOL)
+    for t in range(4):
+        jl, jcache, _ = j_forward(jvals, {"tokens": jt[:, P + t:P + t + 1]}, jcfg,
+                                  cache=jcache, pos_offset=P + t, unroll_groups=not stacked)
+        tl, tcache, _ = forward(tvals, {"tokens": tt[:, P + t:P + t + 1]}, tcfg, cache=tcache,
+                                pos_offset=P + t)
+        _close(tl, jl, LOGIT_TOL)
+    jleaves = dict(j_tree_paths(jcache))
+    tleaves = bridge.to_numpy(tcache)
+    assert set(tleaves) == set(jleaves)
+    for path, leaf in tleaves.items():
+        np.testing.assert_allclose(leaf, np.asarray(jleaves[path]), rtol=LOGIT_TOL,
+                                   atol=LOGIT_TOL)
+
+
+def test_hybrid_prefill_refuses_a_length_the_ssd_chunks_cannot_split(hybrid):
+    """37 tokens at the reduced chunk of 16 (2 chunks of 18 = 36): JAX's
+    reshape refuses it, and so does the port, by name."""
+    jcfg, tcfg = hybrid["jcfg"], hybrid["tcfg"]
+    jt, tt = _tokens(tcfg, 1, 37, seed=6)
+    with pytest.raises(TypeError, match="reshape"):
+        j_forward(hybrid["jvals"], {"tokens": jt}, jcfg)
+    with pytest.raises(ValueError, match="nc = max"):
+        forward(hybrid["tvals"], {"tokens": tt}, tcfg)

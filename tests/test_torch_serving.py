@@ -180,6 +180,106 @@ def test_serve_model_compresses_when_asked(model):
     assert res.engine.compression["tensors"] > 0 and res.tokens.shape == (2, 7)
 
 
+# ---------------------------------------------------------------------------
+# SSM and hybrid serving: mamba2-130m, zamba2-1.2b (14 layers: two groups and
+# a remainder; prompts of 40 tokens, past the shared block's reduced window
+# of 32, so its cache is a ring)
+# ---------------------------------------------------------------------------
+
+HYBRIDS = {"zamba2-1.2b": {"num_layers": 14}, "mamba2-130m": {}}
+HP = 40
+
+
+@pytest.fixture(scope="module", params=sorted(HYBRIDS))
+def hybrid(request):
+    arch = request.param
+    jcfg = dataclasses.replace(j_reduced(j_get_config(arch)), dtype="float32",
+                               **HYBRIDS[arch])
+    tcfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype="float32",
+                               **HYBRIDS[arch])
+    jvals = j_split(j_init_model(jax.random.PRNGKey(1), jcfg))[0]
+    policy = jc.CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                                  min_size=4096)
+    jcv, jart = jc.execute_plan(jc.plan_compression(jvals, policy), jvals,
+                                key=jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(1).integers(0, tcfg.vocab_size, (2, HP))
+    return {"jcfg": jcfg, "tcfg": tcfg, "jvals": jvals, "tvals": _carry(jvals), "jcv": jcv,
+            "tcv": _carry(jcv), "jart": jart, "prompts": prompts}
+
+
+def _list_cache_tokens(cfg, params, prompts, steps):
+    """Greedy tokens from the port's prefill and decode steps over the
+    unstacked (list) cache form: the SSM state and the ring the prefill
+    wrote in place carry into every step."""
+    from repro_torch.models import init_cache
+    from repro_torch.serving.engine import make_decode_step, make_prefill
+
+    B, P = prompts.shape
+    cache = init_cache(cfg, B, P + steps, stacked=False, device="cpu")
+    assert isinstance(cache["groups"], list)
+    with torch.inference_mode():
+        last, cache = make_prefill(cfg)(params, {"tokens": prompts}, cache)
+        cur = torch.argmax(last, dim=-1)
+        toks = [prompts, cur[:, None]]
+        for t in range(steps - 1):
+            logits, cache = make_decode_step(cfg)(params, cur, cache, P + t)
+            cur = torch.argmax(logits, dim=-1)
+            toks.append(cur[:, None])
+    return torch.cat(toks, dim=1)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_hybrid_generate_tokens_identical_to_jax_in_both_cache_forms(hybrid, compressed):
+    """``Engine.generate`` (the stacked cache) and a decode loop over the
+    list cache give JAX's engine's tokens, dense and compressed (the port's
+    hooks on: K3's and K5's plain versions here; JAX's einsum form)."""
+    m = hybrid
+    eos = m["tcfg"].vocab_size                  # never emitted
+    jeng = JEngine(m["jcfg"], m["jcv"] if compressed else m["jvals"], max_len=HP + STEPS,
+                   batch=2, eos_id=eos, artifact=m["jart"] if compressed else None,
+                   use_fused_bitlinear=False)
+    want = np.asarray(jeng.generate(jnp.asarray(m["prompts"], jnp.int32), STEPS))
+    params = m["tcv"] if compressed else m["tvals"]
+    eng = Engine(m["tcfg"], params, max_len=HP + STEPS, batch=2, eos_id=eos,
+                 artifact=m["jart"].manifest if compressed else None)
+    assert eng.fused_bitlinear == compressed
+    got = eng.generate(torch.from_numpy(m["prompts"]), STEPS)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert eng.last_timing["decode_steps"] == STEPS - 1
+    if compressed:
+        assert eng.compression["tensors"] == len(m["jart"].manifest["tensors"])
+    listed = _list_cache_tokens(m["tcfg"], params, torch.from_numpy(m["prompts"]), STEPS)
+    np.testing.assert_array_equal(listed.numpy(), want)
+
+
+def test_serve_cli_serves_reduced_zamba2_compressed(monkeypatch, capsys):
+    """``python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced
+    --compress`` on the CPU (the CLI's device resolved to it): every
+    in_proj, out_proj and shared-block weight the CLI's policy admits is
+    compressed and served."""
+    from repro_torch.launch import serve as serve_mod
+
+    monkeypatch.setattr(serve_mod, "resolve_device", lambda d=None: torch.device("cpu"))
+    seen = {}
+    real_engine = serve_mod.Engine
+
+    def engine(*a, **k):
+        seen["engine"] = real_engine(*a, **k)
+        return seen["engine"]
+
+    monkeypatch.setattr(serve_mod, "Engine", engine)
+    serve_mod.main(["--arch", "zamba2-1.2b", "--reduced", "--compress", "--steps", "4",
+                    "--batch", "2"])
+    eng = seen["engine"]
+    out = capsys.readouterr().out
+    assert "[compress]" in out and "generated: (2, 20)" in out
+    paths = set(eng.artifact.manifest["tensors"])
+    assert {"groups/0/ssm/in_proj/w", "groups/0/ssm/out_proj/w", "groups/5/ssm/in_proj/w",
+            "shared/attn/wq/w", "shared/mlp/down/w"} <= paths
+    assert eng.artifact.manifest["tensors"]["groups/0/ssm/in_proj/w"]["tile_d"] == 37
+    assert eng.fused_bitlinear and tattn._FLASH_IMPL is not None
+
+
 @pytest.mark.parametrize("flag", ["--load-curve"])
 def test_serve_cli_refuses_unported_flags(flag, capsys):
     from repro_torch.launch.serve import main

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's serving path goes, on one GPU.
 
-    python3 tools/torch_serve_profile.py [--arch qwen3-32b | granite-moe-1b-a400m]
+    python3 tools/torch_serve_profile.py [--arch qwen3-32b | granite-moe-1b-a400m |
+                                          zamba2-1.2b]
 
 Serves one of ``chip_smoke.py``'s serving configurations.  qwen3-32b (the
 default) is phase 4's: phase 2 compresses qwen3-32b at its published widths
 with depth cut to one layer (random weights from seed 0, chip_smoke's
-policy).  granite-moe-1b-a400m is phase 5's: the whole model at its
-published widths and depth, compressed with the default policy.
+policy).  granite-moe-1b-a400m is phase 5's and zamba2-1.2b phase 7's: the
+whole model at its published widths and depth, compressed with the default
+policy.
 ``serve_model`` restores that checkpoint and generates for chip_smoke's
 prompts (which also warms up).
 Then ``Engine.generate`` itself runs twice under ``torch.profiler``: with
@@ -66,7 +68,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-32b",
-                    choices=["qwen3-32b", "granite-moe-1b-a400m"])
+                    choices=["qwen3-32b", "granite-moe-1b-a400m", "zamba2-1.2b"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
@@ -80,15 +82,14 @@ def main(argv=None) -> int:
     smi = cs.nvidia_smi()
     print(smi, flush=True)
     dev = torch.device("cuda")
-    moe = args.arch == cs.MOE_ARCH
-    cfg = cs.moe_config() if moe else cs.full_width_config()[1]
+    compress, cfg = {
+        cs.MOE_ARCH: (cs.phase_moe_compress, cs.moe_config()),
+        cs.ZAMBA_ARCH: (cs.phase_zamba_compress, cs.zamba_config()),
+    }.get(args.arch, (cs.phase_compress, cs.full_width_config()[1]))
     out_dir = os.path.join(ROOT, "build", "torch_serve_profile_ckpt")
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
-        if moe:
-            cs.phase_moe_compress(torch, dev, out_dir)
-        else:
-            cs.phase_compress(torch, dev, out_dir)
+        compress(torch, dev, out_dir)
         res = serve_model(cfg, ckpt_dir=out_dir, batch=cs.GEN_BATCH, prompt_len=cs.GEN_PROMPT,
                           steps=cs.GEN_STEPS, eos_id=cfg.vocab_size, seed=cs.SEED, device=dev,
                           verbose=False)

@@ -119,14 +119,21 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      kernel launched.  Then K3 at those tiles (and mamba2-130m's in_proj
      tile, 32 x 419) in every schedule x bit algebra x activation x C dtype
      against the plain version, each launch on the path the rules predict
-     (td 131 and 419 run the grid's FMA body; stream maps the parts
+     (the bf16 grid on the tensor cores above T = 4 at td 131 and 419 as at
+     128, td padded to 144-column chunks; stream maps the parts
      ``stream_tensor_maps`` admits), and in_proj and out_proj at T = 4 and
-     4096 timed.  Then ``serve_model`` from the checkpoint, as phase 4: K3
-     launched 118 x 32 times (each compressed layer slice, and each of the
-     shared block's 7 weights 6 times, per forward), per schedule as the
-     resolutions picked, K5 6 times (window 4,096 >= S); bf16 prefill
-     logits within 5e-2 of max|logit| of the plain path, with the distance
-     of the two residual streams after every block reported.
+     4096 and mamba2's in_proj at 4096 timed.  Then ``serve_model`` from
+     the checkpoint, as phase 4: K3 launched 118 x 32 times (each
+     compressed layer slice, and each of the shared block's 7 weights 6
+     times, per forward), per schedule as the resolutions picked, the
+     prefill's 118 on the tensor cores, K5 6 times (window 4,096 >= S);
+     bf16 prefill logits within 5e-2 of max|logit| of the plain path, with
+     the distance of the two residual streams after every block reported.
+  7b. mamba2-130m whole (24 SSD layers at published widths, random weights
+     from seed 0): compressed with the default policy (4,608 tiles of 32 x
+     419, 6,912 of 32 x 128) and served as phase 7 (K3 48 x 32 launches,
+     the prefill's 48 on the tensor cores, no K5; bf16 prefill logits within
+     5e-2 of the plain path's).
 
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
@@ -218,7 +225,8 @@ TENSOR_CORE_KERNELS = {"flash_attention": "flash_mma_kernel",
 def tensor_core_ptxas(build_log):
     """-Xptxas -v of the tensor-core instantiations, K5's bf16 body
     (flash_mma_kernel<hd, warps>) and the grid's bf16 x bf16 body
-    (bitlinear_mma_kernel<k step, 16-column pairs, K padded, bitplane>):
+    (bitlinear_mma_kernel<k step, 16-column pairs, K padded, bitplane,
+    td % 8 != 0>):
     {"source": {"kernel<args>": {registers, spills, static smem}}}.  Empty
     for a source whose library was cached (nothing compiled)."""
     out = {}
@@ -2059,22 +2067,25 @@ def phase_zamba_compress(torch, dev, out_dir):
 # K3 at phase 7's tiles: (label, tensor, T).  zamba2's in_proj (64 x 64 tiles
 # of 32 x 131, K = 4) and out_proj (128 x 16 of 32 x 128) from the
 # checkpoint's layer 0 at decode and prefill T, and mamba2-130m's in_proj
-# tile (24 x 8 of 32 x 419: C rows past three 128-column chunks) at T = 4
+# tile (24 x 8 of 32 x 419: the tensor-core grid's three 144-column chunks)
+# at both
 ZAMBA_K3 = (("in_proj_T4", "in_proj", GEN_BATCH),
             ("in_proj_T4096", "in_proj", GEN_BATCH * GEN_PROMPT),
             ("out_proj_T4", "out_proj", GEN_BATCH),
             ("out_proj_T4096", "out_proj", GEN_BATCH * GEN_PROMPT),
-            ("mamba2_in_proj_T4", "mamba2_in_proj", GEN_BATCH))
+            ("mamba2_in_proj_T4", "mamba2_in_proj", GEN_BATCH),
+            ("mamba2_in_proj_T4096", "mamba2_in_proj", GEN_BATCH * GEN_PROMPT))
 
 
 def phase_zamba_k3(torch, dev, cvalues, flush):
     """K3 at phase 7's tiles before anything is served from them: every
     schedule x bit algebra x activation x C dtype against the plain version
     (phase 3's limits), each launch on the path the rules predict (the
-    grid's FMA body at td 131 and 419; stream's maps by
+    grid's tensor-core body for bf16 x and C above T = 4 at td 131 and 419
+    as at 128, its FMA body otherwise; stream's maps by
     ``stream_tensor_maps``); then zamba2's in_proj and out_proj at T = 4 and
-    4096 at the default rule's schedule, timed beside their bound, the
-    plain version and a dense bf16 matmul."""
+    4096 and mamba2-130m's in_proj at 4096 at the default rule's schedule,
+    timed beside their bound, the plain version and a dense bf16 matmul."""
     from repro_torch.configs import get_config
     from repro_torch.core import quantized
     from repro_torch.core.compress import pick_tile
@@ -2108,12 +2119,18 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
                                       xd, cd, mp.shape[2])
                 ran += hold_variants(torch, bl.bitlinear, ref.bitlinear_ref, label, x, mp, C,
                                      xd, cd, ("grid", "decode", "stream"), errs, paths)
+        # bf16 x and C: each bit algebra x grid option on the tensor cores
+        # above T = 4 (odd td included), on the FMA body at T = 4
+        want_mma = 2 * len(MODE_OPTIONS["grid"]) if T > bl.SMALL_T else 0
+        check(paths.get("tensor_cores", 0) == want_mma,
+              f"{label}: {paths.get('tensor_cores', 0)} grid launches on the tensor cores, "
+              f"want {want_mma}")
         checks[label] = {"tensor": name, "T": T,
                          "shape": list(mp.shape[:3]) + list(w["C"].shape[2:]),
                          "variants_held": ran, "paths": paths}
     timing = {}
     for label, name, T in ZAMBA_K3:
-        if name == "mamba2_in_proj":
+        if label == "mamba2_in_proj_T4":
             continue
         w = weights[name]
         mp, C = w["m_packed"], w["C"]
@@ -2130,10 +2147,13 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
                                                  flush, busy=busy) for busy in (False, True))
         del w_dense
         b_bytes, b_ops = k3_bound(mp, C, T, 2)
+        on_mma = sched.mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, 2, 2)
+        check(on_mma == (T > bl.SMALL_T), f"{label}: tensor cores {on_mma} at T = {T}")
         timing[label] = {
             "T": T, "shape": [n_r, mp.shape[1], tn, K, td],
-            "schedule": f"{sched.mode}/{sched.math}",
-            "tensor_cores": sched.mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, 2, 2),
+            "schedule": f"{sched.mode}/{sched.math}", "tensor_cores": on_mma,
+            # (columns, chunks) of the tensor-core body's column chunks
+            **({"mma_chunk": list(bl.grid_mma_chunk(td))} if on_mma else {}),
             "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library_device_ms": library_device_ms, "bound_ms": max(b_bytes, b_ops),
             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
@@ -2178,9 +2198,28 @@ def zamba_prefill(torch, cfg, eng, prompts, dev, setup):
 def phase_zamba_generate(torch, dev, out_dir):
     """``serve_model`` from phase 7's checkpoint: 32 tokens for 4 prompts of
     1024 tokens.  K3 launches once per compressed layer slice and shared-block
-    call per forward (118), per schedule as its resolutions picked; K5 once
+    call per forward (118), per schedule as its resolutions picked, the
+    prefill's 118 on the tensor cores (in_proj at td 131 too); K5 once
     per ``ssm_attn`` layer per prefill (6).  The bf16 prefill logits are held
     against the plain path within LOGIT_TOL of max|logit|."""
+    cfg = zamba_config()
+    n_shared = zamba_shared_calls(cfg)
+    out = ssm_generate(torch, dev, cfg, out_dir, zamba_uses(cfg), n_shared,
+                       2 * cfg.num_layers + 7 * n_shared, 118, "phase 7")
+    emit({"zamba2_generate": out})
+    return out
+
+
+def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, literal, label):
+    """Serve ``cfg`` from its checkpoint in ``out_dir`` (phase 7's serve:
+    GEN_BATCH prompts of GEN_PROMPT tokens, GEN_STEPS new ones, an eos never
+    emitted) and check it: K3 ``per_forward_want`` (= ``literal``) calls a
+    forward, K5 ``n_shared`` a prefill, no other kernel; launches per
+    schedule as the resolutions picked, every prefill call of K3 on the
+    tensor cores and every decode call at the rule's cluster size (by the
+    library's reports); tokens in range; the bf16 prefill logits with the
+    kernels within LOGIT_TOL of max|logit| of the plain path's, with the
+    residual streams' distance after every block.  Returns the report."""
     from repro_torch.kernels import autotune, ops
     from repro_torch.kernels import bitlinear as bl
     from repro_torch.kernels import flash_attention as fa
@@ -2188,8 +2227,6 @@ def phase_zamba_generate(torch, dev, out_dir):
     from repro_torch.launch.serve import serve_model
     from repro_torch.serving import Engine
 
-    cfg = zamba_config()
-    uses, n_shared = zamba_uses(cfg), zamba_shared_calls(cfg)
     eos = cfg.vocab_size                     # never emitted: launch counts are fixed
     torch.cuda.synchronize()
     sa.sa_sweep_many.launches = 0
@@ -2207,44 +2244,46 @@ def phase_zamba_generate(torch, dev, out_dir):
     per_forward = sum(uses(p, e) for p, e in eng.artifact.manifest["tensors"].items())
     want = {"bitlinear": per_forward * GEN_STEPS, "bitlinear_grouped": 0,
             "flash_attention": n_shared, "sa_sweep_many": 0}
-    check(per_forward == 2 * cfg.num_layers + 7 * n_shared == 118 and launches == want,
-          f"launches {launches}, want {want} ({per_forward} K3 calls a forward)")
+    check(per_forward == per_forward_want == literal and launches == want,
+          f"{label}: launches {launches}, want {want} ({per_forward} K3 calls a forward)")
     by_schedule = served(bl.bitlinear)
     tensor_cores, clusters = heuristic_launches(torch, dev, eng.artifact.manifest,
                                                 {"bitlinear": by_schedule}, zamba_tokens,
-                                                "phase 7", uses)
+                                                label, uses)
+    check(tensor_cores == {"bitlinear": per_forward},
+          f"{label}: tensor-core launches {tensor_cores}, want the prefill's {per_forward}")
     ttft = ttft_repeats(eng, res.prompts, res.timing["prefill_s"])
     toks = res.tokens
     check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
           and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
           and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
-          f"generated tokens {tuple(toks.shape)} out of shape or range")
+          f"{label}: generated tokens {tuple(toks.shape)} out of shape or range")
 
     # bf16 prefill logits with the kernels against the plain path, and where
     # along the layers the two residual streams part
     (lk, hk), launched = zamba_prefill(torch, cfg, eng, res.prompts, dev, ops.enable_kernels)
     (lp, hp), _ = zamba_prefill(torch, cfg, eng, res.prompts, dev, ops.disable_kernels)
     check(launched == {"bitlinear": per_forward, "flash_attention": n_shared},
-          f"the kernel prefill launched {launched}")
+          f"{label}: the kernel prefill launched {launched}")
     check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
-          "prefill logits are not finite")
+          f"{label}: prefill logits are not finite")
     scale = float(lp.abs().max())
     err = float((lk - lp).abs().max())
     layers = [{"kind": kind, "rel_diff": float((a.float() - b.float()).abs().max())
                / float(b.float().abs().max())} for (kind, a), (_, b) in zip(hk, hp)]
     del hk, hp
     check(err <= LOGIT_TOL * scale,
-          f"zamba2 prefill logits kernels vs plain: {err:.3g} > {LOGIT_TOL} x {scale:.3g}; "
-          f"per layer {layers}")
+          f"{label}: {cfg.name} prefill logits kernels vs plain: {err:.3g} > {LOGIT_TOL} x "
+          f"{scale:.3g}; per layer {layers}")
     before = (fa.flash_attention.launches, bl.bitlinear.launches)
     plain = Engine(cfg, eng.params, max_len=GEN_PROMPT + GEN_STEPS, batch=GEN_BATCH, eos_id=eos,
                    artifact=eng.artifact, use_fused_bitlinear=False)
     toks_plain = plain.generate(res.prompts, GEN_STEPS)
     check((fa.flash_attention.launches, bl.bitlinear.launches) == before,
-          "the plain path launched a kernel")
+          f"{label}: the plain path launched a kernel")
     same = (toks[:, GEN_PROMPT:] == toks_plain[:, GEN_PROMPT:]).float()
     t = res.timing
-    out = {
+    return {
         "launches": launches,
         "bitlinear_by_schedule": by_schedule,
         "tensor_core_launches": tensor_cores,
@@ -2263,7 +2302,68 @@ def phase_zamba_generate(torch, dev, out_dir):
         "plain_timing": plain.last_timing,
         "compression": eng.compression,
     }
-    emit({"zamba2_generate": out})
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: mamba2-130m whole (attention-free: SSD blocks only)
+# ---------------------------------------------------------------------------
+
+MAMBA2_ARCH = "mamba2-130m"
+
+
+def mamba2_config():
+    """mamba2-130m at its published widths and depth, bf16."""
+    from repro_torch.configs import get_config
+
+    return get_config(MAMBA2_ARCH)
+
+
+def phase_mamba2(torch, dev, out_dir):
+    """The whole mamba2-130m (published widths, 24 layers, random weights
+    from seed 0, bf16) compressed with the default policy (in_proj at 32 x
+    419: 4,608 tiles; out_proj at 32 x 128: 6,912; no kernel launched) and
+    served as phase 7 serves zamba2: K3 48 calls a forward, every prefill
+    call on the tensor cores (in_proj in three 144-column chunks), no K5;
+    the bf16 prefill logits within LOGIT_TOL of the plain path's."""
+    from repro_torch.compression import CompressionPolicy
+    from repro_torch.core.compress import pick_tile
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.compress import compress_model
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = mamba2_config()
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    t0 = time.time()
+    _, artifact = compress_model(cfg, CompressionPolicy(), out_dir, seed=SEED, device=dev,
+                                 values=values, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    del values
+    check((sa.sa_sweep_many.launches, bl.bitlinear.launches, bl.bitlinear_grouped.launches,
+           fa.flash_attention.launches) == (0, 0, 0, 0), "phase 7b: compression launched a kernel")
+    m = artifact.manifest
+    d, di, L = cfg.d_model, cfg.d_inner, cfg.num_layers
+    d_in_proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + cfg.ssm_nheads
+    td = pick_tile(d_in_proj, 128)
+    want = {(32, td, 4): L * d * d_in_proj // (32 * td), (32, 128, 4): L * di * d // (32 * 128)}
+    got = {(p["tile_n"], p["tile_d"], p["K"]): p["num_tiles"] for p in m["pools"]}
+    check(got == want == {(32, 419, 4): 4608, (32, 128, 4): 6912},
+          f"phase 7b: pools {got}, the config gives {want}")
+    gen = ssm_generate(torch, dev, cfg, out_dir, layer_slices, 0, 2 * L, 48, "phase 7b")
+    out = {"config": {"arch": cfg.name, "num_layers": L,
+                      "widths": "published (d_model 768, d_inner 1536, 24 SSM heads of 64, "
+                                "state 128, 1 group, conv 4, chunk 256; vocab 50280, tied, "
+                                "bf16)", "reduced": []},
+           "compress_wall_s": wall, "pools": {f"{k[0]}x{k[1]}": v for k, v in got.items()},
+           "totals": m["totals"], **gen}
+    emit({"mamba2_generate": out})
     return out
 
 
@@ -2316,16 +2416,19 @@ def main_path_smem(torch):
     main path's shapes: K5 (two stages of 64-row K and V tiles, rows padded
     by 8 bf16, as csrc/flash_attention.cu's mma_smem) at hd 128 and 64, and
     the grid (the built library's own layout) at qwen's prefill (T = 4096,
-    tile 32 x 128, K = 4, 160 r tiles: wq) and granite's expert prefill
-    (T = 1,280 per expert, the same tile, 32 r tiles: gate/up)."""
+    tile 32 x 128, K = 4, 160 r tiles: wq), granite's expert prefill
+    (T = 1,280 per expert, the same tile, 32 r tiles: gate/up) and the
+    in_proj prefills of zamba2 (tile 32 x 131, 64 r tiles) and mamba2-130m
+    (32 x 419, 24 r tiles)."""
     from repro_torch.kernels import bitlinear as bl
 
+    T = GEN_BATCH * GEN_PROMPT
     return {
         "flash_mma_kernel": {hd: 2 * 2 * 64 * (hd + 8) * 2 for hd in (128, 64)},
         "bitlinear_mma_kernel": {
-            f"T={T},n_r={n_r}": bl.smem_bytes("grid", T=T, n_r=n_r, tn=32, K=4, td=128,
-                                              x_itemsize=2, c_itemsize=2)
-            for T, n_r in ((GEN_BATCH * GEN_PROMPT, 160), (1280, 32))},
+            f"T={T},n_r={n_r},td={td}": bl.smem_bytes("grid", T=T, n_r=n_r, tn=32, K=4, td=td,
+                                                      x_itemsize=2, c_itemsize=2)
+            for T, n_r, td in ((T, 160, 128), (1280, 32, 128), (T, 64, 131), (T, 24, 419))},
     }
 
 
@@ -2431,6 +2534,14 @@ def main() -> int:
         phases["zamba2_generate_s"] = time.time() - t
     finally:
         shutil.rmtree(zamba_dir, ignore_errors=True)
+    mamba2_dir = os.path.join(ROOT, "build", "chip_smoke_mamba2_ckpt")
+    shutil.rmtree(mamba2_dir, ignore_errors=True)
+    try:
+        t = time.time()
+        mamba2_gen = phase_mamba2(torch, dev, mamba2_dir)
+        phases["mamba2_s"] = time.time() - t
+    finally:
+        shutil.rmtree(mamba2_dir, ignore_errors=True)
     t = time.time()
     paper = phase_paper(torch, dev)
     phases["paper_s"] = time.time() - t
@@ -2479,6 +2590,7 @@ def main() -> int:
          "launches": gen["launches"]["bitlinear"], "launches_phase3": k3_layer_launches,
          "launches_phase5": moe_gen["launches"]["bitlinear"],
          "launches_phase7": zamba_gen["launches"]["bitlinear"],
+         "launches_phase7b": mamba2_gen["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -2500,8 +2612,9 @@ def main() -> int:
                                "decode": "src/repro/kernels/bitlinear.py:369",
                                "stream": "src/repro/kernels/bitlinear.py:388"}),
          # phase 7: zamba2's in_proj (tile 32 x 131) and out_proj at T = 4 and
-         # 4096, at the default rule's schedule, and the worst error of every
-         # variant held at phase 7's tiles
+         # 4096 and mamba2-130m's in_proj (32 x 419) at 4096, at the default
+         # rule's schedule, and the worst error of every variant held at
+         # phase 7's tiles
          "zamba2": {**zamba_k3["timing"], "max_abs_err": zamba_k3["max_abs_err"]}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -83,6 +83,27 @@ class CompressionPlan:
     def pred_ratio(self) -> float:
         return self.total_orig_bytes / max(self.total_pred_bytes, 1)
 
+    def total_bytes(self) -> int:
+        """Predicted post-compression bytes of the planned tensors (skipped
+        tensors keep their dense bytes and are out of the accounting)."""
+        return self.total_pred_bytes
+
+    @property
+    def compression_ratio(self) -> float:
+        """Predicted orig/compressed byte ratio over the planned tensors."""
+        return self.pred_ratio
+
+    def skip_summary(self) -> dict:
+        """Distinct skip reasons -> count, in order of first occurrence;
+        per-path ``rule ... -> skip`` reasons collapse into one
+        ``rule -> skip`` bucket."""
+        out: dict = {}
+        for _, reason in self.skipped:
+            if reason.startswith("rule ") and reason.endswith("-> skip"):
+                reason = "rule -> skip"
+            out[reason] = out.get(reason, 0) + 1
+        return out
+
     def pools(self) -> dict:
         """pool_key -> list[TensorPlan], insertion-ordered."""
         out: dict = {}
@@ -95,9 +116,23 @@ class CompressionPlan:
             f"CompressionPlan: {len(self.tensors)} tensors, "
             f"{len(self.skipped)} skipped, "
             f"{self.total_orig_bytes / 2**20:.2f} -> "
-            f"{self.total_pred_bytes / 2**20:.2f} MiB "
-            f"(predicted x{self.pred_ratio:.2f})"
+            f"{self.total_bytes() / 2**20:.2f} MiB "
+            f"(predicted x{self.compression_ratio:.2f})"
         ]
+        skips = self.skip_summary()
+        if skips:
+            lines.append("  skips: " + ", ".join(f"{r} x{n}" for r, n in skips.items()))
+        if self.autotune:
+            # the autotune block is free-form dict data: a partial one must
+            # not crash the printable form
+            a = self.autotune
+            lines.append(
+                f"  autotune[{a.get('engine', '?')}]: budget "
+                f"{a.get('budget_bytes', 0) / 2**20:.2f} MiB, allocated "
+                f"{a.get('predicted_bytes', 0) / 2**20:.2f} MiB, predicted "
+                f"distortion {a.get('predicted_distortion', float('nan')):.4g}"
+                + (" (calibrated)" if a.get("calibrated") else "")
+            )
         for t in self.tensors:
             rule = f"  [{t.rule}]" if t.rule else ""
             lines.append(
@@ -114,6 +149,24 @@ class CompressionPlan:
         for path, reason in self.skipped:
             lines.append(f"  [skip] {path}: {reason}")
         return "\n".join(lines)
+
+    def diff(self, other: "CompressionPlan") -> list:
+        """Per-path differences from ``other``: ``+`` only there, ``-`` only
+        here, ``~`` the TensorPlan fields that differ."""
+        mine = {t.path: t for t in self.tensors}
+        theirs = {t.path: t for t in other.tensors}
+        out = []
+        for path in sorted(set(mine) | set(theirs)):
+            a, b = mine.get(path), theirs.get(path)
+            if a is None:
+                out.append(f"+ {path}: only in other")
+            elif b is None:
+                out.append(f"- {path}: only in self")
+            elif a != b:
+                fields = [f.name for f in dataclasses.fields(TensorPlan)
+                          if getattr(a, f.name) != getattr(b, f.name)]
+                out.append(f"~ {path}: {', '.join(fields)}")
+        return out
 
     def to_dict(self) -> dict:
         d = {

@@ -53,6 +53,14 @@ class IsingProblem(NamedTuple):
     h: torch.Tensor
     B: torch.Tensor
 
+    @property
+    def num_problems(self) -> int:
+        return self.h.shape[0]
+
+    @property
+    def num_spins(self) -> int:
+        return self.h.shape[-1]
+
 
 def random_problems(generator: torch.Generator, num_problems: int, n: int,
                     scale: float = 0.3) -> IsingProblem:

@@ -1,6 +1,6 @@
 // Kernels K3 and K4, grid schedule: bf16 x with bf16 C on the tensor cores
 // (bitlinear_mma_kernel: a block per (row block, expert, four column tiles,
-// 128-column chunk)), every other call on the FMA pipes (bitlinear_kernel:
+// column chunk of up to 144 columns, td padded to a multiple of 16)), every other call on the FMA pipes (bitlinear_kernel:
 // a block per (row block of block_t rows, expert and column tile, 32*NCOL
 // column chunk)).  Replaces repro/kernels/bitlinear.py::_kernel (call site
 // :417) and ::_grouped_kernel (:558).  The designs and what bounds them:
@@ -18,7 +18,7 @@ extern "C" {
 // keeps the FMA body.  *tensor_cores is set to 1 when the launch ran the
 // tensor-core body, else 0.  Returns cudaGetLastError() of the launch,
 // cudaErrorMisalignedAddress for a tensor-core call whose x or C is not
-// 16-byte or M not 4-byte aligned, or minus the block's shared memory in
+// 16-byte or M or y not 4-byte aligned, or minus the block's shared memory in
 // bytes when that is over smem_budget (nothing launched).
 int bitlinear_grid(const void* x, const uint8_t* m_packed, const void* C, void* y, int E, int T,
                    int n_r, int n_c, int tn, int kb, int K, int td, int x_kind, int c_bf16,

@@ -209,48 +209,76 @@ __global__ void __launch_bounds__(BT <= 2 ? 1024 : 512)
 //       memory and read with ldmatrix.trans.
 // The first product has n = 8, so an x fragment feeds few mma: x is the
 // traffic.  A block therefore owns rows_block rows of one expert and
-// MMA_NCB column tiles, whose warps share each staged x tile, and up to
-// 16 * NTP columns of each.  It walks its rows in passes of 16 * mt rows
-// (mt = min(MMA_ROW_TILES, ceil(T / 16)) row tiles); when T has fewer row
-// tiles, rs = MMA_ROW_TILES / mt warps share each (row tile, column tile)
-// and split every step's r tiles between them, their partial sums added in
-// warp order at the end, through the stages' shared memory.  Warp w owns
-// row tile w % mt, column tile (w / mt) % MMA_NCB and r phase
+// MMA_NCB column tiles, whose warps share each staged x tile, and one
+// column chunk of CW = 16 * NTP columns of each: td padded up to a multiple
+// of 16 with zero C columns, mma_ntp picking NTP so that the fewest chunks
+// of at most MMA_MAX_NTP n-tile pairs cover it (td 128: one chunk of 128;
+// 131: one of 144; 419: three of 144; 37: one of 48).  At NTP 9 the 72
+// accumulators leave no registers for an unrolled z loop or for s (both
+// spilled), so that instance rolls the loop over a half's tiles and folds
+// -s / 2 into z's accumulator (an mma against -1/2; z = 2 (zb - s / 2) is
+// 2 zb - s but for the f32 sums' order).  A block walks its rows in passes
+// of 16 * mt rows (mt = min(MMA_ROW_TILES, ceil(T / 16)) row tiles); when T
+// has fewer row tiles, rs = MMA_ROW_TILES / mt warps share each (row tile,
+// column tile) and split every step's r tiles between them, their partial
+// sums added in warp order at the end, through the stages' shared memory.
+// Warp w owns row tile w % mt, column tile (w / mt) % MMA_NCB and r phase
 // w / (mt * MMA_NCB).  Each step stages the x columns, M bits and stacked C
 // of tiles_step = rs * u * GRP r tiles (u = ceil(r_chunk / GRP) z groups
 // per warp) through cp.async into one of MMA_STAGES shared-memory stages,
-// so the next step's copy is in flight while this one is consumed.  Rows
-// past T, tiles past n_r, column tiles past n_c and C rows past K are
-// zero-filled, so 0 x garbage never makes a NaN.  Consecutive blocks take
-// consecutive column-tile blocks of one row block, sharing its x rows in L2.
-// The block's warps share each staged x tile (its MMA_NCB column-tile
-// warps) and C tile (its row-tile warps), so a step ends in a block
-// barrier.  Staging per warp, with no barrier in the r loop, copies x and C
-// once per warp instead: the 16-warp block's stages then need 283 KB, over
-// the card's 227 KB, and at 8 warps it ran 2.6x slower than this block
-// (BITLINEAR_MMA_VARIANT 3, tools/torch_grid_variants.py, PERF.md).
-// What holds it back (H100, qwen3-32b's gate at T = 4096, the same tool):
-// the staging alone moves x and C at ~2.7 TB/s with one step in flight and
-// takes as long as a dense bf16 matmul, and the mma work alone as long
-// again (each warp unpacks M's bits and reloads C's fragments for only 16
-// rows); they overlap little.  The constants below are the fastest of the
-// block shapes timed there; warp tiles of 32+ rows, wgmma and TMA are
-// later work.
+// so the next step's copy is in flight while this one is consumed.
+// C's rows ((r, c, k): td bf16 at ((r * n_c + c) * K + k) * td) start on a
+// 16-byte boundary only when td % 8 == 0; then they are copied straight
+// into each stage's padded layout that ldmatrix reads.  Otherwise (zamba2's
+// 131, mamba2-130m's 419; the ODD instances) C is copied raw, in the
+// 16-byte units that cover it from the boundary at or below its start --
+// where one chunk covers td, each r tile's span of the block's MMA_NCB
+// column tiles (K * td * MMA_NCB contiguous bf16), else each row's chunk --
+// into one of MMA_STAGES - 1 raw slots; once it has landed, a block pass
+// shifts every row into the one padded layout the step's warps read
+// (repack_c: a warp per row, a lane per 4-byte word, byte-permuted by 2
+// where the row starts 2 bytes off), and the next step's copies go out
+// into the slot it emptied.  That is one more block barrier a step, and
+// shared memory for one padded C and the raw slots instead of one padded C
+// a stage (two would not fit at T <= 16, where 4 warps split each tile's
+// r).  BITLINEAR_MMA_C_STAGING names the alternatives timed.  Rows past T,
+// tiles past n_r, column tiles past n_c, C rows past K and C columns past
+// td are zero-filled, so 0 x garbage never makes a NaN.  y is never stored
+// past cw (a tile's padded columns are its neighbour's); at td % 8 != 0 it
+// goes through shared memory and each row's columns of the block's tiles
+// are stored by consecutive lanes, 4 bytes a lane from the first 4-byte
+// boundary.  Consecutive blocks take consecutive column-tile blocks of one
+// row block, sharing its x rows in L2.  The block's warps share each staged
+// x tile (its MMA_NCB column-tile warps) and C tile (its row-tile warps),
+// so a step ends in a block barrier.  (Staging per warp, with no barrier in
+// the r loop, copied x and C once per warp and ran 2.6x slower at 8 warps:
+// PERF.md.)
+// What holds it back (H100, T = 4096, tools/torch_grid_variants.py): at
+// td 128 (qwen3-32b's gate) the staging alone moves x and C at ~2.7 TB/s
+// with one step in flight and takes as long as a dense bf16 matmul, and the
+// mma work alone as long again (each warp unpacks M's bits and reloads C's
+// fragments for only 16 rows); they overlap little.  At td 131 (zamba2's
+// in_proj) the repack pass and its barrier add a third of the call, and
+// the x restaged for each 144-column chunk more.  The constants below are
+// the fastest of the block shapes timed at td 128; warp tiles of 32+ rows,
+// wgmma and TMA are later work.
 // Calls it takes: T > small_t (the launch's argument: kernels/bitlinear.py's
 // SMALL_T, up to which the default rule decodes), K <= 8 (kb = 1),
-// tn % 8 == 0, td % 16 == 0; x and C must be 16-byte and M 4-byte aligned
-// (the wrapper clones a tensor that is not; the launch refuses it).  Up to
-// small_t rows the grid keeps the FMA body: its block is far smaller, so
-// the rule's fallback to the grid, for a call whose decode block does not
-// fit, still has one that does.  Any other bf16 x bf16 call, and
-// every call with f32 or int8 x or f32 C, runs bitlinear_kernel's FMA body.
+// tn % 8 == 0, any td; x and C must be 16-byte and M and y 4-byte aligned
+// (the wrapper clones a tensor that is not and allocates y; the launch
+// refuses it).  Up to small_t rows the grid keeps the FMA body: its block is
+// far smaller, so the rule's fallback to the grid, for a call whose decode
+// block does not fit, still has one that does.  Every call with f32 or int8
+// x or f32 C runs bitlinear_kernel's FMA body.
 
 // The block shape, and BITLINEAR_MMA_VARIANT: 0 the kernel; the others are
 // diagnostics that tools/torch_grid_variants.py builds with -D, as are
 // other shapes: 1 staging only (no mma; y is 0), 2 mma only (no
-// copies after the first stages, y wrong), 3 per-warp staging (each warp
-// copies its own x, M and C tiles and waits on no block barrier in the r
-// loop; x and C are then staged once per warp instead of once per block).
+// copies after the first stages, y wrong), 4 no repack_c pass (C stale, y
+// wrong), 5 no store of y.  BITLINEAR_MMA_C_STAGING, for C at td % 8 != 0:
+// 1 raw spans, 2 raw rows, always; 0 (as built) spans where one chunk
+// covers td, else rows (a span holds every chunk's columns).
+// BITLINEAR_MMA_MAX_NTP caps a column chunk at 16 * it columns.
 #ifndef BITLINEAR_MMA_ROW_TILES
 #define BITLINEAR_MMA_ROW_TILES 4
 #endif
@@ -266,18 +294,40 @@ __global__ void __launch_bounds__(BT <= 2 ? 1024 : 512)
 #ifndef BITLINEAR_MMA_VARIANT
 #define BITLINEAR_MMA_VARIANT 0
 #endif
+#ifndef BITLINEAR_MMA_C_STAGING
+#define BITLINEAR_MMA_C_STAGING 0
+#endif
+#ifndef BITLINEAR_MMA_MAX_NTP
+#define BITLINEAR_MMA_MAX_NTP 9
+#endif
 constexpr int MMA_STAGES = BITLINEAR_MMA_STAGES;
 constexpr int MMA_ROW_TILES = BITLINEAR_MMA_ROW_TILES;   // row tiles (of 16) per pass
 constexpr int MMA_NCB = BITLINEAR_MMA_NCB;               // column tiles per block
 constexpr int MMA_WARPS = MMA_ROW_TILES * MMA_NCB;
 constexpr int MMA_MIN_BLOCKS = BITLINEAR_MMA_MIN_BLOCKS; // resident blocks per SM for registers
-constexpr bool MMA_WARP_STAGING = BITLINEAR_MMA_VARIANT == 3;
+constexpr int MMA_C_STAGING = BITLINEAR_MMA_C_STAGING;
+constexpr int MMA_MAX_NTP = BITLINEAR_MMA_MAX_NTP;
+static_assert(MMA_MAX_NTP >= 3 && MMA_MAX_NTP <= 9, "a chunk is 3 to 9 n-tile pairs");
+static_assert(MMA_STAGES >= 2, "one stage in flight at least");
 
 __host__ __device__ __forceinline__ bool grid_on_mma(int T, int small_t, int tn, int kb, int K,
                                                      int td, size_t xsize, size_t csize) {
   return T > small_t && xsize == 2 && csize == 2 && kb == 1 && K >= 1 && K <= 8 && tn > 0 &&
-         tn % 8 == 0 && td > 0 && td % 16 == 0;
+         tn % 8 == 0 && td > 0;
 }
+
+// NTP, the 16-column n-tile pairs of a column chunk: the fewest chunks of at
+// most MMA_MAX_NTP pairs cover td padded to a multiple of 16, split evenly,
+// and NTP is the smallest instantiated count (3, 4, 8, 9) that holds a share.
+inline int mma_ntp(int td) {
+  const int n16 = (td + 15) / 16;
+  const int chunks = (n16 + MMA_MAX_NTP - 1) / MMA_MAX_NTP;
+  const int need = (n16 + chunks - 1) / chunks;
+  return need <= 3 ? 3 : need <= 4 ? 4 : need <= 8 ? 8 : 9;
+}
+
+// C's rows start on a 16-byte boundary (copied straight into the padded layout)
+__host__ __device__ __forceinline__ bool c_rows_aligned(int td) { return td % 8 == 0; }
 
 // n / d for 0 <= n < 2^31 by a multiply and a shift (d fixed per launch)
 struct FastDiv {
@@ -300,10 +350,17 @@ __device__ __forceinline__ int ncb_index(int v, int span) {
   return q;
 }
 
-// The tensor-core grid's block geometry for T rows (see above).
+// The tensor-core grid's block geometry for T rows (see above).  Each of
+// the MMA_STAGES stages holds [x rows][stacked C, padded][M bits]; where C's
+// rows are unaligned (c_raw) a stage holds [x rows][M bits], and after the
+// stages come one stacked C, padded, that repack_c fills for the step being
+// consumed, and MMA_STAGES - 1 slots of raw C for the steps in flight (the
+// next step's copies go out after repack_c, into the slot it emptied).
 struct MmaGeom {
-  int mt, rs, u, kp, grp, tiles_step, cw, xld;
-  size_t x_bytes, c_bytes, m_bytes, stage, smem;
+  int mt, rs, u, kp, grp, tiles_step, cw, xld, raw_ld, raw_chunks;
+  bool c_raw;   // td % 8 != 0: C staged raw, then repack_c
+  bool span;    // raw C as each r tile's span of the block's column tiles (else per row)
+  size_t x_bytes, c_bytes, m_bytes, raw_bytes, stage, c_offset, raw_offset, smem;
 };
 
 inline MmaGeom mma_geom(int T, int tn, int K, int td, int r_chunk) {
@@ -315,31 +372,48 @@ inline MmaGeom mma_geom(int T, int tn, int K, int td, int r_chunk) {
   g.grp = 16 / g.kp;
   g.u = (r_chunk + g.grp - 1) / g.grp;
   g.tiles_step = g.rs * g.u * g.grp;
-  g.cw = td <= 64 ? 64 : 128;
-  if (MMA_WARP_STAGING) {   // a stage per warp: its row tile's x, its column tile's C and M
-    g.xld = g.u * g.grp * tn + 8;
-    g.x_bytes = align16((size_t)16 * g.xld * 2);
-    g.c_bytes = align16((size_t)g.u * 16 * (g.cw + 8) * 2);
-    g.m_bytes = align16((size_t)g.u * g.grp * tn);
-  } else {
-    g.xld = g.tiles_step * tn + 8;   // padded row: 16-byte rows land in distinct banks
-    g.x_bytes = align16((size_t)g.mt * 16 * g.xld * 2);
-    g.c_bytes = align16((size_t)MMA_NCB * g.rs * g.u * 16 * (g.cw + 8) * 2);
-    g.m_bytes = align16((size_t)MMA_NCB * g.tiles_step * tn);
+  g.cw = 16 * mma_ntp(td);
+  g.xld = g.tiles_step * tn + 8;   // padded row: 16-byte rows land in distinct banks
+  g.x_bytes = align16((size_t)g.mt * 16 * g.xld * 2);
+  const size_t c_rows = (size_t)MMA_NCB * g.rs * g.u * 16;
+  g.c_bytes = align16(c_rows * (g.cw + 8) * 2);
+  g.m_bytes = align16((size_t)MMA_NCB * g.tiles_step * tn);
+  g.c_raw = !c_rows_aligned(td);
+  g.span = g.c_raw && (MMA_C_STAGING == 1 || (MMA_C_STAGING == 0 && td <= g.cw));
+  // raw C: the 16-byte units from the boundary at or below a row's (span's)
+  // start that cover it, and room for the last word repack_c reads
+  g.raw_ld = g.raw_chunks = 0;
+  g.raw_bytes = 0;
+  if (g.span) {
+    g.raw_chunks = (int)(align16((size_t)MMA_NCB * K * td * 2 + 14) / 16);
+    g.raw_ld = 16 * (g.raw_chunks + 2);
+    g.raw_bytes = (size_t)g.tiles_step * g.raw_ld;
+  } else if (g.c_raw) {
+    g.raw_chunks = g.cw / 8 + 1;   // covers 14 + 2 cw bytes
+    g.raw_ld = 16 * (g.raw_chunks + 1);
+    g.raw_bytes = c_rows * g.raw_ld;
   }
-  g.stage = g.x_bytes + g.c_bytes + g.m_bytes;
+  g.stage = g.x_bytes + g.m_bytes + (g.c_raw ? 0 : g.c_bytes);
+  g.c_offset = g.c_raw ? MMA_STAGES * g.stage : g.x_bytes;   // absolute, or within a stage
+  g.raw_offset = g.c_offset + g.c_bytes;
   const size_t stages =
-      MMA_STAGES * g.stage * (MMA_WARP_STAGING ? (size_t)g.mt * MMA_NCB * g.rs : 1);
-  // the partial sums of warps sharing a tile reuse the stages after the r loop
+      MMA_STAGES * g.stage + (g.c_raw ? g.c_bytes + (MMA_STAGES - 1) * g.raw_bytes : 0);
+  // the partial sums of warps sharing a tile, then (td % 8 != 0) the
+  // block's y rows, reuse the stages after the r loop
   const size_t red = (size_t)(g.rs - 1) * g.mt * MMA_NCB * 16 * g.cw * 4;
+  const size_t ys = c_rows_aligned(td) ? 0 : (size_t)g.mt * 16 * (MMA_NCB * g.cw + 8) * 2;
   g.smem = stages > red ? stages : red;
+  g.smem = g.smem > ys ? g.smem : ys;
   return g;
 }
 
 struct MmaParams {
   int T, n_r, n_c, tn, K, td, rows_block, n_cb, mt, rs, u, xld;
-  int x_bytes, c_bytes, stage_bytes;
-  FastDiv xrow, tn8, crow, mrow;   // 16-byte x chunks per row, tn / 8, C chunks per row, tn / 4
+  int m_offset, c_offset, raw_offset, raw_bytes, raw_ld, stage_bytes;
+  bool span;   // MmaGeom's
+  // 16-byte x chunks per row, tn / 8, C chunks per row (raw: per row or
+  // span), tn / 4
+  FastDiv xrow, tn8, crow, mrow;
 };
 
 // src_bytes 0 zero-fills the destination
@@ -408,7 +482,11 @@ __device__ __forceinline__ uint32_t m_pair(const uint8_t* p, bool mine, uint32_t
   return ((two & bit) ? on : off) | ((two & (bit << 8)) ? on << 16 : off << 16);
 }
 
-template <int KSTEP, int NTP, int KP, bool BITPLANE>
+// ODD: td % 8 != 0 (C's rows unaligned: c_rows_aligned), an instance of
+// its own, so that the aligned calls' code carries none of the raw staging
+// or y through shared memory (with it, qwen's td 128 calls ran 5-10%
+// slower: tools/torch_grid_variants.py --parent)
+template <int KSTEP, int NTP, int KP, bool BITPLANE, bool ODD>
 __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
     bitlinear_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mp,
                          const __nv_bfloat16* __restrict__ Cw, __nv_bfloat16* __restrict__ y,
@@ -418,6 +496,10 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
   constexpr int CW = 16 * NTP;       // columns per block and column tile
   constexpr int CLD = CW + 8;        // padded C row
   constexpr int NT = 2 * NTP;        // n-tiles of 8 columns
+  // 72 accumulators leave no registers for an unrolled z loop or a
+  // separate row-sum accumulator (they spilled): NTP 9 rolls the loop over
+  // a half's tiles and folds s into z's accumulator
+  constexpr bool LEAN = NTP == 9;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -441,16 +523,29 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
   const int m_tile = warp % mt, cq = (warp / mt) % MMA_NCB, ph = warp / (mt * MMA_NCB);
   const int c = cb * MMA_NCB + cq;   // this warp's column tile (idle past n_c)
   float* red = reinterpret_cast<float*>(smem);   // after the r loop: partial sums
-  const uint32_t ones = 0x3F803F80u;   // two bf16 1.0
+  const uint32_t ones = 0x3F803F80u;     // two bf16 1.0
+  const uint32_t halves = 0xBF00BF00u;   // two bf16 -0.5
+
+  // stacked C row rr of a step from tile0: its tile (r, cc) and row k; false
+  // for a row that is zero (k >= K, r >= n_r, cc >= n_c)
+  auto c_row = [&](int rr, int tile0, int& r, int& cc, int& k, int& cqi) {
+    const int kz = rr & 15, j = kz / KP;
+    k = kz - j * KP;
+    cqi = ncb_index(rr, groups_step * 16);
+    cc = cb * MMA_NCB + cqi;
+    r = tile0 + ((rr >> 4) - cqi * groups_step) * GRP + j;
+    return k < K && r < n_r && cc < n_c;
+  };
 
   const int row_end = min(a.T, (rb + 1) * a.rows_block);
   for (int row0 = rb * a.rows_block; row0 < row_end; row0 += P) {
-    // step s's x columns, M bits and stacked C into stage st
+    // step s's x columns and M bits into stage st, its stacked C there too
+    // (ODD: raw into its slot)
     auto issue = [&](int s, int st) {
       unsigned char* base = smem + (size_t)st * a.stage_bytes;
       __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
-      __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(base + a.x_bytes);
-      uint8_t* ms = base + a.x_bytes + a.c_bytes;
+      __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(base + a.c_offset);
+      uint8_t* ms = base + a.m_offset;
       const int tile0 = s * tiles_step;
       const int xrow = a.xrow.d;
       for (int i = threadIdx.x; i < P * xrow; i += blockDim.x) {
@@ -462,16 +557,45 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
                          in ? 16 : 0);
       }
       const int crow = a.crow.d;
-      for (int i = threadIdx.x; i < MMA_NCB * groups_step * 16 * crow; i += blockDim.x) {
-        const int rr = fdiv(i, a.crow), c8 = i - rr * crow;
-        const int kz = rr & 15, j = kz / KP, k = kz - j * KP;
-        const int cqi = ncb_index(rr, groups_step * 16);
-        const int cc = cb * MMA_NCB + cqi;
-        const int r = tile0 + ((rr >> 4) - cqi * groups_step) * GRP + j;
-        const bool in = k < K && r < n_r && cc < n_c && d0 + c8 * 8 < td;
-        cp_async16_zfill(cs + rr * CLD + c8 * 8,
-                         Cw + (in ? (((size_t)r * n_c + cc) * K + k) * td + d0 + c8 * 8 : 0),
-                         in ? 16 : 0);
+      if (!ODD) {   // aligned rows: straight into the padded layout
+        for (int i = threadIdx.x; i < MMA_NCB * groups_step * 16 * crow; i += blockDim.x) {
+          const int rr = fdiv(i, a.crow), c8 = i - rr * crow;
+          int r, cc, k, cqi;
+          const bool in = c_row(rr, tile0, r, cc, k, cqi) && d0 + c8 * 8 < td;
+          cp_async16_zfill(cs + rr * CLD + c8 * 8,
+                           Cw + (in ? (((size_t)r * n_c + cc) * K + k) * td + d0 + c8 * 8 : 0),
+                           in ? 16 : 0);
+        }
+      } else {
+        // raw, in 16-byte units from the boundary at or below each span's
+        // (row's) start, never past this expert's C
+        unsigned char* raw = smem + a.raw_offset + (size_t)(s % (MMA_STAGES - 1)) * a.raw_bytes;
+        const unsigned char* c_end =
+            reinterpret_cast<const unsigned char*>(Cw + (size_t)n_r * n_c * K * td);
+        const int ncols = min(MMA_NCB, n_c - cb * MMA_NCB);
+        const int units = a.span ? tiles_step * crow : MMA_NCB * groups_step * 16 * crow;
+        for (int i = threadIdx.x; i < units; i += blockDim.x) {
+          const int q = fdiv(i, a.crow), c16 = i - q * crow;   // span (r tile) or row
+          const unsigned char* src;
+          int len;
+          if (a.span) {
+            if (tile0 + q >= n_r) continue;
+            src = reinterpret_cast<const unsigned char*>(
+                Cw + ((size_t)(tile0 + q) * n_c + cb * MMA_NCB) * K * td);
+            len = 2 * ncols * K * td;
+          } else {
+            int r, cc, k, cqi;
+            if (!c_row(q, tile0, r, cc, k, cqi)) continue;
+            src = reinterpret_cast<const unsigned char*>(
+                Cw + (((size_t)r * n_c + cc) * K + k) * td + d0);
+            len = 2 * cw;
+          }
+          const int lead = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+          if (c16 * 16 >= lead + len) continue;
+          src += c16 * 16 - lead;
+          cp_async16_zfill(raw + (size_t)q * a.raw_ld + c16 * 16, src,
+                           (int)min(16LL, (long long)(c_end - src)));
+        }
       }
       const int mrow = a.mrow.d;
       for (int i = threadIdx.x; i < MMA_NCB * tiles_step * mrow; i += blockDim.x) {
@@ -484,47 +608,39 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
                         in ? 4 : 0);
       }
     };
-    // MMA_WARP_STAGING: step s's tiles of this warp alone into its slice of stage st
-    auto issue_warp = [&](int s, int st) {
-      if (c >= n_c) return;   // an idle warp reads nothing
-      unsigned char* base = smem + ((size_t)st * (blockDim.x >> 5) + warp) * a.stage_bytes;
-      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(base);
-      __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(base + a.x_bytes);
-      uint8_t* ms = base + a.x_bytes + a.c_bytes;
-      const int tile0 = s * tiles_step + ph * u * GRP;
-      const int xrow = a.xrow.d;
-      for (int i = lane; i < 16 * xrow; i += 32) {
-        const int r = fdiv(i, a.xrow), c8 = i - r * xrow;
-        const int row = row0 + m_tile * 16 + r;
-        const bool in = row < row_end && tile0 + (int)fdiv(c8, a.tn8) < n_r;
-        cp_async16_zfill(xs + r * xld + c8 * 8,
-                         x + (in ? (size_t)row * d_in + (size_t)tile0 * tn + c8 * 8 : 0),
-                         in ? 16 : 0);
+    // ODD: step s's raw C (landed in its slot) shifted into the block's
+    // padded layout, columns past cw and zero rows zero-filled: a warp per
+    // row, a lane per 4-byte word (two columns), byte-permuted by 2 where
+    // the row starts 2 bytes off
+    auto repack_c = [&](int s) {
+      uint32_t* cs = reinterpret_cast<uint32_t*>(smem + a.c_offset);
+      const int raw = a.raw_offset + (s % (MMA_STAGES - 1)) * a.raw_bytes;
+      const int tile0 = s * tiles_step;
+      for (int rr = warp; rr < MMA_NCB * groups_step * 16; rr += blockDim.x >> 5) {
+        int r, cc, k, cqi, src = 0, b = 0;   // the row's columns at byte b of smem + src
+        const bool in = c_row(rr, tile0, r, cc, k, cqi);
+        if (in && a.span) {
+          const uintptr_t span =
+              reinterpret_cast<uintptr_t>(Cw + ((size_t)r * n_c + cb * MMA_NCB) * K * td);
+          b = (int)(span & 15) + 2 * ((cqi * K + k) * td + d0);
+          src = raw + (r - tile0) * a.raw_ld;
+        } else if (in) {
+          b = (int)(reinterpret_cast<uintptr_t>(Cw + (((size_t)r * n_c + cc) * K + k) * td + d0) &
+                    15);
+          src = raw + rr * a.raw_ld;
+        }
+#pragma unroll 1
+        for (int w = lane; w < CW / 2; w += 32) {
+          uint32_t v = 0u;
+          if (in && 2 * w < cw) {
+            const int bb = src + b + 4 * w;   // the byte of column 2w
+            const uint32_t* p = reinterpret_cast<const uint32_t*>(smem + (bb & ~3));
+            v = (bb & 2) ? __byte_perm(p[0], p[1], 0x5432) : p[0];
+            if (2 * w + 1 >= cw) v &= 0xFFFFu;
+          }
+          cs[rr * (CLD / 2) + w] = v;
+        }
       }
-      const int crow = a.crow.d;
-      for (int i = lane; i < u * 16 * crow; i += 32) {
-        const int rr = fdiv(i, a.crow), c8 = i - rr * crow;
-        const int kz = rr & 15, j = kz / KP, k = kz - j * KP;
-        const int r = tile0 + (rr >> 4) * GRP + j;
-        const bool in = k < K && r < n_r && c < n_c && d0 + c8 * 8 < td;
-        cp_async16_zfill(cs + rr * CLD + c8 * 8,
-                         Cw + (in ? (((size_t)r * n_c + c) * K + k) * td + d0 + c8 * 8 : 0),
-                         in ? 16 : 0);
-      }
-      const int mrow = a.mrow.d;
-      for (int i = lane; i < u * GRP * mrow; i += 32) {
-        const int jt = fdiv(i, a.mrow), b4 = i - jt * mrow;
-        const bool in = tile0 + jt < n_r && c < n_c;
-        cp_async4_zfill(ms + jt * tn + b4 * 4,
-                        mp + (in ? ((size_t)(tile0 + jt) * n_c + c) * tn + b4 * 4 : 0),
-                        in ? 4 : 0);
-      }
-    };
-    auto stage_in = [&](int s, int st) {
-      if (MMA_WARP_STAGING)
-        issue_warp(s, st);
-      else
-        issue(s, st);
     };
 
     float yacc[NT][4];
@@ -536,91 +652,89 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
     __syncthreads();   // the previous pass is done with every stage and with red
 #pragma unroll
     for (int s = 0; s < MMA_STAGES - 1; ++s) {
-      if (s < nsteps) stage_in(s, s);
+      if (s < nsteps) issue(s, s);
       cp_async_commit();
     }
     for (int s = 0; s < nsteps; ++s) {
       cp_async_wait_stages();   // step s has landed (this thread's copies)
-      if (MMA_WARP_STAGING)
-        __syncwarp();           // ... the warp's; its step s-1 slice is free
-      else
-        __syncthreads();        // ... every thread's; step s-1's stage is free
+      __syncthreads();          // ... every thread's; step s-1's stage (and C) is free
+      if (ODD && BITLINEAR_MMA_VARIANT != 4) {
+        repack_c(s);
+        __syncthreads();        // step s's C is whole; its raw slot is free
+      }
       const int ahead = s + MMA_STAGES - 1;
       if (ahead < nsteps && (BITLINEAR_MMA_VARIANT != 2 || ahead < MMA_STAGES))
-        stage_in(ahead, ahead % MMA_STAGES);
+        issue(ahead, ahead % MMA_STAGES);
       cp_async_commit();
       if (c >= n_c || BITLINEAR_MMA_VARIANT == 1) continue;
-      // this warp's x rows, stacked C and M bits in the stage; lq: its first
-      // z group there (its own slice starts at its own first group)
-      const unsigned char* base;
-      const __nv_bfloat16 *xw, *cs;
-      const uint8_t* ms;
-      int lq;
-      if (MMA_WARP_STAGING) {
-        base = smem + ((size_t)(s % MMA_STAGES) * (blockDim.x >> 5) + warp) * a.stage_bytes;
-        xw = reinterpret_cast<const __nv_bfloat16*>(base);
-        cs = reinterpret_cast<const __nv_bfloat16*>(base + a.x_bytes);
-        ms = base + a.x_bytes + a.c_bytes;
-        lq = 0;
-      } else {
-        base = smem + (size_t)(s % MMA_STAGES) * a.stage_bytes;
-        xw = reinterpret_cast<const __nv_bfloat16*>(base) + (size_t)m_tile * 16 * xld;
-        cs = reinterpret_cast<const __nv_bfloat16*>(base + a.x_bytes) +
-             (size_t)cq * groups_step * 16 * CLD;
-        ms = base + a.x_bytes + a.c_bytes + (size_t)cq * tiles_step * tn;
-        lq = ph * u;
-      }
+      // this warp's x rows, stacked C and M bits
+      const unsigned char* base = smem + (size_t)(s % MMA_STAGES) * a.stage_bytes;
+      const __nv_bfloat16* xw = reinterpret_cast<const __nv_bfloat16*>(base) + (size_t)m_tile * 16 * xld;
+      const __nv_bfloat16* cs =
+          reinterpret_cast<const __nv_bfloat16*>((ODD ? smem : base) + a.c_offset) +
+          (size_t)cq * groups_step * 16 * CLD;
+      const uint8_t* ms = base + a.m_offset + (size_t)cq * tiles_step * tn;
       for (int uu = 0; uu < u; ++uu) {
         const int q = ph * u + uu;            // this warp's z group in the step
         const int tq = q * GRP;               // its first tile in the step
-        const int lt = (lq + uu) * GRP;       // ... in the staged tiles
         if (s * tiles_step + tq >= n_r) break;
         float zacc[2][4], sacc[2][4];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
           for (int i = 0; i < 4; ++i) zacc[hh][i] = sacc[hh][i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < GRP; ++j) {
-          if (s * tiles_step + tq + j < n_r) {
-            const int off = (j % PER_HALF) * KP;
-            const bool mine = g >= off && g < off + K;
-            const uint32_t bit = 1u << (mine ? g - off : 0);
-            const uint8_t* mbits = ms + (lt + j) * tn;
-            const __nv_bfloat16* xt = xw + (lt + j) * tn;
-            for (int ks = 0; ks < tn / KSTEP; ++ks) {
-              if (KSTEP == 16) {
-                uint32_t af[4];
-                ldmatrix_x4(af, xt + (lane & 15) * xld + ks * 16 + ((lane >> 4) << 3));
-                const uint32_t b0 = m_pair<BITPLANE>(mbits + ks * 16 + 2 * t4, mine, bit);
-                const uint32_t b1 = m_pair<BITPLANE>(mbits + ks * 16 + 8 + 2 * t4, mine, bit);
-                mma16816(zacc[j / PER_HALF], af, b0, b1);
-                if (BITPLANE) {
-                  const uint32_t o = mine ? ones : 0u;
-                  mma16816(sacc[j / PER_HALF], af, o, o);
-                }
-              } else {
-                uint32_t af[2];
-                ldmatrix_x2(af, xt + (lane & 15) * xld + ks * 8);
-                mma1688(zacc[j / PER_HALF], af,
-                        m_pair<BITPLANE>(mbits + ks * 8 + 2 * t4, mine, bit));
-                if (BITPLANE) mma1688(sacc[j / PER_HALF], af, mine ? ones : 0u);
-              }
+        // z of tile j (of the group) into za, its half of Z, and its row sum
+        // into sa (LEAN: -s / 2 into za)
+        auto z_tile = [&](int j, float(&za)[4], float(&sa)[4]) {
+          const int off = (j % PER_HALF) * KP;
+          const bool mine = g >= off && g < off + K;
+          const uint32_t bit = 1u << (mine ? g - off : 0);
+          const uint8_t* mbits = ms + (tq + j) * tn;
+          const __nv_bfloat16* xt = xw + (tq + j) * tn;
+          const uint32_t o = mine ? (LEAN ? halves : ones) : 0u;
+          for (int ks = 0; ks < tn / KSTEP; ++ks) {
+            if (KSTEP == 16) {
+              uint32_t af[4];
+              ldmatrix_x4(af, xt + (lane & 15) * xld + ks * 16 + ((lane >> 4) << 3));
+              const uint32_t b0 = m_pair<BITPLANE>(mbits + ks * 16 + 2 * t4, mine, bit);
+              const uint32_t b1 = m_pair<BITPLANE>(mbits + ks * 16 + 8 + 2 * t4, mine, bit);
+              mma16816(za, af, b0, b1);
+              if (BITPLANE) mma16816(sa, af, o, o);
+            } else {
+              uint32_t af[2];
+              ldmatrix_x2(af, xt + (lane & 15) * xld + ks * 8);
+              mma1688(za, af, m_pair<BITPLANE>(mbits + ks * 8 + 2 * t4, mine, bit));
+              if (BITPLANE) mma1688(sa, af, o);
             }
           }
+        };
+        if (LEAN) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll 1
+            for (int jj = 0; jj < PER_HALF; ++jj) {
+              if (s * tiles_step + tq + hh * PER_HALF + jj >= n_r) break;
+              z_tile(hh * PER_HALF + jj, zacc[hh], zacc[hh]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < GRP; ++j)
+            if (s * tiles_step + tq + j < n_r) z_tile(j, zacc[j / PER_HALF], sacc[j / PER_HALF]);
         }
-        if (BITPLANE) {
+        if (BITPLANE) {   // z = 2 zb - s (LEAN: s / 2 already taken from zb)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) zacc[hh][i] = 2.f * zacc[hh][i] - sacc[hh][i];
+            for (int i = 0; i < 4; ++i)
+              zacc[hh][i] = LEAN ? 2.f * zacc[hh][i] : 2.f * zacc[hh][i] - sacc[hh][i];
         }
         // z rounded to C's dtype, as the A-fragment of Z (16 x 16)
         const uint32_t za[4] = {pack_bf16(zacc[0][0], zacc[0][1]),
                                 pack_bf16(zacc[0][2], zacc[0][3]),
                                 pack_bf16(zacc[1][0], zacc[1][1]),
                                 pack_bf16(zacc[1][2], zacc[1][3])};
-        const __nv_bfloat16* ct = cs + (size_t)(lq + uu) * 16 * CLD;
+        const __nv_bfloat16* ct = cs + (size_t)q * 16 * CLD;
 #pragma unroll
         for (int p = 0; p < NTP; ++p) {
           if (p * 16 < cw) {
@@ -657,7 +771,47 @@ __global__ void __launch_bounds__(MMA_WARPS * 32, MMA_MIN_BLOCKS)
         }
       }
     }
-    if (ph == 0 && c < n_c) {
+    if (ODD) {
+      // y through shared memory, then each row's columns of the block's
+      // tiles stored by consecutive lanes (the tiles are one run of a row
+      // where one chunk covers td): a warp's fragments alone would be
+      // 16-byte pieces of 8 rows, 2-byte stores where a pair is not 4-byte
+      // aligned
+      constexpr int YLD = MMA_NCB * CW + 8;   // padded: the 8 rows g of a store in distinct banks
+      __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
+      __syncthreads();   // every warp is done with the stages and red
+      if (ph == 0 && c < n_c) {
+        __nv_bfloat16* yw = ys + (m_tile * 16 + g) * YLD + cq * CW + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(yw + n * 8) =
+              __floats2bfloat162_rn(yacc[n][0], yacc[n][1]);
+          *reinterpret_cast<__nv_bfloat162*>(yw + 8 * YLD + n * 8) =
+              __floats2bfloat162_rn(yacc[n][2], yacc[n][3]);
+        }
+      }
+      __syncthreads();
+      const int ncols = min(MMA_NCB, n_c - cb * MMA_NCB);
+      const int rows = min(P, row_end - row0);
+      const bool whole = cw == td;
+      const int run = whole ? ncols * td : cw, runs = whole ? 1 : ncols;
+      for (int q = warp; q < rows * runs && BITLINEAR_MMA_VARIANT != 5; q += blockDim.x >> 5) {
+        const int r = q / runs, sq = q - r * runs;
+        const __nv_bfloat16* yr = ys + r * YLD + sq * CW;
+        // element e of the run: past a tile's td columns lie its padded ones
+        auto at = [&](int e) { return yr[whole ? e + ncb_index(e, td) * (CW - td) : e]; };
+        __nv_bfloat16* dst = y + (size_t)(row0 + r) * d_out + (size_t)(cb * MMA_NCB + sq) * td + d0;
+        const int lead = (int)((reinterpret_cast<uintptr_t>(dst) >> 1) & 1);   // 2 bytes off
+        if (lane == 0 && lead) dst[0] = at(0);
+        for (int e = lead + 2 * lane; e + 1 < run; e += 64) {
+          __nv_bfloat162 v;
+          v.x = at(e);
+          v.y = at(e + 1);
+          *reinterpret_cast<__nv_bfloat162*>(dst + e) = v;
+        }
+        if (lane == 0 && (run - lead) % 2) dst[run - 1] = at(run - 1);
+      }
+    } else if (ph == 0 && c < n_c && BITLINEAR_MMA_VARIANT != 5) {
       const int ra = row0 + m_tile * 16 + g, rb_ = ra + 8;
       __nv_bfloat16* yc = y + (size_t)c * td + d0 + 2 * t4;
 #pragma unroll
@@ -735,7 +889,7 @@ cudaError_t launch_bt(const Args& a) {
   return group_rows(a.T) == 1 ? launch_ncol<XT, CT, 1, BP>(a) : launch_ncol<XT, CT, 8, BP>(a);
 }
 
-template <int KSTEP, int NTP, int KP, bool BP>
+template <int KSTEP, int NTP, int KP, bool BP, bool ODD>
 cudaError_t launch_mma_cfg(const Args& a) {
   const MmaGeom g = mma_geom(a.T, a.tn, a.K, a.td, a.rc);
   const int P = 16 * g.mt;
@@ -753,39 +907,61 @@ cudaError_t launch_mma_cfg(const Args& a) {
   p.rs = g.rs;
   p.u = g.u;
   p.xld = g.xld;
-  p.x_bytes = (int)g.x_bytes;
-  p.c_bytes = (int)g.c_bytes;
+  p.m_offset = (int)(g.x_bytes + (g.c_raw ? 0 : g.c_bytes));
+  p.c_offset = (int)g.c_offset;
+  p.raw_offset = (int)g.raw_offset;
+  p.raw_bytes = (int)g.raw_bytes;
+  p.raw_ld = g.raw_ld;
   p.stage_bytes = (int)g.stage;
-  p.xrow = fast_div((MMA_WARP_STAGING ? g.u * g.grp : g.tiles_step) * a.tn / 8);
+  p.span = g.span;
+  p.xrow = fast_div(g.tiles_step * a.tn / 8);
   p.tn8 = fast_div(a.tn / 8);
-  p.crow = fast_div(min(g.cw, a.td) / 8);
+  p.crow = fast_div(g.c_raw ? g.raw_chunks : (min(g.cw, a.td) + 7) / 8);
   p.mrow = fast_div(a.tn / 4);
   if ((long long)n_rb * p.n_cb > 0x7fffffffLL || a.E > 65535)
     return cudaErrorInvalidConfiguration;
   const dim3 grid(n_rb * p.n_cb, a.E, (a.td + g.cw - 1) / g.cw);
   if (a.smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(bitlinear_mma_kernel<KSTEP, NTP, KP, BP>,
+    cudaError_t err = cudaFuncSetAttribute(bitlinear_mma_kernel<KSTEP, NTP, KP, BP, ODD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)a.smem);
     if (err != cudaSuccess) return err;
   }
-  bitlinear_mma_kernel<KSTEP, NTP, KP, BP><<<grid, g.mt * MMA_NCB * g.rs * 32, a.smem,
-                                             a.stream>>>(
+  bitlinear_mma_kernel<KSTEP, NTP, KP, BP, ODD><<<grid, g.mt * MMA_NCB * g.rs * 32, a.smem,
+                                                  a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.x), a.mp, static_cast<const __nv_bfloat16*>(a.C),
       static_cast<__nv_bfloat16*>(a.y), p);
   return cudaGetLastError();
 }
 
-template <int KSTEP, int NTP, bool BP>
+template <int KSTEP, int NTP, bool BP, bool ODD>
 cudaError_t launch_mma_kp(const Args& a) {
-  return a.K <= 4 ? launch_mma_cfg<KSTEP, NTP, 4, BP>(a) : launch_mma_cfg<KSTEP, NTP, 8, BP>(a);
+  return a.K <= 4 ? launch_mma_cfg<KSTEP, NTP, 4, BP, ODD>(a)
+                  : launch_mma_cfg<KSTEP, NTP, 8, BP, ODD>(a);
+}
+
+template <int KSTEP, bool BP, bool ODD>
+cudaError_t launch_mma_ntp(const Args& a) {
+  switch (mma_ntp(a.td)) {
+    case 3:
+      return launch_mma_kp<KSTEP, 3, BP, ODD>(a);
+    case 4:
+      return launch_mma_kp<KSTEP, 4, BP, ODD>(a);
+    case 8:
+      return launch_mma_kp<KSTEP, 8, BP, ODD>(a);
+    default:
+      return launch_mma_kp<KSTEP, 9, BP, ODD>(a);
+  }
+}
+
+template <bool BP, bool ODD>
+cudaError_t launch_mma_odd(const Args& a) {
+  return a.tn % 16 == 0 ? launch_mma_ntp<16, BP, ODD>(a) : launch_mma_ntp<8, BP, ODD>(a);
 }
 
 template <bool BP>
 cudaError_t launch_mma(const Args& a) {
-  if (a.tn % 16 == 0)
-    return a.td <= 64 ? launch_mma_kp<16, 4, BP>(a) : launch_mma_kp<16, 8, BP>(a);
-  return a.td <= 64 ? launch_mma_kp<8, 4, BP>(a) : launch_mma_kp<8, 8, BP>(a);
+  return c_rows_aligned(a.td) ? launch_mma_odd<BP, false>(a) : launch_mma_odd<BP, true>(a);
 }
 
 template <typename XT, typename CT>
@@ -817,8 +993,9 @@ inline int dispatch(const void* x, const uint8_t* mp, const void* C, void* y, in
   const size_t xs = x_size(x_kind), cs = c_bf16 ? 2 : 4;
   const bool mma = grid_on_mma(T, small_t, tn, kb, K, td, xs, cs);
   // the tensor-core grid copies x and C in 16-byte and M in 4-byte units
+  // and stores y in 4-byte pairs of columns from the first 4-byte boundary
   if (mma && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(C) % 16 ||
-              reinterpret_cast<uintptr_t>(mp) % 4))
+              reinterpret_cast<uintptr_t>(mp) % 4 || reinterpret_cast<uintptr_t>(y) % 4))
     return cudaErrorMisalignedAddress;
   const size_t smem = block_smem(T, tn, kb, K, td, rc, xs, cs, small_t);
   if (smem > (size_t)smem_budget) return -(int)(smem < 0x7fffffff ? smem : 0x7fffffff);

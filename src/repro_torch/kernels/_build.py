@@ -100,9 +100,10 @@ def build_all() -> dict:
             procs[name] = (out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
             ))
+    # every nvcc ends before a failed one raises
+    outputs = {name: p.communicate() for name, (_, p) in procs.items()}
     for name, (out, p) in procs.items():
-        stdout, stderr = p.communicate()
-        _finish(name, out, subprocess.CompletedProcess(p.args, p.returncode, stdout, stderr))
+        _finish(name, out, subprocess.CompletedProcess(p.args, p.returncode, *outputs[name]))
     return paths
 
 

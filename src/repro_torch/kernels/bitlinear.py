@@ -12,11 +12,14 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
 ``kernel_schedules`` table means the same in both packages:
 
   * grid: blocks of ``block_t`` rows.  bf16 x with bf16 C at T > SMALL_T
-    (K <= 8, tn % 8 == 0, td % 16 == 0: :func:`grid_on_tensor_cores`) runs
-    on the tensor cores: a block
-    owns four column tiles, its warps one 16-row tile each, and every step
-    stages ``r_chunk`` r tiles (rounded up to whole mma groups) of x, M and
-    C in shared memory; z = x @ M and y += z @ C are mma.sync products.
+    (K <= 8, tn % 8 == 0, any td: :func:`grid_on_tensor_cores`) runs on the
+    tensor cores: a block owns four column tiles and one column chunk of
+    them (td padded with zero C columns to a multiple of 16,
+    :func:`grid_mma_chunk`: 131 -> one chunk of 144, 419 -> three), its
+    warps one 16-row tile each, and every step stages ``r_chunk`` r tiles
+    (rounded up to whole mma groups) of x, M and C in shared memory (C's
+    rows raw and shifted into place where td % 8 != 0 leaves them
+    unaligned); z = x @ M and y += z @ C are mma.sync products.
     ``tensor_core_launches`` counts the launches that the library reports
     ran it.  Every other call runs the FMA body: register groups of 8 rows
     x one column chunk, each warp taking ``r_chunk`` r tiles at a time.
@@ -75,6 +78,7 @@ __all__ = [
     "MATHS",
     "decode_path_ok",
     "grid_on_tensor_cores",
+    "grid_mma_chunk",
     "decode_cluster_size",
     "stream_cluster_size",
     "stream_geometry",
@@ -351,10 +355,29 @@ def grid_on_tensor_cores(T: int, tn: int, K: int, td: int, x_itemsize: int,
     """Whether a grid launch runs the tensor-core body, as
     ``csrc/bitlinear.cuh::grid_on_mma`` decides (mirrored; the library
     reports each launch's body, ``tensor_core_launches``): bf16 x and C
-    above ``SMALL_T`` rows, K <= 8, tn % 8 == 0 and td % 16 == 0.  Every
-    other grid call runs the FMA body (e.g. zamba2's in_proj, td 131)."""
+    above ``SMALL_T`` rows, K <= 8 and tn % 8 == 0, at any td (zamba2's
+    in_proj at 131 included).  Every other grid call runs the FMA body."""
     return (T > SMALL_T and x_itemsize == 2 and c_itemsize == 2 and 1 <= K <= 8
-            and tn % 8 == 0 and td % 16 == 0)
+            and tn % 8 == 0 and td >= 1)
+
+
+# The tensor-core grid's column chunk (csrc/bitlinear.cuh::mma_ntp, its
+# BITLINEAR_MMA_MAX_NTP and instantiated counts): the fewest chunks of at
+# most GRID_MMA_MAX_NTP pairs of 8-column n-tiles cover td padded to a
+# multiple of 16, split evenly, each the smallest of GRID_MMA_NTPS pairs
+# that holds a share.
+GRID_MMA_MAX_NTP = 9
+GRID_MMA_NTPS = (3, 4, 8, 9)
+
+
+def grid_mma_chunk(td: int) -> tuple[int, int]:
+    """(columns of a chunk, chunks) of a tensor-core grid launch at tile
+    width ``td``: (128, 1) at 128, (144, 1) at 131, (144, 3) at 419, (48, 1)
+    at 37."""
+    n16 = -(-td // 16)
+    need = -(-n16 // -(-n16 // GRID_MMA_MAX_NTP))
+    cols = 16 * min(n for n in GRID_MMA_NTPS if n >= need)
+    return cols, -(-td // cols)
 
 
 def decode_path_ok(T: int, n_r: int, tn: int, K: int, td: int, x_itemsize: int,

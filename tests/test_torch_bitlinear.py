@@ -307,17 +307,38 @@ def test_partial_bitlinear_hook_feeds_the_einsum_form():
 
 @pytest.mark.parametrize("T,tn,K,td,sizes,want", [
     (4096, 32, 4, 128, (2, 2), True),      # the policies' tile, prefill
-    (4096, 32, 4, 131, (2, 2), False),     # zamba2's in_proj: td no multiple of 16
-    (4096, 32, 4, 419, (2, 2), False),     # mamba2-130m's in_proj
-    (40, 32, 4, 37, (2, 2), False),        # the reduced configs' in_proj
+    (4096, 32, 4, 131, (2, 2), True),      # zamba2's in_proj: td no multiple of 16
+    (4096, 32, 4, 419, (2, 2), True),      # mamba2-130m's in_proj
+    (40, 32, 4, 37, (2, 2), True),         # the reduced configs' in_proj
+    (5, 32, 4, 17, (2, 2), True),          # one n-tile of padding, just above SMALL_T
     (4, 32, 4, 128, (2, 2), False),        # T <= SMALL_T: the small FMA block
     (4096, 32, 4, 128, (4, 2), False),     # f32 x
     (4096, 32, 4, 128, (2, 4), False),     # f32 C
     (4096, 16, 9, 160, (2, 2), False),     # K > 8
     (4096, 12, 3, 128, (2, 2), False),     # tn no multiple of 8
+    # odd tile widths keep the FMA body for the same reasons
+    (4096, 32, 4, 131, (4, 2), False),     # f32 x
+    (4096, 32, 4, 131, (1, 2), False),     # int8 x
+    (4096, 32, 4, 419, (2, 4), False),     # f32 C
+    (4096, 32, 9, 131, (2, 2), False),     # K > 8
+    (4096, 12, 4, 131, (2, 2), False),     # tn no multiple of 8
+    (4, 32, 4, 131, (2, 2), False),        # T <= SMALL_T
+    (1, 32, 4, 37, (2, 2), False),         # T = 1
 ])
 def test_grid_tensor_core_rule_mirrors_the_library(T, tn, K, td, sizes, want):
     """``grid_on_tensor_cores`` is ``csrc/bitlinear.cuh::grid_on_mma``'s rule
-    (the card tests hold it to each launch's report): odd tile widths run
-    the FMA body at every T."""
+    (the card tests hold it to each launch's report): bf16 x and C above
+    SMALL_T rows, K <= 8, tn % 8 == 0, at any tile width."""
     assert tbl.grid_on_tensor_cores(T, tn, K, td, *sizes) is want
+
+
+@pytest.mark.parametrize("td,cols,chunks", [
+    (17, 48, 1), (37, 48, 1), (64, 64, 1), (96, 128, 1), (128, 128, 1), (131, 144, 1),
+    (160, 128, 2), (419, 144, 3), (1, 48, 1), (144, 144, 1), (145, 128, 2),
+])
+def test_grid_mma_chunk_pads_td_to_whole_n_tiles(td, cols, chunks):
+    """The tensor-core grid's column chunk: td padded to a multiple of 16 in
+    the fewest chunks of at most 144 columns, each an instantiated width."""
+    assert tbl.grid_mma_chunk(td) == (cols, chunks)
+    assert cols % 16 == 0 and cols // 16 in tbl.GRID_MMA_NTPS and cols * chunks >= td
+    assert cols <= 16 * tbl.GRID_MMA_MAX_NTP

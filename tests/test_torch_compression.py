@@ -164,3 +164,59 @@ def test_int8_pool_matches_jax_exactly():
         for k in path.split("/"):
             node_j, node_t = node_j[k], node_t[k]
         np.testing.assert_array_equal(node_t["q"].numpy(), np.asarray(node_j["q"]))
+
+
+# the launch CLI's reduced smoke policy: tile 16 x 32, min_size 4096 leave
+# tensors dense for every reason the planner knows (embed, norms, small,
+# indivisible)
+_SKIP_POLICY = dict(method="greedy", tile_n=16, tile_d=32, min_size=4096)
+
+
+@pytest.fixture(scope="module")
+def skip_plans():
+    jvalues = _jax_values()
+    jplan = jc.plan_compression(jvalues, jc.CompressionPolicy(**_SKIP_POLICY))
+    tplan = tc.plan_compression(_carry(jvalues), tc.CompressionPolicy(**_SKIP_POLICY))
+    return jplan, tplan
+
+
+def test_plan_summary_with_skips_matches_jax(skip_plans):
+    jplan, tplan = skip_plans
+    assert tplan.summary().splitlines() == jplan.summary().splitlines()
+    assert tplan.summary().splitlines()[1] == (
+        "  skips: excluded (embed) x1, excluded (norm) x4, below min_size x2, "
+        "indivisible dims (64, 257) x1")
+    assert tplan.skip_summary() == jplan.skip_summary()
+    assert tplan.total_bytes() == jplan.total_bytes() == tplan.total_pred_bytes
+    assert tplan.compression_ratio == jplan.compression_ratio
+
+
+@pytest.mark.parametrize("block", [
+    {"engine": "greedy", "budget_bytes": 3 << 20, "predicted_bytes": 2 << 20,
+     "predicted_distortion": 0.0125, "calibrated": True},
+    {"engine": "lagrange"},   # a partial block prints its defaults
+])
+def test_plan_summary_autotune_line_matches_jax(skip_plans, block):
+    jplan, tplan = skip_plans
+    jplan = dataclasses.replace(jplan, autotune=block)
+    tplan = dataclasses.replace(tplan, autotune=block)
+    assert tplan.summary() == jplan.summary()
+    assert tplan.summary().splitlines()[2].startswith(f"  autotune[{block['engine']}]: budget ")
+
+
+def test_plan_diff_and_rule_skips_match_jax(skip_plans):
+    jplan, tplan = skip_plans
+    assert tplan.diff(tplan) == jplan.diff(jplan) == []
+    # drop one tensor, change another's K, add a rule skip: the same report
+    def edit(plan):
+        t = plan.tensors
+        return dataclasses.replace(
+            plan, tensors=(dataclasses.replace(t[0], K=t[0].K + 1),) + t[2:],
+            skipped=plan.skipped + (("a/b", "rule 'a/.*' -> skip"), ("c/d", "rule 'c' -> skip")))
+    jother, tother = edit(jplan), edit(tplan)
+    assert tplan.diff(tother) == jplan.diff(jother)
+    assert tother.diff(tplan) == jother.diff(jplan)
+    assert [d[0] for d in tplan.diff(tother)] == ["~", "-"]
+    assert tother.skip_summary() == jother.skip_summary()
+    assert tother.skip_summary()["rule -> skip"] == 2
+    assert tother.summary() == jother.summary()

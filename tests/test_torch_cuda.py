@@ -332,11 +332,13 @@ def _assert_variant(yk, yr, xd, cd):
         assert (yk.float() - yr.float()).abs().max().item() <= 2e-2 * scale
 
 
-# the last three: tile widths that are no multiple of 16 (zamba2's in_proj
-# td 131, mamba2-130m's 419, the reduced configs' 37) at tn 32, K 4
+# the last five: tile widths that are no multiple of 16 (zamba2's in_proj
+# td 131, mamba2-130m's 419, the reduced configs' 37, one n-tile of padding
+# at 17) at tn 32, K 4; (33, ..., 131) has n_c 5, no multiple of the
+# tensor-core block's four column tiles
 SCHEDULE_SHAPES = [(1, 3, 2, 16, 3, 160), (13, 3, 2, 16, 9, 160), (40, 4, 3, 8, 3, 128),
                    (4, 5, 2, 16, 4, 48), (4, 8, 3, 32, 4, 131), (40, 6, 2, 32, 4, 37),
-                   (4, 5, 2, 32, 4, 419)]
+                   (4, 5, 2, 32, 4, 419), (33, 3, 5, 32, 4, 131), (20, 4, 6, 32, 4, 17)]
 
 
 def _on_tensor_cores(mode, T, tn, K, td, xd, cd):
@@ -361,10 +363,10 @@ def test_bitlinear_schedules_match_plain(dev, mode, opts, math_, cd, xd):
         yk = bl.bitlinear(x, mp, C, mode=mode, math=math_, **opts)
         torch.cuda.synchronize()
         assert bl.bitlinear.by_schedule[f"{mode}/{math_}"] == before + 1
-        # of these shapes only (40, 4, 3, 8, 3, 128) takes the tensor cores,
-        # and only for the grid with bf16 x and C; td 37 runs the FMA body
+        # the shapes above T = 4 with K <= 8 take the tensor cores, odd td
+        # included, and only for the grid with bf16 x and C
         on_mma = _on_tensor_cores(mode, T, tn, K, td, xd, cd)
-        assert on_mma == (mode == "grid" and xd == cd == torch.bfloat16 and (T, td) == (40, 128))
+        assert on_mma == (mode == "grid" and xd == cd == torch.bfloat16 and T > 4 and K <= 8)
         assert bl.bitlinear.tensor_core_launches == tc_before + on_mma
         _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), xd, cd)
 
@@ -708,9 +710,9 @@ def test_flash_attention_reads_and_writes_the_model_layout(dev, dtype):
 # the policies' (tn, K, td): attention tensors, qwen's BBO attn/w[kv], granite's experts
 POLICY_SHAPES = [(32, 4, 128), (8, 3, 128), (32, 8, 64)]
 # the default policy's in_proj tiles of zamba2 (td 131) and mamba2-130m (td
-# 419) and the reduced configs' (td 37): the FMA body at every T, td being
-# no multiple of 16
-ODD_TILES = [(32, 4, 131), (32, 4, 419), (32, 4, 37)]
+# 419), the reduced configs' (td 37) and one n-tile of padding (td 17): on
+# the tensor cores above T = 4, C's rows staged raw and shifted into place
+ODD_TILES = [(32, 4, 131), (32, 4, 419), (32, 4, 37), (32, 4, 17)]
 
 
 @pytest.mark.parametrize("T", [1, 15, 17, 64, 1280, 4096])
@@ -718,8 +720,8 @@ ODD_TILES = [(32, 4, 131), (32, 4, 419), (32, 4, 37)]
 @pytest.mark.parametrize("tn,K,td", POLICY_SHAPES + ODD_TILES)
 def test_grid_bf16_matches_plain_at_the_policy_shapes(dev, tn, K, td, math_, T):
     """bf16 x and C through the grid at the policies' tiles: on the tensor
-    cores above T = 4 where td is a multiple of 16, on the FMA body at T = 1
-    (the small-T fallback) and at the odd tile widths."""
+    cores above T = 4 at every td, on the FMA body at T = 1 (the small-T
+    fallback); n_c 3 leaves the block's fourth column tile idle."""
     n_r, n_c = 24, 3
     g = torch.Generator(device=dev).manual_seed(tn * 100 + K * 10 + T)
     x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, tn, K, td, torch.bfloat16,
@@ -769,6 +771,71 @@ def test_grid_ignores_nan_bytes_past_the_last_c_row(dev, tn, K, td, math_):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(yk).all())
     _assert_variant(yk, ref.bitlinear_ref(x, mp, C, math_), torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [17, 64])
+@pytest.mark.parametrize("math_", ["unpack", "bitplane"])
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES + ODD_TILES)
+def test_grid_nan_c_tiles_stay_in_their_own_columns(dev, tn, K, td, math_, T):
+    """At odd td the bytes past a C tile's rows are the next tile's, and a
+    raw copy of a row's chunk reads some of them: every odd column tile's C
+    is NaN here (and the bytes past C), and the even tiles' y columns must
+    still be finite and right, the odd tiles' all NaN, in K3 and K4."""
+    n_r, n_c, E = 5, 5, 2
+    g = torch.Generator(device=dev).manual_seed(14)
+    for lead, fn, plain in (((), bl.bitlinear, ref.bitlinear_ref),
+                            ((E,), bl.bitlinear_grouped, ref.bitlinear_grouped_ref)):
+        x, mp, C0 = _variant_operands(g, dev, lead, T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                      torch.bfloat16)
+        buf = torch.full((C0.numel() + 16 * td,), float("nan"), device=dev,
+                         dtype=torch.bfloat16)
+        C = buf[:C0.numel()].view(C0.shape)
+        C.copy_(C0)
+        C[..., 1::2, :, :] = float("nan")
+        tc_before = fn.tensor_core_launches
+        yk = fn(x, mp, C, mode="grid", math=math_)
+        torch.cuda.synchronize()
+        assert fn.tensor_core_launches == tc_before + 1
+        cols = torch.arange(n_c * td, device=dev) // td % 2 == 0
+        assert bool(torch.isfinite(yk[..., cols]).all())
+        assert bool(torch.isnan(yk[..., ~cols]).all())
+        C0[..., 1::2, :, :] = 0
+        _assert_variant(yk[..., cols].contiguous(), plain(x, mp, C0, math_)[..., cols].contiguous(),
+                        torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [17, 64])
+@pytest.mark.parametrize("tn,K,td", POLICY_SHAPES + ODD_TILES)
+def test_grid_writes_every_column_of_y_and_nothing_else(dev, tn, K, td, T):
+    """y handed to the library as a view 4 bytes into a NaN-filled buffer
+    (4-byte aligned, as the tensor-core body needs, not 16; at odd td and
+    odd n_c every other row and column tile starts 2 bytes off a 4-byte
+    boundary): every column of every tile, for E = 2 experts, holds what
+    the wrapper's own launch gives, bit for bit, and no byte around y is
+    written (a tile's padded columns are its neighbour's, or past y).  A y
+    2 bytes into the buffer is refused, nothing launched."""
+    E, n_r, n_c = 2, 4, 5
+    g = torch.Generator(device=dev).manual_seed(15)
+    x, mp, C = _variant_operands(g, dev, (E,), T, n_r, n_c, tn, K, td, torch.bfloat16,
+                                 torch.bfloat16)
+    want = bl.bitlinear_grouped(x, mp, C, mode="grid")
+    n = E * T * n_c * td
+    buf = torch.full((n + 64,), float("nan"), device=dev, dtype=torch.bfloat16)
+
+    def launch(y):
+        ran = ctypes.c_int(-1)
+        err = bl._lib("grid")(x.data_ptr(), mp.data_ptr(), C.data_ptr(), y.data_ptr(), E, T,
+                              n_r, n_c, tn, 1, K, td, 1, 1, 0, 64, 1,
+                              bl.device_smem_budget(dev), bl.SMALL_T,
+                              torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(ran))
+        torch.cuda.synchronize()
+        return err, ran.value
+
+    y = buf[2:2 + n]
+    assert launch(y) == (0, 1)
+    assert torch.equal(y.view(E, T, n_c * td), want)
+    assert bool(torch.isnan(buf[:2]).all()) and bool(torch.isnan(buf[2 + n:]).all())
+    assert launch(buf[1:1 + n]) == (716, 0)     # cudaErrorMisalignedAddress
 
 
 @pytest.mark.parametrize("tn,K,td", POLICY_SHAPES)

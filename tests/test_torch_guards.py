@@ -242,6 +242,26 @@ def test_stream_layout_constants_are_the_headers():
         assert bl.stream_min_blocks(bt) == (small if bt <= cut else large), bt
 
 
+def test_grid_chunk_constants_are_the_headers():
+    """kernels/bitlinear.py's grid_mma_chunk mirrors csrc/bitlinear.cuh's
+    mma_ntp: the cap on a chunk's n-tile pairs is the header's default and
+    the widths it picks from are the ones the header instantiates."""
+    import re
+
+    from repro_torch.kernels import bitlinear as bl
+
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "bitlinear.cuh").read_text()
+    defaults = dict(re.findall(r"^#define BITLINEAR_MMA_(\w+) (\d+)$", header, re.M))
+    assert int(defaults["MAX_NTP"]) == bl.GRID_MMA_MAX_NTP
+    rule = re.search(r"return need <= (\d+) \? \1 : need <= (\d+) \? \2 : need <= (\d+) "
+                     r"\? \3 : (\d+);", header)
+    assert rule, "mma_ntp's rule not found in the header"
+    assert tuple(int(v) for v in rule.groups()) == bl.GRID_MMA_NTPS
+    # every count the rule picks has a launch of its own
+    for n in bl.GRID_MMA_NTPS:
+        assert f"return launch_mma_kp<KSTEP, {n}, BP, ODD>(a);" in header, n
+
+
 def test_anneal_variants_are_the_kernels_text():
     """tools/torch_anneal_variants.py builds K2's variants by substituting
     text of csrc/sqa_sweep.cu; each substituted text must be in the source

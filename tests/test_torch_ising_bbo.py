@@ -178,3 +178,11 @@ def test_random_search_never_worse_than_its_initial_design():
     assert int(res.count[0]) == 11
     np.testing.assert_allclose(
         res.best_y.numpy(), tdec.objective_from_x(res.best_x, tiles, 2).numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("P,n", [(1, 8), (5, 24)])
+def test_ising_problem_sizes_match_jax(P, n):
+    h, B = _dyadic_problems(np.random.default_rng(P * n), P, n)
+    jp = jising.IsingProblem(jnp.asarray(h), jnp.asarray(B))
+    tp = tising.IsingProblem(*_t(h, B))
+    assert (tp.num_problems, tp.num_spins) == (jp.num_problems, jp.num_spins) == (P, n)

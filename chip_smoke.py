@@ -68,6 +68,14 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      resolution must come from it, K3's launches per schedule must be what
      it picked (the tuner's trial launches are counted apart), and the
      prefill logits must agree with the plain path.
+  4c. Continuous batching with chunked prefill (serving/scheduler.py over a
+     paged KV pool): 4 of phase 4's 1024-token prompts through a Scheduler
+     of 4 slots and 16-token pages at ``prefill_chunk`` 16 (64 chunks each),
+     32 new tokens.  K5 must launch once per request (its first chunk; later
+     chunks attend to the cache through the plain path), K3 once per
+     compressed tensor a forward; each request's first-token logits within
+     5e-2 of max|logit| of the one-shot prefill through K5; the pool empty
+     at the end; tokens against a batch-1 ``Engine.generate`` reported.
   K4 (the grouped form in csrc/bitlinear.cu) against its plain version at
      granite-moe-1b-a400m's three expert shapes (gate, up, down; tile
      32x128, K = 4) in f32 and bf16, at phase 5's decode and prefill T per
@@ -129,6 +137,18 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      prefill's 118 on the tensor cores, K5 6 times (window 4,096 >= S);
      bf16 prefill logits within 5e-2 of max|logit| of the plain path, with
      the distance of the two residual streams after every block reported.
+  7c. zamba2-1.2b whole under the scheduler, from phase 7's checkpoint: 4
+     slots, 16-token pages, max_len 1,056 (the shared block's KV paged),
+     prompts of 512 and 1024 tokens from seed 1, each prefilled in one
+     exact-length chunk, 32 greedy tokens.  8 requests on a full pool, then
+     on a pool cut so that it evicts: identical tokens; K3 118 launches a
+     forward (prefill forwards + decode ticks), K5 6 a prefill; the pool
+     empty at the end; 4 requests' first-token logits within 5e-2 of
+     max|logit| of a batch-1 prefill (their tokens against batch-1
+     ``Engine.generate`` reported).  Then the serve CLI's ``load_curve``
+     at 1, 4 and 16 queries per second, 16 requests each, all completed:
+     goodput, latency and time-to-first-token percentiles, peak running,
+     evictions, ticks and mean tick time per rate.
   7b. mamba2-130m whole (24 SSD layers at published widths, random weights
      from seed 0): compressed with the default policy (4,608 tiles of 32 x
      419, 6,912 of 32 x 128) and served as phase 7 (K3 48 x 32 launches,
@@ -2305,6 +2325,268 @@ def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, lit
 
 
 # ---------------------------------------------------------------------------
+# phases 7c and 4c: continuous batching (serving/scheduler.py, kv_pages.py,
+# frontend.py, loadgen.py) on the checkpoints of phases 7 and 4
+# ---------------------------------------------------------------------------
+
+SCHED_SLOTS, SCHED_PAGE = 4, 16
+SCHED_REQUESTS = 8                  # phase 7c's identity runs (a)
+SCHED_LOGIT_REQUESTS = 4            # phase 7c's logits check (b), and phase 4c's requests
+SCHED_QPS, SCHED_LOAD_REQUESTS = (1.0, 4.0, 16.0), 16
+SCHED_CHUNK = 16                    # phase 4c's prefill chunk: 64 chunks of a 1024 prompt
+# phase 7c's cut pool (99 usable pages of 16): with prompts of 512, 1024, ...
+# (32 and 64 pages) and 32 new tokens on 4 slots, the scheduler's page rule
+# (host-side, independent of the tokens while eos is never emitted) evicts
+# three requests after 18, 31 and 18 decoded tokens and ends in 191 ticks
+# (65 on a full pool).  Not every cut ends: the reference's victim rule (the
+# most recently admitted *other* request) lets two growing requests evict each
+# other forever, which it does here at 98 and 99 pages (ROADMAP Queue 3).
+SCHED_CUT_PAGES = 100
+
+
+def instrument(torch, sched):
+    """Wrap a Scheduler's prefill and sampling: returns (calls, first), the
+    prefill forwards it runs by ``attend`` (False: a request's first chunk,
+    True: a later one) with their host time ``calls["s"]`` (each ended by a
+    device synchronisation, as the tick's next host read would end it), and
+    each request's first-token logits row (the prefill's last position), in
+    f32, by request id."""
+    calls, first = {False: 0, True: 0, "s": 0.0}, {}
+    prefill_fn, sample = sched._prefill_fn, sched._sample
+
+    def counted(attend):
+        fn = prefill_fn(attend)
+
+        def run(*a):
+            calls[attend] += 1
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            calls["s"] += time.perf_counter() - t
+            return out
+        return run
+
+    def keep(req, row, index):
+        if index == 0:
+            first[req.rid] = row.float().clone()
+        return sample(req, row, index)
+
+    sched._prefill_fn, sched._sample = counted, keep
+    return calls, first
+
+
+def scheduler_run(torch, dev, eng, prompts, max_tokens, per_forward, n_attn, label, **kw):
+    """Submit ``prompts`` to a new Scheduler of SCHED_SLOTS slots and
+    SCHED_PAGE-token pages (``kw``: its other arguments) and run it to the
+    end, with the checks every such run meets: K3 launched ``per_forward``
+    times a forward (prefill forwards + decode ticks), K5 ``n_attn`` times
+    a first prefill chunk (later chunks attend to the cache through the
+    plain path), no other kernel; every request complete, its tokens in
+    range and its pages back in the pool.  Returns (tokens, report, the
+    first-token logits rows by request id)."""
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.serving import Scheduler
+
+    sched = Scheduler(eng, num_slots=SCHED_SLOTS, page_size=SCHED_PAGE, device=dev, **kw)
+    calls, first = instrument(torch, sched)
+    torch.cuda.synchronize()
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    sa.sa_sweep_many.launches = 0
+    t = time.perf_counter()
+    reqs = [sched.submit(p, max_tokens) for p in prompts]
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    st = sched.stats
+    launches = {"bitlinear": bl.bitlinear.launches,
+                "bitlinear_grouped": bl.bitlinear_grouped.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "sa_sweep_many": sa.sa_sweep_many.launches}
+    forwards = calls[False] + calls[True] + st.decode_steps
+    want = {"bitlinear": per_forward * forwards, "bitlinear_grouped": 0,
+            "flash_attention": n_attn * calls[False], "sa_sweep_many": 0}
+    check(launches == want and calls[False] + calls[True] == st.prefill_chunks,
+          f"{label}: launches {launches}, want {want} (prefill forwards {calls}, decode ticks "
+          f"{st.decode_steps})")
+    toks = [r.tokens for r in reqs]
+    vocab = sched.cfg.vocab_size
+    check(st.completed == len(prompts) and all(r.state == "done" for r in reqs)
+          and all(len(x) == max_tokens and all(0 <= v < vocab for v in x) for x in toks)
+          and sched.pool.pages_in_use == 0,
+          f"{label}: {st.completed} of {len(prompts)} completed, "
+          f"{sched.pool.pages_in_use} pages still in use")
+    return toks, {
+        "launches": launches,
+        "prefill_forwards": {"first_chunk": calls[False], "later_chunk": calls[True]},
+        "stats": dataclasses.asdict(st), "wall_s": wall,
+        # host time in prefill forwards, and the rest of the run a decode tick
+        # (the tick's admission, gather, forward, scatter, picks)
+        "prefill_s": calls["s"],
+        "decode_ms_per_tick": 1e3 * (wall - calls["s"]) / max(st.decode_steps, 1),
+        "pool": {"num_pages": sched.pool.num_pages,
+                 "high_water": sched.pool.pages_high_water,
+                 "pages_in_use_at_end": sched.pool.pages_in_use},
+        "evictions_by_request": [r.evictions for r in reqs],
+    }, first
+
+
+def first_logits_err(torch, dev, eng, cfg, prompts, first, max_len):
+    """Per request: max|scheduler's first-token logits - a batch-1 one-shot
+    prefill's| and that prefill's max|logit| (f32)."""
+    from repro_torch.models import init_cache
+
+    out = []
+    with torch.inference_mode():
+        for rid, p in enumerate(prompts):
+            ref, _ = eng.prefill(eng.params, {"tokens": torch.as_tensor(p, device=dev)[None]},
+                                 init_cache(cfg, 1, max_len, device=dev))
+            ref = ref[0].float()
+            out.append({"max_abs_diff": float((first[rid] - ref).abs().max()),
+                        "max_abs_logit": float(ref.abs().max())})
+    return out
+
+
+def sched_prompts(vocab, lengths, seed=1):
+    """numpy int32 prompts of ``lengths`` random tokens from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=L).astype(np.int32) for L in lengths]
+
+
+def phase_zamba_sched(torch, dev, out_dir):
+    """Phase 7c: the whole zamba2-1.2b from phase 7's checkpoint under the
+    scheduler: SCHED_SLOTS slots, pages of SCHED_PAGE tokens, max_len =
+    GEN_PROMPT + GEN_STEPS (66 pages; the shared block's KV is paged, as
+    max_len is below its window), prompts of 512 and 1024 tokens (the SSD
+    splits them into 2 and 4 chunks of 256; each prefilled in one
+    exact-length chunk) from seed 1, GEN_STEPS greedy tokens each, an eos
+    never emitted.  (a) SCHED_REQUESTS requests on a fully provisioned
+    pool, then on one cut to SCHED_CUT_PAGES pages, which must evict: the
+    tokens must be identical.  (b) the first SCHED_LOGIT_REQUESTS requests'
+    first-token logits within LOGIT_TOL of max|logit| of a batch-1 one-shot
+    prefill, and their tokens against a batch-1 ``Engine.generate``
+    (reported).  (c) each run's K3 launches = 118 x forwards, K5 6 x
+    prefill forwards, and an empty pool at the end.  Then ``load_curve``
+    (the CLI's ``--load-curve``) at SCHED_QPS with SCHED_LOAD_REQUESTS
+    requests a rate: every request completed."""
+    from repro_torch.launch.serve import LOAD_CSV_HEADER, build_engine, load_curve
+
+    cfg = zamba_config()
+    max_len = GEN_PROMPT + GEN_STEPS
+    eos = cfg.vocab_size                     # never emitted
+    eng = build_engine(cfg, ckpt_dir=out_dir, batch=1, prompt_len=GEN_PROMPT, steps=GEN_STEPS,
+                       eos_id=eos, seed=SEED, device=dev, verbose=False)
+    uses = zamba_uses(cfg)
+    per_forward = sum(uses(p, e) for p, e in eng.artifact.manifest["tensors"].items())
+    n_shared = zamba_shared_calls(cfg)
+    check(per_forward == 118 and n_shared == 6, f"phase 7c: {per_forward} K3 calls a forward")
+    lens = [GEN_PROMPT // 2, GEN_PROMPT] * (SCHED_REQUESTS // 2)
+    prompts = sched_prompts(cfg.vocab_size, lens)
+
+    # (a) a full pool, then a cut one that must evict; (c) in each run
+    full, rep_full, first = scheduler_run(torch, dev, eng, prompts, GEN_STEPS, per_forward, n_shared,
+                                          "phase 7c full pool", max_len=max_len)
+    cut, rep_cut, _ = scheduler_run(torch, dev, eng, prompts, GEN_STEPS, per_forward, n_shared,
+                                    "phase 7c cut pool", max_len=max_len,
+                                    num_pages=SCHED_CUT_PAGES)
+    check(rep_cut["stats"]["evictions"] >= 1,
+          f"phase 7c: the pool of {SCHED_CUT_PAGES} pages evicted nothing")
+    same = [a == b for a, b in zip(full, cut)]
+    check(all(same), f"phase 7c: tokens under eviction differ for requests "
+                     f"{[i for i, x in enumerate(same) if not x]}")
+
+    # (b) first-token logits and tokens against batch-1 serving
+    n = SCHED_LOGIT_REQUESTS
+    errs = first_logits_err(torch, dev, eng, cfg, prompts[:n], first, max_len)
+    bad = [e for e in errs if not e["max_abs_diff"] <= LOGIT_TOL * e["max_abs_logit"]]
+    check(not bad, f"phase 7c: first-token logits off by {bad}")
+    agree = []
+    for p, toks in zip(prompts[:n], full[:n]):
+        ref = eng.generate(torch.as_tensor(p, device=dev)[None], GEN_STEPS)[0, len(p):]
+        agree.append(sum(int(a) == b for a, b in zip(ref.tolist(), toks)))
+
+    # the load curve, through the CLI's function
+    csv = []
+    t = time.perf_counter()
+    curve = load_curve(eng, cfg, qps=SCHED_QPS, requests=SCHED_LOAD_REQUESTS,
+                       num_slots=SCHED_SLOTS, page_size=SCHED_PAGE, prompt_len=GEN_PROMPT,
+                       steps=GEN_STEPS, seed=1, device=dev, say=csv.append)
+    curve_s = time.perf_counter() - t
+    check(csv[0] == LOAD_CSV_HEADER and len(csv) == 1 + len(SCHED_QPS), f"load curve csv {csv}")
+    check(all(r.completed == r.n_requests == SCHED_LOAD_REQUESTS for r in curve),
+          f"load curve: completed {[r.completed for r in curve]}")
+    out = {
+        "config": {"arch": cfg.name, "slots": SCHED_SLOTS, "page_size": SCHED_PAGE,
+                   "max_len": max_len, "prompt_lens": sorted(set(lens)),
+                   "max_tokens": GEN_STEPS, "reduced": []},
+        "full_pool": rep_full, "cut_pool": rep_cut,
+        "tokens_identical_under_eviction": all(same),
+        "first_token_logits": errs,
+        "tokens_agreeing_with_batch1_generate": {"per_request": agree, "of": GEN_STEPS},
+        "load_curve": {"csv": csv, "wall_s": curve_s,
+                       "rows": [{k: v for k, v in r.to_row().items()} for r in curve]},
+        "launches": {k: rep_full["launches"][k] + rep_cut["launches"][k]
+                     for k in rep_full["launches"]},
+    }
+    emit({"zamba2_scheduler": out})
+    return out
+
+
+def phase_qwen_sched(torch, dev, out_dir):
+    """Phase 4c: qwen3-32b's one layer from phase 4's checkpoint under the
+    scheduler with pow2-chunked prefill: SCHED_LOGIT_REQUESTS requests of
+    phase 4's GEN_PROMPT-token prompts (serve_model's, seed PROMPT_SEED) at
+    ``prefill_chunk`` SCHED_CHUNK (64 chunks each), GEN_STEPS greedy tokens.
+    K5 must launch once per request, on its first chunk (later chunks attend
+    to the cache through the plain path), K3 once per compressed tensor a
+    forward; each request's first-token logits (its last chunk's last
+    position) within LOGIT_TOL of max|logit| of the one-shot prefill
+    through K5; tokens against a batch-1 ``Engine.generate`` reported."""
+    from repro_torch.device import generator as make_generator
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.serve import PROMPT_SEED, build_engine
+
+    _, cfg = full_width_config()
+    max_len = GEN_PROMPT + GEN_STEPS
+    eos = cfg.vocab_size
+    eng = build_engine(cfg, ckpt_dir=out_dir, batch=1, prompt_len=GEN_PROMPT, steps=GEN_STEPS,
+                       eos_id=eos, seed=SEED, device=dev, verbose=False)
+    n = SCHED_LOGIT_REQUESTS
+    prompts = torch.randint(0, cfg.vocab_size, (n, GEN_PROMPT),
+                            generator=make_generator(dev, PROMPT_SEED), device=dev)
+    prompts = list(prompts.cpu().numpy().astype("int32"))
+    per_forward = eng.compression["tensors"]
+    toks, rep, first = scheduler_run(torch, dev, eng, prompts, GEN_STEPS, per_forward, cfg.num_layers,
+                                     "phase 4c", max_len=max_len, prefill_chunk=SCHED_CHUNK)
+    chunks = -(-GEN_PROMPT // SCHED_CHUNK)
+    check(rep["prefill_forwards"] == {"first_chunk": n, "later_chunk": n * (chunks - 1)}
+          and rep["launches"]["flash_attention"] == n,
+          f"phase 4c: prefill forwards {rep['prefill_forwards']}, K5 "
+          f"{rep['launches']['flash_attention']}; want {n} first chunks, one K5 each")
+    errs = first_logits_err(torch, dev, eng, cfg, prompts, first, max_len)
+    bad = [e for e in errs if not e["max_abs_diff"] <= LOGIT_TOL * e["max_abs_logit"]]
+    check(not bad, f"phase 4c: chunked prefill logits off the one-shot prefill's by {bad}")
+    agree = []
+    for p, t in zip(prompts, toks):
+        ref = eng.generate(torch.as_tensor(p, device=dev)[None], GEN_STEPS)[0, len(p):]
+        agree.append(sum(int(a) == b for a, b in zip(ref.tolist(), t)))
+    autotune.clear_schedules()
+    autotune.clear_log()
+    out = {"config": {"arch": cfg.name, "num_layers": cfg.num_layers, "slots": SCHED_SLOTS,
+                      "page_size": SCHED_PAGE, "prefill_chunk": SCHED_CHUNK,
+                      "max_len": max_len, "requests": n, "prompt_len": GEN_PROMPT,
+                      "max_tokens": GEN_STEPS},
+           **rep, "first_token_logits": errs,
+           "tokens_agreeing_with_batch1_generate": {"per_request": agree, "of": GEN_STEPS}}
+    emit({"qwen_scheduler": out})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7b: mamba2-130m whole (attention-free: SSD blocks only)
 # ---------------------------------------------------------------------------
 
@@ -2496,6 +2778,9 @@ def main() -> int:
         t = time.time()
         tuned = phase_tuned_generate(torch, dev, out_dir, gen)
         phases["tuned_generate_s"] = time.time() - t
+        t = time.time()
+        sched4c = phase_qwen_sched(torch, dev, out_dir)
+        phases["scheduler_4c_s"] = time.time() - t
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     t = time.time()
@@ -2532,6 +2817,9 @@ def main() -> int:
         t = time.time()
         zamba_gen = phase_zamba_generate(torch, dev, zamba_dir)
         phases["zamba2_generate_s"] = time.time() - t
+        t = time.time()
+        sched7c = phase_zamba_sched(torch, dev, zamba_dir)
+        phases["scheduler_7c_s"] = time.time() - t
     finally:
         shutil.rmtree(zamba_dir, ignore_errors=True)
     mamba2_dir = os.path.join(ROOT, "build", "chip_smoke_mamba2_ckpt")
@@ -2591,6 +2879,9 @@ def main() -> int:
          "launches_phase5": moe_gen["launches"]["bitlinear"],
          "launches_phase7": zamba_gen["launches"]["bitlinear"],
          "launches_phase7b": mamba2_gen["launches"]["bitlinear"],
+         # the scheduler's runs: phase 7c's (a), full and cut pool; phase 4c's
+         "launches_phase7c": sched7c["launches"]["bitlinear"],
+         "launches_phase4c": sched4c["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -2621,7 +2912,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:79",
          "launches": gen["launches"]["flash_attention"],
          "launches_phase5": moe_gen["launches"]["flash_attention"],
-         "launches_phase7": zamba_gen["launches"]["flash_attention"], "max_abs_err": k5_err,
+         "launches_phase7": zamba_gen["launches"]["flash_attention"],
+         "launches_phase7c": sched7c["launches"]["flash_attention"],
+         "launches_phase4c": sched4c["launches"]["flash_attention"], "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
          "library_ms": k5["timing"]["library_ms"], "device_ms": k5["timing"]["device_ms"],

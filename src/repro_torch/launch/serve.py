@@ -13,8 +13,16 @@ prefill attention through kernel K5.
 runs on the GPU (``serve_model(..., device="cpu")`` runs on the CPU with
 the kernels' plain versions).  ``--autotune-kernels`` tunes the bitlinear
 schedules of the served artifact at T = batch and batch x prompt_len before
-the engine is built.  ``--load-curve`` is not ported yet (ROADMAP.md) and
-exits with a message.
+the engine is built.
+
+``--load-curve`` swaps the one-shot fixed-batch generation for the
+continuous-batching tier (``serving/scheduler.py``): ragged prompts arrive
+as a Poisson process at each ``--qps`` rate through the async front end,
+and the launcher prints per-rate p50/p99 latency, goodput and peak
+concurrency as a CSV (``load_curve``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --reduced --compress --load-curve
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -34,8 +43,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import init_model
 from repro_torch.models.params import split
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.frontend import ServeFrontend
+from repro_torch.serving.loadgen import LoadResult, run_load
+from repro_torch.serving.scheduler import Scheduler
 
-__all__ = ["ServeResult", "serve_model", "main"]
+__all__ = ["ServeResult", "build_engine", "serve_model", "load_curve", "main"]
 
 PROMPT_SEED = 1     # prompts are drawn from this seed, as repro's launcher does
 SAMPLE_SEED = 2
@@ -50,17 +62,17 @@ class ServeResult:
     timing: dict                # Engine.last_timing: prefill_s, decode_s, decode_steps
 
 
-def serve_model(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, steps=32,
-                temperature=0.0, eos_id=1, seed=0, device=None, use_fused_bitlinear=None,
-                compress_policy: CompressionPolicy | None = None,
-                autotune_kernels: bool = False, verbose: bool = True) -> ServeResult:
+def build_engine(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, steps=32,
+                 temperature=0.0, eos_id=1, seed=0, device=None, use_fused_bitlinear=None,
+                 compress_policy: CompressionPolicy | None = None,
+                 autotune_kernels: bool = False, verbose: bool = True) -> Engine:
     """Initialise ``cfg``'s weights from ``seed``, restore the latest step
     of ``ckpt_dir`` over them (through the compression manifest when one is
     there), compress them when ``compress`` and no manifest was found, tune
     the bitlinear schedules at T = batch and batch x prompt_len when
-    ``autotune_kernels`` (``kernels.autotune.tune_artifact``), and generate
-    ``steps`` tokens for ``batch`` random prompts on ``device`` (default:
-    the GPU)."""
+    ``autotune_kernels`` (``kernels.autotune.tune_artifact``), and build
+    the ``Engine`` (``max_len`` = prompt_len + steps) on ``device``
+    (default: the GPU)."""
     device = resolve_device(device)
     values, _ = split(init_model(cfg, seed=seed, device=device))
     say = print if verbose else (lambda *a, **k: None)
@@ -113,7 +125,18 @@ def serve_model(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, s
     if eng.compression is not None:
         path = "fused bitlinear kernel" if eng.fused_bitlinear else "unpack+einsum"
         say(f"[engine] serving compressed weights via {path}: {eng.compression}")
+    return eng
 
+
+def serve_model(cfg, *, batch=4, prompt_len=16, steps=32, device=None, verbose: bool = True,
+                **engine_kw) -> ServeResult:
+    """``build_engine`` (the same arguments), then generate ``steps`` tokens
+    for ``batch`` random prompts of ``prompt_len`` tokens on ``device``
+    (default: the GPU)."""
+    device = resolve_device(device)
+    say = print if verbose else (lambda *a, **k: None)
+    eng = build_engine(cfg, batch=batch, prompt_len=prompt_len, steps=steps, device=device,
+                       verbose=verbose, **engine_kw)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=make_generator(device, PROMPT_SEED), device=device)
     t = time.perf_counter()
@@ -124,7 +147,46 @@ def serve_model(cfg, *, ckpt_dir=None, compress=False, batch=4, prompt_len=16, s
     return ServeResult(out, prompts, eng, wall, eng.last_timing)
 
 
-_NOT_PORTED = ("load_curve",)
+LOAD_CSV_HEADER = "qps,completed,goodput_toks_per_s,p50_ms,p99_ms,peak,evictions"
+
+
+def load_curve(eng: Engine, cfg, *, qps=(2.0, 8.0, 32.0), requests=16, num_slots=4,
+               page_size=16, prompt_len=16, steps=32, seed=0, device=None,
+               say=print) -> list[LoadResult]:
+    """The ``--load-curve`` sweep: a ``Scheduler`` of ``num_slots`` slots
+    over a fully provisioned page pool (``max_len`` = prompt_len + steps;
+    the page size halved until it divides ``max_len``), warmed up on one
+    prompt of each length, then ``requests`` prompts of ``prompt_len / 2``
+    or ``prompt_len`` random tokens (from ``seed``) sent as a Poisson
+    process at each rate in ``qps`` through one ``ServeFrontend``
+    (overcommit 2, ``4 x requests`` pending), each ``steps`` new tokens with
+    an ``eos_id`` never emitted.  Prints the reference's CSV header and one
+    row per rate through ``say``; returns the rates' ``LoadResult``s."""
+    max_len = prompt_len + steps
+    page = min(page_size, max_len)
+    while max_len % page != 0:
+        page //= 2
+    sched = Scheduler(eng, num_slots=num_slots, page_size=page, max_len=max_len,
+                      device=device)
+    rng = np.random.default_rng(seed)
+    lens = sorted({max(2, prompt_len // 2), prompt_len})
+    # warm-up: one prefill of each length and the decode step
+    sched.generate_batch([np.full(L, 3, np.int32) for L in lens], max_tokens=2)
+    prompts = [
+        rng.integers(0, cfg.vocab_size, size=int(rng.choice(lens))).astype(np.int32)
+        for _ in range(requests)
+    ]
+    say(LOAD_CSV_HEADER)
+    results = []
+    with ServeFrontend(sched, overcommit=2.0, max_pending=4 * requests) as fe:
+        for rate in qps:
+            sched.stats.reset()
+            res = run_load(fe, prompts, max_tokens=steps, qps=rate, eos_id=10 ** 6)
+            say(f"{rate:g},{res.completed},{res.goodput_toks_per_s:.1f},"
+                f"{1e3 * res.p50_latency_s:.1f},{1e3 * res.p99_latency_s:.1f},"
+                f"{res.peak_running},{res.evictions}")
+            results.append(res)
+    return results
 
 
 def main(argv=None) -> None:
@@ -145,15 +207,21 @@ def main(argv=None) -> None:
     ap.add_argument("--no-fused-bitlinear", action="store_true",
                     help="serve compressed weights through the unpack+einsum form "
                          "instead of the fused bitlinear kernel")
-    ap.add_argument("--load-curve", action="store_true")
     ap.add_argument("--autotune-kernels", action="store_true",
                     help="tune the bitlinear schedules of the served artifact before serving")
+    ap.add_argument("--load-curve", action="store_true",
+                    help="serve a Poisson arrival sweep through the continuous-batching "
+                         "scheduler instead of one fixed-batch generate() call")
+    ap.add_argument("--qps", type=float, nargs="*", default=[2.0, 8.0, 32.0],
+                    help="arrival rates for --load-curve")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="requests per --load-curve rate")
+    ap.add_argument("--num-slots", type=int, default=4,
+                    help="decode slots for --load-curve")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV page size (tokens) for --load-curve")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            ap.exit(2, f"--{name.replace('_', '-')} is not yet ported to repro_torch "
-                       "(see ROADMAP.md, Queue 1); use repro.launch.serve\n")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -162,11 +230,16 @@ def main(argv=None) -> None:
         method=args.compress_method, tile_n=args.tile_n, tile_d=args.tile_d,
         rank_ratio=args.rank_ratio, min_size=4096,
     )
-    serve_model(cfg, ckpt_dir=args.ckpt_dir, compress=args.compress, batch=args.batch,
-                prompt_len=args.prompt_len, steps=args.steps, temperature=args.temperature,
-                seed=args.seed,
-                use_fused_bitlinear=False if args.no_fused_bitlinear else None,
-                compress_policy=policy, autotune_kernels=args.autotune_kernels)
+    kw = dict(ckpt_dir=args.ckpt_dir, compress=args.compress, batch=args.batch,
+              prompt_len=args.prompt_len, steps=args.steps, temperature=args.temperature,
+              seed=args.seed, use_fused_bitlinear=False if args.no_fused_bitlinear else None,
+              compress_policy=policy, autotune_kernels=args.autotune_kernels)
+    if args.load_curve:
+        load_curve(build_engine(cfg, **kw), cfg, qps=args.qps, requests=args.requests,
+                   num_slots=args.num_slots, page_size=args.page_size,
+                   prompt_len=args.prompt_len, steps=args.steps, seed=args.seed)
+        return
+    serve_model(cfg, **kw)
 
 
 if __name__ == "__main__":

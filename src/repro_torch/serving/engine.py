@@ -5,8 +5,9 @@ Counterpart of the fixed-batch half of ``repro/serving/engine.py``:
 step functions over ``models.forward``, and ``Engine`` drives greedy or
 temperature sampling with EOS masking over one rectangular batch.  PyTorch
 runs eagerly, so there is no jit: each step calls the forward directly,
-under ``torch.inference_mode()``.  ``cache_shardings`` (multi-GPU), the
-continuous-batching scheduler and paged KV are not ported yet (ROADMAP.md).
+under ``torch.inference_mode()``.  The continuous-batching scheduler over
+a paged KV cache is ``serving/scheduler.py``; ``cache_shardings``
+(multi-GPU) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -301,6 +301,54 @@ def test_zamba2_forward_through_the_kernels_matches_plain(dev):
         assert (k - p).abs().max().item() <= 5e-2 * p.abs().max().item()
 
 
+def test_scheduler_on_the_card_is_identical_under_eviction(dev):
+    """Reduced bf16 zamba2 compressed on the card, served by the
+    continuous-batching scheduler (2 slots, pages of 8, the shared block's KV
+    paged): a pool cut so that a request that has decoded is evicted gives
+    the tokens of a full pool, and K3 launches once per compressed call per
+    forward (prefill forwards + decode ticks), K5 once per shared-block call
+    per prefill forward."""
+    from repro_torch.serving import Scheduler
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("zamba2-1.2b")), dtype="bfloat16",
+                              num_layers=14)
+    values, _ = split(init_model(cfg, seed=0, device=dev))
+    policy = CompressionPolicy(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5,
+                               min_size=4096)
+    cvals, art = execute_plan(plan_compression(values, policy), values, seed=0, device=dev)
+    tensors = art.manifest["tensors"]
+    n_shared = cfg.num_groups
+    per_forward = sum(n_shared if p.startswith("shared/") else
+                      (e["group_dims"][0] if e["group_dims"] else 1) for p, e in tensors.items())
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=16).astype(np.int32) for _ in range(3)]
+
+    def run(num_pages):
+        eng = Engine(cfg, cvals, max_len=32, batch=1, eos_id=cfg.vocab_size, artifact=art)
+        sched = Scheduler(eng, num_slots=2, page_size=8, num_pages=num_pages, device=dev)
+        before = (fa.flash_attention.launches, bl.bitlinear.launches)
+        try:
+            toks = sched.generate_batch(prompts, max_tokens=12)
+        finally:
+            ops.disable_kernels()
+        torch.cuda.synchronize()
+        st = sched.stats
+        assert st.prefill_chunks == st.admitted        # one exact-length chunk each
+        assert (fa.flash_attention.launches - before[0],
+                bl.bitlinear.launches - before[1]) == (
+            n_shared * st.prefill_chunks, per_forward * (st.prefill_chunks + st.decode_steps))
+        assert sched.pool.pages_in_use == 0
+        return toks, st
+
+    full, st_full = run(None)
+    # 7 usable pages: two running requests of 2 pages a prompt outgrow them,
+    # and the one that needs a page evicts the other after 10 and 11 tokens
+    cut, st_cut = run(8)
+    assert st_full.evictions == 0 and st_cut.evictions > 0
+    assert cut == full
+    assert all(len(t) == 12 and all(0 <= v < cfg.vocab_size for v in t) for t in full)
+
+
 # ---------------------------------------------------------------------------
 # K3/K4 schedules x bit algebras x activation dtypes, and the autotuner
 # ---------------------------------------------------------------------------

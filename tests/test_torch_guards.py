@@ -108,6 +108,20 @@ def test_serving_entry_points_refuse_the_cpu_without_device(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+def test_scheduler_and_page_pool_refuse_the_cpu_without_device():
+    _cpu_only()
+    from repro_torch.serving import Engine, PagePool, Scheduler
+
+    cfg = reduced_for_smoke(get_config("qwen3-32b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagePool(cfg, num_slots=2, max_len=32, page_size=8)
+    values, _ = split(init_model(cfg, seed=0, device="cpu"))
+    eng = Engine(cfg, values, max_len=32, batch=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Scheduler(eng, num_slots=2, page_size=8)
+    assert Scheduler(eng, num_slots=2, page_size=8, device="cpu").pool.device.type == "cpu"
+
+
 def test_paper_instances_refuse_the_cpu_without_device():
     _cpu_only()
     from repro_torch.core.instances import paper_instances, random_instance, shrunk_vgg_instance

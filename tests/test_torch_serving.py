@@ -280,14 +280,39 @@ def test_serve_cli_serves_reduced_zamba2_compressed(monkeypatch, capsys):
     assert eng.fused_bitlinear and tattn._FLASH_IMPL is not None
 
 
-@pytest.mark.parametrize("flag", ["--load-curve"])
-def test_serve_cli_refuses_unported_flags(flag, capsys):
+def test_serve_cli_load_curve_needs_cuda(capsys):
+    """``--load-curve`` and its flags are ported: they parse and reach the
+    CUDA check."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
     from repro_torch.launch.serve import main
 
-    with pytest.raises(SystemExit) as e:
-        main(["--arch", "qwen3-32b", "--reduced", flag])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "qwen3-32b", "--reduced", "--load-curve", "--qps", "4", "16",
+              "--requests", "8", "--num-slots", "2", "--page-size", "8"])
+    assert "not yet ported" not in capsys.readouterr().err
+
+
+def test_load_curve_prints_jax_csv_and_completes_every_request(model, capsys):
+    """The sweep ``main`` and chip_smoke.py share, on the CPU: JAX's CSV
+    header, one row per rate, every request completed; the page size of 8
+    halves to 4, which divides max_len = 12 (PagePool refuses 8), as JAX's
+    launcher does."""
+    import inspect
+
+    from repro.launch import serve as jserve
+    from repro_torch.launch.serve import LOAD_CSV_HEADER, load_curve
+
+    assert f'print("{LOAD_CSV_HEADER}")' in inspect.getsource(jserve.main)
+    eng = _port_engine(model, True, batch=2)
+    res = load_curve(eng, model["tcfg"], qps=[64.0, 256.0], requests=16, num_slots=4,
+                     page_size=8, prompt_len=P, steps=4, device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == LOAD_CSV_HEADER and len(lines) == 3
+    for line, r, q in zip(lines[1:], res, (64.0, 256.0)):
+        assert r.qps == q and r.completed == r.n_requests == 16 and r.total_tokens == 64
+        assert line.split(",")[:2] == [f"{q:g}", "16"] and len(line.split(",")) == 7
+        assert 1 <= r.peak_running <= 4 and r.evictions == 0
 
 
 def test_serve_cli_autotune_kernels_needs_cuda(capsys):

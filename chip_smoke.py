@@ -9,11 +9,14 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      z <= 0: it must never decrease (their acceptance thresholds,
      csrc/anneal_step.cuh, are exact iff so).
   1. K1 (csrc/sa_sweep.cu) against its plain PyTorch version on dyadic
-     fixtures at the BBO pool's shape and at the paper's BBO loop (phase
-     6: 25 and 4 runs x 10 reads x 64 sweeps): spins and energies must be
-     bit-identical.  Timed at those three shapes beside its bytes,
-     operations and chain bounds (the longest dependent path at 4 cycles a
-     step) and its threshold pass alone.
+     fixtures at the BBO pool's shape, at the paper's BBO loop (phase 6: 25
+     and 4 runs x 10 reads x 64 sweeps) and at the budget allocator's QUBO
+     shape (6 problems x 8 reads x 96 sweeps) at n = 121, 237 (the
+     shared-memory body's limit at 8 chains), 238, 512 and 1,024 (the
+     global-memory body): spins and energies must be bit-identical.  Timed
+     at the first three shapes and the allocator's at n = 237 and 1,024
+     beside its bytes, operations and chain bounds (the longest dependent
+     path at 4 cycles a step) and its threshold pass alone.
   2. The main path at full width: ``compress_model`` on qwen3-32b's
      published widths with depth cut to one layer, a policy that refines
      ``attn/w[kv]`` with BBO (tn=8, K=3: n=24 spins, 10,240 tiles in one
@@ -149,11 +152,30 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      at 1, 4 and 16 queries per second, 16 requests each, all completed:
      goodput, latency and time-to-first-token percentiles, peak running,
      evictions, ticks and mean tick time per rate.
+  8. zamba2-1.2b whole compressed to a byte budget (run after 7c): the
+     default policy as the base of ``compress_model(budget_bytes=...)`` at
+     phase 7's uniform bytes, calibrated, the QUBO allocator, K in {2, 4,
+     6, 8}.  Calibration must launch neither K3 nor K5, probing no kernel,
+     the allocation K1 once (the QUBO's spins printed) and its greedy
+     cross-check none; the artifact within the budget and every stored
+     tensor as allocated (a tensor left dense stored dense).  Reported: the
+     cross-check's gap, the calibration-weighted distortion predicted,
+     measured from ``tile_resid`` and of phase 7's uniform artifact, and
+     the wall times of calibration, probing, the solve, execute and the
+     serve.  Then served as phase 7: K3 as the manifest implies, K5 6 a
+     prefill, bf16 prefill logits within 5e-2 of the plain path's.
   7b. mamba2-130m whole (24 SSD layers at published widths, random weights
      from seed 0): compressed with the default policy (4,608 tiles of 32 x
      419, 6,912 of 32 x 128) and served as phase 7 (K3 48 x 32 launches,
      the prefill's 48 on the tensor cores, no K5; bf16 prefill logits within
      5e-2 of the plain path's).
+  8b. mamba2-130m whole compressed with ``objective="eval_loss"`` to 0.75 x
+     the uniform default plan's bytes: the greedy allocator over eval-loss
+     deltas (the int8 column and the exact-LP cross-check on), K in {2, 4,
+     6, 8}.  The LP must be optimal and within its tolerance, the baseline
+     loss finite, the artifact within the budget and stored as allocated;
+     the eval harness scores it and the uniform plan of the most K that
+     fits the same budget (reported), and it is served as phase 7b.
 
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
@@ -167,6 +189,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -350,10 +373,47 @@ K1_FIXTURES = {
 }
 
 
+# K1 at the budget allocator's QUBO shape (compression/autotune/allocate.py:
+# 6 penalty problems x 8 reads x 96 sweeps on ising's annealing schedule),
+# n on both sides of the shared-memory body's limit (237 spins at 8 chains)
+# up to the global-memory body's 1,024; n = 237 and 1,024 timed
+K1_ALLOC_SHAPE = (6, 8, 96)
+K1_ALLOC_N = (121, 237, 238, 512, 1024)
+K1_ALLOC_TIMED = (237, 1024)
+
+
+def k1_timing(torch, lib, h, B, x0, u, temps, flush, plain_ms=None):
+    """A K1 launch's ms, device ms, plain ms (timed here unless given),
+    threshold pass, ns per step and bounds (bytes, operations, chain) on
+    these inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sa_sweep import direct_acceptance, sa_sweep_many
+
+    P, C, S, n = u.shape
+    ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush)
+    device_ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush, busy=True)
+    if plain_ms is None:
+        plain_ms = cuda_ms(torch, lambda: ref.sa_sweep_many_ref(h, B, x0, u, temps), 2, flush)
+    nbytes = 4 * (P * n + P * n * n + P * C * n + P * C * S * n + P * S + P * C * n + P * C)
+    # per spin step: field update (n mul-adds) + acceptance (~6 ops);
+    # per chain: initial field and final energy (2 n^2 mul-adds each)
+    ops = P * C * (S * n * (2 * n + 6) + 4 * 2 * n * n)
+    return {
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        # the threshold pass alone (none runs where the steps decide directly)
+        "threshold_device_ms": None if direct_acceptance(P, C) else threshold_device_ms(
+            torch, lib, u, temps, 0.0, C, n, flush),
+        "ns_per_step": device_ms * 1e6 / (S * n),
+        **anneal_bounds(nbytes, ops, S * n),
+    }
+
+
 def phase_k1(torch, dev, flush):
     from repro_torch.core import ising
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.sa_sweep import direct_acceptance, lanes_per_chain, sa_sweep_many
+    from repro_torch.kernels.sa_sweep import (
+        direct_acceptance, lanes_per_chain, sa_sweep_many, shared_body,
+    )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     out = {}
@@ -379,26 +439,33 @@ def phase_k1(torch, dev, flush):
                       "flipped": float((xk != x0).float().mean())}
         if label == "sa_geometric":
             continue
-        ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush)
-        device_ms = cuda_ms(torch, lambda: sa_sweep_many(h, B, x0, u, temps), 10, flush,
-                            busy=True)
-        plain_ms = cuda_ms(torch, lambda: ref.sa_sweep_many_ref(h, B, x0, u, temps), 2, flush)
-        nbytes = 4 * (P * n + P * n * n + P * C * n + P * C * S * n + P * S + P * C * n + P * C)
-        # per spin step: field update (n mul-adds) + acceptance (~6 ops);
-        # per chain: initial field and final energy (2 n^2 mul-adds each)
-        ops = P * C * (S * n * (2 * n + 6) + 4 * 2 * n * n)
-        timing = {
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            # the threshold pass alone (none runs where the steps decide directly)
-            "threshold_device_ms": None if direct_acceptance(P, C) else threshold_device_ms(
-                torch, _build.load("sa_sweep"), u, temps, 0.0, C, n, flush),
-            "ns_per_step": device_ms * 1e6 / (S * n),
-            **anneal_bounds(nbytes, ops, S * n),
-        }
+        timing = k1_timing(torch, _build.load("sa_sweep"), h, B, x0, u, temps, flush)
         if label == "sq_main_shape":
             out["timing"] = timing
         else:
             out.setdefault("timing_phase6", {})[label] = timing
+    P, C, S = K1_ALLOC_SHAPE
+    for n in K1_ALLOC_N:
+        label = f"allocator_n{n}"
+        h, B = dyadic_problems(torch, g, P, n, dev)
+        x0 = (2.0 * torch.randint(0, 2, (P, C, n), generator=g, device=dev) - 1.0).contiguous()
+        u = torch.rand((P, C, S, n), generator=g, device=dev)
+        temps = ising._temperature_schedule(h, B, S).float().contiguous()
+        xk, ek = sa_sweep_many(h, B, x0, u, temps)
+        # the plain version (seconds at these n) runs once: checked and timed
+        res = {}
+        plain_ms = cuda_ms(torch, lambda: res.update(zip("xe", ref.sa_sweep_many_ref(
+            h, B, x0, u, temps))), 1, flush, warmup=False)
+        xr, er = res["x"], res["e"]
+        err = max(float((xk - xr).abs().max()), float((ek - er).abs().max()))
+        check(torch.equal(xk, xr), f"K1 spins differ from the plain version ({label})")
+        check(torch.equal(ek, er), f"K1 energies differ from the plain version ({label})")
+        out[label] = {"P": P, "C": C, "S": S, "n": n, "identical": True, "max_abs_err": err,
+                      "body": "shared" if shared_body(n, C) else "global",
+                      "flipped": float((xk != x0).float().mean())}
+        if n in K1_ALLOC_TIMED:
+            out.setdefault("timing_allocator", {})[label] = k1_timing(
+                torch, _build.load("sa_sweep"), h, B, x0, u, temps, flush, plain_ms=plain_ms)
     return out
 
 
@@ -2261,13 +2328,17 @@ def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, lit
                 "flash_attention": fa.flash_attention.launches,
                 "sa_sweep_many": sa.sa_sweep_many.launches}
     eng = res.engine
-    per_forward = sum(uses(p, e) for p, e in eng.artifact.manifest["tensors"].items())
+    # the tensors K3 serves (an int8 one is served by apply_intquant)
+    manifest = {**eng.artifact.manifest,
+                "tensors": {p: e for p, e in eng.artifact.manifest["tensors"].items()
+                            if e["method"] != "int8"}}
+    per_forward = sum(uses(p, e) for p, e in manifest["tensors"].items())
     want = {"bitlinear": per_forward * GEN_STEPS, "bitlinear_grouped": 0,
             "flash_attention": n_shared, "sa_sweep_many": 0}
     check(per_forward == per_forward_want == literal and launches == want,
           f"{label}: launches {launches}, want {want} ({per_forward} K3 calls a forward)")
     by_schedule = served(bl.bitlinear)
-    tensor_cores, clusters = heuristic_launches(torch, dev, eng.artifact.manifest,
+    tensor_cores, clusters = heuristic_launches(torch, dev, manifest,
                                                 {"bitlinear": by_schedule}, zamba_tokens,
                                                 label, uses)
     check(tensor_cores == {"bitlinear": per_forward},
@@ -2649,6 +2720,266 @@ def phase_mamba2(torch, dev, out_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 8b: compress to a byte budget (compression/autotune, eval/)
+# ---------------------------------------------------------------------------
+
+# K over tile_n 32: {2, 4, 6, 8} (the default grid reaches K = 28, whose 2^K
+# sign patterns alternating cannot enumerate)
+AUTOTUNE_K_FRACTIONS = (1 / 16, 1 / 8, 3 / 16, 1 / 4)
+MAMBA2_BUDGET_FRACTION = 0.75
+
+
+def launch_counts():
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.kernels import sqa_sweep as sqa
+
+    return {"sa_sweep_many": sa.sa_sweep_many.launches,
+            "sqa_sweep_many": sqa.sqa_sweep_many.launches,
+            "bitlinear": bl.bitlinear.launches,
+            "bitlinear_grouped": bl.bitlinear_grouped.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+def staged(torch, stages):
+    """Wrap each (module, function name) of ``stages`` so that every call
+    appends {"stage", "s" (wall, card synchronised), "launches" (the kernel
+    launches it made), "engine" (allocate_budget's)} to the returned list.
+    Returns (records, restore)."""
+    records, saved = [], []
+    for mod, name in stages:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def run(*a, _fn=fn, _name=name, **k):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t = time.time()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            records.append({"stage": _name, "s": time.time() - t, "engine": k.get("engine"),
+                            "launches": {key: v - before[key]
+                                         for key, v in launch_counts().items()}})
+            return out
+        setattr(mod, name, run)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return records, restore
+
+
+def budget_compress(torch, dev, cfg, values, out_dir, budget, stages, **autotune_kw):
+    """``compress_model`` of ``values`` to ``budget`` bytes with the default
+    policy, its autotuner's ``stages`` recorded (``staged``).  Returns
+    (compressed values, artifact, the AutotuneResult, records, wall s,
+    execute s)."""
+    from repro_torch.compression import CompressionPolicy
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.compress import compress_model
+
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    records, restore = staged(torch, stages)
+    try:
+        t0 = time.time()
+        cvalues, artifact = compress_model(cfg, CompressionPolicy(), out_dir, seed=SEED,
+                                           device=dev, values=values, verbose=False,
+                                           budget_bytes=budget, **autotune_kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        restore()
+    result = compress_model.last_autotune
+    check(result.allocation.total_bytes <= budget and artifact.total_bytes() <= budget,
+          f"{cfg.name}: allocated {result.allocation.total_bytes}, stored "
+          f"{artifact.total_bytes()} bytes over the budget of {budget}")
+    tensors = artifact.manifest["tensors"]
+    for path, pt in result.allocation.choices.items():
+        if pt.dense:
+            check(path not in tensors, f"{cfg.name}: {path} allocated dense, stored compressed")
+            continue
+        e = tensors.get(path)
+        want = (pt.tile_n, pt.tile_d, pt.K, pt.method or "alternating")
+        check(e is not None and (e["tile_n"], e["tile_d"], e["K"], e["method"]) == want,
+              f"{cfg.name}: {path} stored as {e and (e['tile_n'], e['tile_d'], e['K'], e['method'])}"
+              f", allocated {want}")
+    check(set(tensors) <= set(result.allocation.choices),
+          f"{cfg.name}: stored tensors the allocation did not choose")
+    return cvalues, artifact, result, records, wall, compress_model.execute_s
+
+
+def weighted_distortion(manifest, weights):
+    """sum over stored tensors of weight x sum of squared tile residuals
+    (the manifest's ``tile_resid``); a tensor kept dense adds 0."""
+    return sum(weights.get(p, 1.0) * sum(v * v for v in e["tile_resid"])
+               for p, e in manifest["tensors"].items())
+
+
+def phase_zamba_autotune(torch, dev, uniform_dir, out_dir):
+    """The whole zamba2-1.2b (published widths, seed 0) through
+    ``compress_model`` to the byte budget of phase 7's uniform default plan:
+    calibrated, the QUBO engine, K in {2, 4, 6, 8}.  Calibration launches
+    neither K3 nor K5, probing no kernel, the allocation one K1 launch (its
+    spins printed) and the greedy cross-check none; the artifact fits the
+    budget and stores every tensor as allocated.  Its weighted distortion is
+    reported predicted, measured (``tile_resid``) and against phase 7's
+    uniform artifact at equal bytes.  Then served as phase 7 (K3 as the
+    manifest implies, K5 6 a prefill, bf16 logits within LOGIT_TOL)."""
+    from repro_torch.compression import CompressionArtifact, CompressionPolicy, plan_compression
+    from repro_torch.compression.autotune import refine
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = zamba_config()
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    budget = plan_compression(values, CompressionPolicy()).total_bytes()
+    uniform = CompressionArtifact.load(uniform_dir)
+    _, artifact, result, records, wall, execute_s = budget_compress(
+        torch, dev, cfg, values, out_dir, budget,
+        ((refine, "calibration_weights"), (refine, "probe_tensors"),
+         (refine, "allocate_budget")),
+        engine="qubo", calibration=True, k_fractions=AUTOTUNE_K_FRACTIONS)
+    del values
+    k1_launches = sa.sa_sweep_many.launches
+    by = {}
+    for r in records:
+        by.setdefault(r["stage"], []).append(r)
+    zero = {k: 0 for k in launch_counts()}
+    check([r["launches"] for r in by["calibration_weights"]] == [zero],
+          f"phase 8: calibration launched {by['calibration_weights']}")
+    check([r["launches"] for r in by["probe_tensors"]] == [zero],
+          f"phase 8: probing launched {by['probe_tensors']}")
+    alloc = {r["engine"]: r for r in by["allocate_budget"]}
+    check(alloc["qubo"]["launches"] == {**zero, "sa_sweep_many": 1}
+          and alloc["greedy"]["launches"] == zero and sa.sa_sweep_many.launches == 1,
+          f"phase 8: the allocation launched {alloc}, K1 {sa.sa_sweep_many.launches} in all")
+    n_spins = result.allocation.num_spins
+    auto = artifact.manifest["autotune"]
+    w = result.weights
+    counts = {}
+    for pt in result.allocation.choices.values():
+        key = "dense" if pt.dense else f"K{pt.K}"
+        counts[key] = counts.get(key, 0) + 1
+    n_shared = zamba_shared_calls(cfg)
+    uses = zamba_uses(cfg)
+    per_forward = sum(uses(p, e) for p, e in artifact.manifest["tensors"].items())
+    t = time.time()
+    gen = ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward, per_forward,
+                       "phase 8")
+    serve_s = time.time() - t
+    out = {"budget_bytes": budget, "uniform_bytes": uniform.total_bytes(),
+           "allocated_bytes": result.allocation.total_bytes,
+           "stored_bytes": artifact.total_bytes(), "engine": "qubo", "calibrated": True,
+           "k_fractions": list(AUTOTUNE_K_FRACTIONS), "qubo_spins": n_spins,
+           "qubo_shape": {"P": 6, "reads": 8, "sweeps": 96, "n": n_spins,
+                          "body": "shared" if sa.shared_body(n_spins, 8) else "global"},
+           "k1_launches": k1_launches,
+           "choices": counts, "tensors_stored": len(artifact.manifest["tensors"]),
+           "cross_check": auto["cross_check"],
+           "weighted_distortion": {
+               "predicted": result.allocation.total_distortion,
+               "measured": weighted_distortion(artifact.manifest, w),
+               "uniform_measured": weighted_distortion(uniform.manifest, w)},
+           "wall_s": {"compress_model": wall, "calibrate": by["calibration_weights"][0]["s"],
+                      "probe": by["probe_tensors"][0]["s"],
+                      "solve": result.allocation.solve_s,
+                      "allocate_qubo": alloc["qubo"]["s"],
+                      "cross_check_greedy": alloc["greedy"]["s"], "execute": execute_s,
+                      "serve": serve_s},
+           **gen}
+    emit({"zamba2_autotune": out})
+    return out
+
+
+def phase_mamba2_autotune(torch, dev, out_dir):
+    """The whole mamba2-130m (published widths, seed 0) through
+    ``compress_model`` with ``objective="eval_loss"``: the greedy engine,
+    the int8 column and the LP cross-check on, the budget
+    MAMBA2_BUDGET_FRACTION of the uniform default plan's bytes, K in {2, 4,
+    6, 8}.  The LP must be optimal and within tolerance, the baseline loss
+    finite, the artifact within the budget and stored as allocated; the eval
+    harness scores it against a uniform plan that fits the same budget.
+    Then served as phase 7b."""
+    import repro_torch.eval as ev
+    from repro_torch.compression import CompressionPolicy, execute_plan, plan_compression
+    from repro_torch.compression.autotune import refine
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = mamba2_config()
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    full = plan_compression(values, CompressionPolicy()).total_bytes()
+    budget = int(MAMBA2_BUDGET_FRACTION * full)
+    cvalues, artifact, result, records, wall, execute_s = budget_compress(
+        torch, dev, cfg, values, out_dir, budget,
+        ((refine, "calibration_weights"), (ev, "build_metric_table"),
+         (refine, "allocate_budget")),
+        engine="greedy", objective="eval_loss", k_fractions=AUTOTUNE_K_FRACTIONS)
+    lp, table = result.lp_check, result.metric_table
+    check(lp["status"] == "optimal" and lp["within_tolerance"],
+          f"phase 8b: LP cross-check {lp}")
+    check(math.isfinite(table.baseline.loss), f"phase 8b: baseline loss {table.baseline.loss}")
+    # the uniform plan of the most K that fits the same budget
+    for K in (3, 2, 1):
+        uplan = plan_compression(values, CompressionPolicy(rank_ratio=K / 32))
+        if uplan.total_bytes() <= budget:
+            break
+    t = time.time()
+    uvalues, _ = execute_plan(uplan, values, seed=SEED, device=dev)
+    harness = ev.EvalHarness(cfg, seed=SEED, device=dev)      # the autotuner's harness
+    base = harness.baseline(values)
+    auto_loss = harness.evaluate(cvalues).loss
+    uniform_loss = harness.evaluate(uvalues).loss
+    score_s = time.time() - t
+    del values, uvalues, cvalues
+    by = {r["stage"]: r for r in records}
+    counts = {}
+    for pt in result.allocation.choices.values():
+        key = "dense" if pt.dense else ("int8" if pt.method == "int8" else f"K{pt.K}")
+        counts[key] = counts.get(key, 0) + 1
+
+    def uses(path, e):
+        return 0 if e["method"] == "int8" else layer_slices(path, e)
+
+    per_forward = sum(uses(p, e) for p, e in artifact.manifest["tensors"].items())
+    t = time.time()
+    gen = ssm_generate(torch, dev, cfg, out_dir, uses, 0, per_forward, per_forward,
+                       "phase 8b")
+    serve_s = time.time() - t
+    out = {"budget_bytes": budget, "uniform_default_bytes": full,
+           "allocated_bytes": result.allocation.total_bytes,
+           "stored_bytes": artifact.total_bytes(), "engine": "greedy",
+           "objective": "eval_loss", "k_fractions": list(AUTOTUNE_K_FRACTIONS),
+           "choices": counts, "lp_check": lp,
+           "table": {"baseline_loss": table.baseline.loss, "alpha": table.alpha,
+                     "exact_paths": list(table.exact_paths),
+                     "surrogate_skip_rate": table.surrogate_skip_rate,
+                     "build_s": table.build_s,
+                     "rows": {p: [{k: r[k] for k in ("K", "method", "bytes", "delta",
+                                                     "sample_fraction")} for r in rows]
+                              for p, rows in table.entries.items()}},
+           "eval_loss": {"baseline": base.loss, "autotuned": auto_loss,
+                         "autotuned_delta": auto_loss - base.loss,
+                         "uniform_rank_ratio": f"{K}/32", "uniform_bytes": uplan.total_bytes(),
+                         "uniform": uniform_loss, "uniform_delta": uniform_loss - base.loss,
+                         "score_s": score_s},
+           "wall_s": {"compress_model": wall, "calibrate": by["calibration_weights"]["s"],
+                      "metric_table": by["build_metric_table"]["s"],
+                      "solve": result.allocation.solve_s, "allocate": by["allocate_budget"]["s"],
+                      "execute": execute_s, "serve": serve_s},
+           **gen}
+    emit({"mamba2_autotune": out})
+    return out
+
+
 def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
     launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
@@ -2820,6 +3151,14 @@ def main() -> int:
         t = time.time()
         sched7c = phase_zamba_sched(torch, dev, zamba_dir)
         phases["scheduler_7c_s"] = time.time() - t
+        zamba_auto_dir = os.path.join(ROOT, "build", "chip_smoke_zamba2_autotune_ckpt")
+        shutil.rmtree(zamba_auto_dir, ignore_errors=True)
+        try:
+            t = time.time()
+            zamba_auto = phase_zamba_autotune(torch, dev, zamba_dir, zamba_auto_dir)
+            phases["zamba2_autotune_8_s"] = time.time() - t
+        finally:
+            shutil.rmtree(zamba_auto_dir, ignore_errors=True)
     finally:
         shutil.rmtree(zamba_dir, ignore_errors=True)
     mamba2_dir = os.path.join(ROOT, "build", "chip_smoke_mamba2_ckpt")
@@ -2828,6 +3167,10 @@ def main() -> int:
         t = time.time()
         mamba2_gen = phase_mamba2(torch, dev, mamba2_dir)
         phases["mamba2_s"] = time.time() - t
+        shutil.rmtree(mamba2_dir, ignore_errors=True)
+        t = time.time()
+        mamba2_auto = phase_mamba2_autotune(torch, dev, mamba2_dir)
+        phases["mamba2_autotune_8b_s"] = time.time() - t
     finally:
         shutil.rmtree(mamba2_dir, ignore_errors=True)
     t = time.time()
@@ -2871,7 +3214,14 @@ def main() -> int:
          "phase6": {label: {k: tm[k] for k in ANNEAL_KEYS}
                     for label, tm in k1["timing_phase6"].items()},
          "launches_phase6": {k: v["launches"]["sa_sweep_many"]
-                             for k, v in paper["algorithms"].items()}},
+                             for k, v in paper["algorithms"].items()},
+         # phase 8: the budget allocator's QUBO solve (its spins), and K1 timed
+         # at the allocator's shape (6 problems x 8 reads x 96 sweeps) at n =
+         # 237 (the shared-memory body) and 1,024 (the global-memory body)
+         "launches_phase8": zamba_auto["k1_launches"],
+         "qubo_shape_phase8": zamba_auto["qubo_shape"],
+         "allocator": {label: {k: tm[k] for k in ANNEAL_KEYS}
+                       for label, tm in k1["timing_allocator"].items()}},
         {"name": "bitlinear", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:438",
@@ -2879,6 +3229,9 @@ def main() -> int:
          "launches_phase5": moe_gen["launches"]["bitlinear"],
          "launches_phase7": zamba_gen["launches"]["bitlinear"],
          "launches_phase7b": mamba2_gen["launches"]["bitlinear"],
+         # the autotuned serves: zamba2 to phase 7's bytes, mamba2-130m to 0.75 x
+         "launches_phase8": zamba_auto["launches"]["bitlinear"],
+         "launches_phase8b": mamba2_auto["launches"]["bitlinear"],
          # the scheduler's runs: phase 7c's (a), full and cut pool; phase 4c's
          "launches_phase7c": sched7c["launches"]["bitlinear"],
          "launches_phase4c": sched4c["launches"]["bitlinear"],
@@ -2913,6 +3266,7 @@ def main() -> int:
          "launches": gen["launches"]["flash_attention"],
          "launches_phase5": moe_gen["launches"]["flash_attention"],
          "launches_phase7": zamba_gen["launches"]["flash_attention"],
+         "launches_phase8": zamba_auto["launches"]["flash_attention"],
          "launches_phase7c": sched7c["launches"]["flash_attention"],
          "launches_phase4c": sched4c["launches"]["flash_attention"], "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],

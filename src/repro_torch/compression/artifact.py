@@ -45,6 +45,10 @@ class CompressionArtifact:
     def total_ratio(self) -> float:
         return self.manifest["totals"]["ratio"]
 
+    @property
+    def compression_ratio(self) -> float:
+        return self.total_ratio
+
     def total_bytes(self) -> int:
         """Stored bytes of the compressed tensors."""
         return int(self.manifest["totals"]["new_bytes"])

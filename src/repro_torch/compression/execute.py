@@ -182,8 +182,13 @@ def _leaf_spec(w: dict) -> dict:
 
 
 def _replace(tree, new: dict, prefix: str = ""):
+    """``tree`` with the leaves at the paths of ``new`` replaced (paths as
+    ``tree_paths`` names them); every other leaf is the same object."""
     if isinstance(tree, dict):
         return {k: _replace(v, new, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_replace(v, new, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
     return new.get(prefix, tree)
 
 

@@ -7,7 +7,8 @@ tensors: only shapes and dtypes are read) and produces a
 predicted bytes.  For the same tree and policy the plan's JSON is byte for
 byte the one ``repro`` writes: leaves are enumerated in the same order
 (sorted dict keys, as JAX flattens a dict) and dtypes carry numpy names.
-The budget autotuner (``budget_bytes``) is not ported yet.
+With ``budget_bytes`` planning becomes the rate-distortion autotune of
+:mod:`repro_torch.compression.autotune`.
 """
 
 from __future__ import annotations
@@ -222,8 +223,25 @@ def _structurally_plausible(leaf) -> bool:
     return getattr(leaf, "ndim", 0) in (2, 3, 4) and leaf.dtype.is_floating_point
 
 
-def plan_compression(values, policy: CompressionPolicy) -> CompressionPlan:
-    """Pure planning pass: no solver runs, only shapes and dtypes are read."""
+def plan_compression(values, policy: CompressionPolicy, *, budget_bytes: int | None = None,
+                     **autotune_kw) -> CompressionPlan:
+    """Pure planning pass: no solver runs, only shapes and dtypes are read.
+
+    With ``budget_bytes``, planning becomes a rate-distortion autotune
+    (:func:`repro_torch.compression.autotune.autotune_plan`): trial
+    compressions probe per-tensor RD curves and a budget allocator picks
+    per-tensor settings so the compressed total fits the budget; no longer
+    pure, but deterministic per ``seed``.  Extra keyword arguments
+    (``engine``, ``seed``, ``device``, ``cfg``, ``calibration``,
+    ``max_probe_tiles``, ...) go to ``autotune_plan``."""
+    if budget_bytes is not None:
+        from repro_torch.compression.autotune import autotune_plan
+
+        return autotune_plan(values, policy, budget_bytes, **autotune_kw).plan
+    if autotune_kw:
+        raise TypeError(
+            f"plan_compression: {sorted(autotune_kw)} only apply with budget_bytes"
+        )
     tensors, skipped = [], []
     for i, (path, leaf) in enumerate(tree_paths(values)):
         if not isinstance(leaf, torch.Tensor) or not _structurally_plausible(leaf):

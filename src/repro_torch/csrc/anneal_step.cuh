@@ -145,6 +145,24 @@ __device__ __forceinline__ void sts(unsigned a, float v) {
   asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v) : "memory");
 }
 
+// K1's two bodies (sa_sweep.cu) and the rule that chooses between them,
+// defined here once (kernels/sa_sweep.py::max_spins and MAX_SPINS mirror it;
+// tests/test_torch_guards.py holds the mirror to this text).  The shared-
+// memory body stages B (n*n floats) and one spin row per warp of a block of
+// at most kSaMaxWarps warps, at most kSaSharedMaxSpins spins (8 per lane);
+// above that the global-memory body reads B's rows from device memory (the
+// L2 keeps them) and holds up to 32 spins per lane, kSaGlobalMaxSpins in all.
+constexpr int kSaSmemBytes = 232448;
+constexpr int kSaMaxWarps = 8;
+constexpr int kSaSharedMaxSpins = 256;
+constexpr int kSaGlobalMaxSpins = 1024;
+
+__host__ __device__ constexpr bool sa_shared_body(int n, int chains) {
+  return n <= kSaSharedMaxSpins &&
+         4LL * ((long long)n * n + (long long)(chains < kSaMaxWarps ? chains : kSaMaxWarps) * n) <=
+             kSaSmemBytes;
+}
+
 // Warps per block of a sweep launch that needs `need` warps for each of P
 // problems (a block holds chains of one problem, so the problem's couplings
 // are staged once): up to max_warps, but when the warps are few, fewer per

@@ -45,7 +45,21 @@
 //   * the initial field (h + 2 B x, (B x)_j summed in index order) and the
 //     final energy (h.x + x.(B x), per lane then a warp reduction over
 //     lanes owning spins l, l+32, ...) are computed as the earlier one-warp-
-//     per-chain kernel computed them, so its bits are kept on any data.
+//     per-chain kernel computed them, so its bits are kept on any data;
+//   * above the shared-memory limit (anneal::sa_shared_body, the budget
+//     allocator's QUBOs: one spin per hull point per tensor plus 6 slack
+//     spins per constraint, a few hundred to ~1,000), sa_sweep_global_kernel:
+//     a warp per chain (32 lanes, up to 32 spins per lane, x and f in
+//     registers), row i of B read from device memory for each step i (six
+//     problems of 1,024^2 floats are 25 MB: the L2 holds them) through a
+//     per-warp ring of rows in shared memory, filled by 16-byte cp.async
+//     three steps ahead.  Its thresholds, its field updates' order and its
+//     initial field and energy are the shared body's at 32 lanes, so both
+//     bodies give the same bits on any symmetric B.  Measured by
+//     tools/torch_k1_global_ab.py on an H100 80GB HBM3 at 700 W (device
+//     time, (6, 8, 96)): 5.0 ms at n = 238, 16.1 at 512, 55.5 at 1,024;
+//     the next row's loads in registers one step ahead took 4.9, 22.9, 94.1
+//     and a ring filled by 4-byte copies 6.1, 19.6, 97.5.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,7 +67,7 @@
 
 namespace {
 
-constexpr int kMaxWarps = 8;
+constexpr int kMaxWarps = anneal::kSaMaxWarps;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -221,34 +235,218 @@ cudaError_t launch_lanes(const float* h, const float* B, const float* x0, const 
   }
 }
 
-}  // namespace
 
-extern "C" {
+// The global-memory body: a warp per chain, lane l owns spins l, l+32, ...
+// (M = ceil(n / 32) slots, at most 32), x and f in registers.  Row i of B
+// comes from device memory through a ring of kRing rows per warp in shared
+// memory, filled kRing - 1 steps ahead by 16-byte cp.async copies of the
+// row's span from the 16-byte boundary at or below it (B's base must be
+// 16-byte aligned; the tail reads only the row, zero-filling the rest).  The
+// same decisions, shuffles, field updates and sums as sa_sweep_kernel<32,
+// M, DIRECT>, so the same bits on any symmetric B.
+constexpr int kRing = 4;
 
-// Largest supported spin count: 8 spins per lane at 32 lanes per chain, and
-// B (n*n floats) plus one spin row per chain must fit the block's shared
-// memory.
-int sa_sweep_max_spins() { return 8 * 32; }
+// 16 bytes to shared memory from global memory, of which `bytes` are read
+// (the rest zero-filled).
+__device__ __forceinline__ void cp_async16(unsigned dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
 
-// All pointers are device pointers to contiguous float32 arrays:
-// h (P, n), B (P, n, n), x0 (P, C, n), u (P, C, S, n), temps (P, S)
-// -> x_out (P, C, n), e_out (P, C); theta (P, C, S, n) is scratch for the
-// acceptance thresholds.  lanes (4, 8, 16 or 32) per chain, with at most 8
-// spins per lane.  direct != 0: each step evaluates the acceptance on its
-// uniform (theta unused); else the thresholds are launched first.  Returns
-// the first nonzero cudaGetLastError() of the launches.
-int sa_sweep_many_f32(const float* h, const float* B, const float* x0, const float* u,
-                      const float* temps, float* theta, float* x_out, float* e_out, int P, int C,
-                      int S, int n, int lanes, int direct, void* stream) {
-  if (P <= 0 || C <= 0) return 0;
-  if (n <= 0 || n > 8 * lanes) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+// Floats a warp's slice of the global body's shared memory takes: its
+// chain's n spins, then kRing rows of B, each n + 3 floats (a row's span
+// from the 16-byte boundary below it), all rounded up to 4.
+__host__ __device__ inline int global_spins_stride(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int global_row_stride(int n) { return (n + 6) & ~3; }
+__host__ __device__ inline size_t global_warp_floats(int n) {
+  return (size_t)global_spins_stride(n) + (size_t)kRing * global_row_stride(n);
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// out[k] = (B x)_j at the lane's spins j = k*32 + lane, each summed over i
+// in index order as the shared body sums row j.  B is symmetric, so row i
+// is read in place of column i: coalesced across the lanes.
+template <int M>
+__device__ __forceinline__ void bmat_x(const float* __restrict__ Bp, const float* xc, int n,
+                                       int lane, const bool (&own)[M], float (&out)[M]) {
+#pragma unroll
+  for (int k = 0; k < M; ++k) out[k] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float xi = xc[i];
+    const float* row = Bp + (size_t)i * n + lane;
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      if (own[k]) out[k] = __fadd_rn(out[k], __fmul_rn(row[32 * k], xi));
+  }
+}
+
+template <int M, bool DIRECT>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    sa_sweep_global_kernel(const float* __restrict__ h, const float* __restrict__ B,
+                           const float* __restrict__ x0, const float* __restrict__ theta,
+                           const float* __restrict__ temps, float* __restrict__ x_out,
+                           float* __restrict__ e_out, int C, int S, int n) {
+  extern __shared__ __align__(16) float smem[];   // per warp: global_warp_floats(n)
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x;
+  const int c = blockIdx.y * warps + warp;
+  if (c >= C) return;                      // no block-wide barrier below
+  const int rs = global_row_stride(n);
+  float* xc = smem + (size_t)warp * global_warp_floats(n);
+  const unsigned ring = anneal::shared_base(xc + global_spins_stride(n));
+  const size_t chain = (size_t)p * C + c;
+  const float* Bp = B + (size_t)p * n * n;
+  for (int j = lane; j < n; j += 32) xc[j] = x0[chain * n + j];
+  __syncwarp();
+
+  float x[M], f[M];
+  bool own[M];
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const int j = k * 32 + lane;
+    own[k] = j < n;
+    x[k] = own[k] ? xc[j] : 1.f;
+  }
+  bmat_x<M>(Bp, xc, n, lane, own, f);     // (B x)_j, summed in index order
+#pragma unroll
+  for (int k = 0; k < M; ++k)
+    f[k] = own[k] ? __fadd_rn(h[(size_t)p * n + k * 32 + lane], __fmul_rn(2.f, f[k])) : 0.f;
+
+  // the ring: row r sits in slot r % kRing from offset (p n^2 + r n) % 4;
+  // `issue` is the next row to copy
+  int issue = 0, put = 0, get = 0;
+  auto row_offset = [&](int r) { return (int)(((size_t)p * n * n + (size_t)r * n) & 3); };
+  auto copy_row = [&]() {
+    const int off = row_offset(issue);
+    const float* src = Bp + (size_t)issue * n - off;
+    const unsigned dst = ring + 4u * (unsigned)(put * rs);
+    for (int q = lane; 4 * q < off + n; q += 32)
+      cp_async16(dst + 16u * q, src + 4 * q, 4 * min(4, off + n - 4 * q));
+    cp_commit();
+    issue = issue + 1 < n ? issue + 1 : 0;
+    put = put + 1 < kRing ? put + 1 : 0;
+  };
+  for (int r = 0; r < kRing - 1; ++r) copy_row();
+
+  const float* thc = theta + chain * (size_t)S * n;
+  for (int s = 0; s < S; ++s) {
+    const float t = DIRECT ? fmaxf(temps[(size_t)p * S + s], 1e-12f) : 0.f;
+#pragma unroll
+    for (int slot = 0; slot < M; ++slot) {
+      const int base = slot * 32;
+      if (base >= n) break;
+      const int cnt = min(32, n - base);
+      const float th = own[slot] ? thc[(size_t)s * n + base + lane] : 0.f;
+      for (int o = 0; o < cnt; ++o) {
+        __syncwarp();                      // every lane has read the slot refilled here
+        copy_row();                        // row i + kRing - 1
+        cp_wait<kRing - 1>();              // this lane's copies of row i have landed
+        __syncwarp();                      // and every lane's
+        const unsigned bi = ring + 4u * (unsigned)(get * rs + row_offset(base + o) + lane);
+        float b[M];
+#pragma unroll
+        for (int k = 0; k < M; ++k) b[k] = own[k] ? __fmul_rn(2.f, anneal::lds(bi + 128u * k)) : 0.f;
+        get = get + 1 < kRing ? get + 1 : 0;
+        const float v = __fmul_rn(x[slot], f[slot]);
+        const bool accept = DIRECT ? anneal::accepts(v, th, t) : v >= th;
+        const float dl = accept ? __fmul_rn(-2.f, x[slot]) : 0.f;
+        const float delta = __shfl_sync(0xffffffffu, dl, o);
+#pragma unroll
+        for (int k = 0; k < M; ++k)
+          if (own[k]) f[k] = __fadd_rn(f[k], __fmul_rn(b[k], delta));
+        if (lane == o) x[slot] = __fadd_rn(x[slot], delta);
+      }
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const int j = k * 32 + lane;
+    if (j < n) xc[j] = x[k];
+  }
+  __syncwarp();
+  float bx[M];
+  bmat_x<M>(Bp, xc, n, lane, own, bx);
+  float eh = 0.f, eb = 0.f;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const int j = k * 32 + lane;
+    if (j < n) {
+      eh = __fadd_rn(eh, __fmul_rn(xc[j], h[(size_t)p * n + j]));
+      eb = __fadd_rn(eb, __fmul_rn(xc[j], bx[k]));
+      x_out[chain * n + j] = xc[j];
+    }
+  }
+  eh = warp_sum(eh);
+  eb = warp_sum(eb);
+  if (lane == 0) e_out[chain] = __fadd_rn(eh, eb);
+}
+
+template <int M, bool DIRECT>
+cudaError_t launch_global_mode(const float* h, const float* B, const float* x0,
+                               const float* theta, const float* temps, float* x_out,
+                               float* e_out, int P, int C, int S, int n, cudaStream_t stream) {
+  // up to kMaxWarps warps a block, as many as the ring's shared memory allows
+  const int fit = (int)(anneal::kSaSmemBytes / (sizeof(float) * global_warp_floats(n)));
+  const int warps = anneal::block_warps(P, C, fit < kMaxWarps ? fit : kMaxWarps);
+  const dim3 grid(P, (C + warps - 1) / warps);
+  const size_t smem = sizeof(float) * (size_t)warps * global_warp_floats(n);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(sa_sweep_global_kernel<M, DIRECT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  sa_sweep_global_kernel<M, DIRECT><<<grid, warps * 32, smem, stream>>>(h, B, x0, theta, temps,
+                                                                        x_out, e_out, C, S, n);
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch_global_m(const float* h, const float* B, const float* x0, const float* theta,
+                            const float* temps, bool direct, float* x_out, float* e_out, int P,
+                            int C, int S, int n, cudaStream_t st) {
+  return direct ? launch_global_mode<M, true>(h, B, x0, theta, temps, x_out, e_out, P, C, S, n, st)
+                : launch_global_mode<M, false>(h, B, x0, theta, temps, x_out, e_out, P, C, S, n,
+                                               st);
+}
+
+cudaError_t launch_global(const float* h, const float* B, const float* x0, const float* theta,
+                          const float* temps, bool direct, float* x_out, float* e_out, int P,
+                          int C, int S, int n, cudaStream_t st) {
+  const int m = (n + 31) / 32;
+#define K1G_CASE(MM) \
+  return launch_global_m<MM>(h, B, x0, theta, temps, direct, x_out, e_out, P, C, S, n, st)
+  if (m <= 8) K1G_CASE(8);
+  if (m <= 12) K1G_CASE(12);
+  if (m <= 16) K1G_CASE(16);
+  if (m <= 24) K1G_CASE(24);
+  if (m <= 32) K1G_CASE(32);
+#undef K1G_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The thresholds (unless direct), then the body: `global_body` picks the
+// global-memory one, else the shared-memory one at `lanes`.
+int run(const float* h, const float* B, const float* x0, const float* u, const float* temps,
+        float* theta, float* x_out, float* e_out, int P, int C, int S, int n, int lanes,
+        int direct, bool global_body, cudaStream_t st) {
   if (!direct) {
     cudaError_t err = anneal::launch_thresholds(u, temps, 0.f, theta, (long long)P * C, S * n,
                                                 n, C, S, st);
     if (err != cudaSuccess) return (int)err;
   }
   const float* src = direct ? u : theta;
+  if (global_body)
+    return (int)launch_global(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
   switch (lanes) {
     case 4: return (int)launch_lanes<4>(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
     case 8: return (int)launch_lanes<8>(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
@@ -258,6 +456,48 @@ int sa_sweep_many_f32(const float* h, const float* B, const float* x0, const flo
       return (int)launch_lanes<32>(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest supported spin count (the global-memory body's).
+int sa_sweep_max_spins() { return anneal::kSaGlobalMaxSpins; }
+
+// 1 if a launch of `chains` chains of n spins runs the shared-memory body,
+// else 0 (anneal::sa_shared_body).
+int sa_sweep_shared_body(int n, int chains) { return anneal::sa_shared_body(n, chains) ? 1 : 0; }
+
+// All pointers are device pointers to contiguous float32 arrays:
+// h (P, n), B (P, n, n), x0 (P, C, n), u (P, C, S, n), temps (P, S)
+// -> x_out (P, C, n), e_out (P, C); theta (P, C, S, n) is scratch for the
+// acceptance thresholds.  Where anneal::sa_shared_body(n, C) holds, the
+// shared-memory body at `lanes` (4, 8, 16 or 32) per chain with at most 8
+// spins per lane; else, up to kSaGlobalMaxSpins spins, the global-memory
+// body (lanes must be 32).  direct != 0: each step evaluates the acceptance
+// on its uniform (theta unused); else the thresholds are launched first.
+// Returns the first nonzero cudaGetLastError() of the launches.
+int sa_sweep_many_f32(const float* h, const float* B, const float* x0, const float* u,
+                      const float* temps, float* theta, float* x_out, float* e_out, int P, int C,
+                      int S, int n, int lanes, int direct, void* stream) {
+  if (P <= 0 || C <= 0) return 0;
+  const bool global_body = !anneal::sa_shared_body(n, C);
+  if (n <= 0 || n > anneal::kSaGlobalMaxSpins) return (int)cudaErrorInvalidValue;
+  if (global_body ? lanes != 32 : n > 8 * lanes) return (int)cudaErrorInvalidValue;
+  return run(h, B, x0, u, temps, theta, x_out, e_out, P, C, S, n, lanes, direct, global_body,
+             reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The global-memory body at any n up to kSaGlobalMaxSpins, whatever the
+// rule would pick: for holding the two bodies to each other.
+int sa_sweep_many_global_f32(const float* h, const float* B, const float* x0, const float* u,
+                             const float* temps, float* theta, float* x_out, float* e_out, int P,
+                             int C, int S, int n, int direct, void* stream) {
+  if (P <= 0 || C <= 0) return 0;
+  if (n <= 0 || n > anneal::kSaGlobalMaxSpins) return (int)cudaErrorInvalidValue;
+  return run(h, B, x0, u, temps, theta, x_out, e_out, P, C, S, n, 32, direct, true,
+             reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

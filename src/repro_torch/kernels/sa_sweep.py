@@ -5,7 +5,10 @@ the hand-written CUDA kernel ``csrc/sa_sweep.cu`` for CUDA tensors and runs
 the plain version (``ref.sa_sweep_many_ref``) for CPU tensors; both consume
 the same pre-drawn uniforms and initial spins, so they realise the same
 Metropolis chains.  ``sq_sweep_many`` is the constant-temperature path.
-``lanes_per_chain`` is the kernel's schedule rule; ``expf_decreases`` counts
+``lanes_per_chain`` is the kernel's schedule rule; ``max_spins`` and
+``MAX_SPINS`` mirror the rule that picks its body (``shared_body``: B in
+shared memory up to ``max_spins(C)`` spins, else read from device memory
+up to ``MAX_SPINS``, both in ``csrc/anneal_step.cuh``); ``expf_decreases`` counts
 on the card the floats at which the kernel's ``expf`` would break the
 exactness of its acceptance thresholds (``csrc/anneal_step.cuh``).
 """
@@ -19,21 +22,32 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sa_sweep_many_ref
 
-__all__ = ["sa_sweep_many", "sq_sweep_many", "max_spins", "lanes_per_chain", "direct_acceptance",
-           "expf_decreases"]
+__all__ = ["sa_sweep_many", "sa_sweep_many_global", "sq_sweep_many", "max_spins", "shared_body",
+           "MAX_SPINS", "lanes_per_chain", "direct_acceptance", "expf_decreases"]
 
+# csrc/anneal_step.cuh's kSaSmemBytes, kSaMaxWarps, kSaSharedMaxSpins,
+# kSaGlobalMaxSpins (tests/test_torch_guards.py holds them to the header)
 _SMEM_BYTES = 232448      # shared memory one block may use on Hopper
-_MAX_WARPS = 8            # warps per block (csrc/sa_sweep.cu kMaxWarps)
-_MAX_SPL = 8              # spins per lane (the kernel's largest template)
+_MAX_WARPS = 8            # warps per block
+_SHARED_MAX_SPINS = 256   # the shared-memory body: 8 spins per lane at 32 lanes
+MAX_SPINS = 1024          # the global-memory body: 32 spins per lane
+_MAX_SPL = 8              # spins per lane (the shared body's largest template)
 _FILL_CHAINS = 4096       # chains from which the card is full at 8 chains per warp
 
 
-def max_spins(chains: int) -> int:
-    """Largest n the kernel takes: B (n*n floats) plus one spin row per
-    warp in shared memory, and at most 256 spins (8 per lane)."""
+def shared_body(n: int, chains: int) -> bool:
+    """Whether a launch of ``chains`` chains of n spins runs the shared-
+    memory body: B (n*n floats) plus one spin row per warp (at most 8) fit
+    a block's shared memory, and n <= 256.  Else the global-memory body
+    runs, up to ``MAX_SPINS``."""
     w = min(chains, _MAX_WARPS)
-    n = 256
-    while 4 * (n * n + w * n) > _SMEM_BYTES:
+    return n <= _SHARED_MAX_SPINS and 4 * (n * n + w * n) <= _SMEM_BYTES
+
+
+def max_spins(chains: int) -> int:
+    """Largest n the shared-memory body takes at ``chains`` chains."""
+    n = _SHARED_MAX_SPINS
+    while not shared_body(n, chains):
         n -= 1
     return n
 
@@ -116,16 +130,19 @@ def sa_sweep_many(h, B, x0, rand, temps):
             raise ValueError(f"sa_sweep_many: {name} shape {tuple(t.shape)} != {shape}")
         if not t.is_contiguous():
             raise ValueError(f"sa_sweep_many: {name} must be contiguous")
-    if n > max_spins(C):
+    if n > MAX_SPINS:
         raise ValueError(
-            f"sa_sweep_many: n={n} spins exceed the kernel's shared-memory "
-            f"limit of {max_spins(C)}"
+            f"sa_sweep_many: n={n} spins exceed the kernel's limit of {MAX_SPINS} "
+            "(its global-memory body)"
         )
     x = torch.empty((P, C, n), dtype=torch.float32, device=h.device)
     e = torch.empty((P, C), dtype=torch.float32, device=h.device)
     if P == 0 or C == 0:
         return x, e
-    lanes, direct = lanes_per_chain(P, C, n), direct_acceptance(P, C)
+    lanes = lanes_per_chain(P, C, n) if shared_body(n, C) else 32
+    if not shared_body(n, C) and B.data_ptr() % 16:
+        B = B.clone()            # the global-memory body copies B's rows in 16-byte pieces
+    direct = direct_acceptance(P, C)
     # the acceptance thresholds of the uniforms (none where steps decide directly)
     theta = None if direct else torch.empty_like(rand)
     err = _lib()(
@@ -141,6 +158,31 @@ def sa_sweep_many(h, B, x0, rand, temps):
 
 
 sa_sweep_many.launches = 0
+
+
+def sa_sweep_many_global(h, B, x0, rand, temps):
+    """``sa_sweep_many`` through the global-memory body at any n up to
+    ``MAX_SPINS``, whichever body the rule picks: CUDA tensors only, for
+    holding the two bodies to each other.  Not counted in ``launches``."""
+    P, C, n = x0.shape
+    if h.device.type != "cuda" or n > MAX_SPINS:
+        raise ValueError(f"sa_sweep_many_global: CUDA tensors of at most {MAX_SPINS} spins")
+    lib = _build.load("sa_sweep")
+    fn = lib.sa_sweep_many_global_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    x = torch.empty((P, C, n), dtype=torch.float32, device=h.device)
+    e = torch.empty((P, C), dtype=torch.float32, device=h.device)
+    if B.data_ptr() % 16:
+        B = B.clone()
+    direct = direct_acceptance(P, C)
+    theta = None if direct else torch.empty_like(rand)
+    err = fn(h.data_ptr(), B.data_ptr(), x0.data_ptr(), rand.data_ptr(), temps.data_ptr(),
+             None if theta is None else theta.data_ptr(), x.data_ptr(), e.data_ptr(),
+             P, C, temps.shape[1], n, int(direct), torch.cuda.current_stream(h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sa_sweep_many_global: CUDA launch failed (cudaError {err})")
+    return x, e
 
 
 def sq_sweep_many(h, B, x0, rand, temperature: float = 0.1):

@@ -10,8 +10,21 @@ runs on the GPU and writes a checkpoint and ``compression_manifest.json``
 that ``repro`` restores and serves as well.  ``--autotune-kernels`` times
 the bitlinear schedules of every compressed geometry on the card and stores
 the winners in the manifest's ``kernel_schedules``, which ``Engine``
-installs.  ``--streaming``, ``--delta-from`` and ``--budget-mb`` are not
-ported yet (ROADMAP.md) and exit with a message.
+installs.
+
+With ``--budget-mb`` the flags (or ``--policy``) become the base policy of
+the rate-distortion autotuner (:mod:`repro_torch.compression.autotune`):
+per-tensor (K, tile) settings are chosen by probing RD curves and
+allocating the byte budget (``--engine greedy|qubo``), optionally weighted
+by calibration (``--calibrate``), minimising weight-space distortion or
+measured eval loss (``--objective eval-loss``):
+
+    PYTHONPATH=src python -m repro_torch.launch.compress --arch qwen3-32b \
+        --reduced --budget-mb 0.12 --tile-n 16 --tile-d 32 --rank-ratio 0.5 \
+        --min-size 4096 --probe-tiles 8 --engine qubo --calibrate
+
+``--streaming`` and ``--delta-from`` are not ported yet (ROADMAP.md) and
+exit with a message.
 """
 
 from __future__ import annotations
@@ -29,19 +42,63 @@ from repro_torch.models.params import split
 __all__ = ["compress_model", "build_policy", "main"]
 
 
+def report_autotune(result, budget_bytes: int) -> None:
+    """The autotuner's lines: probe and allocation, the eval table and the
+    LP cross-check where they ran."""
+    a = result.allocation
+    print(
+        f"[autotune/{a.engine}] probed {len(result.probes)} tensors "
+        f"in {result.probe_s:.1f}s, allocated "
+        f"{a.total_bytes / 2**20:.2f} of {budget_bytes / 2**20:.2f} MiB "
+        f"(solve {a.solve_s * 1e3:.1f} ms)"
+    )
+    if result.metric_table is not None:
+        table = result.metric_table
+        print(
+            f"[eval] baseline loss {table.baseline.loss:.4f}, "
+            f"{len(table.exact_paths)} tensor(s) spliced exactly, "
+            f"surrogate skip rate {table.surrogate_skip_rate:.0%} "
+            f"(table {table.build_s:.1f}s)"
+        )
+    if result.lp_check is not None:
+        lp = result.lp_check
+        print(
+            f"[lp] {lp['status']}: gap {lp['relative_gap']:+.2%} "
+            f"({'within' if lp['within_tolerance'] else 'OVER'} "
+            f"{lp['tolerance']:.0%} tolerance)"
+        )
+
+
 def compress_model(cfg, policy, out_dir, *, seed: int = 0, device=None,
                    max_pool_tiles="auto", values=None, autotune_kernels: bool = False,
-                   verbose: bool = True):
+                   verbose: bool = True, budget_bytes: int | None = None, **autotune_kw):
     """Initialise ``cfg``'s weights from ``seed`` (unless ``values`` are
     given), plan and execute ``policy`` over them on ``device`` (default:
     the GPU), save the compressed params as checkpoint step 0 under
-    ``out_dir`` with the artifact manifest.  With ``autotune_kernels`` the
-    bitlinear schedules are tuned first (``kernels.autotune.tune_artifact``)
-    so the manifest carries the table.  Returns (params, artifact)."""
+    ``out_dir`` with the artifact manifest.  With ``budget_bytes`` the plan
+    is the autotuner's (``autotune_plan``, ``policy`` its base; further
+    keywords, e.g. ``engine``, ``objective``, ``calibration``,
+    ``k_fractions``, go to it), and ``compress_model.last_autotune`` keeps
+    its :class:`AutotuneResult`.  With ``autotune_kernels`` the bitlinear
+    schedules are tuned first (``kernels.autotune.tune_artifact``) so the
+    manifest carries the table.  Returns (params, artifact)."""
     device = resolve_device(device)
     if values is None:
         values, _ = split(init_model(cfg, seed=seed, device=device))
-    plan = plan_compression(values, policy)
+    if budget_bytes is not None:
+        from repro_torch.compression.autotune import autotune_plan
+
+        autotune_kw.setdefault("cfg", cfg)
+        result = autotune_plan(values, policy, budget_bytes, seed=seed, device=device,
+                               verbose=verbose, **autotune_kw)
+        compress_model.last_autotune = result
+        plan = result.plan
+        if verbose:
+            report_autotune(result, budget_bytes)
+    elif autotune_kw:
+        raise TypeError(f"compress_model: {sorted(autotune_kw)} only apply with budget_bytes")
+    else:
+        plan = plan_compression(values, policy)
     if verbose:
         print(plan.summary())
     t = time.time()
@@ -49,10 +106,13 @@ def compress_model(cfg, policy, out_dir, *, seed: int = 0, device=None,
         plan, values, seed=seed, device=device, max_pool_tiles=max_pool_tiles,
         verbose=verbose,
     )
+    compress_model.execute_s = time.time() - t
     if verbose:
         print(f"\n[compress/{policy.method}] {len(artifact.manifest['tensors'])} "
-              f"tensors in {time.time() - t:.1f}s")
+              f"tensors in {compress_model.execute_s:.1f}s")
         print(artifact.summary())
+        print(f"compressed tensors: {artifact.manifest['totals']['orig_bytes'] / 2**20:.2f} "
+              f"-> {artifact.total_bytes() / 2**20:.2f} MiB (x{artifact.compression_ratio:.2f})")
     if autotune_kernels:
         from repro_torch.kernels import autotune
 
@@ -69,6 +129,10 @@ def compress_model(cfg, policy, out_dir, *, seed: int = 0, device=None,
     return cvalues, artifact
 
 
+compress_model.last_autotune = None
+compress_model.execute_s = 0.0
+
+
 def build_policy(args) -> CompressionPolicy:
     if args.policy:
         with open(args.policy) as f:
@@ -80,7 +144,42 @@ def build_policy(args) -> CompressionPolicy:
     )
 
 
-_NOT_PORTED = ("streaming", "delta_from", "budget_mb")
+_NOT_PORTED = ("streaming", "delta_from")
+
+
+def _check_flags(ap, args) -> None:
+    """The reference CLI's checks of which autotune flags combine."""
+    if args.budget_mb is None:
+        stray = [
+            name for name, val in (
+                ("--engine", args.engine),
+                ("--calibrate", args.calibrate or None),
+                ("--calib-batch", args.calib_batch),
+                ("--calib-seq", args.calib_seq),
+                ("--calib-batches", args.calib_batches),
+                ("--probe-tiles", args.probe_tiles),
+                ("--objective", args.objective if args.objective != "frobenius" else None),
+                ("--eval-batches", args.eval_batches),
+                ("--eval-seq", args.eval_seq),
+            ) if val is not None
+        ]
+        if stray:
+            ap.error(f"{', '.join(stray)} only apply with --budget-mb "
+                     "(the autotune path)")
+    elif not args.calibrate and (
+        args.calib_batch is not None or args.calib_seq is not None
+        or args.calib_batches is not None
+    ):
+        ap.error("--calib-batch/--calib-seq/--calib-batches require --calibrate")
+    if args.objective != "eval-loss" and (
+        args.eval_batches is not None or args.eval_seq is not None
+    ):
+        ap.error("--eval-batches/--eval-seq require --objective eval-loss")
+    if (args.calib_batches or 1) > 1 and (
+        args.calib_batch is not None or args.calib_seq is not None
+    ):
+        ap.error("--calib-batches > 1 draws default-shaped batches; it is "
+                 "mutually exclusive with --calib-batch/--calib-seq")
 
 
 def main(argv=None) -> None:
@@ -103,7 +202,29 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--streaming", action="store_true")
     ap.add_argument("--delta-from", default=None)
-    ap.add_argument("--budget-mb", type=float, default=None)
+    ap.add_argument("--budget-mb", type=float, default=None,
+                    help="autotune to this compressed-bytes budget (rate-distortion allocation)")
+    ap.add_argument("--engine", default=None, choices=["greedy", "qubo"],
+                    help="budget allocator engine (default greedy; qubo anneals the one-hot "
+                         "QUBO encoding through ising.solve_many)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="weight probed distortion by activation-sensitivity second moments "
+                         "from a calibration batch")
+    ap.add_argument("--calib-batch", type=int, default=None)
+    ap.add_argument("--calib-seq", type=int, default=None)
+    ap.add_argument("--calib-batches", type=int, default=None,
+                    help="calibration batches averaged into the sensitivity weights "
+                         "(default 1)")
+    ap.add_argument("--objective", default="frobenius", choices=["frobenius", "eval-loss"],
+                    help="what the budget allocator minimises: weight-space Frobenius "
+                         "distortion, or measured eval-loss deltas (requires --budget-mb)")
+    ap.add_argument("--eval-batches", type=int, default=None,
+                    help="eval harness batches for --objective eval-loss (default 4)")
+    ap.add_argument("--eval-seq", type=int, default=None,
+                    help="eval harness sequence length (default 32)")
+    ap.add_argument("--probe-tiles", type=int, default=None,
+                    help="trial-compressed tiles per (tensor, candidate); 0 probes every "
+                         "tile (default 16)")
     ap.add_argument("--autotune-kernels", action="store_true",
                     help="time the bitlinear schedules of every compressed geometry and "
                          "persist the winners in manifest['kernel_schedules']")
@@ -112,6 +233,7 @@ def main(argv=None) -> None:
         if getattr(args, name):
             ap.exit(2, f"--{name.replace('_', '-')} is not yet ported to repro_torch "
                        "(see ROADMAP.md, Queue 1); use repro.launch.compress\n")
+    _check_flags(ap, args)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -126,11 +248,40 @@ def main(argv=None) -> None:
             )["params"]
             print(f"[restore] step {step}")
     policy = build_policy(args)
-    if args.plan_only:
-        print(plan_compression(values, policy).summary())
+    if args.budget_mb is None:
+        if args.plan_only:
+            print(plan_compression(values, policy).summary())
+            return
+        compress_model(cfg, policy, args.out_dir, seed=args.seed, device=device,
+                       values=values, autotune_kernels=args.autotune_kernels)
         return
-    compress_model(cfg, policy, args.out_dir, seed=args.seed, device=device,
-                   values=values, autotune_kernels=args.autotune_kernels)
+    from repro_torch.compression.autotune import autotune_plan, calibration_inputs
+
+    budget_bytes = int(args.budget_mb * 2**20)
+    probe_tiles = 16 if args.probe_tiles is None else args.probe_tiles
+    cal_inputs = None
+    if args.calibrate and (args.calib_batch or args.calib_seq):
+        cal_inputs = calibration_inputs(cfg, batch=args.calib_batch or 4,
+                                        seq_len=args.calib_seq or 32, seed=args.seed,
+                                        device=device)
+    autotune_kw = dict(
+        engine=args.engine or "greedy", objective=args.objective.replace("-", "_"),
+        calibration=args.calibrate, calibration_inputs=cal_inputs,
+        calib_batches=args.calib_batches or 1, eval_batches=args.eval_batches or 4,
+        eval_seq=args.eval_seq or 32, eval_seed=args.seed,
+        max_probe_tiles=probe_tiles or None, backend=args.backend,
+    )
+    if args.plan_only:
+        result = autotune_plan(values, policy, budget_bytes, seed=args.seed, device=device,
+                               cfg=cfg, verbose=True, **autotune_kw)
+        report_autotune(result, budget_bytes)
+        print(result.plan.summary())
+        return
+    _, artifact = compress_model(cfg, policy, args.out_dir, seed=args.seed, device=device,
+                                 values=values, autotune_kernels=args.autotune_kernels,
+                                 budget_bytes=budget_bytes, **autotune_kw)
+    over = artifact.total_bytes() > budget_bytes
+    print(f"budget: {args.budget_mb:.2f} MiB -> {'OVER' if over else 'met'}")
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ __all__ = [
     "embed_lookup",
     "init_mlp",
     "mlp",
+    "softmax_cross_entropy",
+    "chunked_softmax_cross_entropy",
 ]
 
 
@@ -84,3 +86,44 @@ def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     g = apply_dense(x, p["gate"])
     u = apply_dense(x, p["up"])
     return apply_dense(F.silu(g) * u, p["down"])
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, z_loss: float, softcap: float):
+    """Per-token CE (+ z-loss) of f32 logits, after the optional softcap."""
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    ce = lse - picked
+    if z_loss > 0.0:
+        ce = ce + z_loss * lse ** 2
+    return ce
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                          z_loss: float = 0.0, softcap: float = 0.0) -> torch.Tensor:
+    """Mean CE over masked tokens, f32, with optional z-loss and softcap.
+    logits (..., V) any float dtype; labels (...) int; mask (...) {0, 1}."""
+    ce = _ce_terms(logits.to(torch.float32), labels, z_loss, softcap)
+    mask = mask.to(torch.float32)
+    return torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def chunked_softmax_cross_entropy(h: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                                  mask: torch.Tensor, z_loss: float = 0.0,
+                                  softcap: float = 0.0, chunk: int = 512) -> torch.Tensor:
+    """CE from final hidden states h (B, T, d) and the head (d, V), one
+    sequence chunk of logits at a time (the (B, T, V) f32 logits are never
+    all alive at once); odd T is padded with mask 0.  The same value as
+    :func:`softmax_cross_entropy` on ``h @ head_w``."""
+    B, T, _ = h.shape
+    ck = min(chunk, T)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, T, ck):
+        hs, ls = h[:, s:s + ck], labels[:, s:s + ck]
+        ms = mask[:, s:s + ck].to(torch.float32)
+        ce = _ce_terms((hs @ head_w).to(torch.float32), ls, z_loss, softcap)
+        tot = tot + torch.sum(ce * ms)
+        cnt = cnt + torch.sum(ms)
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -70,6 +70,129 @@ def test_sa_sweep_kernel_bit_identical(dev, P, C, S, n):
     assert torch.equal(ek, er)
 
 
+# the global-memory body (n above max_spins(C)): the budget allocator's
+# shape (6 penalty problems x 8 reads) at n = 238 and 1,024, and a direct-
+# acceptance launch (4,096 chains)
+@pytest.mark.parametrize("P,C,S,n", [(6, 8, 6, 238), (6, 8, 3, 1024), (2, 3, 4, 300),
+                                     (512, 8, 2, 241)])
+def test_sa_sweep_global_body_bit_identical(dev, P, C, S, n):
+    assert not sa.shared_body(n, C)
+    rng = np.random.default_rng(P * n + C)
+    h, B = _dyadic_problems(rng, P, n)
+    x0 = np.where(rng.random((P, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+    u = rng.random((P, C, S, n), dtype=np.float32)
+    temps = np.broadcast_to(np.geomspace(8.0, 0.05, S, dtype=np.float32), (P, S)).copy()
+    args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
+    before = sa.sa_sweep_many.launches
+    xk, ek = sa.sa_sweep_many(*args)
+    torch.cuda.synchronize()
+    assert sa.sa_sweep_many.launches == before + 1
+    xr, er = ref.sa_sweep_many_ref(*args)
+    assert torch.equal(xk, xr)
+    assert torch.equal(ek, er)
+
+
+def test_sa_sweep_global_body_takes_an_unaligned_b(dev):
+    """The global-memory body copies B's rows in 16-byte pieces: a B view
+    off a 16-byte boundary is copied by the wrapper, with the same result."""
+    rng = np.random.default_rng(5)
+    P, C, S, n = 2, 3, 3, 301
+    h, B = _dyadic_problems(rng, P, n)
+    x0 = np.where(rng.random((P, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+    u = rng.random((P, C, S, n), dtype=np.float32)
+    temps = np.broadcast_to(np.geomspace(8.0, 0.05, S, dtype=np.float32), (P, S)).copy()
+    args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
+    flat = torch.zeros(P * n * n + 1, device=dev)
+    flat[1:] = args[1].reshape(-1)
+    Bv = flat[1:].view(P, n, n)
+    assert Bv.data_ptr() % 16
+    xk, ek = sa.sa_sweep_many(args[0], Bv, *args[2:])
+    xr, er = ref.sa_sweep_many_ref(*args)
+    assert torch.equal(xk, xr) and torch.equal(ek, er)
+
+
+@pytest.mark.parametrize("P,C,n", [(6, 8, 200), (3, 5, 40), (4100, 1, 24)])
+def test_sa_sweep_bodies_identical_on_rounded_sums(dev, P, C, n):
+    """Normal h and B, whose sums round: the global-memory body makes the
+    shared-memory body's every addition in its order, so their bits agree."""
+    rng = np.random.default_rng(n)
+    h = rng.standard_normal((P, n)).astype(np.float32)
+    B = np.triu(rng.standard_normal((P, n, n)), 1).astype(np.float32)
+    B = B + np.swapaxes(B, 1, 2)
+    x0 = np.where(rng.random((P, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+    S = 4
+    u = rng.random((P, C, S, n), dtype=np.float32)
+    temps = np.broadcast_to(np.geomspace(30.0, 0.5, S, dtype=np.float32), (P, S)).copy()
+    args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
+    assert sa.shared_body(n, C) and sa.lanes_per_chain(P, C, n) == 32
+    xs, es = sa.sa_sweep_many(*args)
+    xg, eg = sa.sa_sweep_many_global(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, xg)
+    assert torch.equal(es, eg)
+
+
+def test_sa_sweep_body_rule_is_the_librarys(dev):
+    lib = sa._build.load("sa_sweep")
+    lib.sa_sweep_shared_body.restype = ctypes.c_int
+    lib.sa_sweep_max_spins.restype = ctypes.c_int
+    assert lib.sa_sweep_max_spins() == sa.MAX_SPINS
+    for C in (1, 2, 7, 8, 9, 64):
+        for n in (1, 24, 200, 236, 237, 238, 239, 240, 241, 256, 257, 1024):
+            assert bool(lib.sa_sweep_shared_body(n, C)) == sa.shared_body(n, C), (n, C)
+
+
+def test_sa_sweep_refuses_above_its_limit(dev):
+    P, C, S, n = 1, 2, 1, sa.MAX_SPINS + 1
+    with pytest.raises(ValueError, match="limit of 1024"):
+        sa.sa_sweep_many(torch.zeros(P, n, device=dev), torch.zeros(P, n, n, device=dev),
+                         torch.ones(P, C, n, device=dev), torch.zeros(P, C, S, n, device=dev),
+                         torch.ones(P, S, device=dev))
+
+
+def _dyadic_curves(n_tensors):
+    """RD curves whose QUBO (compression/autotune/allocate.py) has dyadic h
+    and B: 5 hull points a tensor at 0, 8, 16, 24, 40 extra bytes,
+    distortions c x (32, 16, 8, 4, 0) with c in {1, 2, 4} (spread 128), and
+    a headroom of 64 bytes: every field sum is exact in float32."""
+    from repro_torch.compression.autotune import ProbeResult, RDPoint
+
+    out = []
+    for i in range(n_tensors):
+        c, base = (1, 2, 4)[i % 3], 64 + 8 * i
+        pts = tuple(RDPoint(32, 128, K, base + extra, float(c * d))
+                    for K, extra, d in zip((1, 2, 3, 4, 5), (0, 8, 16, 24, 40),
+                                           (32, 16, 8, 4, 0)))
+        out.append(ProbeResult(f"t{i}", base + 64, 1.0, pts))
+    return out
+
+
+def test_qubo_allocator_above_the_shared_limit_is_its_cpu_run(dev):
+    """60 tensors x 5 hull points + 6 slack spins = 306 spins: K1's
+    global-memory body, one launch, and the allocation the plain version
+    gives on the CPU from the same draws."""
+    from repro_torch.compression.autotune import allocate as al
+    from repro_torch.core import ising
+
+    probes = _dyadic_curves(60)
+    budget = sum(p.min_bytes for p in probes) + 64
+    g = torch.Generator().manual_seed(0)
+    draws = {}
+
+    def draw(P, R, S, n):
+        if not draws:
+            draws["x0"], draws["u"] = ising.draw_initial(P, R, S, n, g)
+        return draws["x0"], draws["u"]
+
+    cpu = al.allocate_budget_from(probes, budget, draw, engine="qubo", device="cpu")
+    before = sa.sa_sweep_many.launches
+    card = al.allocate_budget_from(probes, budget, draw, engine="qubo", device=dev)
+    assert sa.sa_sweep_many.launches == before + 1
+    assert cpu.num_spins == card.num_spins == 306 and not sa.shared_body(306, 8)
+    assert card.to_dict() | {"solve_s": 0} == cpu.to_dict() | {"solve_s": 0}
+    assert card.total_bytes <= budget
+
+
 # the wavefront's shapes: T = 1 (the sequential sweep), T = 2, 3, 8 (every
 # slice in flight), n < T (T = 13, n = 5: skew 1), and fewer groups than
 # slices (T = 16; T = 8 at n = 40): fields pass between groups

@@ -20,7 +20,8 @@ _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "tools" / "torch_grid_variants.py", _ROOT / "tools" / "torch_decode_variants.py",
     _ROOT / "tools" / "torch_decode_ab.py", _ROOT / "tools" / "torch_anneal_ab.py",
     _ROOT / "tools" / "torch_anneal_variants.py", _ROOT / "tools" / "torch_stream_ab.py",
-    _ROOT / "tools" / "torch_stream_variants.py", _ROOT / "tools" / "torch_serve_ab.py"]
+    _ROOT / "tools" / "torch_stream_variants.py", _ROOT / "tools" / "torch_serve_ab.py",
+    _ROOT / "tools" / "torch_k1_global_ab.py"]
 
 
 def _imported_roots(path):
@@ -64,7 +65,7 @@ def test_entry_points_refuse_the_cpu_without_device(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("flag", [["--streaming"], ["--delta-from", "x"], ["--budget-mb", "1"]])
+@pytest.mark.parametrize("flag", [["--streaming"], ["--delta-from", "x"]])
 def test_compress_cli_refuses_unported_flags(flag, capsys):
     from repro_torch.launch.compress import main
 
@@ -83,6 +84,70 @@ def test_compress_cli_autotune_kernels_needs_cuda(capsys):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--arch", "qwen3-32b", "--reduced", "--autotune-kernels"])
     assert "not yet ported" not in capsys.readouterr().err
+
+
+def test_compress_cli_budget_mb_needs_cuda(capsys):
+    """``--budget-mb`` is ported: it gets past the "not yet ported" exit and
+    the flag checks and reaches the CUDA check."""
+    _cpu_only()
+    from repro_torch.launch.compress import main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "qwen3-32b", "--reduced", "--budget-mb", "0.12", "--engine", "qubo",
+              "--calibrate", "--objective", "eval-loss"])
+    assert "not yet ported" not in capsys.readouterr().err
+
+
+def test_autotune_and_eval_entry_points_refuse_the_cpu_without_device(tmp_path):
+    """The budget autotuner, calibration and the eval harness run on the GPU
+    unless asked for the CPU."""
+    _cpu_only()
+    from repro_torch.compression.autotune import (
+        allocate_budget, autotune_plan, calibration_inputs, calibration_weights, probe_tensors,
+    )
+    from repro_torch.eval import EvalHarness
+
+    cfg = reduced_for_smoke(get_config("qwen3-32b"))
+    policy = CompressionPolicy(tile_d=32, min_size=1024)
+    values, _ = split(init_model(cfg, seed=0, device="cpu"))
+    plan = plan_compression(values, policy)
+    for call in (
+        lambda: autotune_plan(values, policy, 1 << 20),
+        lambda: plan_compression(values, policy, budget_bytes=1 << 20),
+        lambda: probe_tensors(values, plan),
+        lambda: calibration_inputs(cfg),
+        lambda: calibration_weights(values, cfg),
+        lambda: EvalHarness(cfg),
+        lambda: compress_model(cfg, policy, str(tmp_path), values=values, budget_bytes=1 << 20),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    probes = probe_tensors(values, plan, device="cpu", max_probe_tiles=2, k_fractions=(0.5,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        allocate_budget(probes, plan.total_bytes(), engine="qubo")
+    assert not any(tmp_path.iterdir())
+
+
+def test_k1_body_rule_is_the_headers():
+    """kernels/sa_sweep.py's shared_body, max_spins and MAX_SPINS mirror
+    csrc/anneal_step.cuh's sa_shared_body: its constants and its rule."""
+    import re
+
+    from repro_torch.kernels import sa_sweep as sa
+
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "anneal_step.cuh").read_text()
+    consts = dict(re.findall(r"^constexpr int (kSa\w+) = (\d+);$", header, re.M))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kSaSmemBytes": sa._SMEM_BYTES, "kSaMaxWarps": sa._MAX_WARPS,
+        "kSaSharedMaxSpins": sa._SHARED_MAX_SPINS, "kSaGlobalMaxSpins": sa.MAX_SPINS}
+    rule = re.search(
+        r"return n <= kSaSharedMaxSpins &&\s+4LL \* \(\(long long\)n \* n \+ \(long long\)"
+        r"\(chains < kSaMaxWarps \? chains : kSaMaxWarps\) \* n\) <=\s+kSaSmemBytes;", header)
+    assert rule, "sa_shared_body's rule not found in the header"
+    # the mirror's boundary: 237 spins at 8 or more chains, 240 at one
+    assert (sa.max_spins(8), sa.max_spins(64), sa.max_spins(1)) == (237, 237, 240)
+    for C in (1, 7, 8, 9):
+        assert sa.shared_body(sa.max_spins(C), C) and not sa.shared_body(sa.max_spins(C) + 1, C)
 
 
 def test_compress_cli_needs_cuda():

@@ -176,6 +176,35 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      loss finite, the artifact within the budget and stored as allocated;
      the eval harness scores it and the uniform plan of the most K that
      fits the same budget (reported), and it is served as phase 7b.
+  9. Delta recompression of phase 2's artifact (run after 4c): (a) on the
+     unchanged weights every drift ratio within 1e-4 of 1.0, no tile
+     re-solved, no K1 launch, every stored tensor and manifest entry the
+     parent's; (b) every fourth band of tile_n rows of attn/wk, attn/wv
+     and mlp/down re-drawn with noise of the tensor's std (seed 2): exactly
+     the noised tiles re-solve, every other tensor stays the parent's, K1
+     launches 32 x the BBO pool's chunks, each warm (``init_state``), and
+     the total squared ``tile_resid`` is no more than a cold
+     ``execute_plan`` of the drifted weights'.  The delta and cold walls
+     are printed; the delta checkpoint is served at 8 new tokens (K3 per
+     forward as in phase 4, K5 once, prefill logits within 5e-2).
+  10. zamba2-1.2b whole, streamed (after phase 8): phase 7's weights saved
+     dense; ``run_compression_job`` from a ``CheckpointLeafSource`` at the
+     default 1 GiB host budget in child processes: A killed by SIGKILL
+     (``REPRO_STREAM_KILL_AFTER``) at half the leaves, B resuming it (no
+     restart), C uninterrupted.  B's compressed leaves must equal phase 7's
+     ``execute_plan`` leaves byte for byte and B's output C's; each child's
+     wall, chunks and peak RSS are printed.  B is served as phase 7 at 8
+     new tokens (K3 118 a forward, K5 6).
+  10b. Planning from metadata alone, in a child process: llama3-405b as a
+     ``meta`` template, ``streaming_autotune_plan`` (QUBO, K in {2, 4, 6,
+     8}) to 0.75 x the uniform plan's bytes: within the budget, K1 once,
+     the probe synthetic, ``execute_streaming`` refusing the source; wall
+     and peak RSS printed.
+  10c. The compress CLI on the whole mamba2-130m (after 8b): ``--streaming
+     --ckpt-dir A --out-dir B``, every out_proj drifted as in 9 (b), then
+     ``--delta-from B --ckpt-dir A2 --out-dir C`` (threshold 1.03: a
+     streamed parent's drift baseline is estimated): ``key=value`` lines,
+     the estimated baseline, 0 < fraction re-solved < 1; C served as 7b.
 
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
@@ -1402,12 +1431,12 @@ def layer_slices(path, e):
 
 
 def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clusters=False,
-                     uses=layer_slices):
-    """{kind: {"mode/math": n}}: the launches a serve of GEN_STEPS tokens
+                     uses=layer_slices, steps=GEN_STEPS):
+    """{kind: {"mode/math": n}}: the launches a serve of ``steps`` tokens
     makes when each call signature runs ``schedules[key]`` (a table's
     entries, or what a serve's resolution log says it resolved).  Per
     compressed tensor and each of its ``uses(path, entry)`` calls a
-    forward: one prefill call and GEN_STEPS - 1 decode calls, at the T that
+    forward: one prefill call and ``steps`` - 1 decode calls, at the T that
     ``tokens(path, kind)`` gives as (prefill, decode).  With
     ``tensor_cores``, {kind: n}: the grid launches that must run the grid's
     tensor-core body (``bitlinear.grid_on_tensor_cores``; the served tensors
@@ -1421,7 +1450,7 @@ def implied_launches(manifest, schedules, dev, tokens, tensor_cores=False, clust
         E, n_r, n_c, tn, _, K, td, dname = autotune._entry_geometry(e)
         kind = "bitlinear_grouped" if E else "bitlinear"
         layers = uses(path, e)
-        for T, n in zip(tokens(path, kind), (1, GEN_STEPS - 1)):
+        for T, n in zip(tokens(path, kind), (1, steps - 1)):
             key = autotune.schedule_key(kind, n_r=n_r, n_c=n_c, tn=tn, K=K, td=td, T=T,
                                         dtype=dname, E=E, device=autotune.device_kind(dev),
                                         mode=autotune.pallas_mode(dev))
@@ -1537,14 +1566,16 @@ def tuned_serve(torch, dev, out_dir, cfg, tokens):
     return res, out
 
 
-def tensor_core_launches(manifest, schedules, dev, tokens, label, uses=layer_slices):
+def tensor_core_launches(manifest, schedules, dev, tokens, label, uses=layer_slices,
+                         steps=GEN_STEPS):
     """Every grid launch of a serve that the rule puts on the tensor cores
     ran the tensor-core body, by the library's own report
     (``tensor_core_launches``), and no other launch did.  Returns {kind: n}."""
     from repro_torch.kernels import bitlinear as bl
 
     fns = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
-    want = implied_launches(manifest, schedules, dev, tokens, tensor_cores=True, uses=uses)
+    want = implied_launches(manifest, schedules, dev, tokens, tensor_cores=True, uses=uses,
+                            steps=steps)
     got = {k: fns[k].tensor_core_launches for k in want}
     check(got == want and all(fn.tensor_core_launches == got.get(k, 0)
                               for k, fn in fns.items()),
@@ -1553,21 +1584,24 @@ def tensor_core_launches(manifest, schedules, dev, tokens, label, uses=layer_sli
     return got
 
 
-def cluster_launches(manifest, schedules, dev, tokens, label, uses=layer_slices):
+def cluster_launches(manifest, schedules, dev, tokens, label, uses=layer_slices,
+                     steps=GEN_STEPS):
     """Every decode launch of a serve ran with the cluster size S that the
     rule gives its shape, by the library's own report (``decode_clusters``).
     Returns {kind: {S: n}}."""
     from repro_torch.kernels import bitlinear as bl
 
     fns = {"bitlinear": bl.bitlinear, "bitlinear_grouped": bl.bitlinear_grouped}
-    want = implied_launches(manifest, schedules, dev, tokens, clusters=True, uses=uses)
+    want = implied_launches(manifest, schedules, dev, tokens, clusters=True, uses=uses,
+                            steps=steps)
     got = {k: dict(fn.decode_clusters) for k, fn in fns.items() if fn.decode_clusters}
     check(got == {k: v for k, v in want.items() if v},
           f"{label}: decode launches by cluster size {got}, the rule gives {want}")
     return got
 
 
-def heuristic_launches(torch, dev, manifest, by_kind, tokens, label, uses=layer_slices):
+def heuristic_launches(torch, dev, manifest, by_kind, tokens, label, uses=layer_slices,
+                       steps=GEN_STEPS):
     """A serve without a table launched, per kernel and schedule, what its
     resolutions (the default rule) picked, its grid on the tensor cores
     where the rule puts it there and its decode at the rule's cluster
@@ -1578,11 +1612,12 @@ def heuristic_launches(torch, dev, manifest, by_kind, tokens, label, uses=layer_
     log = autotune.last_resolutions()
     check(log and all(r["source"] == "heuristic" for r in log),
           f"{label}: resolutions {[r['source'] for r in log]}, want the default rule")
-    want = implied_launches(manifest, resolved_schedules(), dev, tokens, uses=uses)
+    want = implied_launches(manifest, resolved_schedules(), dev, tokens, uses=uses, steps=steps)
     check(by_kind == want, f"{label}: launches per schedule {by_kind}, its resolutions imply "
                            f"{want}")
-    return (tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label, uses),
-            cluster_launches(manifest, resolved_schedules(), dev, tokens, label, uses))
+    return (tensor_core_launches(manifest, resolved_schedules(), dev, tokens, label, uses,
+                                 steps),
+            cluster_launches(manifest, resolved_schedules(), dev, tokens, label, uses, steps))
 
 
 def phase_tuned_generate(torch, dev, out_dir, heuristic):
@@ -2297,9 +2332,10 @@ def phase_zamba_generate(torch, dev, out_dir):
     return out
 
 
-def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, literal, label):
+def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, literal, label,
+                 steps=GEN_STEPS):
     """Serve ``cfg`` from its checkpoint in ``out_dir`` (phase 7's serve:
-    GEN_BATCH prompts of GEN_PROMPT tokens, GEN_STEPS new ones, an eos never
+    GEN_BATCH prompts of GEN_PROMPT tokens, ``steps`` new ones, an eos never
     emitted) and check it: K3 ``per_forward_want`` (= ``literal``) calls a
     forward, K5 ``n_shared`` a prefill, no other kernel; launches per
     schedule as the resolutions picked, every prefill call of K3 on the
@@ -2321,7 +2357,7 @@ def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, lit
     fa.flash_attention.launches = 0
     autotune.clear_log()
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
-                      steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
+                      steps=steps, eos_id=eos, seed=SEED, device=dev, verbose=False)
     torch.cuda.synchronize()
     launches = {"bitlinear": bl.bitlinear.launches,
                 "bitlinear_grouped": bl.bitlinear_grouped.launches,
@@ -2333,19 +2369,19 @@ def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, lit
                 "tensors": {p: e for p, e in eng.artifact.manifest["tensors"].items()
                             if e["method"] != "int8"}}
     per_forward = sum(uses(p, e) for p, e in manifest["tensors"].items())
-    want = {"bitlinear": per_forward * GEN_STEPS, "bitlinear_grouped": 0,
+    want = {"bitlinear": per_forward * steps, "bitlinear_grouped": 0,
             "flash_attention": n_shared, "sa_sweep_many": 0}
     check(per_forward == per_forward_want == literal and launches == want,
           f"{label}: launches {launches}, want {want} ({per_forward} K3 calls a forward)")
     by_schedule = served(bl.bitlinear)
     tensor_cores, clusters = heuristic_launches(torch, dev, manifest,
                                                 {"bitlinear": by_schedule}, zamba_tokens,
-                                                label, uses)
+                                                label, uses, steps)
     check(tensor_cores == {"bitlinear": per_forward},
           f"{label}: tensor-core launches {tensor_cores}, want the prefill's {per_forward}")
     ttft = ttft_repeats(eng, res.prompts, res.timing["prefill_s"])
     toks = res.tokens
-    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + steps)
           and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
           and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
           f"{label}: generated tokens {tuple(toks.shape)} out of shape or range")
@@ -2367,9 +2403,9 @@ def ssm_generate(torch, dev, cfg, out_dir, uses, n_shared, per_forward_want, lit
           f"{label}: {cfg.name} prefill logits kernels vs plain: {err:.3g} > {LOGIT_TOL} x "
           f"{scale:.3g}; per layer {layers}")
     before = (fa.flash_attention.launches, bl.bitlinear.launches)
-    plain = Engine(cfg, eng.params, max_len=GEN_PROMPT + GEN_STEPS, batch=GEN_BATCH, eos_id=eos,
+    plain = Engine(cfg, eng.params, max_len=GEN_PROMPT + steps, batch=GEN_BATCH, eos_id=eos,
                    artifact=eng.artifact, use_fused_bitlinear=False)
-    toks_plain = plain.generate(res.prompts, GEN_STEPS)
+    toks_plain = plain.generate(res.prompts, steps)
     check((fa.flash_attention.launches, bl.bitlinear.launches) == before,
           f"{label}: the plain path launched a kernel")
     same = (toks[:, GEN_PROMPT:] == toks_plain[:, GEN_PROMPT:]).float()
@@ -2980,6 +3016,567 @@ def phase_mamba2_autotune(torch, dev, out_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9, 10, 10b and 10c: delta recompression (compression/delta.py) and
+# streaming compression (compression/streaming.py, checkpoint leaf readers,
+# distributed/fault_tolerance.py)
+# ---------------------------------------------------------------------------
+
+DELTA_NOISED = ("attn/wk", "attn/wv", "mlp/down")   # phase 9 (b)'s fine-tuned tensors
+DELTA_SEED = 2
+# the surrogate budget of a delta's BBO pool on the card: the re-solved
+# wk/wv tiles in one lock-step chunk (the 64 MiB default sizes chunks for a
+# CPU's cache: 64 tiles of 8 x 128 at K = 3)
+DELTA_POOL_BUDGET = 4 << 30
+NEW_PHASE_STEPS = 8                  # new tokens of the serves of phases 9, 10 and 10c
+# phase 10c's threshold: a streamed parent has no tile_resid, so drift is
+# held against rel_err x ||W_new||, which a ratio cannot pass 1 / rel_err
+# (~1.11 at random weights' rel_err ~0.9): a tile whose rows were re-drawn
+# at the tensor's std reads ~1.04-1.07, an untouched one ~0.98-1.02, and
+# the default 1.25 re-solves nothing
+CLI_DELTA_THRESHOLD = 1.03
+CHILD_TIMEOUT_S = 600
+
+
+def set_leaf(tree, path, value):
+    """A copy of ``tree`` (dicts along ``path`` copied, every other leaf
+    shared) with the leaf at ``path`` replaced."""
+    head, *rest = path.split("/")
+    out = dict(tree)
+    out[head] = set_leaf(tree[head], "/".join(rest), value) if rest else value
+    return out
+
+
+def band_noise(torch, values, manifest, patterns, seed, dev):
+    """``values`` with Gaussian noise of each tensor's own std added to every
+    fourth band of tile_n rows of each manifested tensor whose path holds
+    one of ``patterns`` (a fine-tune that rewrote a quarter of its rows).
+    Returns (the drifted tree, {path: the noised tiles, a bool mask in
+    execute's tile order})."""
+    import numpy as np
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out, masks = values, {}
+    for path, e in manifest["tensors"].items():
+        if not any(p in path for p in patterns):
+            continue
+        W = leaf(values, path)
+        Wf = W.float()
+        band = (torch.arange(W.shape[-2], device=dev) // e["tile_n"]) % 4 == 0
+        noise = torch.randn(W.shape, generator=g, device=dev) * Wf.std()
+        out = set_leaf(out, path, torch.where(band[:, None], Wf + noise, Wf).to(W.dtype))
+        r, c = W.shape[-2] // e["tile_n"], W.shape[-1] // e["tile_d"]
+        rows = np.arange(r) % 4 == 0
+        masks[path] = np.tile(np.repeat(rows, c), e["groups"])
+    return out, masks
+
+
+def squared_resid(manifest):
+    return sum(sum(v * v for v in e["tile_resid"]) for e in manifest["tensors"].values())
+
+
+def counting_warm_solves():
+    """Wrap ``ising.solve_many_from``: returns (calls, restore), calls a
+    list of whether each call was given ``init_state``."""
+    from repro_torch.core import ising
+
+    calls, solve = [], ising.solve_many_from
+
+    def run(*a, **k):
+        calls.append(k.get("init_state") is not None)
+        return solve(*a, **k)
+
+    ising.solve_many_from = run
+
+    def restore():
+        ising.solve_many_from = solve
+    return calls, restore
+
+
+def qwen_serve_check(torch, dev, cfg, ckpt_dir, steps, label):
+    """``serve_model`` from a qwen3-32b block's checkpoint (phase 4's serve at
+    ``steps`` new tokens): K3 once per compressed tensor a forward, per
+    schedule as the manifest's table (phase 4b's) implies, K5 once a
+    prefill, no K1; tokens in range; the prefill logits with the kernels
+    within LOGIT_TOL of max|logit| of the plain path."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.models import init_cache
+
+    eos = cfg.vocab_size
+    autotune.clear_schedules()
+    autotune.clear_log()
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    res = serve_model(cfg, ckpt_dir=ckpt_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                      steps=steps, eos_id=eos, seed=SEED, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    eng = res.engine
+    launches = {"bitlinear": bl.bitlinear.launches, "flash_attention": fa.flash_attention.launches,
+                "sa_sweep_many": sa.sa_sweep_many.launches}
+    n = eng.compression["tensors"]
+    check(launches == {"bitlinear": n * steps, "flash_attention": cfg.num_layers,
+                       "sa_sweep_many": 0},
+          f"{label}: launches {launches}, want K3 {n} x {steps}, K5 {cfg.num_layers}")
+    table = (eng.artifact.manifest.get("kernel_schedules") or {}).get("entries")
+    by_schedule = served(bl.bitlinear)
+    if table:
+        want = implied_launches(eng.artifact.manifest, table, dev, qwen_tokens, steps=steps)
+        check(by_schedule == want.get("bitlinear"),
+              f"{label}: launches per schedule {by_schedule}, the table implies {want}")
+    toks = res.tokens
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + steps)
+          and torch.equal(toks[:, :GEN_PROMPT], res.prompts)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"{label}: generated tokens {tuple(toks.shape)} out of shape or range")
+    max_len = GEN_PROMPT + steps
+    try:
+        with torch.inference_mode():
+            ops.enable_kernels()
+            lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                                init_cache(cfg, GEN_BATCH, max_len, device=dev))
+            ops.disable_kernels()
+            lp, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                                init_cache(cfg, GEN_BATCH, max_len, device=dev))
+    finally:
+        ops.enable_kernels()
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
+          f"{label}: prefill logits are not finite")
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    check(err <= LOGIT_TOL * scale,
+          f"{label}: prefill logits kernels vs plain: {err:.3g} > {LOGIT_TOL} x {scale:.3g}")
+    t = res.timing
+    return {"launches": launches, "bitlinear_by_schedule": by_schedule,
+            "resolutions_from": sorted({r["source"] for r in autotune.last_resolutions()}),
+            "steps": steps, "ttft_s": t["prefill_s"],
+            "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+            "prefill_logits": {"max_abs_diff": err, "max_abs_logit": scale,
+                               "tol": LOGIT_TOL * scale},
+            "compression": eng.compression}
+
+
+def phase_delta(torch, dev, parent_dir, delta_dir):
+    """Delta recompression of phase 2's artifact (a full-width qwen3-32b
+    block: alternating at 32 x 128, K = 4; attn/w[kv] BBO at 8 x 128, K = 3,
+    32 iterations; phase 4b's table in its manifest).
+
+    (a) Unchanged weights: every drift ratio within 1e-4 of 1.0, no tile
+    re-solved, K1 not launched, every stored tensor and manifest entry the
+    parent's, the lineage naming the parent's fingerprint.
+    (b) Every fourth band of tile_n rows of attn/wk, attn/wv and mlp/down
+    re-drawn with noise of the tensor's std: exactly the noised tiles
+    re-solve, every other tensor stays the parent's, K1 launches 32 x the
+    BBO pool's chunks, every one warm (``init_state``), and the total
+    squared ``tile_resid`` is no more than a cold ``execute_plan`` of the
+    drifted weights' (x (1 + 1e-6); the cold execute chunks BBO as phase 2
+    did, so the unchanged tiles come out as the parent's).  Then the delta
+    checkpoint is served (``qwen_serve_check``)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.compression import CompressionArtifact, delta_recompress, execute_plan
+    from repro_torch.compression import plan_compression
+    from repro_torch.compression.delta import DEFAULT_DRIFT_THRESHOLD, plan_delta
+    from repro_torch.compression.execute import POOL_BUDGET_ENV
+    from repro_torch.compression.plan import tree_paths
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    _, cfg = full_width_config()
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    parent = CompressionArtifact.load(parent_dir)
+    prev = checkpointer.restore(parent_dir, 0, {"params": parent.restore_template(values)},
+                                device=dev)["params"]
+    tensors = parent.manifest["tensors"]
+    fp = parent.fingerprint()
+
+    # (a) unchanged weights
+    dplan = plan_delta(parent, prev, values, device=dev)
+    ratio_dev = max(float(np.abs(d.ratio - 1.0).max()) for d in dplan.drifts)
+    check(all(d.recorded for d in dplan.drifts) and ratio_dev <= 1e-4,
+          f"phase 9a: max |drift ratio - 1| {ratio_dev:.3g} on unchanged weights")
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    t0 = time.time()
+    cv_a, art_a = delta_recompress(parent, prev, values, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    wall_a = time.time() - t0
+    d = art_a.delta
+    check(sa.sa_sweep_many.launches == 0 and d["tiles_resolved"] == 0
+          and d["tensors_touched"] == 0 and d["parent_fingerprint"] == fp
+          and d["generation"] == 1 and art_a.manifest["tensors"] == tensors,
+          f"phase 9a: K1 {sa.sa_sweep_many.launches}, lineage {d}")
+    flat_a, flat_prev, flat_v = (dict(tree_paths(t)) for t in (cv_a, prev, values))
+    for p, v in flat_a.items():
+        want = flat_prev[p] if p.rsplit("/", 1)[0] in tensors else flat_v[p]
+        check(torch.equal(v, want), f"phase 9a: {p} differs from the parent")
+
+    # (b) a quarter of three tensors' rows rewritten
+    drifted, masks = band_noise(torch, values, parent.manifest, DELTA_NOISED, DELTA_SEED, dev)
+    dplan_b = plan_delta(parent, prev, drifted, device=dev)
+    for dr in dplan_b.drifts:
+        want = masks.get(dr.path, np.zeros(dr.drift.size, bool))
+        check(np.array_equal(dplan_b.masks[dr.path], want),
+              f"phase 9b: {dr.path} re-solves {int(dplan_b.masks[dr.path].sum())} tiles, "
+              f"{int(want.sum())} were noised")
+    noised_ratio_min = min(float(dr.ratio[masks[dr.path]].min())
+                           for dr in dplan_b.drifts if dr.path in masks)
+    old_budget = os.environ.get(POOL_BUDGET_ENV)
+    os.environ[POOL_BUDGET_ENV] = str(DELTA_POOL_BUDGET)
+    calls, restore = counting_warm_solves()
+    try:
+        torch.cuda.synchronize()
+        sa.sa_sweep_many.launches = 0
+        t0 = time.time()
+        cv_b, art_b = delta_recompress(parent, prev, drifted, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        delta_wall = time.time() - t0
+        k1 = sa.sa_sweep_many.launches
+    finally:
+        restore()
+        if old_budget is None:
+            os.environ.pop(POOL_BUDGET_ENV, None)
+        else:
+            os.environ[POOL_BUDGET_ENV] = old_budget
+    d = art_b.delta
+    bbo = [p for p in art_b.manifest["pools"] if p["method"] == "bbo"]
+    check(len(bbo) == 1 and k1 == BBO_ITERS * bbo[0]["chunks"] == len(calls) and all(calls),
+          f"phase 9b: K1 launched {k1} times ({sum(calls)} of {len(calls)} solves warm), BBO "
+          f"pools {bbo}")
+    check(d["tiles_resolved"] == sum(int(m.sum()) for m in masks.values())
+          and d["tensors_touched"] == len(masks) == len(DELTA_NOISED),
+          f"phase 9b: lineage {d}")
+    flat_b = dict(tree_paths(cv_b))
+    for path, e in tensors.items():
+        if path in masks:
+            continue
+        check(art_b.manifest["tensors"][path] == e
+              and all(torch.equal(flat_b[f"{path}/{k}"], flat_prev[f"{path}/{k}"])
+                      for k in ("m_packed", "C")), f"phase 9b: {path} changed")
+    # the cold solve of the same drifted weights, chunked as phase 2 chunked
+    plan = plan_compression(drifted, policy())
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, art_cold = execute_plan(plan, drifted, seed=SEED, device=dev, max_pool_tiles=10240)
+    torch.cuda.synchronize()
+    cold_wall = time.time() - t0
+    dist_delta, dist_cold = squared_resid(art_b.manifest), squared_resid(art_cold.manifest)
+    check(dist_delta <= dist_cold * (1 + 1e-6),
+          f"phase 9b: delta's squared residual {dist_delta:.8g} above the cold "
+          f"execute's {dist_cold:.8g}")
+    del values, prev, cv_a, drifted
+    checkpointer.save(delta_dir, 0, {"params": cv_b})
+    art_b.save(delta_dir)
+    del cv_b
+    serve = qwen_serve_check(torch, dev, cfg, delta_dir, NEW_PHASE_STEPS, "phase 9")
+    out = {"parent_fingerprint": fp,
+           "unchanged": {"max_abs_ratio_minus_1": ratio_dev, "wall_s": wall_a,
+                         "tiles_resolved": 0, "k1_launches": 0},
+           "drifted": {"noised": {p: int(m.sum()) for p, m in masks.items()},
+                       "threshold": DEFAULT_DRIFT_THRESHOLD,
+                       "min_ratio_noised": noised_ratio_min,
+                       "tiles_resolved": d["tiles_resolved"], "tiles_total": d["tiles_total"],
+                       "fraction_resolved": d["fraction_resolved"],
+                       "pools": [{k: p[k] for k in ("method", "tile_n", "tile_d", "K",
+                                                    "num_tiles", "chunks", "solver_calls")}
+                                 for p in art_b.manifest["pools"]],
+                       "k1_launches": k1, "warm_solves": sum(calls),
+                       "delta_wall_s": delta_wall, "cold_wall_s": cold_wall,
+                       "delta_over_cold": delta_wall / cold_wall,
+                       "squared_resid": {"delta": dist_delta, "cold": dist_cold,
+                                         "delta_over_cold": dist_delta / dist_cold}},
+           "serve": serve}
+    emit({"delta_qwen": out})
+    return out
+
+
+def run_child(torch, args, label, *, env=None, want_rc=0):
+    """``python3 args...`` from the checkout's root with the port on its path
+    and no fault injected unless ``env`` asks; it must exit with ``want_rc``.
+    Returns (the completed process, wall s)."""
+    from repro_torch.compression.streaming import KILL_AFTER_ENV, STREAM_BUDGET_ENV
+
+    child_env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for k in (KILL_AFTER_ENV, STREAM_BUDGET_ENV):
+        child_env.pop(k, None)
+    child_env.update(env or {})
+    torch.cuda.synchronize()
+    t0 = time.time()
+    r = subprocess.run([sys.executable, *args], cwd=ROOT, env=child_env, capture_output=True,
+                       text=True, timeout=CHILD_TIMEOUT_S)
+    wall = time.time() - t0
+    check(r.returncode == want_rc,
+          f"{label}: exit {r.returncode}, want {want_rc}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return r, wall
+
+
+def child_json(r, tag, label):
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith(tag + " ")]
+    check(len(lines) == 1, f"{label}: no {tag} line in\n{r.stdout[-2000:]}")
+    return json.loads(lines[0][len(tag) + 1:])
+
+
+def key_values(text):
+    """The ``key=value`` lines of the compress CLI, as numbers."""
+    out = {}
+    for ln in text.splitlines():
+        m = re.fullmatch(r"([a-z_]+)=([-+0-9.eE]+)", ln.strip())
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+
+
+def same_files(a, b):
+    """Relative paths under ``a`` and ``b`` and whether every file's bytes
+    agree."""
+    import filecmp
+
+    rel = sorted(os.path.relpath(os.path.join(r, f), a) for r, _, fs in os.walk(a) for f in fs)
+    rel_b = sorted(os.path.relpath(os.path.join(r, f), b) for r, _, fs in os.walk(b) for f in fs)
+    return rel == rel_b and all(filecmp.cmp(os.path.join(a, p), os.path.join(b, p),
+                                            shallow=False) for p in rel)
+
+
+# a streaming job as its own process: the kill and the peak RSS are per process
+STREAM_CHILD = r"""
+import json, sys, time
+import torch
+from repro_torch.compression import CheckpointLeafSource, CompressionPolicy, plan_compression
+from repro_torch.compression.streaming import _status_bytes, run_compression_job
+rss_imported = _status_bytes("VmRSS")
+src = CheckpointLeafSource(sys.argv[1])
+plan = plan_compression(src.template(), CompressionPolicy())
+art, stats = run_compression_job(src, plan, sys.argv[2], seed=int(sys.argv[3]), device="cuda")
+torch.cuda.synchronize()
+print("STREAM_STATS " + json.dumps({**stats, "rss_after_import_bytes": rss_imported,
+                                    "device": torch.cuda.get_device_name(0)}))
+"""
+
+
+def phase_zamba_stream(torch, dev, execute_dir, work_dir):
+    """The whole zamba2-1.2b (phase 7's weights: seed 0, default policy)
+    saved dense and compressed by ``run_compression_job`` from a
+    ``CheckpointLeafSource`` at the default 1 GiB host budget, in child
+    processes: A with ``REPRO_STREAM_KILL_AFTER`` at half the leaves must die
+    by SIGKILL; B resumes A's job (its resumed leaves A's count, no
+    restart); C runs uninterrupted.  Every compressed leaf of B must equal
+    phase 7's ``execute_plan`` leaf byte for byte, and B's output directory
+    C's.  Then B's checkpoint is served as phase 7 (``ssm_generate``)."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.compression.streaming import KILL_AFTER_ENV, STATE_NAME
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = zamba_config()
+    dense = os.path.join(work_dir, "dense")
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    checkpointer.save(dense, 0, {"params": values})
+    save_s = time.time() - t0
+    del values
+    torch.cuda.empty_cache()
+    n_leaves = len(checkpointer.leaf_entries(dense, 0))
+    kill_after = n_leaves // 2
+    out_b, out_c = os.path.join(work_dir, "B"), os.path.join(work_dir, "C")
+    prog = ["-c", STREAM_CHILD, dense]
+    ra, wall_a = run_child(torch, [*prog, out_b, str(SEED)], "phase 10 child A",
+                           env={KILL_AFTER_ENV: str(kill_after)}, want_rc=-9)
+    state = checkpointer.load_aux(out_b, STATE_NAME)
+    done_a = len(state["completed"]) + len(state["dense"])
+    check(done_a == kill_after, f"phase 10: child A left {done_a} leaves, killed after "
+                                f"{kill_after}")
+    rb, wall_b = run_child(torch, [*prog, out_b, str(SEED)], "phase 10 child B")
+    sb = child_json(rb, "STREAM_STATS", "phase 10 child B")
+    check(sb["resumed_leaves"] == done_a and sb["restarts"] == 0
+          and sb["leaves_done_this_run"] == n_leaves - done_a,
+          f"phase 10: child B {sb}, A left {done_a} of {n_leaves} leaves")
+    rc, wall_c = run_child(torch, [*prog, out_c, str(SEED)], "phase 10 child C")
+    sc = child_json(rc, "STREAM_STATS", "phase 10 child C")
+    check(sc["resumed_leaves"] == 0 and sc["restarts"] == 0
+          and sc["leaves_done_this_run"] == n_leaves, f"phase 10: child C {sc}")
+    check(same_files(out_b, out_c), "phase 10: the resumed output differs from the "
+                                    "uninterrupted one")
+    # every compressed leaf as phase 7's execute_plan stored it
+    ents_b = checkpointer.leaf_entries(out_b, 0)
+    ents_x = checkpointer.leaf_entries(execute_dir, 0)
+    manifest = checkpointer.load_aux(out_b, "compression_manifest.json")
+    differ, compared = [], 0
+    for path in manifest["tensors"]:
+        for k in ("m_packed", "C"):
+            name = f"params/{path}/{k}"
+            fb = os.path.join(checkpointer.step_dir(out_b, 0), ents_b[name]["shards"][0]["file"])
+            fx = os.path.join(checkpointer.step_dir(execute_dir, 0),
+                              ents_x[name]["shards"][0]["file"])
+            with open(fb, "rb") as a, open(fx, "rb") as b:
+                if a.read() != b.read():
+                    differ.append(name)
+            compared += 1
+    check(not differ, f"phase 10: streamed leaves differ from phase 7's execute: {differ}")
+    tiles = sum(e["num_tiles"] for e in manifest["tensors"].values())
+    check(tiles == 249856, f"phase 10: {tiles} tiles streamed")
+    n_shared = zamba_shared_calls(cfg)
+    gen = ssm_generate(torch, dev, cfg, out_b, zamba_uses(cfg), n_shared,
+                       2 * cfg.num_layers + 7 * n_shared, 118, "phase 10",
+                       steps=NEW_PHASE_STEPS)
+
+    def child(st, wall):
+        return {"wall_s": wall, "job_wall_s": st.get("wall_s"), "chunks": st.get("chunks"),
+                "peak_rss_bytes": st.get("peak_rss_bytes"),
+                "rss_after_import_bytes": st.get("rss_after_import_bytes"),
+                "resumed_leaves": st.get("resumed_leaves"),
+                "leaves_this_run": st.get("leaves_done_this_run"),
+                "restarts": st.get("restarts")}
+
+    out = {"leaves": n_leaves, "kill_after": kill_after, "tiles": tiles,
+           "checkpoint_bytes": dir_bytes(checkpointer.step_dir(dense, 0)),
+           "compressed_bytes": dir_bytes(checkpointer.step_dir(out_b, 0)),
+           "save_s": save_s, "budget_bytes": sb["budget_bytes"],
+           "chunk_tiles": sorted({e["stream"]["chunk"] for e in manifest["tensors"].values()}),
+           "A": {"wall_s": wall_a, "rc": ra.returncode, "leaves_done": done_a},
+           "B": child(sb, wall_b), "C": child(sc, wall_c),
+           "leaves_equal_to_execute": compared, "resumed_equals_uninterrupted": True,
+           "serve": gen}
+    emit({"zamba2_stream": out})
+    return out
+
+
+PLAN_405B_CHILD = r"""
+import json, sys, time
+import torch
+from repro_torch.compression import CompressionPolicy, TreeLeafSource, execute_streaming
+from repro_torch.compression import plan_compression
+from repro_torch.compression.streaming import (
+    RssSampler, _status_bytes, peak_rss_bytes, streaming_autotune_plan)
+from repro_torch.configs import get_config
+from repro_torch.kernels import sa_sweep as sa
+from repro_torch.models import init_model
+from repro_torch.models.params import split
+rss_imported = _status_bytes("VmRSS")
+t0 = time.time()
+with RssSampler() as rss:
+    cfg = get_config(sys.argv[1])
+    src = TreeLeafSource(split(init_model(cfg, seed=0, device="meta"))[0])
+    policy = CompressionPolicy()
+    uniform = plan_compression(src.template(), policy)
+    budget = int(float(sys.argv[3]) * uniform.total_bytes())
+    sa.sa_sweep_many.launches = 0
+    res = streaming_autotune_plan(src, policy, budget, seed=0, device="cuda", engine="qubo",
+                                  k_fractions=tuple(json.loads(sys.argv[2])))
+    torch.cuda.synchronize()
+wall = time.time() - t0
+try:
+    execute_streaming(src, res.plan, sys.argv[4], device="cuda")
+    refused = None
+except ValueError as e:
+    refused = str(e)
+probe = res.plan.autotune["probe"]
+print("PLAN_STATS " + json.dumps({
+    "wall_s": wall, "probe_s": res.probe_s, "peak_rss_bytes": peak_rss_bytes(rss.peak),
+    "rss_after_import_bytes": rss_imported,
+    "tensors": len(uniform.tensors), "tiles": sum(t.num_tiles for t in uniform.tensors),
+    "dense_bytes": uniform.total_orig_bytes, "uniform_bytes": uniform.total_bytes(),
+    "budget_bytes": budget, "allocated_bytes": res.allocation.total_bytes,
+    "planned_bytes": res.plan.total_bytes(), "k1_launches": sa.sa_sweep_many.launches,
+    "qubo_spins": res.allocation.num_spins, "engine": res.allocation.engine,
+    "source": probe["source"], "factors": probe["factors"], "refused": refused,
+    "choices": {p: [pt.tile_n, pt.tile_d, pt.K] for p, pt in res.allocation.choices.items()},
+    "device": torch.cuda.get_device_name(0)}))
+"""
+PLAN_405B_ARCH = "llama3-405b"
+PLAN_405B_BUDGET_FRACTION = 0.75
+
+
+def phase_plan_405b(torch, dev, work_dir):
+    """Planning from metadata alone, in a child process: llama3-405b's
+    published config as a ``meta`` template (no weight allocated),
+    ``streaming_autotune_plan`` with the QUBO engine, K in {2, 4, 6, 8}, to
+    0.75 x the uniform default plan's bytes.  The allocation must fit, K1
+    launch once (the QUBO), the probe read as synthetic, and
+    ``execute_streaming`` refuse the source."""
+    out_dir = os.path.join(work_dir, "refused")
+    r, wall = run_child(torch, ["-c", PLAN_405B_CHILD, PLAN_405B_ARCH,
+                                json.dumps(list(AUTOTUNE_K_FRACTIONS)),
+                                str(PLAN_405B_BUDGET_FRACTION), out_dir], "phase 10b")
+    st = child_json(r, "PLAN_STATS", "phase 10b")
+    check(st["allocated_bytes"] <= st["budget_bytes"] and st["planned_bytes"] <= st["budget_bytes"],
+          f"phase 10b: allocated {st['allocated_bytes']}, planned {st['planned_bytes']}, "
+          f"budget {st['budget_bytes']}")
+    check(st["k1_launches"] == 1 and st["engine"] == "qubo",
+          f"phase 10b: K1 launched {st['k1_launches']} times ({st['engine']})")
+    check(st["source"] == "synthetic", f"phase 10b: probe source {st['source']}")
+    check(st["refused"] is not None and "metadata-only" in st["refused"]
+          and not os.path.exists(out_dir), f"phase 10b: execute_streaming {st['refused']!r}")
+    out = {"arch": PLAN_405B_ARCH, "child_wall_s": wall, **st,
+           "k_fractions": list(AUTOTUNE_K_FRACTIONS), "budget_fraction": PLAN_405B_BUDGET_FRACTION}
+    emit({"plan_405b": out})
+    return out
+
+
+def phase_mamba2_cli(torch, dev, work_dir):
+    """The compress CLI on the whole mamba2-130m: its dense weights saved (A),
+    ``--streaming --ckpt-dir A --out-dir B``, every fourth band of tile_n
+    rows of every out_proj re-drawn (A2, as phase 9 (b)), then
+    ``--delta-from B --ckpt-dir A2 --out-dir C`` (at CLI_DELTA_THRESHOLD:
+    B was streamed, so the drift baseline is estimated).  Each run's
+    ``key=value`` lines must parse, the delta report its estimated baseline
+    and re-solve a fraction strictly between 0 and 1, and C is served as
+    phase 7b."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.models import init_model
+    from repro_torch.models.params import split
+
+    cfg = mamba2_config()
+    a, a2, b, c = (os.path.join(work_dir, x) for x in ("A", "A2", "B", "C"))
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    checkpointer.save(a, 0, {"params": values})
+    cli = ["-m", "repro_torch.launch.compress", "--arch", MAMBA2_ARCH, "--seed", str(SEED)]
+    rs, wall_s = run_child(torch, [*cli, "--streaming", "--ckpt-dir", a, "--out-dir", b],
+                           "phase 10c streaming")
+    kv_s = key_values(rs.stdout)
+    check({"stream_wall_s", "peak_rss_bytes"} <= set(kv_s),
+          f"phase 10c: streaming printed {kv_s}\n{rs.stdout[-2000:]}")
+    manifest_b = checkpointer.load_aux(b, "compression_manifest.json")
+    drifted, masks = band_noise(torch, values, manifest_b, ("out_proj",), DELTA_SEED, dev)
+    check(len(masks) == 1, f"phase 10c: noised {sorted(masks)}")
+    checkpointer.save(a2, 0, {"params": drifted})
+    del values, drifted
+    rd, wall_d = run_child(torch, [*cli, "--delta-from", b, "--ckpt-dir", a2, "--out-dir", c,
+                                   "--delta-threshold", str(CLI_DELTA_THRESHOLD)],
+                           "phase 10c delta")
+    kv_d = key_values(rd.stdout)
+    check({"delta_wall_s", "fraction_resolved"} <= set(kv_d),
+          f"phase 10c: delta printed {kv_d}\n{rd.stdout[-2000:]}")
+    check("(estimated baseline)" in rd.stdout, "phase 10c: the delta did not estimate its "
+                                               "baseline against a streamed parent")
+    frac = kv_d["fraction_resolved"]
+    manifest_c = checkpointer.load_aux(c, "compression_manifest.json")
+    per = manifest_c["delta"]["per_tensor"]
+    noised = {p: int(m.sum()) for p, m in masks.items()}
+    check(0 < frac < 1 and all(e["resolved"] == 0 for p, e in per.items() if p not in noised),
+          f"phase 10c: fraction re-solved {frac}, per tensor {per}, noised {noised}")
+    gen = ssm_generate(torch, dev, cfg, c, layer_slices, 0, 2 * cfg.num_layers, 48,
+                       "phase 10c", steps=NEW_PHASE_STEPS)
+    out = {"streaming": {"child_wall_s": wall_s, **kv_s},
+           "delta": {"child_wall_s": wall_d, **kv_d, "threshold": CLI_DELTA_THRESHOLD,
+                     "per_tensor": per, "noised": noised},
+           "checkpoint_bytes": dir_bytes(checkpointer.step_dir(a, 0)), "serve": gen}
+    emit({"mamba2_cli": out})
+    return out
+
+
 def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
     launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
@@ -3112,6 +3709,14 @@ def main() -> int:
         t = time.time()
         sched4c = phase_qwen_sched(torch, dev, out_dir)
         phases["scheduler_4c_s"] = time.time() - t
+        delta_dir = os.path.join(ROOT, "build", "chip_smoke_delta_ckpt")
+        shutil.rmtree(delta_dir, ignore_errors=True)
+        try:
+            t = time.time()
+            delta = phase_delta(torch, dev, out_dir, delta_dir)
+            phases["delta_9_s"] = time.time() - t
+        finally:
+            shutil.rmtree(delta_dir, ignore_errors=True)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     t = time.time()
@@ -3159,8 +3764,24 @@ def main() -> int:
             phases["zamba2_autotune_8_s"] = time.time() - t
         finally:
             shutil.rmtree(zamba_auto_dir, ignore_errors=True)
+        stream_dir = os.path.join(ROOT, "build", "chip_smoke_zamba2_stream")
+        shutil.rmtree(stream_dir, ignore_errors=True)
+        try:
+            t = time.time()
+            zamba_stream = phase_zamba_stream(torch, dev, zamba_dir, stream_dir)
+            phases["zamba2_stream_10_s"] = time.time() - t
+        finally:
+            shutil.rmtree(stream_dir, ignore_errors=True)
     finally:
         shutil.rmtree(zamba_dir, ignore_errors=True)
+    plan_dir = os.path.join(ROOT, "build", "chip_smoke_plan_405b")
+    shutil.rmtree(plan_dir, ignore_errors=True)
+    try:
+        t = time.time()
+        plan405 = phase_plan_405b(torch, dev, plan_dir)
+        phases["plan_405b_10b_s"] = time.time() - t
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
     mamba2_dir = os.path.join(ROOT, "build", "chip_smoke_mamba2_ckpt")
     shutil.rmtree(mamba2_dir, ignore_errors=True)
     try:
@@ -3173,6 +3794,14 @@ def main() -> int:
         phases["mamba2_autotune_8b_s"] = time.time() - t
     finally:
         shutil.rmtree(mamba2_dir, ignore_errors=True)
+    cli_dir = os.path.join(ROOT, "build", "chip_smoke_mamba2_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    try:
+        t = time.time()
+        mamba2_cli = phase_mamba2_cli(torch, dev, cli_dir)
+        phases["mamba2_cli_10c_s"] = time.time() - t
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
     t = time.time()
     paper = phase_paper(torch, dev)
     phases["paper_s"] = time.time() - t
@@ -3219,6 +3848,11 @@ def main() -> int:
          # at the allocator's shape (6 problems x 8 reads x 96 sweeps) at n =
          # 237 (the shared-memory body) and 1,024 (the global-memory body)
          "launches_phase8": zamba_auto["k1_launches"],
+         # phase 9: the delta's warm BBO re-solve (each launch with init_state);
+         # phase 10b: the streaming autotuner's QUBO on llama3-405b's plan
+         "launches_phase9": delta["drifted"]["k1_launches"],
+         "launches_phase10b": plan405["k1_launches"],
+         "qubo_spins_phase10b": plan405["qubo_spins"],
          "qubo_shape_phase8": zamba_auto["qubo_shape"],
          "allocator": {label: {k: tm[k] for k in ANNEAL_KEYS}
                        for label, tm in k1["timing_allocator"].items()}},
@@ -3235,6 +3869,11 @@ def main() -> int:
          # the scheduler's runs: phase 7c's (a), full and cut pool; phase 4c's
          "launches_phase7c": sched7c["launches"]["bitlinear"],
          "launches_phase4c": sched4c["launches"]["bitlinear"],
+         # the serves of the delta checkpoint (9), the streamed zamba2 (10) and
+         # the CLI's delta of the streamed mamba2-130m (10c), NEW_PHASE_STEPS each
+         "launches_phase9": delta["serve"]["launches"]["bitlinear"],
+         "launches_phase10": zamba_stream["serve"]["launches"]["bitlinear"],
+         "launches_phase10c": mamba2_cli["serve"]["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -3268,7 +3907,10 @@ def main() -> int:
          "launches_phase7": zamba_gen["launches"]["flash_attention"],
          "launches_phase8": zamba_auto["launches"]["flash_attention"],
          "launches_phase7c": sched7c["launches"]["flash_attention"],
-         "launches_phase4c": sched4c["launches"]["flash_attention"], "max_abs_err": k5_err,
+         "launches_phase4c": sched4c["launches"]["flash_attention"],
+         "launches_phase9": delta["serve"]["launches"]["flash_attention"],
+         "launches_phase10": zamba_stream["serve"]["launches"]["flash_attention"],
+         "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
          "library_ms": k5["timing"]["library_ms"], "device_ms": k5["timing"]["device_ms"],

@@ -11,6 +11,13 @@ A checkpoint written by either package restores in the other.  bfloat16
 leaves are stored as raw 2-byte data (numpy has no bfloat16: ``repro``
 writes them as ``|V2``) under the manifest dtype ``"bfloat16"`` and are
 reinterpreted bit for bit on restore.
+
+The leaf-granular readers (``leaf_entries``, ``read_leaf_slice``,
+``copy_leaf_files``) address any box of any leaf through memory-mapped
+shard files without assembling the tree: the streaming compression
+pipeline (:mod:`repro_torch.compression.streaming`) is built on them.  They
+speak numpy and need no JAX: a bfloat16 leaf reads back as raw 2-byte
+``|V2`` data, whichever package wrote it.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ __all__ = [
     "step_dir",
     "to_numpy",
     "from_numpy",
+    "np_dtype",
+    "leaf_entries",
+    "read_leaf_slice",
+    "copy_leaf_files",
 ]
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -69,6 +80,12 @@ def from_numpy(a: np.ndarray, dtype_str: str, device) -> torch.Tensor:
     if a.dtype != want:
         a = a.view(want) if a.dtype.itemsize == want.itemsize else a.astype(want)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def np_dtype(name: str) -> np.dtype:
+    """The numpy dtype a leaf of manifest dtype ``name`` is held in on the
+    host: raw ``|V2`` for bfloat16 (numpy has none without ``ml_dtypes``)."""
+    return np.dtype("V2") if name == "bfloat16" else np.dtype(name)
 
 
 def _leaf_paths(tree):
@@ -119,6 +136,66 @@ def load_aux(directory: str, name: str):
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def leaf_entries(directory: str, step: int) -> dict:
+    """The step manifest's ``leaves`` table: name -> {shape, dtype, shards}.
+    Metadata only: no tensor data is read."""
+    with open(os.path.join(step_dir(directory, step), "MANIFEST.json")) as f:
+        return json.load(f)["leaves"]
+
+
+def _view_dtype(data: np.ndarray, want: np.dtype) -> np.ndarray:
+    if data.dtype == want:
+        return data
+    # bfloat16 written by JAX (ml_dtypes) or the port (|V2): the same bytes
+    if data.dtype.itemsize == want.itemsize:
+        return data.view(want)
+    return data.astype(want)
+
+
+def read_leaf_slice(directory: str, step: int, name: str, index: tuple,
+                    entry: dict | None = None) -> np.ndarray:
+    """``leaf[index]`` (a tuple of slices, one per dim) assembled from the
+    shard files through mmap: host memory is bounded by the box, not the
+    leaf.  bfloat16 comes back as raw ``|V2`` data (:func:`np_dtype`).
+    ``entry`` spares the manifest read when the caller holds it."""
+    if entry is None:
+        entry = leaf_entries(directory, step)[name]
+    want = np_dtype(entry["dtype"])
+    box = [
+        (0 if s.start is None else s.start, dim if s.stop is None else min(s.stop, dim))
+        for s, dim in zip(index, entry["shape"])
+    ]
+    out = np.empty([hi - lo for lo, hi in box], dtype=want)
+    path = step_dir(directory, step)
+    for sh in entry["shards"]:
+        ov = [(max(lo, a), min(hi, b)) for (lo, hi), (a, b) in zip(box, sh["index"])]
+        if any(lo >= hi for lo, hi in ov):
+            continue
+        data = np.load(os.path.join(path, sh["file"]), mmap_mode="r")
+        src = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in zip(ov, sh["index"]))
+        dst = tuple(slice(lo - blo, hi - blo) for (lo, hi), (blo, _) in zip(ov, box))
+        out[dst] = _view_dtype(np.asarray(data[src]), want)
+        del data
+    return out
+
+
+def copy_leaf_files(directory: str, step: int, name: str, dst_dir: str, dst_name: str,
+                    entry: dict | None = None) -> dict:
+    """File-level copy of one leaf's shards into ``dst_dir`` under a new
+    leaf name; returns the rewritten manifest entry.  No tensor is loaded."""
+    if entry is None:
+        entry = leaf_entries(directory, step)[name]
+    src_dir = step_dir(directory, step)
+    prefix = _safe(name)
+    out = {"shape": entry["shape"], "dtype": entry["dtype"], "shards": []}
+    for sh in entry["shards"]:
+        suffix = sh["file"][len(prefix):] if sh["file"].startswith(prefix) else "__" + sh["file"]
+        fname = _safe(dst_name) + suffix
+        shutil.copyfile(os.path.join(src_dir, sh["file"]), os.path.join(dst_dir, fname))
+        out["shards"].append({"file": fname, "index": sh["index"]})
+    return out
 
 
 def available_steps(directory: str) -> list[int]:

@@ -1,10 +1,24 @@
 """Policy -> plan -> execute compression with its manifest (counterpart of
-``repro.compression``)."""
+``repro.compression``).  Beside execute: the **delta** tier
+(:mod:`repro_torch.compression.delta`) re-solves only the tiles that drifted
+since a parent artifact, warm-started from its factors; the **streaming**
+tier (:mod:`repro_torch.compression.streaming`) plans from metadata, probes
+with SVD-tail surrogates and executes one leaf at a time under a host
+budget, resumably."""
 
 from repro_torch.compression.artifact import (
     MANIFEST_FORMAT,
     MANIFEST_NAME,
     CompressionArtifact,
+)
+from repro_torch.compression.delta import (
+    DEFAULT_DRIFT_THRESHOLD,
+    ColdStartRequired,
+    DeltaPlan,
+    TensorDrift,
+    compute_drift,
+    delta_recompress,
+    plan_delta,
 )
 from repro_torch.compression.execute import execute_plan
 from repro_torch.compression.plan import (
@@ -14,6 +28,14 @@ from repro_torch.compression.plan import (
     tree_paths,
 )
 from repro_torch.compression.policy import CompressionPolicy, CompressionRule
+from repro_torch.compression.streaming import (
+    CheckpointLeafSource,
+    TreeLeafSource,
+    execute_streaming,
+    run_compression_job,
+    streaming_autotune_plan,
+    surrogate_probe,
+)
 
 __all__ = [
     "CompressionArtifact",
@@ -26,4 +48,17 @@ __all__ = [
     "execute_plan",
     "plan_compression",
     "tree_paths",
+    "DEFAULT_DRIFT_THRESHOLD",
+    "ColdStartRequired",
+    "DeltaPlan",
+    "TensorDrift",
+    "compute_drift",
+    "delta_recompress",
+    "plan_delta",
+    "CheckpointLeafSource",
+    "TreeLeafSource",
+    "execute_streaming",
+    "run_compression_job",
+    "streaming_autotune_plan",
+    "surrogate_probe",
 ]

@@ -7,16 +7,22 @@ geometry, method, bytes, errors and the shapes and dtypes of the stored
 leaves.  ``restore_template`` rewrites a dense values tree into the
 compressed checkpoint's structure (as ``meta`` tensors), so a compressed
 checkpoint restores without re-running compression; ``validate_params``
-checks a params tree against the manifest.
+checks a params tree against the manifest.  ``fingerprint`` is the
+reference's content hash (sha256 of the canonical JSON, 16 hex digits), so
+both packages name the same manifest alike; delta recompression records it
+as the parent of a lineage (``delta``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import os
 
 import torch
 
+from repro_torch.core.compress import CompressionReport
 from repro_torch.device import dtype_from_name, dtype_name
 
 __all__ = ["CompressionArtifact", "MANIFEST_NAME", "MANIFEST_FORMAT"]
@@ -42,6 +48,15 @@ class CompressionArtifact:
             )
 
     @property
+    def report(self) -> CompressionReport:
+        """The ``CompressionReport`` view of the manifest."""
+        compressed = [
+            (path, e["orig_bytes"], e["new_bytes"], e["rel_err"])
+            for path, e in self.manifest["tensors"].items()
+        ]
+        return CompressionReport(compressed, list(self.manifest["skipped"].items()))
+
+    @property
     def total_ratio(self) -> float:
         return self.manifest["totals"]["ratio"]
 
@@ -53,6 +68,26 @@ class CompressionArtifact:
         """Stored bytes of the compressed tensors."""
         return int(self.manifest["totals"]["new_bytes"])
 
+    def fingerprint(self) -> str:
+        """Content hash of the manifest: sha256 of its canonical JSON, 16
+        hex digits, the reference's, so both packages agree on it."""
+        blob = json.dumps(self.manifest, sort_keys=True, separators=(",", ":")).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+    @property
+    def delta(self) -> dict | None:
+        """The delta-lineage block (None for a cold artifact)."""
+        return self.manifest.get("delta")
+
+    def solver_batches(self) -> list:
+        """Pooled ``solve_many`` batch sizes, one per BBO chunk."""
+        return [
+            size
+            for p in self.manifest["pools"]
+            if p.get("solver_batch")
+            for size in p.get("chunk_sizes", [p["solver_batch"]])
+        ]
+
     def summary(self) -> str:
         t = self.manifest["totals"]
         lines = [
@@ -60,6 +95,13 @@ class CompressionArtifact:
             f"{t['orig_bytes'] / 2**20:.2f} -> {t['new_bytes'] / 2**20:.2f} MiB "
             f"(x{t['ratio']:.2f})"
         ]
+        d = self.delta
+        if d:
+            lines.append(
+                f"  delta gen {d['generation']} from {d['parent_fingerprint']}: "
+                f"{d['tiles_resolved']}/{d['tiles_total']} tiles re-solved "
+                f"({d['fraction_resolved']:.1%})"
+            )
         for path, e in self.manifest["tensors"].items():
             lines.append(
                 f"  {path:48s} {e['method']:11s} tile "
@@ -84,6 +126,61 @@ class CompressionArtifact:
     @classmethod
     def exists(cls, directory: str) -> bool:
         return os.path.exists(os.path.join(directory, MANIFEST_NAME))
+
+    @classmethod
+    def from_plan(cls, plan) -> "CompressionArtifact":
+        """The predicted artifact of a plan that has not been executed:
+        geometry and bytes from the plan, ``rel_err`` None, marked
+        ``predicted_only`` (delta recompression refuses to anchor on it)."""
+        tensors = {}
+        for t in plan.tensors:
+            r, c = t.d_in // t.tile_n, t.d_out // t.tile_d
+            lead = list(t.shape[:-2])
+            if t.method == "int8":
+                leaf_spec = {
+                    "q": {"shape": lead + [r, c, t.tile_n, t.tile_d], "dtype": "int8"},
+                    "scale": {"shape": lead + [r, c, 1, 1], "dtype": "float32"},
+                }
+            else:
+                leaf_spec = {
+                    "m_packed": {"shape": lead + [r, c, t.tile_n, (t.K + 7) // 8],
+                                 "dtype": "uint8"},
+                    "C": {"shape": lead + [r, c, t.K, t.tile_d], "dtype": t.dtype},
+                }
+            tensors[t.path] = {
+                "shape": list(t.shape),
+                "dtype": t.dtype,
+                "groups": t.groups,
+                "group_dims": lead,
+                "tile_n": t.tile_n,
+                "tile_d": t.tile_d,
+                "K": t.K,
+                "method": t.method,
+                "rule": t.rule,
+                "leaf_index": t.leaf_index,
+                "bbo_iters": t.bbo_iters,
+                "num_tiles": t.num_tiles,
+                "orig_bytes": t.orig_bytes,
+                "new_bytes": t.pred_bytes,
+                "rel_err": None,
+                **leaf_spec,
+            }
+        manifest = {
+            "format": MANIFEST_FORMAT,
+            "policy": plan.policy.to_dict(),
+            "solver_backend": plan.policy.solver_backend,
+            "predicted_only": True,
+            **({"autotune": plan.autotune} if plan.autotune else {}),
+            "tensors": tensors,
+            "skipped": {p: r for p, r in plan.skipped},
+            "pools": [],
+            "totals": {
+                "orig_bytes": int(plan.total_orig_bytes),
+                "new_bytes": int(plan.total_pred_bytes),
+                "ratio": plan.pred_ratio,
+            },
+        }
+        return cls(manifest)
 
     def restore_template(self, dense_values):
         """Each manifested leaf of a dense values tree becomes

@@ -126,17 +126,20 @@ def _tensor_tiles(leaf, t: TensorPlan, device):
     return tile_matrix(leaf, t.tile_n, t.tile_d)
 
 
+def _slice_signs(seed: int, t: TensorPlan, g: int, device):
+    """Greedy restart draws of every tile of group slice ``g`` of one
+    tensor, (tiles_per_slice, K, restarts, tile_n), from the generator of
+    (seed, leaf_index, g): what a chunk of any size takes its slice of."""
+    return dec.draw_restart_signs(
+        (t.num_tiles // t.groups,), t.K, GREEDY_RESTARTS, t.tile_n,
+        generator(device, seed, t.leaf_index, g),
+    )
+
+
 def _tensor_signs(seed: int, t: TensorPlan, device):
     """Greedy restart draws of every tile of one tensor: one generator per
     (seed, leaf_index, group slice), independent of pooling."""
-    per_slice = t.num_tiles // t.groups
-    return torch.cat([
-        dec.draw_restart_signs(
-            (per_slice,), t.K, GREEDY_RESTARTS, t.tile_n,
-            generator(device, seed, t.leaf_index, g),
-        )
-        for g in range(t.groups)
-    ])
+    return torch.cat([_slice_signs(seed, t, g, device) for g in range(t.groups)])
 
 
 def _iter_chunks(members, leaves, seed, chunk, device, with_signs):

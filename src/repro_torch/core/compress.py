@@ -10,12 +10,14 @@ problem W_t ~ M_t C_t with K = rank_ratio * tile_n, solved as a batch:
                all tiles in lock-step through ``bbo.run_bbo_many``
   int8         the plain per-tile integer quantisation baseline
 
-Whole-model compression is :mod:`repro_torch.compression` (plan/execute).
+Whole-model compression is :mod:`repro_torch.compression` (plan/execute);
+``compress_params`` is the thin wrapper over it that the reference keeps.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +27,8 @@ from repro_torch.device import generator as make_generator
 
 __all__ = [
     "compress_matrix",
+    "compress_params",
+    "CompressionReport",
     "compress_tile_batch",
     "quantize_tile_batch",
     "tile_matrix",
@@ -34,6 +38,17 @@ __all__ = [
 
 # random restarts of each greedy rank-one step (repro's greedy default)
 GREEDY_RESTARTS = 4
+
+
+class CompressionReport(NamedTuple):
+    compressed: list          # [(path, orig_bytes, new_bytes, rel_err)]
+    skipped: list             # [(path, reason)]
+
+    @property
+    def total_ratio(self) -> float:
+        ob = sum(c[1] for c in self.compressed)
+        nb = sum(c[2] for c in self.compressed)
+        return ob / max(nb, 1)
 
 
 def pick_tile(dim: int, want: int, max_tile: int | None = None) -> int | None:
@@ -160,3 +175,18 @@ def compress_matrix(W: torch.Tensor, ccfg, *, seed: int = 0, method: str | None 
     r, c = W.shape[0] // tn, W.shape[1] // td
     packed = dec.pack_bits(M).reshape(r, c, tn, -1)
     return {"m_packed": packed, "C": C.reshape(r, c, K, td).to(W.dtype)}, float(errs.mean())
+
+
+def compress_params(values: dict, cfg, ccfg=None, *, seed: int = 0, device=None,
+                    verbose: bool = False):
+    """Compress the eligible linear weights of a values tree: the
+    ``CompressionConfig`` (default ``cfg.compression``) becomes a one-rule
+    policy, planned and executed with tiles pooled across tensors on
+    ``device`` (default: the GPU).  Returns (new_values, CompressionReport)."""
+    from repro_torch import compression as comp
+
+    ccfg = ccfg or cfg.compression
+    plan = comp.plan_compression(values, ccfg.to_policy())
+    new_values, artifact = comp.execute_plan(plan, values, seed=seed, device=device,
+                                             verbose=verbose)
+    return new_values, artifact.report

@@ -56,9 +56,21 @@ def _mix(*parts: int) -> int:
     return z & 0x7FFFFFFFFFFFFFFF
 
 
+class _MetaGenerator(torch.Generator):
+    """A host generator that reports the ``meta`` device: draws onto
+    ``meta`` tensors only record shapes, so ``init_model(cfg,
+    device="meta")`` gives a metadata-only template (the counterpart of
+    ``jax.eval_shape``) without allocating a weight."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def generator(device, *parts: int) -> torch.Generator:
     """A generator on ``device`` seeded from a tuple of integers, e.g.
     ``(seed, leaf_index, group)``: the port's stand-in for ``fold_in``."""
-    g = torch.Generator(device=torch.device(device))
+    device = torch.device(device)
+    g = _MetaGenerator("cpu") if device.type == "meta" else torch.Generator(device=device)
     g.manual_seed(_mix(*parts))
     return g

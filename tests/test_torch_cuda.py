@@ -1039,3 +1039,38 @@ def test_grid_takes_unaligned_views_onto_the_tensor_cores(dev, tn, K, td):
                           bl.SMALL_T, torch.cuda.current_stream(dev).cuda_stream,
                           ctypes.byref(ran))
     assert err == 716 and ran.value == 0     # cudaErrorMisalignedAddress, nothing launched
+
+
+@pytest.mark.parametrize("method", ["greedy", "alternating"])
+def test_pooled_solve_bytes_do_not_depend_on_the_chunk(dev, method, tmp_path):
+    """A greedy/alternating pool of 24,576 tiles of 32 x 131 (one zamba2
+    in_proj stack, bf16) gives the same bytes in chunks of at most 16,384
+    (execute's ``EIGH_MAX_BATCH``), 8,004 (the stream chunk at 1 GiB) and
+    1,000 tiles, and streamed at the default budget: batched eigh and the
+    batched products give each tile the same bits whatever its batch."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.compression import TreeLeafSource, execute_streaming
+    from repro_torch.compression.plan import tree_paths
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    values = {"l": {"w": (0.02 * torch.randn((6, 2048, 8384), generator=g, device=dev))
+                    .to(torch.bfloat16)}}
+    plan = plan_compression(values, CompressionPolicy(method=method))
+    (t,) = plan.tensors
+    assert (t.tile_n, t.tile_d, t.num_tiles) == (32, 131, 24576)
+    outs = {}
+    for cap in (16384, 8004, 1000):
+        cv, art = execute_plan(plan, values, device=dev, max_pool_tiles=cap)
+        assert max(art.manifest["pools"][0]["chunk_sizes"]) <= cap
+        outs[cap] = {k: checkpointer.to_numpy(v).tobytes()
+                     for k, v in tree_paths(cv["l"]["w"])}
+    art, stats = execute_streaming(TreeLeafSource(values), plan, str(tmp_path), device=dev)
+    assert art.manifest["tensors"]["l/w"]["stream"]["chunk"] == 8004
+    streamed = {}
+    for k in ("m_packed", "C"):
+        name = f"params/l/w/{k}"
+        e = checkpointer.leaf_entries(str(tmp_path), 0)[name]
+        streamed[k] = checkpointer.read_leaf_slice(
+            str(tmp_path), 0, name, tuple(slice(0, s) for s in e["shape"]), entry=e).tobytes()
+    assert outs[8004] == outs[16384] and outs[1000] == outs[16384]
+    assert streamed == outs[16384]

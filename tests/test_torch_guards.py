@@ -67,12 +67,14 @@ def test_entry_points_refuse_the_cpu_without_device(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--streaming"], ["--delta-from", "x"]])
 def test_compress_cli_refuses_unported_flags(flag, capsys):
+    """``--streaming`` and ``--delta-from`` are ported: each gets past the
+    flag checks and reaches the CUDA check (no flag is refused as unported)."""
+    _cpu_only()
     from repro_torch.launch.compress import main
 
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--arch", "qwen3-32b", "--reduced", *flag])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 def test_compress_cli_autotune_kernels_needs_cuda(capsys):
@@ -126,6 +128,46 @@ def test_autotune_and_eval_entry_points_refuse_the_cpu_without_device(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         allocate_budget(probes, plan.total_bytes(), engine="qubo")
     assert not any(tmp_path.iterdir())
+
+
+def test_delta_and_streaming_entry_points_refuse_the_cpu_without_device(tmp_path):
+    """Delta recompression and the streaming tier run on the GPU unless asked
+    for the CPU; a metadata-only source is refused by the execute first."""
+    _cpu_only()
+    from repro_torch.compression import (
+        TreeLeafSource, delta_recompress, execute_streaming, run_compression_job,
+        streaming_autotune_plan,
+    )
+
+    cfg = reduced_for_smoke(get_config("qwen3-32b"))
+    policy = CompressionPolicy(tile_d=32, min_size=1024)
+    values, _ = split(init_model(cfg, seed=0, device="cpu"))
+    plan = plan_compression(values, policy)
+    cvalues, artifact = execute_plan(plan, values, device="cpu")
+    src = TreeLeafSource(values)
+    out = tmp_path / "out"
+    for call in (
+        lambda: delta_recompress(artifact, cvalues, values),
+        lambda: execute_streaming(src, plan, str(out)),
+        lambda: run_compression_job(src, plan, str(out)),
+        lambda: streaming_autotune_plan(src, policy, plan.total_bytes()),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    meta = TreeLeafSource(split(init_model(cfg, seed=0, device="meta"))[0])
+    with pytest.raises(ValueError, match="metadata-only"):
+        execute_streaming(meta, plan, str(out), device="cpu")
+    assert not out.exists()
+
+
+# the modules of the streaming and delta paths, which read bf16 checkpoints
+# where no JAX (and so no ml_dtypes) is installed
+_NO_ML_DTYPES = [f for f in _FILES if f.name != "bridge.py"]
+
+
+@pytest.mark.parametrize("path", _NO_ML_DTYPES, ids=lambda p: str(p.relative_to(_ROOT)))
+def test_port_imports_no_ml_dtypes(path):
+    assert "ml_dtypes" not in _imported_roots(path), f"{path} imports ml_dtypes"
 
 
 def test_k1_body_rule_is_the_headers():

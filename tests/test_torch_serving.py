@@ -39,6 +39,10 @@ B, P, STEPS = 3, 8, 8
 
 @pytest.fixture(autouse=True)
 def _no_port_hooks():
+    # the hooks are process-global: a test file that ran earlier in the same
+    # process (tests/test_torch_budget_autotune.py's serves) can leave an
+    # Engine's on
+    tops.disable_kernels()
     yield
     tops.disable_kernels()
 

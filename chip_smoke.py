@@ -206,6 +206,26 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      streamed parent's drift baseline is estimated): ``key=value`` lines,
      the estimated baseline, 0 < fraction re-solved < 1; C served as 7b.
 
+  11. Training, after every other phase: the whole granite-moe-1b-a400m
+     (24 layers, 32 experts top-8, bf16, AdamW with f32 accumulation,
+     remat) trained by ``launch.train.train_once`` under
+     ``run_with_restarts``: 8 x 1,024 tokens a step from ``make_pipeline``
+     (seed 0) in 2 microbatches, lr 1e-3 after 2 warm-up steps, 6 steps,
+     checkpoints every 3 (keep 1), a crash injected at step 5 (11a): one
+     restart, resumed from step 3, the recomputed losses within 1e-3 of the
+     first attempt's, every loss finite, step 6's below step 1's; no kernel
+     launched.  Each step's loss, grad norm and ms, tokens/s, peak device
+     memory, checkpoint bytes, save and restore walls.  (11b) step 6
+     restored byte-equal to the state saved, then ``CompressionCycle`` with
+     phase 2's policy every 2 steps: cold at step 6 (K1), two more steps at
+     lr 1e-3, a delta at step 8 at drift threshold 1.001 (K1, every solve
+     warm, exactly the tiles past the threshold re-solved, untouched
+     tensors the parent's bytes); the drift ratios per tensor, the fraction
+     re-solved, both walls and both artifacts' ``tile_resid``.  (11c) step
+     8's artifact served as phase 5 at 8 new tokens: K4 3 x 24, K3 4 x 24 a
+     forward, K5 24, per schedule as resolved; f32 prefill logits within
+     5e-2 of max|logit| of the plain path.
+
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
 ``nvidia-smi`` name and power limit, a ``kernels`` line, and last
@@ -3577,6 +3597,303 @@ def phase_mamba2_cli(torch, dev, work_dir):
     return out
 
 
+# phase 11: granite-moe-1b-a400m trained whole, killed and resumed, then
+# through the compression cycle and served
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 1024, 2
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+RESUME_TOL = 1e-3                    # attempt 1's recomputed losses against attempt 0's
+CYCLE_EVERY, CYCLE_STEPS = 2, 2      # 11b: firings at steps 6 and 8
+# 11b's drift threshold.  The default 1.25 is sized for a fine-tune that
+# rewrites rows (phase 9): two AdamW steps at lr 1e-3 move a bf16 weight by
+# ~2e-3 against a std of 1/32, which lifts a tile's residual by well under 1%
+# (PERF.md, PR 25), so at 1.25 nothing would re-solve.  1.001 re-solves the
+# tiles whose residual grew by more than 0.1%.
+CYCLE_THRESHOLD = 1.001
+
+
+def train_args(ckpt_dir):
+    from repro_torch.launch import train as train_cli
+
+    return train_cli.build_parser().parse_args([
+        "--arch", MOE_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len", str(TRAIN_SEQ),
+        "--batch", str(TRAIN_BATCH), "--microbatches", str(TRAIN_MICRO), "--lr", str(TRAIN_LR),
+        "--warmup", str(TRAIN_WARMUP), "--seed", str(SEED), "--ckpt-dir", ckpt_dir,
+        "--ckpt-every", str(TRAIN_CKPT_EVERY), "--keep-last", "1", "--log-every", "1",
+        "--fail-at-step", str(TRAIN_FAIL_AT), "--max-restarts", "1"])
+
+
+def phase_granite_train(torch, dev, ckpt_dir):
+    """11a: ``train_once`` under ``run_with_restarts`` on the whole
+    granite-moe-1b-a400m (AdamW, f32 accumulation, remat), 8 x 1,024 tokens a
+    step in 2 microbatches, 6 steps, checkpoints every 3 (keep 1), one crash
+    injected at step 5.  One restart; attempt 1 resumes from step 3 and its
+    losses at steps 4 and 5 are within RESUME_TOL of attempt 0's; every loss
+    finite; step 6's below step 1's.  Returns (the report, a list holding the
+    final state, which phase 11b takes out of it)."""
+    from repro_torch.distributed.fault_tolerance import run_with_restarts
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch import train as train_cli
+
+    args = train_args(ckpt_dir)
+    events, finals, failures = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    t0 = time.time()
+    restarts = run_with_restarts(
+        lambda a: finals.append(train_cli.train_once(args, a, device=dev, report=events.append)),
+        max_restarts=1, on_failure=lambda a, e: failures.append(f"attempt {a}: {e}"))
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = (sa.sa_sweep_many.launches, bl.bitlinear.launches,
+                bl.bitlinear_grouped.launches, fa.flash_attention.launches)
+    check(launched == (0, 0, 0, 0), f"phase 11a: training launched a kernel {launched}")
+    check(restarts == 1 and len(finals) == 1 and failures == ["attempt 0: injected failure "
+                                                              "(--fail-at-step)"],
+          f"phase 11a: {restarts} restarts, failures {failures}")
+    resumes = [e for e in events if e["event"] == "resume"]
+    check([(e["attempt"], e["step"]) for e in resumes] == [(1, TRAIN_CKPT_EVERY)],
+          f"phase 11a: resumes {resumes}")
+    steps = {(e["attempt"], e["step"]): e for e in events if e["event"] == "step"}
+    want = [(0, s) for s in range(1, TRAIN_FAIL_AT + 1)] + \
+        [(1, s) for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)]
+    check(sorted(steps) == want, f"phase 11a: steps logged {sorted(steps)}, want {want}")
+    check(all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"])
+              for e in steps.values()), "phase 11a: a loss or grad norm is not finite")
+    gaps = {}
+    for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_FAIL_AT + 1):
+        a0, a1 = steps[(0, s)]["loss"], steps[(1, s)]["loss"]
+        gaps[s] = abs(a1 - a0) / abs(a0)
+        check(gaps[s] <= RESUME_TOL, f"phase 11a: step {s} loss {a1} after the resume, "
+                                     f"{a0} before ({gaps[s]:.3g} > {RESUME_TOL})")
+    first, last = steps[(0, 1)]["loss"], steps[(1, TRAIN_STEPS)]["loss"]
+    check(last < first, f"phase 11a: loss {last} at step {TRAIN_STEPS}, {first} at step 1")
+    saves = [e for e in events if e["event"] == "save"]
+    check([e["step"] for e in saves] == [TRAIN_CKPT_EVERY, TRAIN_STEPS],
+          f"phase 11a: saves {saves}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_step = [{"attempt": a, "step": s, "loss": e["loss"], "grad_norm": e["grad_norm"],
+                 "lr": e["lr"], "ms": 1e3 * e["s"], "tokens_per_s": tokens / e["s"]}
+                for (a, s), e in sorted(steps.items())]
+    steady = [r["ms"] for r in per_step if (r["attempt"], r["step"]) != (0, 1)]
+    recomputed_s = sum(steps[(1, s)]["s"] for s in range(TRAIN_CKPT_EVERY + 1, TRAIN_FAIL_AT + 1))
+    out = {"arch": MOE_ARCH, "optimizer": args.optimizer, "accum_dtype": "float32",
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+           "lr": TRAIN_LR, "warmup": TRAIN_WARMUP, "steps": per_step,
+           "first_step_ms": per_step[0]["ms"], "median_ms": statistics.median(steady),
+           "median_tokens_per_s": tokens / (statistics.median(steady) / 1e3),
+           "resume_loss_rel_gap": gaps, "restarts": restarts,
+           "peak_memory_allocated_bytes": peak,
+           "checkpoint_bytes": dir_bytes(os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")),
+           "saves": [{k: e[k] for k in ("step", "host_copy_s", "write_s")} for e in saves],
+           "restore_s": resumes[0]["restore_s"],
+           # the time to recover: restore, then recompute the steps lost
+           "recover_s": resumes[0]["restore_s"] + recomputed_s, "wall_s": wall}
+    emit({"granite_train": out})
+    return out, finals
+
+
+def tile_resid_summary(manifest):
+    return {p: {"mean": statistics.fmean(e["tile_resid"]), "max": max(e["tile_resid"])}
+            for p, e in manifest["tensors"].items()}
+
+
+def phase_granite_cycle(torch, dev, ckpt_dir, finals, serve_dir):
+    """11b: step 6 restored (byte-equal to the run's final state), then
+    ``CompressionCycle(policy(), every=2)``: cold at step 6, two more train
+    steps (lr 1e-3), a delta at step 8 at CYCLE_THRESHOLD.  K1 launches in
+    both firings, every delta solve warm (``init_state``), the re-solved
+    tiles exactly those whose drift ratio passed the threshold, untouched
+    tensors the parent's bytes.  Step 8's artifact is saved for 11c.
+    ``finals`` holds 11a's final state, taken out (and freed) here."""
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.compression.delta import DEFAULT_DRIFT_THRESHOLD, plan_delta
+    from repro_torch.compression.execute import POOL_BUDGET_ENV
+    from repro_torch.compression.plan import tree_paths
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.optim import constant
+    from repro_torch.optim.grad_compress import CompressionCycle
+    from repro_torch.training import init_train_state, make_train_step
+
+    args = train_args(ckpt_dir)
+    cfg = moe_config()
+    pcfg = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"),
+                          microbatches=args.microbatches, optimizer=args.optimizer)
+    final = finals.pop()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    step, state = CheckpointManager(ckpt_dir).restore_latest(
+        init_train_state(SEED, cfg, pcfg, device="meta"), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.time() - t0
+    check(step == TRAIN_STEPS, f"phase 11b: latest checkpoint {step}")
+    got, want = tree_paths(state), tree_paths(final)
+    check([p for p, _ in got] == [p for p, _ in want]
+          and all(a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in zip(got, want)),
+          "phase 11b: the restored state differs from the one saved")
+    del final, got, want
+
+    old_budget = os.environ.get(POOL_BUDGET_ENV)
+    os.environ[POOL_BUDGET_ENV] = str(DELTA_POOL_BUDGET)
+    try:
+        cycle = CompressionCycle(policy(), every=CYCLE_EVERY, seed=SEED, device=dev,
+                                 threshold=CYCLE_THRESHOLD)
+        torch.cuda.synchronize()
+        sa.sa_sweep_many.launches = 0
+        t0 = time.time()
+        cold_cv, cold = cycle.maybe_recompress(TRAIN_STEPS, state.params)
+        torch.cuda.synchronize()
+        cold_wall, k1_cold = time.time() - t0, sa.sa_sweep_many.launches
+        bbo = [p for p in cold.manifest["pools"] if p["method"] == "bbo"]
+        check(cold.delta is None and len(bbo) == 1
+              and k1_cold == BBO_ITERS * bbo[0]["chunks"] > 0,
+              f"phase 11b: cold firing launched K1 {k1_cold} times, BBO pools {bbo}")
+
+        step_fn = make_train_step(cfg, pcfg, constant(TRAIN_LR))
+        pipe = make_pipeline(cfg, ShapeConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH),
+                             seed=SEED, device=dev)
+        losses = []
+        for s in range(TRAIN_STEPS, TRAIN_STEPS + CYCLE_STEPS):
+            state, m = step_fn(state, pipe.batch_at(s))
+            losses.append(float(m["loss"]))
+        check(all(math.isfinite(v) for v in losses), f"phase 11b: losses {losses}")
+        new_step = int(state.step)
+        check(cycle.maybe_recompress(new_step - 1, state.params) is None,
+              "phase 11b: the cycle fired off its schedule")
+
+        dplan = plan_delta(cold, cold_cv, state.params, CYCLE_THRESHOLD, device=dev)
+        calls, restore = counting_warm_solves()
+        try:
+            torch.cuda.synchronize()
+            sa.sa_sweep_many.launches = 0
+            t0 = time.time()
+            cv, art = cycle.maybe_recompress(new_step, state.params)
+            torch.cuda.synchronize()
+            delta_wall, k1_delta = time.time() - t0, sa.sa_sweep_many.launches
+        finally:
+            restore()
+    finally:
+        if old_budget is None:
+            os.environ.pop(POOL_BUDGET_ENV, None)
+        else:
+            os.environ[POOL_BUDGET_ENV] = old_budget
+    d = art.delta
+    check(d is not None and d["parent_fingerprint"] == cold.fingerprint()
+          and d["generation"] == 1, f"phase 11b: the second firing was not a delta: {d}")
+    check(k1_delta > 0 and len(calls) > 0 and all(calls),
+          f"phase 11b: delta launched K1 {k1_delta} times ({sum(calls)} of {len(calls)} "
+          "solves warm)")
+    masks = dplan.masks
+    check(d["tiles_resolved"] == sum(int(m.sum()) for m in masks.values())
+          and d["tensors_touched"] == sum(bool(m.any()) for m in masks.values()),
+          f"phase 11b: lineage {d}, drift masks re-solve "
+          f"{ {p: int(m.sum()) for p, m in masks.items()} }")
+    flat_new, flat_old = dict(tree_paths(cv)), dict(tree_paths(cold_cv))
+    for path, e in cold.manifest["tensors"].items():
+        if masks[path].any():
+            continue
+        check(art.manifest["tensors"][path] == e
+              and all(torch.equal(flat_new[f"{path}/{k}"], flat_old[f"{path}/{k}"])
+                      for k in ("m_packed", "C")), f"phase 11b: untouched {path} changed")
+    drift = {}
+    for dr in dplan.drifts:
+        r = dr.ratio
+        drift[dr.path] = {"tiles": int(r.size), "resolved": int(masks[dr.path].sum()),
+                          "fraction_resolved": float(masks[dr.path].mean()),
+                          "fraction_over_default": float((r > DEFAULT_DRIFT_THRESHOLD).mean()),
+                          "ratio_min": float(r.min()), "ratio_median": float(np.median(r)),
+                          "ratio_p99": float(np.quantile(r, 0.99)), "ratio_max": float(r.max())}
+    del state, step_fn, cold_cv
+    torch.cuda.empty_cache()
+    checkpointer.save(serve_dir, 0, {"params": cv})
+    art.save(serve_dir)
+    out = {"restore_s": restore_s, "threshold": CYCLE_THRESHOLD,
+           "default_threshold": DEFAULT_DRIFT_THRESHOLD, "train_losses": losses,
+           "cold": {"step": TRAIN_STEPS, "wall_s": cold_wall, "k1_launches": k1_cold,
+                    "pools": [{k: p[k] for k in ("method", "tile_n", "tile_d", "K",
+                                                 "num_tiles", "chunks")}
+                              for p in cold.manifest["pools"]],
+                    "squared_resid": squared_resid(cold.manifest),
+                    "tile_resid": tile_resid_summary(cold.manifest)},
+           "delta": {"step": new_step, "wall_s": delta_wall, "k1_launches": k1_delta,
+                     "warm_solves": sum(calls), "tiles_resolved": d["tiles_resolved"],
+                     "tiles_total": d["tiles_total"],
+                     "fraction_resolved": d["fraction_resolved"],
+                     "squared_resid": squared_resid(art.manifest),
+                     "tile_resid": tile_resid_summary(art.manifest)},
+           "drift": drift}
+    emit({"granite_cycle": out})
+    return out
+
+
+def phase_granite_serve(torch, dev, serve_dir):
+    """11c: ``serve_model`` from step 8's artifact, 4 x 1,024 prompts, 8 new
+    tokens: K4 3 x 24, K3 4 x 24 a forward, K5 24, per schedule as the
+    resolutions imply; prefill logits on the checkpoint cast to f32 within
+    LOGIT_TOL of the plain path (bf16 reported, as phase 5)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.serve import serve_model
+
+    cfg = moe_config()
+    L, steps = cfg.num_layers, NEW_PHASE_STEPS
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    autotune.clear_schedules()
+    autotune.clear_log()
+    res = serve_model(cfg, ckpt_dir=serve_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                      steps=steps, eos_id=cfg.vocab_size, seed=SEED, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    launches = {"bitlinear_grouped": bl.bitlinear_grouped.launches,
+                "bitlinear": bl.bitlinear.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "sa_sweep_many": sa.sa_sweep_many.launches}
+    want = {"bitlinear_grouped": 3 * L * steps, "bitlinear": 4 * L * steps,
+            "flash_attention": L, "sa_sweep_many": 0}
+    check(launches == want, f"phase 11c: launches {launches}, want {want}")
+    eng = res.engine
+    by_schedule = {"bitlinear": served(bl.bitlinear),
+                   "bitlinear_grouped": served(bl.bitlinear_grouped)}
+    tensor_cores, clusters = heuristic_launches(torch, dev, eng.artifact.manifest, by_schedule,
+                                                moe_tokens, "phase 11c", steps=steps)
+    toks = res.tokens
+    check(tuple(toks.shape) == (GEN_BATCH, GEN_PROMPT + steps)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"phase 11c: generated tokens {tuple(toks.shape)} out of shape or range")
+    bf16 = moe_prefill_pair(torch, cfg, eng.params, res.prompts, dev)
+    f32 = moe_prefill_pair(torch, dataclasses.replace(cfg, dtype="float32"),
+                           _to_f32(eng.params), res.prompts, dev)
+    want_prefill = {"bitlinear": 4 * L, "bitlinear_grouped": 3 * L, "flash_attention": L}
+    for name, pair in (("bf16", bf16), ("f32", f32)):
+        check(pair.pop("kernel_launches") == want_prefill,
+              f"phase 11c: {name} prefill did not run every kernel once per layer")
+    check(f32["max_abs_diff"] <= LOGIT_TOL * f32["max_abs_logit"],
+          f"phase 11c: f32 prefill logits kernels vs plain: {f32['max_abs_diff']:.3g} > "
+          f"{LOGIT_TOL} x {f32['max_abs_logit']:.3g}")
+    t = res.timing
+    out = {"launches": launches, "by_schedule": by_schedule,
+           "tensor_core_launches": tensor_cores, "decode_clusters": clusters,
+           "ttft_s": t["prefill_s"], "decode_ms_per_step": 1e3 * t["decode_s"] / t["decode_steps"],
+           "prefill_logits_f32": dict(f32, tol=LOGIT_TOL * f32["max_abs_logit"]),
+           "prefill_logits_bf16": bf16, "compression": eng.compression}
+    emit({"granite_serve": out})
+    return out
+
+
 def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
     launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
@@ -3805,6 +4122,23 @@ def main() -> int:
     t = time.time()
     paper = phase_paper(torch, dev)
     phases["paper_s"] = time.time() - t
+    train_dir = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    cycle_dir = os.path.join(ROOT, "build", "chip_smoke_granite_cycle")
+    for d in (train_dir, cycle_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        t = time.time()
+        train, finals = phase_granite_train(torch, dev, train_dir)
+        phases["granite_train_11a_s"] = time.time() - t
+        t = time.time()
+        cycle = phase_granite_cycle(torch, dev, train_dir, finals, cycle_dir)
+        phases["granite_cycle_11b_s"] = time.time() - t
+        t = time.time()
+        granite_serve = phase_granite_serve(torch, dev, cycle_dir)
+        phases["granite_serve_11c_s"] = time.time() - t
+    finally:
+        for d in (train_dir, cycle_dir):
+            shutil.rmtree(d, ignore_errors=True)
     emit({"phase_s": phases})
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
     launch = kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned)
@@ -3852,6 +4186,9 @@ def main() -> int:
          # phase 10b: the streaming autotuner's QUBO on llama3-405b's plan
          "launches_phase9": delta["drifted"]["k1_launches"],
          "launches_phase10b": plan405["k1_launches"],
+         # phase 11b: the compression cycle's cold BBO and its warm delta
+         "launches_phase11": {"cold": cycle["cold"]["k1_launches"],
+                              "delta": cycle["delta"]["k1_launches"]},
          "qubo_spins_phase10b": plan405["qubo_spins"],
          "qubo_shape_phase8": zamba_auto["qubo_shape"],
          "allocator": {label: {k: tm[k] for k in ANNEAL_KEYS}
@@ -3874,6 +4211,8 @@ def main() -> int:
          "launches_phase9": delta["serve"]["launches"]["bitlinear"],
          "launches_phase10": zamba_stream["serve"]["launches"]["bitlinear"],
          "launches_phase10c": mamba2_cli["serve"]["launches"]["bitlinear"],
+         # phase 11c: the serve of the trained granite's delta artifact
+         "launches_phase11": granite_serve["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -3910,6 +4249,7 @@ def main() -> int:
          "launches_phase4c": sched4c["launches"]["flash_attention"],
          "launches_phase9": delta["serve"]["launches"]["flash_attention"],
          "launches_phase10": zamba_stream["serve"]["launches"]["flash_attention"],
+         "launches_phase11": granite_serve["launches"]["flash_attention"],
          "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
@@ -3927,6 +4267,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:583",
          "launches": moe_gen["launches"]["bitlinear_grouped"],
+         "launches_phase11": granite_serve["launches"]["bitlinear_grouped"],
          "max_abs_err": k4["timing"]["max_abs_err"],
          # times summed over phase 5's distinct (stack, T) calls, each once
          "timed_calls": k4["timing"]["calls"],

@@ -7,7 +7,8 @@ gives for a JAX values tree, or the leaves of a compressed artifact).
 ``to_numpy`` flattens it back.  bfloat16 travels as ml_dtypes' bfloat16
 (JAX's numpy type) or as raw 2-byte data, bit for bit.  ``state_to_torch``
 carries a surrogate state (``SuffStats``, ``HorseshoeState`` or
-``FMState``) across, field by field.
+``FMState``) across, field by field; ``train_state_to_torch`` a training
+state (step, params and the optimiser's moments).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.compression.plan import tree_paths
 from repro_torch.core import surrogate
 from repro_torch.device import dtype_name, resolve_device
 
-__all__ = ["to_torch", "to_numpy", "state_to_torch"]
+__all__ = ["to_torch", "to_numpy", "state_to_torch", "train_state_to_torch"]
 
 _STATES = {cls.__name__: cls for cls in (
     surrogate.SuffStats, surrogate.HorseshoeState, surrogate.FMState,
@@ -70,3 +71,22 @@ def state_to_torch(state, device=None):
     device = resolve_device(device)
     return cls(**{f: torch.from_numpy(np.array(getattr(state, f))).to(device)
                   for f in cls._fields})
+
+
+def train_state_to_torch(state, device=None):
+    """A JAX ``TrainState`` as numpy trees (e.g. ``jax.tree.map(np.asarray,
+    state)``) -> the port's ``TrainState`` on ``device`` (default: the GPU):
+    the step, the params and the optimiser state, adamw's ``{"m", "v"}``
+    or adafactor's per-parameter ``{"v"}`` / ``{"vr", "vc"}``, each leaf
+    bit for bit."""
+    from repro_torch.training import TrainState
+
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        a = np.asarray(tree)
+        return from_numpy(a, a.dtype.name, device)
+
+    return TrainState(step=conv(state.step), params=conv(state.params), opt=conv(state.opt))

@@ -71,7 +71,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def from_numpy(a: np.ndarray, dtype_str: str, device) -> torch.Tensor:
     """Tensor of the named dtype from host data; 2-byte data of any numpy
     type is reinterpreted as bfloat16 when the name says so."""
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))     # keeps a 0-d array 0-d
     if dtype_str == "bfloat16":
         if a.dtype.itemsize != 2:
             raise ValueError(f"bfloat16 leaf stored with itemsize {a.dtype.itemsize}")
@@ -225,11 +225,26 @@ def _unflatten(pairs):
     return out
 
 
+def _rebuild(like, leaves: dict, prefix: str = ""):
+    """``like``'s structure (dicts, NamedTuples, lists, tuples) with each
+    leaf replaced by ``leaves[path]``, paths as ``tree_paths`` names them."""
+    def sub(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
+    if isinstance(like, dict):
+        return {k: _rebuild(v, leaves, sub(k)) for k, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_rebuild(getattr(like, k), leaves, sub(k)) for k in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, leaves, sub(i)) for i, v in enumerate(like))
+    return None if like is None else leaves[prefix]
+
+
 def restore(directory: str, step: int, like_tree, device=None):
-    """Restore into the structure of ``like_tree`` (tensors or ``meta``
-    tensors giving shape and dtype), on ``device`` (default: the GPU).
-    Shard files are reassembled by their global offsets, so a checkpoint
-    written sharded restores whole."""
+    """Restore into the structure of ``like_tree`` (nested dicts, NamedTuples
+    and sequences of tensors or ``meta`` tensors giving shape and dtype), on
+    ``device`` (default: the GPU).  Shard files are reassembled by their
+    global offsets, so a checkpoint written sharded restores whole."""
     device = resolve_device(device)
     path = step_dir(directory, step)
     with open(os.path.join(path, "MANIFEST.json")) as f:
@@ -257,4 +272,4 @@ def restore(directory: str, step: int, like_tree, device=None):
                 full = torch.empty(entry["shape"], dtype=data.dtype)
             full[tuple(slice(a, b) for a, b in sh["index"])] = data
         pairs.append((name, full.to(device)))
-    return _unflatten(pairs)
+    return _rebuild(like_tree, dict(pairs))

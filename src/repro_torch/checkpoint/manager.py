@@ -1,7 +1,9 @@
 """Checkpoint lifecycle: async save, keep-last-k GC, auto-resume.
 
 Counterpart of ``repro/checkpoint/manager.py`` over the port's
-``checkpointer`` (the JAX package's on-disk format).
+``checkpointer`` (the JAX package's on-disk format).  A tree may hold
+dicts, lists, tuples and NamedTuples (a ``TrainState``); restore gives back
+the template's structure.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ def _to_host(tree):
     buffers while the worker thread writes."""
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):      # a NamedTuple
+        return type(tree)(*(_to_host(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     if isinstance(tree, torch.Tensor):
@@ -49,21 +53,28 @@ class CheckpointManager:
             concurrent.futures.ThreadPoolExecutor(max_workers=1) if async_save else None
         )
         self._pending = None
+        #: the last committed save: {"step", "host_copy_s", "write_s"}
+        self.last_save = None
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree) -> None:
         """Async by default: the device-to-host copy happens now, file IO on
         the worker thread."""
+        t0 = time.perf_counter()
         host_tree = _to_host(tree)
+        copy_s = time.perf_counter() - t0
         self.wait()
         if self._pool is None:
-            self._save_and_gc(step, host_tree)
+            self._save_and_gc(step, host_tree, copy_s)
         else:
-            self._pending = self._pool.submit(self._save_and_gc, step, host_tree)
+            self._pending = self._pool.submit(self._save_and_gc, step, host_tree, copy_s)
 
-    def _save_and_gc(self, step, host_tree):
+    def _save_and_gc(self, step, host_tree, copy_s):
+        t0 = time.perf_counter()
         checkpointer.save(self.directory, step, host_tree)
+        self.last_save = {"step": step, "host_copy_s": copy_s,
+                          "write_s": time.perf_counter() - t0}
         self._gc()
 
     def wait(self) -> None:

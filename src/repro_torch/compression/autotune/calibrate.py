@@ -19,8 +19,6 @@ aliases of them.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from repro_torch.device import generator, resolve_device
@@ -44,24 +42,6 @@ def calibration_inputs(cfg, *, batch: int = 4, seq_len: int = 32, seed: int = 0,
     return _draw(cfg, batch, seq_len, generator(resolve_device(device), seed))
 
 
-@contextlib.contextmanager
-def kernels_off():
-    """Clear the flash-attention and bitlinear hooks for the block's
-    duration and restore whatever was registered."""
-    from repro_torch.core import quantized
-    from repro_torch.models import attention
-
-    saved = (attention._FLASH_IMPL, quantized._BITLINEAR_IMPL,
-             quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL)
-    attention.clear_flash()
-    quantized.clear_bitlinear()
-    try:
-        yield
-    finally:
-        (attention._FLASH_IMPL, quantized._BITLINEAR_IMPL,
-         quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL) = saved
-
-
 def calibration_weights(
     values,
     cfg,
@@ -82,6 +62,7 @@ def calibration_weights(
     batch."""
     from repro_torch.compression.execute import _replace
     from repro_torch.compression.plan import tree_paths
+    from repro_torch.kernels.ops import kernels_off
     from repro_torch.models import forward
 
     if num_batches < 1:

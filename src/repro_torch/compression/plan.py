@@ -202,12 +202,19 @@ class CompressionPlan:
 
 def tree_paths(values, prefix: str = ""):
     """[(path, leaf)] in flat leaf order with "/"-joined keys: dict keys
-    sorted and sequences by index, exactly as ``jax.tree_util`` flattens,
-    so leaf indices (which seed the per-tensor draws) agree with ``repro``."""
+    sorted, a NamedTuple's fields by name in field order and other sequences
+    by index, exactly as ``jax.tree_util`` flattens and ``repro``'s
+    checkpointer names them, so leaf indices (which seed the per-tensor
+    draws) and checkpoint leaf names agree with ``repro``."""
     if isinstance(values, dict):
         out = []
         for k in sorted(values):
             out.extend(tree_paths(values[k], f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    if isinstance(values, tuple) and hasattr(values, "_fields"):
+        out = []
+        for k in values._fields:
+            out.extend(tree_paths(getattr(values, k), f"{prefix}/{k}" if prefix else k))
         return out
     if isinstance(values, (list, tuple)):
         out = []

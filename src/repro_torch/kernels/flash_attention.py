@@ -10,6 +10,12 @@ softmax in f32); for CPU tensors it runs the plain version
 The kernel addresses each tensor through its batch, head and sequence
 strides, so views of another layout (the model's (B, S, H, hd)) need no
 copies, and ``out`` receives o in the caller's layout.
+
+K5 has no backward, and neither has the Pallas kernel it ports: while
+autograd records a graph through q, k or v, ``flash_attention`` raises
+rather than return an output that would cut the gradient (on the card, the
+kernel's output has no ``grad_fn``).  Gradients take the model's plain
+attention (``kernels.ops.kernels_off``).
 """
 
 from __future__ import annotations
@@ -55,6 +61,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: i
     may be strided views; o is written into ``out`` (a (B, H, S, hd) view
     of the caller's buffer) when given, else into a new contiguous tensor,
     and returned."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: kernel K5 has no backward (nor has the Pallas kernel it "
+            "ports), so it refuses q/k/v that require grad; clear the hooks "
+            "(kernels.ops.kernels_off / disable_kernels) to differentiate through the "
+            "model's plain attention"
+        )
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
             f"flash_attention: want q (B, H, S, hd), k/v (B, KV, S, hd); got "

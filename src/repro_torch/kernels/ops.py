@@ -13,6 +13,8 @@ Each fused call takes its schedule from ``kernels.autotune`` (a tuned
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core import quantized
@@ -24,6 +26,7 @@ from repro_torch.models import attention as attn_lib
 __all__ = [
     "enable_kernels",
     "disable_kernels",
+    "kernels_off",
     "apply_compressed_fused",
     "apply_compressed_grouped_fused",
     "flash_attention",
@@ -36,7 +39,8 @@ def flash_attention_model_layout(qh, k, v, window: int):
     hd) -> (B, S, KV, rep, hd).  Heads are KV-major, so query head
     h = g * rep + r reads kv head g = h // rep, as the kernel does.  The
     kernel reads (B, H, S, hd) views of the model's tensors and writes o
-    in the model's layout: no copies."""
+    in the model's layout: no copies.  Under autograd it refuses, as
+    ``flash_attention`` does (K5 has no backward)."""
     B, S, KV, rep, hd = qh.shape
     q = qh.reshape(B, S, KV * rep, hd)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -57,6 +61,21 @@ def enable_kernels() -> None:
 def disable_kernels() -> None:
     attn_lib.clear_flash()
     quantized.clear_bitlinear()
+
+
+@contextlib.contextmanager
+def kernels_off():
+    """Clear the flash-attention and bitlinear hooks for the block's
+    duration and restore whatever was registered: the kernels have no
+    backward, so gradients (calibration, training) take the plain path."""
+    saved = (attn_lib._FLASH_IMPL, quantized._BITLINEAR_IMPL,
+             quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL)
+    disable_kernels()
+    try:
+        yield
+    finally:
+        (attn_lib._FLASH_IMPL, quantized._BITLINEAR_IMPL,
+         quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL) = saved
 
 
 def _schedule_kwargs(schedule, mode: str, block_t: int, resolve) -> dict:

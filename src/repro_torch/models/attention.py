@@ -2,8 +2,11 @@
 
 Counterpart of ``repro/models/attention.py``.  Paths:
   * prefill: with a flash hook registered (``kernels.ops.enable_kernels``)
-    the whole causal attention runs through kernel K5; without one, the
-    plain chunked online-softmax loop ``_chunked_attention``;
+    the whole causal attention runs through kernel K5 (which has no
+    backward, as the Pallas kernel has none); without one, the plain
+    chunked online-softmax loop ``_chunked_attention``, under
+    ``layers.remat`` while autograd records (training's path, as the
+    reference's trainer runs it);
   * decode: one query per row against the cache (plain softmax);
   * chunked prefill (``attend_cache``): a chunk's queries against the full
     cache.
@@ -16,6 +19,7 @@ flash-decode branch are not ported yet (ROADMAP.md).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -265,6 +269,10 @@ def attention(
         if _FLASH_IMPL is not None:
             o = _FLASH_IMPL(qh, k, v, window)
         else:
-            o = _chunked_attention(qh, k, v, window, q_chunk, causal_skip=cache is not None)
+            # under remat while autograd records, as the reference checkpoints
+            # it: backward recomputes each chunk's f32 scores
+            o = layers.remat(functools.partial(
+                _chunked_attention, window=window, q_chunk=q_chunk, causal_skip=cache is not None,
+            ), qh, k, v)
         o = o.reshape(B, S, H * hd)
     return layers.apply_dense(o, p["wo"]), new_cache

@@ -3,12 +3,16 @@
 Same tree paths, shapes and dtypes as ``repro``.  ``apply_dense`` takes a
 dense weight or a compressed ``{m_packed, C}`` one (through
 ``quantized.apply_compressed``, hence kernel K3 when the hook is set).
+``remat`` is the port's ``jax.checkpoint(..., nothing_saveable)``: under
+``torch.utils.checkpoint`` a function saves only its inputs for backward
+and recomputes the rest.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core import quantized
 from repro_torch.models.params import Param, dense_init, param
@@ -24,7 +28,26 @@ __all__ = [
     "mlp",
     "softmax_cross_entropy",
     "chunked_softmax_cross_entropy",
+    "remat",
 ]
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while autograd records a graph through ``args`` (nested
+    dicts of tensors allowed), under ``torch.utils.checkpoint`` without
+    reentry, so backward recomputes ``fn``'s intermediates instead of
+    keeping them.  The value is the same either way."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(args)):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _value(p):
@@ -114,16 +137,20 @@ def chunked_softmax_cross_entropy(h: torch.Tensor, head_w: torch.Tensor, labels:
                                   softcap: float = 0.0, chunk: int = 512) -> torch.Tensor:
     """CE from final hidden states h (B, T, d) and the head (d, V), one
     sequence chunk of logits at a time (the (B, T, V) f32 logits are never
-    all alive at once); odd T is padded with mask 0.  The same value as
-    :func:`softmax_cross_entropy` on ``h @ head_w``."""
+    all alive at once, in backward neither: each chunk is under
+    :func:`remat`).  The same value as :func:`softmax_cross_entropy` on
+    ``h @ head_w``."""
     B, T, _ = h.shape
     ck = min(chunk, T)
+
+    def chunk_sum(hs, w, ls, ms):
+        return torch.sum(_ce_terms((hs @ w).to(torch.float32), ls, z_loss, softcap) * ms)
+
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, T, ck):
-        hs, ls = h[:, s:s + ck], labels[:, s:s + ck]
         ms = mask[:, s:s + ck].to(torch.float32)
-        ce = _ce_terms((hs @ head_w).to(torch.float32), ls, z_loss, softcap)
-        tot = tot + torch.sum(ce * ms)
+        # each chunk under remat, as the reference's scan body
+        tot = tot + remat(chunk_sum, h[:, s:s + ck], head_w, labels[:, s:s + ck], ms)
         cnt = cnt + torch.sum(ms)
     return tot / torch.clamp_min(cnt, 1.0)

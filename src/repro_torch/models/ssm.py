@@ -15,8 +15,8 @@ computes them outside any Pallas kernel.  The compressed ``in_proj`` and
 set).  Unlike the JAX block, a given cache is written in place (``copy_``)
 and returned, as ``models/attention.py`` does with its KV cache, so both
 cache forms of ``transformer.init_cache`` carry the state from one call to
-the next.  JAX's ``jax.checkpoint`` around the SSD only matters for a
-backward pass and has no counterpart here.
+the next.  JAX's ``jax.checkpoint`` around the SSD is ``layers.remat``
+here, which applies only while autograd records.
 """
 
 from __future__ import annotations
@@ -182,7 +182,11 @@ def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None 
         y = y[:, None].to(h.dtype)
         S_final = S_new
     else:
-        y, S_final = _ssd(u, dA, Bm, Cm, min(cfg.ssm_chunk, S), S0)
+        chunk = min(cfg.ssm_chunk, S)
+        # under remat while autograd records, as the reference checkpoints the
+        # SSD: backward recomputes the per-chunk decay and score tensors
+        y, S_final = layers.remat(lambda u_, dA_, B_, C_, S0_: _ssd(u_, dA_, B_, C_, chunk, S0_),
+                                  u, dA, Bm, Cm, S0)
 
     y = y + p["D"].to(y.dtype)[None, None, :, None] * x
     y = y.reshape(B, S, di)

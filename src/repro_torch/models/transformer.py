@@ -27,7 +27,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.params import Param
 
-__all__ = ["init_model", "forward", "init_cache", "model_dtype"]
+__all__ = ["init_model", "forward", "train_loss", "init_cache", "model_dtype"]
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -262,16 +262,26 @@ def forward(
     shared = p.get("shared")
     kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
 
+    # remat per group and per remainder layer, as the reference's
+    # jax.checkpoint around its scan body and its remainder blocks
+    remat = cfg.remat and cache is None
+
+    def group_fn(h_, gp_, shared_):
+        return _apply_group(h_, gp_, cfg, shared_, cache=None, **kw)
+
     aux_total = 0.0
     gcache = cache["groups"] if cache is not None else None
     cache_is_list = isinstance(gcache, list)
     new_groups = [] if cache is not None else None
     for g in range(cfg.num_groups):
-        if gcache is None:
-            gc = None
+        gp = _index(p["groups"], g)
+        if remat:
+            h, nc, aux = layers.remat(group_fn, h, gp, shared)
         else:
-            gc = gcache[g] if cache_is_list else _index(gcache, g)
-        h, nc, aux = _apply_group(h, _index(p["groups"], g), cfg, shared, cache=gc, **kw)
+            gc = None
+            if gcache is not None:
+                gc = gcache[g] if cache_is_list else _index(gcache, g)
+            h, nc, aux = _apply_group(h, gp, cfg, shared, cache=gc, **kw)
         aux_total = aux_total + aux
         if cache is not None:
             new_groups.append(nc)
@@ -283,10 +293,17 @@ def forward(
         rcache = cache["rem"] if cache is not None else None
         new_rem = {}
         for i, kind in enumerate(cfg.remainder_pattern):
-            h, nc, aux = _apply_block(
-                h, p["rem"][f"{i}"], kind, cfg, shared,
-                cache=None if rcache is None else rcache[f"{i}"], **kw,
-            )
+            if remat:
+                h, nc, aux = layers.remat(
+                    lambda h_, bp_, sh_, kind=kind: _apply_block(h_, bp_, kind, cfg, sh_,
+                                                                 cache=None, **kw),
+                    h, p["rem"][f"{i}"], shared,
+                )
+            else:
+                h, nc, aux = _apply_block(
+                    h, p["rem"][f"{i}"], kind, cfg, shared,
+                    cache=None if rcache is None else rcache[f"{i}"], **kw,
+                )
             aux_total = aux_total + aux
             if nc is not None:
                 new_rem[f"{i}"] = nc
@@ -305,3 +322,29 @@ def forward(
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
     return logits, new_cache, aux_total
+
+
+def train_loss(params, batch, cfg: ModelConfig):
+    """Next-token CE (+ z-loss) + 0.01 x the MoE balance loss; returns
+    (loss, metrics).  The CE is computed from the hidden states one sequence
+    chunk at a time (``layers.chunked_softmax_cross_entropy``), so the (B,
+    S, V) logits are never all alive.  ``batch`` holds ``tokens`` (targets
+    are the next tokens) or ``embeds`` with ``labels``, and an optional
+    ``loss_mask``."""
+    h, _, aux = forward(params, batch, cfg, return_hidden=True)
+    p = _values(params)
+    head_w = p["embed"]["table"].T if cfg.tie_embeddings else p["head"]["w"]
+    if "labels" in batch:
+        labels, hh = batch["labels"], h
+    else:
+        labels, hh = batch["tokens"][:, 1:], h[:, :-1]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    elif "labels" not in batch:
+        mask = mask[:, 1:]
+    ce = layers.chunked_softmax_cross_entropy(hh, head_w, labels, mask, cfg.z_loss,
+                                              cfg.logits_softcap)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}

@@ -1074,3 +1074,70 @@ def test_pooled_solve_bytes_do_not_depend_on_the_chunk(dev, method, tmp_path):
             str(tmp_path), 0, name, tuple(slice(0, s) for s in e["shape"]), entry=e).tobytes()
     assert outs[8004] == outs[16384] and outs[1000] == outs[16384]
     assert streamed == outs[16384]
+
+
+def test_flash_attention_refuses_under_autograd_on_the_card(dev):
+    """K5 has no backward: on the card its output would carry no gradient,
+    so the wrapper and the model-layout adapter raise while autograd records
+    through q/k/v, and launch nothing; without grad they run."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    qh = torch.randn(1, 64, 2, 2, 64, generator=g, device=dev).requires_grad_(True)
+    k = torch.randn(1, 64, 2, 64, generator=g, device=dev)
+    v = torch.randn(1, 64, 2, 64, generator=g, device=dev)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention_model_layout(qh, k, v, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(qh.reshape(1, 64, 4, 64).transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2))
+    assert fa.flash_attention.launches == before
+    with torch.no_grad():
+        o = ops.flash_attention_model_layout(qh, k, v, 0)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and o.grad_fn is None
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One AdamW step of reduced granite-moe (f32, 2 microbatches, remat)
+    on the card and on the CPU from the same state and batch, with the
+    kernel hooks registered (the step clears them): the loss and the
+    gradient norm within 1e-5 relative (f32, other summation orders), and
+    every parameter within 2 lr + 1e-6 of the CPU's: Adam's first step moves
+    an element by lr times the sign of its gradient, so a near-zero
+    gradient that the two devices round to opposite signs is the largest
+    difference one step can make; the mean difference within 1e-3 lr."""
+    from repro_torch.compression.plan import tree_paths
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.training import TrainState, init_train_state, make_train_step
+
+    cfg = reduced_for_smoke(get_config("granite-moe-1b-a400m"))
+    pcfg = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"), microbatches=2)
+    lr = 1e-3
+    step_fn = make_train_step(cfg, pcfg, warmup_cosine(lr, 0, 4))
+    cpu = init_train_state(0, cfg, pcfg, device="cpu")
+    card = TrainState(cpu.step.to(dev), _to_dev(cpu.params, dev), _to_dev(cpu.opt, dev))
+    shape = ShapeConfig("s", "train", 64, 4)
+    batch = make_pipeline(cfg, shape, device="cpu").batch_at(0)
+    ops.enable_kernels()
+    try:
+        card, mc = step_fn(card, {k: v.to(dev) for k, v in batch.items()})
+    finally:
+        ops.disable_kernels()
+    cpu, mp = step_fn(cpu, batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mc[key]) - float(mp[key])) <= 1e-5 * abs(float(mp[key])), key
+    assert int(card.step) == int(cpu.step) == 1
+    diffs = []
+    for (p, a), (_, b) in zip(tree_paths(card.params), tree_paths(cpu.params)):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2 * lr + 1e-6, p
+        diffs.append(d.flatten())
+    assert float(torch.cat(diffs).mean()) <= 1e-3 * lr
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

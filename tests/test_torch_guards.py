@@ -2,6 +2,7 @@
 entry points run on the GPU unless the caller asks for the CPU."""
 
 import ast
+import dataclasses
 import pathlib
 
 import pytest
@@ -21,7 +22,7 @@ _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "tools" / "torch_decode_ab.py", _ROOT / "tools" / "torch_anneal_ab.py",
     _ROOT / "tools" / "torch_anneal_variants.py", _ROOT / "tools" / "torch_stream_ab.py",
     _ROOT / "tools" / "torch_stream_variants.py", _ROOT / "tools" / "torch_serve_ab.py",
-    _ROOT / "tools" / "torch_k1_global_ab.py"]
+    _ROOT / "tools" / "torch_k1_global_ab.py", _ROOT / "tools" / "torch_train_profile.py"]
 
 
 def _imported_roots(path):
@@ -401,3 +402,113 @@ def test_anneal_variants_are_the_kernels_text():
     for name, subs in named.items():
         for old, new in subs:
             assert source.count(old) == 1 and new != old, name
+
+
+_TRAINING_MODULES = ("optim/__init__.py", "optim/adamw.py", "optim/schedules.py",
+                     "optim/grad_compress.py", "data/__init__.py", "data/pipeline.py",
+                     "training/__init__.py", "training/loop.py", "launch/presets.py",
+                     "launch/train.py")
+
+
+def test_training_modules_are_guarded():
+    """The training slice's modules exist and are among the files whose
+    imports are checked above (no JAX, no ``repro``)."""
+    for rel in _TRAINING_MODULES:
+        path = _ROOT / "src" / "repro_torch" / rel
+        assert path in _FILES, rel
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}, rel
+
+
+def test_training_entry_points_refuse_the_cpu_without_device(tmp_path):
+    _cpu_only()
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.grad_compress import CompressionCycle
+    from repro_torch.training import init_train_state
+
+    cfg = reduced_for_smoke(get_config("qwen3-32b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(0, cfg, ParallelConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_pipeline(cfg, ShapeConfig("s", "train", 8, 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CompressionCycle(CompressionPolicy(), every=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--arch", "qwen3-32b", "--reduced", "--ckpt-dir", str(tmp_path),
+                        "--max-restarts", "0"])
+    assert not any(p.name.startswith("step_") for p in tmp_path.iterdir())
+
+
+def test_manager_round_trips_a_named_tuple(tmp_path):
+    """A ``TrainState`` (a NamedTuple of a 0-d int32 step and trees of bf16
+    and f32 tensors) saves asynchronously and restores into its own type,
+    every leaf byte-identical; the leaves are named by field, as JAX's
+    checkpointer names them."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.training import TrainState, init_train_state
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("granite-moe-1b-a400m")),
+                              dtype="bfloat16")
+    for optimizer in ("adamw", "adafactor"):
+        pcfg = ParallelConfig(optimizer=optimizer)
+        state = init_train_state(3, cfg, pcfg, device="cpu")
+        state = state._replace(step=torch.tensor(5, dtype=torch.int32))
+        g = torch.Generator().manual_seed(1)
+        for leaf in (t for _, t in _paths(state.opt)):
+            leaf.copy_(torch.rand(leaf.shape, generator=g))
+        d = tmp_path / optimizer
+        mgr = CheckpointManager(str(d))
+        mgr.save(5, state)
+        for _, leaf in _paths(state.params):       # the saved copy is the host's
+            leaf.add_(1)
+        mgr.wait()
+        assert mgr.last_save["step"] == 5
+        names = set(checkpointer.leaf_entries(str(d), 5))
+        assert "step" in names and any(n.startswith("params/") for n in names)
+        assert any(n.startswith("opt/") for n in names)
+        like = init_train_state(0, cfg, pcfg, device="meta")
+        step, back = mgr.restore_latest(like, device="cpu")
+        assert step == 5 and type(back) is TrainState
+        want = init_train_state(3, cfg, pcfg, device="cpu")
+        g = torch.Generator().manual_seed(1)
+        for leaf in (t for _, t in _paths(want.opt)):
+            leaf.copy_(torch.rand(leaf.shape, generator=g))
+        want = want._replace(step=torch.tensor(5, dtype=torch.int32))
+        got_pairs, want_pairs = _paths(back), _paths(want)
+        assert [p for p, _ in got_pairs] == [p for p, _ in want_pairs]
+        for (p, a), (_, b) in zip(got_pairs, want_pairs):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), p
+
+
+def _paths(tree):
+    from repro_torch.compression.plan import tree_paths
+
+    return tree_paths(tree)
+
+
+def test_flash_attention_refuses_under_autograd():
+    """K5 has no backward: the wrapper and the model-layout adapter raise
+    while autograd records through q/k/v (the same rule on every device; on
+    the card the kernel's output would carry no gradient), and run under
+    ``torch.no_grad`` or on tensors that need none."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 8, 16, generator=g)
+    k = torch.randn(1, 2, 8, 16, generator=g)
+    v = torch.randn(1, 2, 8, 16, generator=g)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa.flash_attention(q, k, v)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.flash_attention_model_layout(q.transpose(1, 2).reshape(1, 8, 2, 2, 16),
+                                             k.transpose(1, 2), v.transpose(1, 2), 0)
+        with torch.no_grad():
+            fa.flash_attention(q, k, v)
+        t.requires_grad_(False)
+    fa.flash_attention(q, k, v)

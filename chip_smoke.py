@@ -225,6 +225,21 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      8's artifact served as phase 5 at 8 new tokens: K4 3 x 24, K3 4 x 24 a
      forward, K5 24, per schedule as resolved; f32 prefill logits within
      5e-2 of max|logit| of the plain path.
+  12. The sharding of state and work, after 11c, on the card's one-device
+     mesh: a one-rank NCCL group and the (1, 1) ("data", "model") mesh.
+     (12a) the whole granite-moe-1b-a400m initialised on the mesh (DTensor
+     state, each leaf cut to its shard as drawn), its pipeline on the mesh
+     and the sharded train step, 2 steps at 11a's seed, batch and schedule:
+     losses and grad norms identical to 11a's first two; phase 2's policy on
+     the first 2 layers' attention of those weights (chunks of up to 10,240
+     tiles, as phase 2): ``execute_plan(mesh=)``
+     byte-identical to the unsharded execute, K1 32 x the BBO chunks in
+     each; 11c's serve again under the mesh's activation rules: the same
+     tokens and launches.  (12b) four gloo CPU ranks on this box train a
+     reduced granite-moe (f32) on (2, 2) for 3 steps and write a sharded
+     checkpoint (one file per rank and leaf), then take a 4th step; the card
+     restores the checkpoint whole onto its (1, 1) mesh and takes that step:
+     its loss within 1e-4 of the CPU ranks'.
 
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
@@ -3891,6 +3906,228 @@ def phase_granite_serve(torch, dev, serve_dir):
            "prefill_logits_f32": dict(f32, tol=LOGIT_TOL * f32["max_abs_logit"]),
            "prefill_logits_bf16": bf16, "compression": eng.compression}
     emit({"granite_serve": out})
+    return dict(out, tokens=toks)
+
+
+# phase 12: the sharding of state and work on the card's one-device mesh
+MESH_TRAIN_STEPS = 2                 # 12a: phase 11a's first steps, on the mesh
+MESH_CPU_STEPS = 3                   # 12b: the CPU ranks' steps before their checkpoint
+MESH_CPU_SHAPE = (64, 8)             # 12b: seq, batch
+MESH_CPU_THREADS = 2
+MESH_RESTORE_TOL = 1e-4              # 12b: the card's step against the CPU ranks'
+MESH_EXEC_LAYERS = 2                 # 12a: the trained layers phase 2's policy compresses
+
+
+def mesh_group(torch):
+    """A one-rank NCCL process group and the ("data", "model") (1, 1) mesh
+    on this card (the card box has one GPU, so only this mesh runs)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    store = os.path.join(ROOT, "build", "chip_smoke_mesh_store")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def mesh_pcfg(shape):
+    from repro_torch.configs.base import ParallelConfig
+
+    return ParallelConfig(mesh_shape=shape, mesh_axes=("data", "model"),
+                          microbatches=TRAIN_MICRO)
+
+
+def phase_mesh(torch, dev, mesh, train, serve_dir, served_tokens):
+    """12a, on the (1, 1) mesh of a one-rank NCCL group: (i) the whole
+    granite-moe-1b-a400m initialised on the mesh (DTensor state), its
+    pipeline on the mesh and the sharded train step, 2 steps at phase 11a's
+    seed, batch and schedule: the losses and grad norms identical to phase
+    11a's first two; (ii) phase 2's policy on the first MESH_EXEC_LAYERS
+    layers' attention of those weights: ``execute_plan(mesh=)`` byte-identical
+    to the unsharded execute, K1 32 x the BBO chunks in each; (iii) step 8's
+    artifact of phase 11 served under the mesh's activation rules: the
+    tokens and launches of phase 11c."""
+    import json as _json
+
+    from repro_torch.compression import execute_plan, plan_compression
+    from repro_torch.compression.plan import tree_paths
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import bitlinear as bl
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sa_sweep as sa
+    from repro_torch.launch.serve import serve_model
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.training import init_train_state, make_train_step
+
+    cfg, pcfg = moe_config(), mesh_pcfg((1, 1))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state = init_train_state(SEED, cfg, pcfg, mesh=mesh)
+    check(all(shd.is_dtensor(x) for _, x in tree_paths(state)),
+          "phase 12a: the state on the mesh is not all DTensors")
+    init_s = time.time() - t0
+    step_fn = make_train_step(cfg, pcfg, warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    pipe = make_pipeline(cfg, ShapeConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH), mesh,
+                         seed=SEED)
+    got, step_ms = {}, []
+    for i in range(MESH_TRAIN_STEPS):
+        t = time.time()
+        state, m = step_fn(state, pipe.batch_at(i))
+        got[i + 1] = (float(m["loss"]), float(m["grad_norm"]))
+        step_ms.append(1e3 * (time.time() - t))
+    want = {r["step"]: (r["loss"], r["grad_norm"]) for r in train["steps"]
+            if r["attempt"] == 0 and r["step"] <= MESH_TRAIN_STEPS}
+    check(got == want, f"phase 12a: losses and grad norms on the mesh {got}, phase 11a's {want}")
+    params = {p: shd.full_value(x) for p, x in tree_paths(state.params)}
+    del state, step_fn, pipe
+
+    sub: dict = {}
+    for p, x in params.items():
+        if "/attn/w" in p:
+            *head, last = p.split("/")
+            node = sub
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = x[:MESH_EXEC_LAYERS].clone()
+    del params
+    plan = plan_compression(sub, policy())
+    runs = {}
+    for label, kw in (("plain", {"device": dev}), ("mesh", {"mesh": mesh})):
+        sa.sa_sweep_many.launches = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        cv, art = execute_plan(plan, sub, seed=SEED, max_pool_tiles=10240, **kw)
+        torch.cuda.synchronize()
+        runs[label] = (dict(tree_paths(cv)), _json.dumps(art.manifest, sort_keys=True),
+                       sa.sa_sweep_many.launches, time.time() - t, art.manifest)
+    (a, ma, ka, wa, man), (b, mb, kb, wb, _) = runs["plain"], runs["mesh"]
+    bbo = [p for p in man["pools"] if p["method"] == "bbo"]
+    k1_want = sum(p["bbo_iters"] * p["chunks"] for p in bbo)
+    check(bbo and ka == kb == k1_want, f"phase 12a: K1 launched {ka} / {kb}, want {k1_want}")
+    check(sorted(a) == sorted(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                         for k in a) and ma == mb,
+          "phase 12a: execute_plan(mesh=) differs from the unsharded execute")
+    del sub, runs, a, b
+
+    lcfg = moe_config()
+    L, steps = lcfg.num_layers, NEW_PHASE_STEPS
+    torch.cuda.synchronize()
+    sa.sa_sweep_many.launches = 0
+    bl.reset_counts()
+    fa.flash_attention.launches = 0
+    autotune.clear_schedules()
+    autotune.clear_log()
+    with shd.activation_rules(pcfg, mesh):
+        res = serve_model(lcfg, ckpt_dir=serve_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                          steps=steps, eos_id=lcfg.vocab_size, seed=SEED, device=dev,
+                          verbose=False)
+    torch.cuda.synchronize()
+    launches = {"bitlinear_grouped": bl.bitlinear_grouped.launches,
+                "bitlinear": bl.bitlinear.launches,
+                "flash_attention": fa.flash_attention.launches,
+                "sa_sweep_many": sa.sa_sweep_many.launches}
+    want_l = {"bitlinear_grouped": 3 * L * steps, "bitlinear": 4 * L * steps,
+              "flash_attention": L, "sa_sweep_many": 0}
+    check(launches == want_l, f"phase 12a: mesh serve launches {launches}, want {want_l}")
+    check(torch.equal(res.tokens.cpu(), served_tokens.cpu()),
+          "phase 12a: the mesh serve's tokens differ from phase 11c's")
+    out = {"mesh": "data=1xmodel=1", "backend": "nccl", "init_s": init_s,
+           "train": {"steps": {s: {"loss": lg[0], "grad_norm": lg[1]} for s, lg in got.items()},
+                     "ms": step_ms, "identical_to_11a": True},
+           "execute": {"layers": MESH_EXEC_LAYERS, "k1_launches": kb, "plain_s": wa,
+                       "mesh_s": wb, "tensors": len(man["tensors"]),
+                       "pools": [{k: p[k] for k in ("method", "num_tiles", "chunks")}
+                                 for p in man["pools"]], "byte_identical": True},
+           "serve": {"launches": launches, "tokens_identical_to_11c": True,
+                     "ttft_s": res.timing["prefill_s"]}}
+    emit({"mesh_12a": out})
+    return dict(out, launches=dict(launches, sa_sweep_many=kb))
+
+
+def mesh_cpu_config():
+    """12b's model: granite-moe reduced (4 layers, d_model 64), in float32
+    so that the CPU and the card agree to rounding."""
+    from repro_torch.configs import get_config, reduced_for_smoke
+
+    return dataclasses.replace(reduced_for_smoke(get_config(MOE_ARCH)), dtype="float32")
+
+
+def mesh_cpu_ranks(rank, world, ckpt_dir):
+    """One of 12b's gloo CPU ranks on the (2, 2) mesh: MESH_CPU_STEPS steps,
+    a sharded checkpoint, then one more step.  Returns the losses."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.training import init_train_state, make_train_step
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    cfg, pcfg = mesh_cpu_config(), mesh_pcfg((2, 2))
+    state = init_train_state(SEED, cfg, pcfg, mesh=mesh)
+    step_fn = make_train_step(cfg, pcfg, warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
+                                                       MESH_CPU_STEPS + 1))
+    pipe = make_pipeline(cfg, ShapeConfig("custom", "train", *MESH_CPU_SHAPE), mesh, seed=SEED)
+    losses = []
+    for i in range(MESH_CPU_STEPS):
+        state, m = step_fn(state, pipe.batch_at(i))
+        losses.append(float(m["loss"]))
+    mgr = CheckpointManager(ckpt_dir, keep_last=1)
+    mgr.save(MESH_CPU_STEPS, state)
+    mgr.wait()
+    state, m = step_fn(state, pipe.batch_at(MESH_CPU_STEPS))
+    return losses, float(m["loss"])
+
+
+def phase_mesh_restore(torch, dev, mesh, work_dir):
+    """12b: four gloo CPU ranks on this box train 12b's model on (2, 2)
+    and write a sharded checkpoint; the card restores it whole onto its
+    (1, 1) mesh and takes the next step, whose loss must be the CPU ranks'
+    within MESH_RESTORE_TOL."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.local_ranks import run_ranks
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.training import init_train_state, make_train_step, state_shardings
+
+    ckpt_dir = os.path.join(work_dir, "ckpt")
+    t0 = time.time()
+    ranks = run_ranks(mesh_cpu_ranks, 4, os.path.join(work_dir, "ranks"), ckpt_dir,
+                      threads=MESH_CPU_THREADS, timeout=600)
+    ranks_s = time.time() - t0
+    check(all(r == ranks[0] for r in ranks), f"phase 12b: the CPU ranks disagree {ranks}")
+    entries = checkpointer.leaf_entries(ckpt_dir, MESH_CPU_STEPS)
+    files = {sh["file"].rsplit("__shard", 1)[1] for e in entries.values() for sh in e["shards"]}
+    check(files == {f"{r}_0.npy" for r in range(4)},
+          f"phase 12b: shard files {sorted(files)}, want one per rank")
+    cfg, pcfg = mesh_cpu_config(), mesh_pcfg((1, 1))
+    t0 = time.time()
+    step, state = CheckpointManager(ckpt_dir).restore_latest(
+        init_train_state(SEED, cfg, pcfg, device="meta"), shardings=state_shardings(cfg, pcfg, mesh))
+    restore_s = time.time() - t0
+    check(step == MESH_CPU_STEPS and int(shd.local_value(state.step)) == MESH_CPU_STEPS,
+          f"phase 12b: restored step {step}")
+    step_fn = make_train_step(cfg, pcfg, warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
+                                                       MESH_CPU_STEPS + 1))
+    pipe = make_pipeline(cfg, ShapeConfig("custom", "train", *MESH_CPU_SHAPE), mesh, seed=SEED)
+    state, m = step_fn(state, pipe.batch_at(MESH_CPU_STEPS))
+    loss, want = float(m["loss"]), ranks[0][1]
+    rel = abs(loss - want) / abs(want)
+    check(math.isfinite(loss) and rel <= MESH_RESTORE_TOL,
+          f"phase 12b: the card's step {loss}, the CPU ranks' {want} ({rel:.3g})")
+    out = {"cpu_mesh": "data=2xmodel=2", "cpu_backend": "gloo", "card_mesh": "data=1xmodel=1",
+           "cpu_losses": ranks[0][0], "cpu_next_loss": want, "card_next_loss": loss,
+           "rel": rel, "tol": MESH_RESTORE_TOL, "cpu_ranks_s": ranks_s, "restore_s": restore_s}
+    emit({"mesh_12b": out})
     return out
 
 
@@ -4136,6 +4373,21 @@ def main() -> int:
         t = time.time()
         granite_serve = phase_granite_serve(torch, dev, cycle_dir)
         phases["granite_serve_11c_s"] = time.time() - t
+        import torch.distributed as dist
+
+        mesh_dir = os.path.join(ROOT, "build", "chip_smoke_mesh")
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+        mesh = mesh_group(torch)
+        try:
+            t = time.time()
+            mesh12 = phase_mesh(torch, dev, mesh, train, cycle_dir, granite_serve["tokens"])
+            phases["mesh_12a_s"] = time.time() - t
+            t = time.time()
+            phase_mesh_restore(torch, dev, mesh, mesh_dir)
+            phases["mesh_restore_12b_s"] = time.time() - t
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(mesh_dir, ignore_errors=True)
     finally:
         for d in (train_dir, cycle_dir):
             shutil.rmtree(d, ignore_errors=True)
@@ -4189,6 +4441,8 @@ def main() -> int:
          # phase 11b: the compression cycle's cold BBO and its warm delta
          "launches_phase11": {"cold": cycle["cold"]["k1_launches"],
                               "delta": cycle["delta"]["k1_launches"]},
+         # phase 12a: execute_plan(mesh=) on the (1, 1) mesh
+         "launches_phase12": mesh12["launches"]["sa_sweep_many"],
          "qubo_spins_phase10b": plan405["qubo_spins"],
          "qubo_shape_phase8": zamba_auto["qubo_shape"],
          "allocator": {label: {k: tm[k] for k in ANNEAL_KEYS}
@@ -4213,6 +4467,8 @@ def main() -> int:
          "launches_phase10c": mamba2_cli["serve"]["launches"]["bitlinear"],
          # phase 11c: the serve of the trained granite's delta artifact
          "launches_phase11": granite_serve["launches"]["bitlinear"],
+         # phase 12a: the same serve under the (1, 1) mesh's activation rules
+         "launches_phase12": mesh12["launches"]["bitlinear"],
          "max_abs_err": k3_err,
          # times summed over phase 4's distinct (tensor, T) calls, each once
          "timed_calls": k3["calls"],
@@ -4250,6 +4506,7 @@ def main() -> int:
          "launches_phase9": delta["serve"]["launches"]["flash_attention"],
          "launches_phase10": zamba_stream["serve"]["launches"]["flash_attention"],
          "launches_phase11": granite_serve["launches"]["flash_attention"],
+         "launches_phase12": mesh12["launches"]["flash_attention"],
          "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
@@ -4268,6 +4525,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bitlinear.py:583",
          "launches": moe_gen["launches"]["bitlinear_grouped"],
          "launches_phase11": granite_serve["launches"]["bitlinear_grouped"],
+         "launches_phase12": mesh12["launches"]["bitlinear_grouped"],
          "max_abs_err": k4["timing"]["max_abs_err"],
          # times summed over phase 5's distinct (stack, T) calls, each once
          "timed_calls": k4["timing"]["calls"],

@@ -8,7 +8,11 @@ gives for a JAX values tree, or the leaves of a compressed artifact).
 (JAX's numpy type) or as raw 2-byte data, bit for bit.  ``state_to_torch``
 carries a surrogate state (``SuffStats``, ``HorseshoeState`` or
 ``FMState``) across, field by field; ``train_state_to_torch`` a training
-state (step, params and the optimiser's moments).
+state (step, params and the optimiser's moments).  With a mesh, leaves
+become DTensors under the port's own placements (``shardings=`` for
+``to_torch``; ``mesh=`` with the configs for ``train_state_to_torch``,
+which then places by ``training.state_shardings``): each rank moves only
+its shard to its device.
 """
 
 from __future__ import annotations
@@ -28,10 +32,20 @@ _STATES = {cls.__name__: cls for cls in (
 )}
 
 
-def to_torch(flat: dict, device=None) -> dict:
+def _place(a: np.ndarray, dtype: str, device, sharding):
+    if sharding is None:
+        return from_numpy(a, dtype, device)
+    from repro_torch.distributed.sharding import mesh_device
+
+    return sharding.shard(from_numpy(a, dtype, "cpu"), mesh_device(sharding.mesh))
+
+
+def to_torch(flat: dict, device=None, shardings=None) -> dict:
     """{path: numpy array} -> nested dict of tensors on ``device``
-    (default: the GPU)."""
-    device = resolve_device(device)
+    (default: the GPU), or DTensors placed by ``shardings`` (a matching
+    tree of ``NamedSharding``) on a mesh."""
+    targets = dict(tree_paths(shardings)) if shardings is not None else {}
+    device = None if shardings is not None else resolve_device(device)
     out: dict = {}
     for path, a in flat.items():
         a = np.asarray(a)
@@ -41,7 +55,7 @@ def to_torch(flat: dict, device=None) -> dict:
             node = node.setdefault(k, {})
         if a.dtype.kind == "V" and a.dtype.name != "bfloat16":
             raise ValueError(f"{path}: raw {a.dtype} data needs an explicit dtype")
-        node[last] = from_numpy(a, a.dtype.name, device)
+        node[last] = _place(a, a.dtype.name, device, targets.get(path))
     return out
 
 
@@ -73,20 +87,23 @@ def state_to_torch(state, device=None):
                   for f in cls._fields})
 
 
-def train_state_to_torch(state, device=None):
+def train_state_to_torch(state, device=None, mesh=None, cfg=None, pcfg=None):
     """A JAX ``TrainState`` as numpy trees (e.g. ``jax.tree.map(np.asarray,
     state)``) -> the port's ``TrainState`` on ``device`` (default: the GPU):
     the step, the params and the optimiser state, adamw's ``{"m", "v"}``
     or adafactor's per-parameter ``{"v"}`` / ``{"vr", "vc"}``, each leaf
-    bit for bit."""
-    from repro_torch.training import TrainState
+    bit for bit.  With ``mesh`` (and the ``cfg`` and ``pcfg`` it trains
+    under), DTensors placed by the port's ``state_shardings``."""
+    from repro_torch.training import TrainState, state_shardings
 
-    device = resolve_device(device)
+    sh = state_shardings(cfg, pcfg, mesh) if mesh is not None else None
+    device = None if mesh is not None else resolve_device(device)
 
-    def conv(tree):
+    def conv(tree, shard):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
+            return {k: conv(v, None if shard is None else shard[k]) for k, v in tree.items()}
         a = np.asarray(tree)
-        return from_numpy(a, a.dtype.name, device)
+        return _place(a, a.dtype.name, device, shard)
 
-    return TrainState(step=conv(state.step), params=conv(state.params), opt=conv(state.opt))
+    return TrainState(*(conv(getattr(state, f), None if sh is None else getattr(sh, f))
+                        for f in TrainState._fields))

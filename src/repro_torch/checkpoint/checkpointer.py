@@ -7,7 +7,14 @@ Counterpart of the save/restore half of ``repro/checkpoint/checkpointer.py``:
       <leafpath>__shard0_0.npy    # one .npy per shard per leaf
     step_00000000/                # rename(tmp) == commit
 
-A checkpoint written by either package restores in the other.  bfloat16
+A tree of DTensors on several ranks is written by every rank, one file
+per rank and leaf (``__shard<rank>_0``, a replicated shard by each rank
+that holds it, as the reference writes every addressable shard), each
+listed with its global index box; rank 0 commits once every rank has
+written (:func:`save`).  ``restore(..., shardings=)`` puts each leaf onto
+any placement on any mesh, each rank reading only the boxes that overlap
+its shard: elastic restore.  A checkpoint written by either package, on
+a mesh or not, restores in the other.  bfloat16
 leaves are stored as raw 2-byte data (numpy has no bfloat16: ``repro``
 writes them as ``|V2``) under the manifest dtype ``"bfloat16"`` and are
 reinterpreted bit for bit on restore.
@@ -26,11 +33,14 @@ import json
 import os
 import re
 import shutil
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.device import dtype_from_name, dtype_name, resolve_device
+from repro_torch.distributed.sharding import dtensor_box, is_dtensor
+from repro_torch.distributed.sharding import mesh_device
 
 __all__ = [
     "save",
@@ -46,9 +56,16 @@ __all__ = [
     "leaf_entries",
     "read_leaf_slice",
     "copy_leaf_files",
+    "HostShard",
+    "host_shard",
+    "new_commit_id",
 ]
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
+#: seconds after which an uncommitted step directory counts as abandoned: a
+#: rank stops waiting for the other ranks' shards or for the commit, and the
+#: manager's garbage collection deletes it
+STALE_TMP_S = 3600.0
 
 
 def _safe(name: str) -> str:
@@ -94,29 +111,123 @@ def _leaf_paths(tree):
     return tree_paths(tree)
 
 
-def save(directory: str, step: int, tree) -> str:
-    """Write a checkpoint of a nested dict of tensors; returns its path."""
+class HostShard:
+    """A host copy of one rank's shard of a DTensor leaf: ``data`` and its
+    global ``index`` box ([[start, stop], ...]) in a leaf of ``shape``."""
+
+    def __init__(self, data: torch.Tensor, index: list, shape: tuple):
+        self.data, self.index, self.shape = data, index, tuple(shape)
+        self.dtype = data.dtype
+
+
+def host_shard(leaf) -> HostShard:
+    """This rank's shard of a DTensor as a :class:`HostShard`."""
+    box = dtensor_box(leaf)
+    return HostShard(leaf.to_local().detach().to("cpu", copy=True),
+                     [[b.start, b.stop] for b in box], tuple(leaf.shape))
+
+
+def _world() -> tuple:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def new_commit_id() -> str:
+    """An id for one save that every rank agrees on (rank 0 draws it; a
+    collective: every rank calls it)."""
+    import torch.distributed as dist
+
+    ids = [os.urandom(6).hex()]
+    if _world()[1] > 1:
+        dist.broadcast_object_list(ids, src=0)
+    return ids[0]
+
+
+def save(directory: str, step: int, tree, commit: str | None = None) -> str:
+    """Write a checkpoint of a tree of tensors; returns its path.
+
+    A tree of DTensors (or their :class:`HostShard` copies) on several
+    ranks is saved by every rank: each writes its own shards, one file each
+    (``<leaf>__shard<rank>_0.npy``) with its global index box, into a
+    directory named by ``commit`` (one id per save, the same on every rank:
+    :func:`new_commit_id`), and lists them in ``RANK<r>.json``.  Rank 0
+    waits for every rank's list, writes the manifest and renames the
+    directory: the step is committed only once every rank has written.
+    The other ranks return once the committed manifest carries ``commit``.
+    Only files pass between the ranks, so a save may run on a worker
+    thread beside the training's collectives (the ranks share the
+    directory's file system).  A plain leaf is written whole, by rank 0."""
+    rank, world = _world()
     os.makedirs(directory, exist_ok=True)
     final = step_dir(directory, step)
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
+    if world > 1 and commit is None:
+        commit = new_commit_id()
+    tmp = final + (f".{commit}.tmp" if world > 1 else ".tmp")
+    if world == 1 and os.path.exists(tmp):
         shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    manifest = {"step": step, "leaves": {}}
+    os.makedirs(tmp, exist_ok=True)
+    leaves = {}
     for name, leaf in _leaf_paths(tree):
-        fname = f"{_safe(name)}__shard0_0.npy"
-        np.save(os.path.join(tmp, fname), to_numpy(leaf))
-        manifest["leaves"][name] = {
-            "shape": list(leaf.shape),
-            "dtype": dtype_name(leaf.dtype),
-            "shards": [{"file": fname, "index": [[0, int(s)] for s in leaf.shape]}],
-        }
+        if not isinstance(leaf, HostShard) and is_dtensor(leaf):
+            leaf = host_shard(leaf)
+        entry = {"shape": list(leaf.shape), "dtype": dtype_name(leaf.dtype), "shards": []}
+        if isinstance(leaf, HostShard):
+            data, index, fname = leaf.data, leaf.index, f"{_safe(name)}__shard{rank}_0.npy"
+        elif rank == 0:
+            data, index = leaf, [[0, int(s)] for s in leaf.shape]
+            fname = f"{_safe(name)}__shard0_0.npy"
+        else:
+            data = None
+        if data is not None:
+            np.save(os.path.join(tmp, fname), to_numpy(data))
+            entry["shards"].append({"file": fname, "index": [list(map(int, b)) for b in index]})
+        leaves[name] = entry
+    manifest = {"step": step, "leaves": leaves}
+    if world > 1:
+        _write_json(os.path.join(tmp, f"RANK{rank}.json"), leaves)
+        if rank != 0:
+            _await(lambda: _committed(final, commit), f"rank 0's commit of {final}")
+            return final
+        parts = [os.path.join(tmp, f"RANK{r}.json") for r in range(world)]
+        _await(lambda: all(os.path.exists(p) for p in parts), f"every rank's shards of {final}")
+        for p in parts[1:]:
+            with open(p) as f:
+                for name, entry in json.load(f).items():
+                    leaves[name]["shards"].extend(entry["shards"])
+        for p in parts:
+            os.remove(p)
+        manifest["commit"] = commit
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path + ".part", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".part", path)
+
+
+def _committed(final: str, commit: str) -> bool:
+    try:
+        with open(os.path.join(final, "MANIFEST.json")) as f:
+            return json.load(f).get("commit") == commit
+    except (OSError, ValueError):
+        return False
+
+
+def _await(ready, what: str) -> None:
+    deadline = time.monotonic() + STALE_TMP_S
+    while not ready():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"checkpoint: gave up waiting for {what}")
+        time.sleep(0.01)
 
 
 def save_aux(directory: str, name: str, obj: dict) -> str:
@@ -225,30 +336,20 @@ def _unflatten(pairs):
     return out
 
 
-def _rebuild(like, leaves: dict, prefix: str = ""):
-    """``like``'s structure (dicts, NamedTuples, lists, tuples) with each
-    leaf replaced by ``leaves[path]``, paths as ``tree_paths`` names them."""
-    def sub(k):
-        return f"{prefix}/{k}" if prefix else str(k)
-
-    if isinstance(like, dict):
-        return {k: _rebuild(v, leaves, sub(k)) for k, v in like.items()}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_rebuild(getattr(like, k), leaves, sub(k)) for k in like._fields))
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, leaves, sub(i)) for i, v in enumerate(like))
-    return None if like is None else leaves[prefix]
-
-
-def restore(directory: str, step: int, like_tree, device=None):
+def restore(directory: str, step: int, like_tree, device=None, shardings=None):
     """Restore into the structure of ``like_tree`` (nested dicts, NamedTuples
     and sequences of tensors or ``meta`` tensors giving shape and dtype), on
     ``device`` (default: the GPU).  Shard files are reassembled by their
-    global offsets, so a checkpoint written sharded restores whole."""
-    device = resolve_device(device)
+    global offsets, so a checkpoint written sharded restores whole.
+
+    ``shardings`` (a matching tree of ``NamedSharding``; or a DTensor leaf
+    in ``like_tree``) puts a leaf onto any placement on a mesh, whatever
+    mesh wrote it: each rank reads, through mmap, only the boxes of the
+    shard files that overlap its own shard, onto its device on the mesh."""
     path = step_dir(directory, step)
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
+    targets = dict(_leaf_paths(shardings)) if shardings is not None else {}
     pairs = []
     for name, leaf in _leaf_paths(like_tree):
         entry = manifest["leaves"][name]
@@ -262,6 +363,22 @@ def restore(directory: str, step: int, like_tree, device=None):
                 f"checkpoint/template dtype mismatch at {name!r}: "
                 f"{entry['dtype']} vs {dtype_name(leaf.dtype)}"
             )
+        target = targets.get(name)
+        if target is not None or is_dtensor(leaf):
+            mesh = target.mesh if target is not None else leaf.device_mesh
+            box = target.local_box(leaf.shape) if target is not None else dtensor_box(leaf)
+            data = read_leaf_slice(directory, step, name, box, entry)
+            local = from_numpy(data, entry["dtype"], mesh_device(mesh))
+            if target is not None:
+                pairs.append((name, target.from_local(local, leaf.shape)))
+            else:
+                from torch.distributed.tensor import DTensor
+
+                pairs.append((name, DTensor.from_local(
+                    local, mesh, leaf.placements, run_check=False, shape=leaf.shape,
+                    stride=leaf.stride())))
+            continue
+        device = resolve_device(device)
         full = None
         for sh in entry["shards"]:
             data = from_numpy(np.load(os.path.join(path, sh["file"])), entry["dtype"], "cpu")
@@ -272,4 +389,6 @@ def restore(directory: str, step: int, like_tree, device=None):
                 full = torch.empty(entry["shape"], dtype=data.dtype)
             full[tuple(slice(a, b) for a, b in sh["index"])] = data
         pairs.append((name, full.to(device)))
-    return _rebuild(like_tree, dict(pairs))
+    from repro_torch.compression.plan import tree_rebuild
+
+    return tree_rebuild(like_tree, dict(pairs))

@@ -4,6 +4,15 @@ Counterpart of ``repro/checkpoint/manager.py`` over the port's
 ``checkpointer`` (the JAX package's on-disk format).  A tree may hold
 dicts, lists, tuples and NamedTuples (a ``TrainState``); restore gives back
 the template's structure.
+
+On several ranks (a tree of DTensors, ``training.init_train_state(...,
+mesh=)``) every rank makes a manager on the same directory and calls
+``save`` at the same steps: each copies its shards to the host and writes
+them on its worker thread, and the step commits once every rank has
+written (``checkpointer.save``).  The ranks agree on one id per save
+without a collective on the worker thread: rank 0 draws a token when the
+managers are made, and each save adds its count.  Only rank 0 collects
+garbage.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import checkpointer
+from repro_torch.distributed.sharding import is_dtensor
 
 __all__ = ["CheckpointManager"]
 
@@ -29,6 +39,8 @@ def _to_host(tree):
         return type(tree)(*(_to_host(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
+    if is_dtensor(tree):
+        return checkpointer.host_shard(tree)
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     return tree
@@ -37,7 +49,7 @@ def _to_host(tree):
 class CheckpointManager:
     #: A ``.tmp`` dir younger than this is treated as another writer's
     #: in-flight save and left alone by GC (see :meth:`_gc`).
-    STALE_TMP_S = 3600.0
+    STALE_TMP_S = checkpointer.STALE_TMP_S
 
     def __init__(
         self,
@@ -55,6 +67,10 @@ class CheckpointManager:
         self._pending = None
         #: the last committed save: {"step", "host_copy_s", "write_s"}
         self.last_save = None
+        self._rank, world = checkpointer._world()
+        # one token per run, agreed by every rank; each save adds its count
+        self._token = checkpointer.new_commit_id() if world > 1 else None
+        self._saves = 0
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -65,17 +81,20 @@ class CheckpointManager:
         host_tree = _to_host(tree)
         copy_s = time.perf_counter() - t0
         self.wait()
+        commit = None if self._token is None else f"{self._token}-{self._saves}"
+        self._saves += 1
         if self._pool is None:
-            self._save_and_gc(step, host_tree, copy_s)
+            self._save_and_gc(step, host_tree, copy_s, commit)
         else:
-            self._pending = self._pool.submit(self._save_and_gc, step, host_tree, copy_s)
+            self._pending = self._pool.submit(self._save_and_gc, step, host_tree, copy_s, commit)
 
-    def _save_and_gc(self, step, host_tree, copy_s):
+    def _save_and_gc(self, step, host_tree, copy_s, commit=None):
         t0 = time.perf_counter()
-        checkpointer.save(self.directory, step, host_tree)
+        checkpointer.save(self.directory, step, host_tree, commit=commit)
         self.last_save = {"step": step, "host_copy_s": copy_s,
                           "write_s": time.perf_counter() - t0}
-        self._gc()
+        if self._rank == 0:
+            self._gc()
 
     def wait(self) -> None:
         if self._pending is not None:
@@ -93,13 +112,15 @@ class CheckpointManager:
     def latest_step(self):
         return checkpointer.latest_step(self.directory)
 
-    def restore_latest(self, like_tree, device=None):
-        """Returns (step, tree) on ``device`` (default: the GPU), or
+    def restore_latest(self, like_tree, shardings=None, device=None):
+        """Returns (step, tree) on ``device`` (default: the GPU), or placed
+        by ``shardings`` (a matching tree of ``NamedSharding``) on a mesh;
         (None, None) when no checkpoint exists."""
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, checkpointer.restore(self.directory, step, like_tree, device=device)
+        return step, checkpointer.restore(self.directory, step, like_tree, device=device,
+                                          shardings=shardings)
 
     # -- GC -----------------------------------------------------------------
     def _gc(self) -> None:

@@ -14,12 +14,20 @@ depend on pooling or chunking (as ``repro``'s per-tile keys make it).  BBO
 chunks draw from a generator seeded by (seed, pool, chunk): deterministic
 per (plan, seed, chunking).  The port's draws are not ``repro``'s
 (``torch.Generator`` is not threefry), so its results agree with ``repro``
-in quality, not in bits.  Sharding the pool over several GPUs (``mesh``)
-is not ported yet.
+in quality, not in bits.
+
+``mesh`` shards each chunk's tiles over every rank of the mesh (the
+reference's ``_shard_pool``): rank r solves the r-th block of the chunk's
+tiles and the blocks are all-gathered.  A block's greedy draws are its
+rows of the tensors' draws, and a BBO block's are its rows of what the
+whole chunk draws (``compress_tile_batch(rows=)``), so the artifact is
+byte-identical to the unsharded one.  A chunk whose tile count the mesh
+does not divide runs replicated on every rank, and says so.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -180,6 +188,15 @@ def _pack_tensor_int8(t: TensorPlan, q_seg, scale_seg):
     }
 
 
+def _gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's equal block of rows, in rank order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)
+
+
 def _leaf_spec(w: dict) -> dict:
     return {k: {"shape": list(v.shape), "dtype": dtype_name(v.dtype)} for k, v in w.items()}
 
@@ -201,6 +218,7 @@ def execute_plan(
     *,
     seed: int = 0,
     device=None,
+    mesh=None,
     backend: str | None = None,
     max_pool_tiles: int | str | None = "auto",
     verbose: bool = False,
@@ -213,7 +231,14 @@ def execute_plan(
     greedy/alternating pools on a CUDA device to ``EIGH_MAX_BATCH`` tiles
     (whole elsewhere; see ``auto_chunk``); an int pins the bound for every
     pool; None disables chunking.  ``backend`` overrides the policy's solver
-    backend (auto|cuda|torch; it must match the device)."""
+    backend (auto|cuda|torch; it must match the device).  ``mesh`` shards
+    each chunk over the mesh's ranks (module docstring); every rank calls
+    this with the same plan and values, on its device on the mesh."""
+    if mesh is not None:
+        from repro_torch.distributed.sharding import mesh_device, mesh_shape
+
+        device = mesh_device(mesh)
+        n_dev = math.prod(mesh_shape(mesh).values())
     device = resolve_device(device)
     backend = backend or plan.policy.solver_backend
     leaves = dict(tree_paths(values))
@@ -232,15 +257,28 @@ def execute_plan(
         for ci, (ct, cs) in enumerate(_iter_chunks(
             members, leaves, seed, chunk, device, with_signs=method != "int8"
         )):
-            chunk_sizes.append(int(ct.shape[0]))
+            T = int(ct.shape[0])
+            chunk_sizes.append(T)
+            rows = None
+            if mesh is not None:
+                if T % n_dev:
+                    print(f"[compress] pool {method} {tn}x{td} K={K} chunk {ci}: {T} tiles "
+                          f"do not divide the {n_dev}-device mesh; running replicated")
+                else:
+                    import torch.distributed as dist
+
+                    per = T // n_dev
+                    rows = (dist.get_rank() * per, (dist.get_rank() + 1) * per, T)
+                    ct, cs = ct[rows[0]:rows[1]], None if cs is None else cs[rows[0]:rows[1]]
             if method == "int8":
-                parts.append(quantize_tile_batch(ct))
+                out = quantize_tile_batch(ct)
             else:
-                parts.append(compress_tile_batch(
+                out = compress_tile_batch(
                     ct, cs, K, method,
                     generator=generator(device, seed, _POOL_SALT, pidx, ci),
-                    bbo_iters=max(bbo_iters, 1), backend=backend,
-                ))
+                    bbo_iters=max(bbo_iters, 1), backend=backend, rows=rows,
+                )
+            parts.append(out if rows is None or n_dev == 1 else tuple(map(_gather_rows, out)))
         M, C, errs = (torch.cat(xs) for xs in zip(*parts))
         start = 0
         for t in members:

@@ -23,7 +23,7 @@ from repro_torch.core.compress import pick_tile
 from repro_torch.device import dtype_name
 from repro_torch.launch import costing
 
-__all__ = ["TensorPlan", "CompressionPlan", "plan_compression", "tree_paths"]
+__all__ = ["TensorPlan", "CompressionPlan", "plan_compression", "tree_paths", "tree_rebuild"]
 
 _BBO_TILE_N_WANT = 8
 _BBO_TILE_N_MAX = 16
@@ -224,6 +224,22 @@ def tree_paths(values, prefix: str = ""):
     if values is None:
         return []
     return [(prefix, values)]
+
+
+def tree_rebuild(like, leaves: dict, prefix: str = ""):
+    """``like``'s structure (dicts, NamedTuples, lists, tuples) with each
+    leaf replaced by ``leaves[path]``, paths as ``tree_paths`` names them."""
+    def sub(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+
+    if isinstance(like, dict):
+        return {k: tree_rebuild(v, leaves, sub(k)) for k, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(tree_rebuild(getattr(like, k), leaves, sub(k))
+                            for k in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(tree_rebuild(v, leaves, sub(i)) for i, v in enumerate(like))
+    return None if like is None else leaves[prefix]
 
 
 def _structurally_plausible(leaf) -> bool:

@@ -272,15 +272,31 @@ def draw_iterations(cfg: BBOConfig, P: int, generator: torch.Generator, warm: bo
         yield d._replace(flip=torch.randint(0, n, (P,), generator=generator, device=dev))
 
 
+def _take_rows(x, rows: slice):
+    """The ``rows`` of every tensor in a draw (tensors, NamedTuples of
+    them, sequences, None)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x[rows]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_take_rows(v, rows) for v in x))
+    return type(x)(_take_rows(v, rows) for v in x)
+
+
 def run_bbo_many(
     cfg: BBOConfig,
     f_batch: Callable,
     num_problems: int,
     generator: torch.Generator,
     warm_x: torch.Tensor | None = None,
+    rows: slice | None = None,
 ) -> BBOResult:
     """:func:`run_bbo_many_from` with every draw taken from ``generator``
-    (on the device the problems live on)."""
+    (on the device the problems live on).  ``rows``: draw for all
+    ``num_problems`` but optimise only those problems (``f_batch`` and
+    ``warm_x`` cover just them): a rank of a sharded pool solves its block
+    of a chunk on the draws the whole chunk gives it."""
     c = cfg.resolved()
     dev = generator.device
     X0 = 2.0 * torch.randint(
@@ -289,11 +305,12 @@ def run_bbo_many(
     fm_normal = None
     if c.algo == "fmqa":
         fm_normal = torch.randn((num_problems, c.n, c.fm_rank), generator=generator, device=dev)
-    return run_bbo_many_from(
-        cfg, f_batch, X0.to(cfg.dtype),
-        draw_iterations(cfg, num_problems, generator, warm=warm_x is not None),
-        warm_x=warm_x, fm_normal=fm_normal,
-    )
+    draws = draw_iterations(cfg, num_problems, generator, warm=warm_x is not None)
+    if rows is not None:
+        X0, fm_normal = X0[rows], _take_rows(fm_normal, rows)
+        draws = (_take_rows(d, rows) for d in draws)
+    return run_bbo_many_from(cfg, f_batch, X0.to(cfg.dtype), draws,
+                             warm_x=warm_x, fm_normal=fm_normal)
 
 
 def run_bbo_batch(cfg: BBOConfig, f: Callable, num_runs: int,

@@ -85,6 +85,7 @@ def compress_tile_batch(
     bbo_iters: int = 64,
     backend: str = "auto",
     M0: torch.Tensor | None = None,
+    rows: tuple | None = None,
 ):
     """tiles (T, tn, td) -> (M (T, tn, K), C (T, K, td), rel_err (T,)).
 
@@ -93,7 +94,10 @@ def compress_tile_batch(
     each tile exactly what a per-tensor run gives it.  ``generator`` drives
     the BBO refinement (method "bbo" only), which runs all T tiles in
     lock-step.  ``M0`` (T, tn, K) warm-starts each tile: the better of the
-    cold and the warm descent by objective proceeds (and seeds BBO)."""
+    cold and the warm descent by objective proceeds (and seeds BBO).
+    ``rows`` (lo, hi, total): the tiles are rows lo:hi of a batch of
+    ``total``, and BBO draws for the whole batch and keeps those rows, so
+    a rank of a sharded pool gets what the whole batch gives its tiles."""
     tiles = tiles.to(torch.float32)
     T, tn, _ = tiles.shape
 
@@ -118,8 +122,10 @@ def compress_tile_batch(
             init_points=tn * K, num_sweeps=24, num_reads=4, backend=backend,
         )
         res = bbo_lib.run_bbo_many(
-            cfg, lambda xs: dec.objective_from_x(xs, tiles, K), T, generator,
+            cfg, lambda xs: dec.objective_from_x(xs, tiles, K),
+            T if rows is None else rows[2], generator,
             warm_x=M.reshape(T, tn * K) if M0 is not None else None,
+            rows=None if rows is None else slice(rows[0], rows[1]),
         )
         x_bbo = res.best_x.reshape(T, tn, K)
         better = res.best_y < dec.objective(M, tiles)

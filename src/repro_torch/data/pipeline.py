@@ -5,8 +5,9 @@ function of (seed, step): any process can (re)compute any step's batch, so
 a restarted run needs only the step counter from its checkpoint.  The draws
 are the reference's numpy draws, so a batch holds the reference's tokens
 (and stub embeddings) bit for bit; it is placed on the pipeline's
-``device`` (default: the GPU).  Sharded placement over a mesh comes with
-the multi-GPU slice: ``mesh`` must be None.
+``device`` (default: the GPU).  With a ``mesh`` each leaf is a DTensor
+whose rows are split over the dp axes (the reference's ``P(dp, None)``)
+on this rank's device: each rank keeps only its rows.
 """
 
 from __future__ import annotations
@@ -68,20 +69,26 @@ class Mixture:
 class Pipeline:
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, mesh=None, seed: int = 0,
                  num_sources: int = 3, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Pipeline: sharded placement over a mesh is not ported yet (multi-GPU); "
-                "pass mesh=None"
-            )
         self.cfg, self.shape, self.mesh = cfg, shape, mesh
-        self.device = resolve_device(device)
+        if mesh is not None:
+            from repro_torch.distributed.sharding import NamedSharding, mesh_device, mesh_shape
+
+            self.device = mesh_device(mesh)
+            dp = tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+            self._shard = {n: NamedSharding(mesh, (dp,) + (None,) * (n - 1)) for n in (2, 3)}
+        else:
+            self.device = resolve_device(device)
+            self._shard = None
         self.mix = Mixture(
             [SyntheticSource(cfg.vocab_size, seed + i) for i in range(num_sources)],
             [2.0 ** -i for i in range(num_sources)],
         )
 
     def _place(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        if self._shard is None:
+            return torch.from_numpy(arr).to(self.device)
+        # the rows over the dp axes: only this rank's are copied
+        return self._shard[arr.ndim].shard(torch.from_numpy(arr), self.device)
 
     def batch_at(self, step: int) -> dict:
         B, S = self.shape.global_batch, self.shape.seq_len

@@ -1,5 +1,5 @@
-"""Supervision and liveness for long jobs (counterpart of
-``repro.distributed``; sharding is not ported yet)."""
+"""Sharding of state and work over a device mesh, and supervision and
+liveness for long jobs (counterpart of ``repro.distributed``)."""
 
 from repro_torch.distributed.fault_tolerance import Heartbeat, StepTimer, run_with_restarts
 

@@ -1,0 +1,559 @@
+"""Logical-axis sharding rules on a torch ``DeviceMesh``.
+
+Counterpart of ``repro/distributed/sharding.py``.  Model code annotates
+every parameter with *logical* axis names (``models/params.py``); this
+module maps them to mesh axes with the reference's rules:
+
+    vocab -> model, embed -> data (FSDP; (pod, data) with a pod axis),
+    mlp / heads / kv / experts / ssm_in -> model
+
+A spec is a tuple with one entry per tensor dim, as JAX's
+``PartitionSpec`` (normalised as it is, by :func:`P`): ``None``, an axis
+name, or a tuple of names (the dim is split over them, the first major).  ``spec_for`` keeps the reference's
+fallbacks: a mesh axis appears once per spec (later dims fall back to
+None), a dim that a rule does not divide falls back to None (a tuple rule
+first retries its largest dividing prefix), and trailing Nones are
+trimmed.  It runs on a *mesh shape* (an ordered {name: size} mapping) as
+well as on a ``DeviceMesh``, so the rules need no process group.
+
+:class:`NamedSharding` turns a spec into DTensor placements (per mesh dim
+``Shard(tensor_dim)`` or ``Replicate()``) and into the global index box of
+each rank's shard; a dim split over several axes is split over them in
+mesh order, major first, so the rank -> box map is JAX's
+``devices_indices_map`` for ranks laid out row-major.
+
+``activation_rules`` installs the reference's activation specs for
+``constrain`` (a no-op on the port's paths today: its docstring) and
+``current_rule`` (flash-decode reads it).  For the port's sharded train
+step (``training/loop.py``), which runs each rank on its rows of the
+batch, ``data_parallel`` installs the group over which ``dp_sum`` and
+``dp_mean`` reduce a loss's batch statistics, and ``gathering`` the
+parameter shards that ``gather_params`` makes whole one layer group at a
+time.  Outside them every helper is the identity, so model code runs on
+one device unchanged.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+
+import torch
+
+from repro_torch.configs.base import ParallelConfig
+
+__all__ = [
+    "mesh_shape",
+    "mesh_device",
+    "P",
+    "make_rules",
+    "spec_for",
+    "param_shardings",
+    "NamedSharding",
+    "activation_rules",
+    "current_rule",
+    "constrain",
+    "fit",
+    "axes_group",
+    "axes_index",
+    "data_parallel",
+    "dp_sum",
+    "dp_mean",
+    "gathering",
+    "gather_params",
+    "is_dtensor",
+    "local_value",
+    "full_value",
+    "is_whole",
+    "sharding_of",
+    "dtensor_box",
+]
+
+
+def mesh_shape(mesh) -> dict:
+    """Ordered {axis name: size} of a ``DeviceMesh``, or of a mapping that
+    already is one (a mesh *shape*, which needs no process group)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+    return dict(mesh)
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its current CUDA device, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def make_rules(pcfg: ParallelConfig) -> dict:
+    has_model = "model" in pcfg.mesh_axes and not pcfg.dp_includes_model
+    model = "model" if has_model else None
+    data = "data" if "data" in pcfg.mesh_axes else None
+    if data is not None and pcfg.fsdp and "pod" in pcfg.mesh_axes:
+        fsdp_axes: object = ("pod", "data")
+    elif pcfg.fsdp:
+        fsdp_axes = data
+    else:
+        fsdp_axes = None
+    return {
+        "vocab": model,
+        "embed": fsdp_axes,
+        "mlp": model,
+        "heads": model,
+        "kv": model,
+        "experts": model,
+        "ssm_in": model,
+        None: None,
+    }
+
+
+def spec_for(axes: tuple, shape: tuple, rules: dict, mesh) -> tuple:
+    """Logical axes + shape -> spec, with the reference's conflict and
+    divisibility fallbacks (``repro/distributed/sharding.py::spec_for``)."""
+    sizes = mesh_shape(mesh)
+    used = set()
+    entries = []
+    for dim, name in zip(shape, axes):
+        rule = rules.get(name)
+        cand = rule if isinstance(rule, tuple) else (rule,) if rule else ()
+        cand = tuple(a for a in cand if a in sizes and a not in used)
+        size = math.prod(sizes[a] for a in cand)
+        if not cand or dim % size != 0:
+            # tuple rule: retry with the largest divisible prefix
+            while cand and (size == 0 or dim % size != 0):
+                size //= sizes[cand[-1]]
+                cand = cand[:-1]
+            if not cand or size <= 1 or dim % size != 0:
+                entries.append(None)
+                continue
+        used.update(cand)
+        entries.append(cand if len(cand) > 1 else cand[0])
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def P(*entries) -> tuple:
+    """A spec normalised as JAX's ``PartitionSpec`` normalises its entries:
+    an empty tuple is None and a 1-tuple its one axis."""
+    return tuple(None if e == () else e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+class NamedSharding:
+    """A spec on a mesh (a ``DeviceMesh`` or a mesh shape)."""
+
+    def __init__(self, mesh, spec: tuple):
+        self.mesh, self.spec = mesh, P(*spec)
+        self.sizes = mesh_shape(mesh)
+        names = list(self.sizes)
+        for e in self.spec:
+            order = [names.index(a) for a in _entry_axes(e)]
+            if order != sorted(order):
+                raise NotImplementedError(
+                    f"spec entry {e}: a dim split over axes out of mesh order "
+                    f"{tuple(names)} has no DTensor placement"
+                )
+
+    def __repr__(self):
+        return f"NamedSharding({self.sizes}, {self.spec})"
+
+    def placements(self) -> list:
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = []
+        for name in self.sizes:
+            dim = next((t for t, e in enumerate(self.spec) if name in _entry_axes(e)), None)
+            out.append(Replicate() if dim is None else Shard(dim))
+        return out
+
+    def box(self, shape, coord: dict) -> tuple:
+        """The global index box (a tuple of slices) of the shard at mesh
+        coordinate ``coord`` ({axis: index})."""
+        out = []
+        for t, dim in enumerate(shape):
+            axes = _entry_axes(self.spec[t]) if t < len(self.spec) else ()
+            idx, total = 0, 1
+            for a in axes:
+                idx, total = idx * self.sizes[a] + coord[a], total * self.sizes[a]
+            if dim % total:
+                raise ValueError(f"dim {t} of shape {tuple(shape)} does not split evenly "
+                                 f"over {axes} ({total} ranks)")
+            step = dim // total
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def devices_indices_map(self, shape) -> dict:
+        """{rank: box} over every mesh position, ranks row-major."""
+        names, dims = list(self.sizes), list(self.sizes.values())
+        out = {}
+        for rank in range(math.prod(dims)):
+            coord, r = {}, rank
+            for n, d in reversed(list(zip(names, dims))):
+                coord[n], r = r % d, r // d
+            out[rank] = self.box(shape, coord)
+        return out
+
+    def is_whole(self) -> bool:
+        """Whether every rank's shard is the whole value."""
+        return all(self.sizes[a] == 1 for e in self.spec for a in _entry_axes(e))
+
+    def global_shape(self, local_shape) -> tuple:
+        """The whole value's shape, from a shard's."""
+        return tuple(d * math.prod(self.sizes[a] for a in _entry_axes(e))
+                     for d, e in zip(local_shape, self.spec + (None,) * len(local_shape)))
+
+    def holds_first_replica(self) -> bool:
+        """Whether this rank's shard is the first of the ranks that hold the
+        same box (index 0 along every mesh axis that the spec does not
+        use): summing over the ranks that do counts each element once."""
+        used = {a for e in self.spec for a in _entry_axes(e)}
+        return all(c == 0 for a, c in self._coord().items() if a not in used)
+
+    def _coord(self) -> dict:
+        return dict(zip(self.sizes, self.mesh.get_coordinate()))
+
+    def local_box(self, shape) -> tuple:
+        return self.box(shape, self._coord())
+
+    def from_local(self, local: torch.Tensor, shape):
+        """The DTensor whose shard on this rank is ``local``."""
+        from torch.distributed.tensor import DTensor
+
+        shape = torch.Size(shape)
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local, self.mesh, self.placements(), run_check=False,
+                                  shape=shape, stride=stride)
+
+    def shard(self, full: torch.Tensor, device=None):
+        """This rank's shard of ``full`` (a host or device tensor) as a
+        DTensor on ``device``; only the shard is copied."""
+        local = full[self.local_box(full.shape)]
+        local = local.to(device, copy=True) if device is not None else local.clone()
+        return self.from_local(local.contiguous(), full.shape)
+
+
+def param_shardings(axes_tree, shapes_tree, rules: dict, mesh):
+    """Trees: logical axes (tuple leaves) + shapes -> NamedSharding tree."""
+    if isinstance(shapes_tree, dict):
+        return {k: param_shardings(axes_tree[k], v, rules, mesh) for k, v in shapes_tree.items()}
+    shp = tuple(shapes_tree.shape) if hasattr(shapes_tree, "shape") else tuple(shapes_tree)
+    return NamedSharding(mesh, spec_for(axes_tree, shp, rules, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Activation rules (model code stays mesh-agnostic)
+# ---------------------------------------------------------------------------
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def activation_rules(pcfg: ParallelConfig, mesh):
+    """Install the reference's activation specs for ``constrain`` and
+    ``current_rule`` (hidden (B, S, d): batch over the dp axes, embed over
+    ``model``; or batch over the whole mesh with ``dp_includes_model``)."""
+    sizes = mesh_shape(mesh)
+    dp_names = ("pod", "data", "model") if pcfg.dp_includes_model else ("pod", "data")
+    dp = tuple(a for a in dp_names if a in sizes)
+    if pcfg.dp_includes_model:
+        specs = {
+            "hidden": P(dp, None, None),
+            "hidden_nosp": P(dp, None, None),
+            "logits": P(dp, None, None),
+            "batch": P(dp),
+        }
+    else:
+        model = "model" if "model" in sizes else None
+        specs = {
+            "hidden": P(dp, None, model),
+            "hidden_nosp": P(dp, None, None),
+            "logits": P(dp, None, model),
+            "batch": P(dp),
+            # flash-decode: decode attention over a cache sequence-sharded
+            # on this axis, partial softmax stats combined across it
+            "decode_sp_axis": model,
+            "dp_axes": dp,
+        }
+    prev = getattr(_TLS, "rules", None)
+    _TLS.rules = (specs, mesh)
+    try:
+        yield specs
+    finally:
+        _TLS.rules = prev
+
+
+def current_rule(kind: str):
+    """An installed activation rule (None outside ``activation_rules``)."""
+    rules = getattr(_TLS, "rules", None)
+    return None if rules is None else rules[0].get(kind)
+
+
+def current_mesh():
+    rules = getattr(_TLS, "rules", None)
+    return None if rules is None else rules[1]
+
+
+def fit(dim: int, entry, sizes: dict):
+    """Largest dividing suffix of a spec entry (batch 256 on ('pod',
+    'data', 'model') = 512 falls back to ('data', 'model') = 256)."""
+    axes = _entry_axes(entry)
+    while axes:
+        if dim % math.prod(sizes.get(a, 1) for a in axes) == 0:
+            return axes if len(axes) > 1 else axes[0]
+        axes = axes[1:]
+    return None
+
+
+def constrain(x, kind: str):
+    """Redistribute a DTensor to the installed rule ``kind`` (each entry
+    fitted to its dim); a plain tensor, or no rule, passes unchanged.
+
+    No path of the port hands the model DTensor activations today (the
+    sharded train step runs on plain tensors, serving on whole ones), so
+    the model's ``constrain`` points return their input there; they mark
+    where the reference constrains, for a tensor-parallel step."""
+    specs = current_rule(kind) if getattr(_TLS, "rules", None) else None
+    if specs is None or not is_dtensor(x):
+        return x
+    sizes = mesh_shape(x.device_mesh)
+    entries = list(specs) + [None] * (x.ndim - len(specs))
+    spec = tuple(fit(d, e, sizes) for d, e in zip(x.shape, entries))
+    return x.redistribute(x.device_mesh, NamedSharding(x.device_mesh, spec).placements())
+
+
+# ---------------------------------------------------------------------------
+# Process groups over mesh axes; batch statistics over the data-parallel group
+# ---------------------------------------------------------------------------
+
+def axes_group(mesh, axes: tuple):
+    """The process group of the ranks that differ only along ``axes`` from
+    this one (None for no axes).  Every rank must call it with the same
+    ``axes``: a group over several axes is made collectively, once."""
+    import torch.distributed as dist
+
+    axes = tuple(axes)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_repro_axes_groups", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        grid = mesh.mesh
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(grid.ndim) if i not in keep]
+        slices = grid.permute(rest + keep).reshape(-1, math.prod(grid.shape[i] for i in keep))
+        me = dist.get_rank()
+        for ranks in slices.tolist():
+            g = dist.new_group(ranks)
+            if me in ranks:
+                cache[axes] = g
+    return cache[axes]
+
+
+def axes_index(mesh, axes: tuple) -> tuple:
+    """(this rank's index, count) along ``axes``, the first major."""
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    idx, total = 0, 1
+    for a in axes:
+        idx, total = idx * sizes[a] + coord[a], total * sizes[a]
+    return idx, total
+
+
+# The sharded train step's state, process-wide and not thread-local: the
+# autograd engine runs a CUDA graph's backward, and so the recompute of a
+# remat'd group, on its device thread.
+_STEP = {"dp": None, "gather": None}
+
+
+class _GroupSum(torch.autograd.Function):
+    """All-reduce SUM over a group; the gradient passes through unchanged
+    (each rank's loss is the same function of the global sums, and the
+    gradients are summed over the group where the parameters are gathered,
+    :func:`gather_params`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+@contextlib.contextmanager
+def data_parallel(group, size: int):
+    """Make ``dp_sum`` / ``dp_mean`` reduce over ``group`` (``size`` ranks,
+    each holding an equal share of the batch's rows)."""
+    prev = _STEP["dp"]
+    _STEP["dp"] = (group, size) if size > 1 else None
+    try:
+        yield
+    finally:
+        _STEP["dp"] = prev
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over the data-parallel group (identity outside it)."""
+    dp = _STEP["dp"]
+    return x if dp is None else _GroupSum.apply(x, dp[0])
+
+
+def dp_mean(x: torch.Tensor, dim) -> torch.Tensor:
+    """``x.mean(dim)`` over the whole batch: this rank's rows and the
+    group's (each rank holds as many rows)."""
+    dp = _STEP["dp"]
+    if dp is None:
+        return x.mean(dim=dim)
+    n = math.prod(x.shape[d] for d in (dim if isinstance(dim, tuple) else (dim,)))
+    return dp_sum(x.sum(dim=dim)) / (n * dp[1])
+
+
+class _GatherParam(torch.autograd.Function):
+    """A parameter's whole value from this rank's shard (an all-gather).
+    Backward: the whole gradient summed over the data-parallel group in
+    ``dtype``, this rank's box of it: a reduce-scatter where one dim is
+    sharded over exactly the group's axes, else an all-reduce and a slice."""
+
+    @staticmethod
+    def forward(ctx, local, sharding, shape, group, axes, dtype):
+        ctx.box, ctx.group, ctx.dtype = sharding.local_box(shape), group, dtype
+        ctx.dim = next((t for t, e in enumerate(sharding.spec) if _entry_axes(e) == axes), None)
+        if sharding.is_whole():
+            return local.view_as(local)
+        return sharding.from_local(local.contiguous(), shape).full_tensor()
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        none = (None,) * 5
+        if ctx.group is None:
+            return (g[ctx.box],) + none
+        if ctx.dim is None:
+            g = g.to(ctx.dtype, copy=True)
+            dist.all_reduce(g, group=ctx.group)
+            return (g[ctx.box],) + none
+        t = ctx.dim
+        rows = tuple(slice(None) if d == t else b for d, b in enumerate(ctx.box))
+        whole = g[rows].to(ctx.dtype).movedim(t, 0).contiguous()
+        n = ctx.box[t].stop - ctx.box[t].start
+        out = whole.new_empty((n,) + tuple(whole.shape[1:]))
+        dist.reduce_scatter_tensor(out, whole, group=ctx.group)
+        return (out.movedim(0, t),) + none
+
+
+@contextlib.contextmanager
+def gathering(shardings, group, axes: tuple, dtype: torch.dtype):
+    """Make ``gather_params`` gather parameter shards placed by
+    ``shardings`` (a NamedSharding tree matching the model's values) and
+    sum their gradients over ``group``, the ranks along mesh ``axes`` (None
+    and (): one rank's rows), in ``dtype``."""
+    prev = _STEP["gather"]
+    _STEP["gather"] = (shardings, group, tuple(axes), dtype)
+    try:
+        yield
+    finally:
+        _STEP["gather"] = prev
+
+
+def gather_params(tree, path: str, stacked: bool = False):
+    """The whole values of ``tree``, this rank's shards of the parameters at
+    ``path`` of the model's values tree (one group's slice of them when
+    ``stacked``), inside :func:`gathering`; ``tree`` itself outside it.
+
+    The model calls it where a group's (or the top level's) weights are
+    used, inside the group's remat: a rank holds one group's whole weights
+    at a time, and the whole gradient of one group's weights at a time."""
+    state = _STEP["gather"]
+    if state is None:
+        return tree
+    shardings, group, axes, dtype = state
+    for k in path.split("/"):
+        shardings = shardings[k]
+
+    def one(x, ns):
+        if stacked:
+            if ns.spec and ns.spec[0] is not None:
+                raise ValueError(f"{path}: a stacked leaf sharded over its layers {ns.spec}")
+            ns = NamedSharding(ns.mesh, ns.spec[1:])
+        if group is None and ns.is_whole():
+            return x
+        return _GatherParam.apply(x, ns, ns.global_shape(x.shape), group, axes, dtype)
+
+    def walk(x, ns):
+        if isinstance(x, dict):
+            return {k: walk(v, ns[k]) for k, v in x.items()}
+        return one(x, ns)
+
+    return walk(tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# DTensor leaves
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local_value(x):
+    """The local shard of a DTensor (a view: in-place writes reach it);
+    any other tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def is_whole(x) -> bool:
+    """Whether this rank's shard of a DTensor is the whole value: no mesh
+    dim of more than one rank shards it."""
+    return all(p.is_replicate() or n == 1 for p, n in zip(x.placements, x.device_mesh.shape))
+
+
+def full_value(x):
+    """The whole value of a DTensor on every rank: the local tensor itself
+    when it is whole (``is_whole``), else an all-gather; a plain tensor as
+    it is."""
+    if not is_dtensor(x):
+        return x
+    return x.to_local() if is_whole(x) else x.full_tensor()
+
+
+def sharding_of(x) -> NamedSharding:
+    """The NamedSharding of a DTensor (the inverse of ``placements``)."""
+    names = list(x.device_mesh.mesh_dim_names)
+    spec = [[] for _ in range(x.ndim)]
+    for name, p in zip(names, x.placements):
+        if p.is_shard():
+            spec[p.dim].append(name)
+    return NamedSharding(x.device_mesh, tuple(tuple(e) for e in spec))
+
+
+def dtensor_box(x) -> tuple:
+    """The global index box of this rank's shard of a DTensor."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    sizes = [int(s) for s in mesh.shape]
+    out = []
+    for t, dim in enumerate(x.shape):
+        idx, total = 0, 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard() and p.dim == t:
+                idx, total = idx * sizes[i] + coord[i], total * sizes[i]
+        step = dim // total
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)

@@ -6,14 +6,26 @@ Counterpart of ``repro/launch/train.py``:
         --steps 200 --ckpt-dir /tmp/run1
 
 runs on the GPU (``train_once(args, attempt, device="cpu")`` runs on the
-CPU).  The run resumes from the newest committed checkpoint
+CPU).  ``--mesh AxB`` (or ``PxAxB``, axes ``(pod,) data, model``) trains
+sharded over that many ranks, started by torch's launcher, one rank per
+GPU of the host under NCCL:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --mesh 2x2 --arch granite-moe-1b-a400m ...
+
+The launcher's world size must be the mesh's product, and a host may not
+run more ranks than it has GPUs: both are refused by name.  Without the
+launcher, ``--mesh 1x1`` runs the unsharded single-device path.  When the
+caller has initialised a process group (gloo ranks on the CPU, in tests),
+``train_once`` trains on the mesh as well.  The run resumes from the newest committed checkpoint
 (``CheckpointManager``); ``--max-restarts`` wraps it in the supervision
 harness (``distributed/fault_tolerance.py``); ``--fail-at-step`` injects
 one crash, to exercise the restart path end to end.
 
-Differences from the reference: a mesh other than ``1x1`` is refused (the
-sharded state and batches come with the multi-GPU slice); a resumed run
-restores into a ``meta`` template instead of initialising the weights first;
+Differences from the reference: one process per rank, not one controller
+for every device; a resumed run restores into a ``meta`` template (placed
+by ``state_shardings`` on a mesh) instead of initialising the weights first;
+only rank 0 prints, beats the heartbeat and collects checkpoint garbage;
 an attempt that fails waits for its in-flight save to commit, so the next
 attempt resumes from it; and the reference's
 ``_disable_persistent_compilation_cache`` (a JAX compilation-cache fault
@@ -23,24 +35,49 @@ across in-process restarts) has no counterpart: nothing is compiled here.
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import time
+
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import SHAPES, get_config, reduced_for_smoke
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import Heartbeat, StepTimer, run_with_restarts
 from repro_torch.optim import warmup_cosine
-from repro_torch.training import init_train_state, make_train_step
+from repro_torch.training import init_train_state, make_train_step, state_shardings
 
-__all__ = ["train_once", "main", "build_parser"]
+__all__ = ["train_once", "main", "build_parser", "parse_mesh", "check_launch"]
 
 
-def _check_mesh(mesh: str) -> None:
-    if mesh != "1x1":
-        raise ValueError(f"--mesh {mesh}: multi-GPU training (a sharded state and batch) is "
-                         "not ported yet; only --mesh 1x1 runs")
+def parse_mesh(s: str):
+    dims = tuple(int(x) for x in s.split("x"))
+    axes = ("pod", "data", "model")[-len(dims):] if len(dims) <= 3 else None
+    if not axes:
+        raise ValueError(f"--mesh {s}: a mesh has at most 3 dims")
+    return dims, axes
+
+
+def check_launch(mesh: str, world: int, local_world: int, gpus: int | None) -> None:
+    """Refuse a launch whose world size is not the mesh's product, or that
+    puts more ranks on this host than it has GPUs (``gpus`` None: a run on
+    the CPU)."""
+    dims, _ = parse_mesh(mesh)
+    need = math.prod(dims)
+    if world != need:
+        raise ValueError(
+            f"--mesh {mesh} needs {need} ranks, one per mesh position, but the world size "
+            f"is {world}: start it with python -m torch.distributed.run --nproc-per-node {need}"
+        )
+    if gpus is not None and local_world > gpus:
+        raise ValueError(
+            f"--mesh {mesh}: {local_world} ranks on this host but only {gpus} GPU(s); "
+            "each rank takes a GPU of its own"
+        )
 
 
 def train_once(args, attempt: int, device=None, report=None):
@@ -50,9 +87,28 @@ def train_once(args, attempt: int, device=None, report=None):
     final ``TrainState``.  ``report``, when given, receives a dict per
     event: ``{"event": "resume", "step", "restore_s"}``, ``{"event":
     "step", "step", "loss", "grad_norm", "lr", "s"}`` and ``{"event":
-    "save", "step", "host_copy_s", "write_s"}`` (each with ``attempt``)."""
-    _check_mesh(args.mesh)
+    "save", "step", "host_copy_s", "write_s"}`` (each with ``attempt``).
+
+    Under an initialised process group the run is sharded over ``--mesh``
+    (whose product must be the world size), on this rank's GPU, or on the
+    CPU for ``device="cpu"``."""
+    import torch.distributed as dist
+
+    dims, axes = parse_mesh(args.mesh)
+    mesh = None
+    if dist.is_initialized():
+        from repro_torch.distributed.sharding import mesh_device
+        from repro_torch.launch.mesh import make_mesh
+
+        check_launch(args.mesh, dist.get_world_size(), dist.get_world_size(), None)
+        cpu = device is not None and torch.device(device).type == "cpu"
+        mesh = make_mesh(dims, axes, "cpu" if cpu else "cuda")
+        device = mesh_device(mesh)
+    elif math.prod(dims) != 1:
+        check_launch(args.mesh, 1, 1, None)
     device = resolve_device(device)
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
 
     def emit(event, **kw):
         if report is not None:
@@ -73,39 +129,43 @@ def train_once(args, attempt: int, device=None, report=None):
         if args.shape in SHAPES
         else ShapeConfig("custom", "train", args.seq_len, args.batch)
     )
-    pcfg = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"),
+    pcfg = ParallelConfig(mesh_shape=dims, mesh_axes=axes,
                           microbatches=args.microbatches, optimizer=args.optimizer)
 
     mgr = CheckpointManager(args.ckpt_dir, keep_last=args.keep_last)
-    hb = Heartbeat(f"{args.ckpt_dir}/heartbeat.json", interval_s=5)
+    hb = Heartbeat(f"{args.ckpt_dir}/heartbeat.json", interval_s=5) if rank0 else None
     timer = StepTimer()
 
     t0 = time.perf_counter()
-    start, state = mgr.restore_latest(init_train_state(args.seed, cfg, pcfg, device="meta"),
-                                      device=device)
+    template = init_train_state(args.seed, cfg, pcfg, device="meta")
+    if mesh is None:
+        start, state = mgr.restore_latest(template, device=device)
+    else:
+        start, state = mgr.restore_latest(template, shardings=state_shardings(cfg, pcfg, mesh))
     if state is not None:
         emit("resume", step=start, restore_s=time.perf_counter() - t0)
-        print(f"[resume] from step {start} (attempt {attempt})")
+        say(f"[resume] from step {start} (attempt {attempt})")
     else:
-        state = init_train_state(args.seed, cfg, pcfg, device=device)
+        state = init_train_state(args.seed, cfg, pcfg, device=device, mesh=mesh)
 
     step_fn = make_train_step(cfg, pcfg, warmup_cosine(args.lr, args.warmup, args.steps))
-    pipe = make_pipeline(cfg, shape, None, seed=args.seed, device=device)
+    pipe = make_pipeline(cfg, shape, mesh, seed=args.seed, device=device)
 
-    step, loss = int(state.step), float("nan")
+    step, loss = int(shd.local_value(state.step)), float("nan")
     try:
         while step < args.steps:
             timer.start()
             state, metrics = step_fn(state, pipe.batch_at(step))
             loss = float(metrics["loss"])
             dt = timer.stop()
-            step = int(state.step)
+            step = int(shd.local_value(state.step))
             emit("step", step=step, loss=loss, grad_norm=float(metrics["grad_norm"]),
                  lr=float(metrics["lr"]), s=dt)
-            hb.beat(step, {"loss": loss})
+            if hb is not None:
+                hb.beat(step, {"loss": loss})
             if step % args.log_every == 0 or step == args.steps:
                 tput = shape.tokens_per_step / dt
-                print(f"step {step:6d} loss {loss:.4f} "
+                say(f"step {step:6d} loss {loss:.4f} "
                       f"| {dt*1e3:6.0f} ms/step | {tput:9.0f} tok/s", flush=True)
             if args.fail_at_step and step == args.fail_at_step and attempt == 0:
                 raise RuntimeError("injected failure (--fail-at-step)")
@@ -115,7 +175,7 @@ def train_once(args, attempt: int, device=None, report=None):
     finally:
         mgr.wait()
         emit_save()
-    print(f"done at step {step}; final loss {loss:.4f}")
+    say(f"done at step {step}; final loss {loss:.4f}")
     return state
 
 
@@ -145,19 +205,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    """The CLI.  Under ``torch.distributed.run`` (``WORLD_SIZE`` set) each
+    rank joins the process group on ``cuda:LOCAL_RANK`` under NCCL."""
+    import torch.distributed as dist
+
     ap = build_parser()
     args = ap.parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
     try:
-        _check_mesh(args.mesh)
+        check_launch(args.mesh, world, local_world,
+                     torch.cuda.device_count() if "WORLD_SIZE" in os.environ else None)
     except ValueError as e:
         ap.error(str(e))
-    restarts = run_with_restarts(
-        lambda attempt: train_once(args, attempt),
-        max_restarts=args.max_restarts,
-        on_failure=lambda a, e: print(f"[supervisor] attempt {a} failed: {e}; restarting"),
-    )
-    if restarts:
-        print(f"[supervisor] recovered after {restarts} restart(s)")
+    if "WORLD_SIZE" in os.environ:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    try:
+        restarts = run_with_restarts(
+            lambda attempt: train_once(args, attempt),
+            max_restarts=args.max_restarts,
+            on_failure=lambda a, e: print(f"[supervisor] attempt {a} failed: {e}; restarting"),
+        )
+        if restarts and (not dist.is_initialized() or dist.get_rank() == 0):
+            print(f"[supervisor] recovered after {restarts} restart(s)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,14 @@ Counterpart of ``repro/models/attention.py``.  Paths:
 
 Unlike the JAX layer, the cache is written in place (slice assignment and
 ``copy_``), so a cache tree passed in is updated; it is still returned.
-The costing twin ``_chunked_attention_unrolled`` and the multi-GPU
-flash-decode branch are not ported yet (ROADMAP.md).
+Flash-decode: under installed activation rules
+(``distributed.sharding.activation_rules``) whose ``decode_sp_axis`` has
+more than one rank and divides the cache, ``_decode_attention`` computes
+each rank's partial softmax statistics over its slice of the cache's
+sequence and combines them with all-reduces (MAX, then SUM) over that mesh
+axis, as the reference's ``shard_map`` branch does with pmax/psum; plain
+torch and collectives, as in JAX no Pallas kernel.  The costing twin
+``_chunked_attention_unrolled`` is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -127,15 +133,71 @@ def _chunked_attention(q, k, v, window: int, q_chunk: int, causal_skip: bool = F
     return o.permute(1, 0, 4, 2, 3, 5).reshape(B, S, KV, rep, hd)
 
 
+def _mask(s, valid):
+    vb = valid[:, None, None, :] if valid.ndim == 2 else valid[None, None, None]
+    return s.masked_fill(~vb, float("-inf"))
+
+
 def _decode_attention(qh, ck, cv, valid, scale: float, out_dtype):
     """One query per row against the cache.  qh (B, KV, rep, hd), ck/cv
     (B, Smax, KV, hd); ``valid`` (Smax,) for one position or (B, Smax) per
-    row."""
-    s = torch.einsum("bgrh,bkgh->bgrk", qh, ck).to(torch.float32) * scale
-    vb = valid[:, None, None, :] if valid.ndim == 2 else valid[None, None, None]
-    s = s.masked_fill(~vb, float("-inf"))
+    row.
+
+    Flash-decode (module docstring) when the installed rules allow it: the
+    cache may then be whole on every rank (each takes its slice) or
+    DTensors sequence-sharded over the axis (``serving.engine.
+    cache_shardings``), whose rows are this rank's, as are the result's;
+    ``qh`` is whole or a DTensor of those rows."""
+    from repro_torch.distributed import sharding as shd
+
+    axis, dp, mesh = shd.current_rule("decode_sp_axis"), shd.current_rule("dp_axes"), \
+        shd.current_mesh()
+    B, Smax = qh.shape[0], ck.shape[1]
+    if axis is not None and mesh is not None:
+        sizes = shd.mesh_shape(mesh)
+        ax = sizes.get(axis, 0)
+        dp_size = math.prod(sizes.get(a, 1) for a in (dp or ()))
+        if ax > 1 and Smax % ax == 0 and B % max(dp_size, 1) == 0:
+            return _flash_decode(qh, ck, cv, valid, scale, out_dtype, mesh, axis, ax)
+        qh, ck, cv = (shd.full_value(x) for x in (qh, ck, cv))
+    s = _mask(torch.einsum("bgrh,bkgh->bgrk", qh, ck).to(torch.float32) * scale, valid)
     w = torch.softmax(s, dim=-1).to(out_dtype)
     return torch.einsum("bgrk,bkgh->bgrh", w, cv)
+
+
+def _flash_decode(qh, ck, cv, valid, scale, out_dtype, mesh, axis, ax):
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+
+    idx, _ = shd.axes_index(mesh, (axis,))
+    group = shd.axes_group(mesh, (axis,))
+    L = ck.shape[1] // ax
+    cols = slice(idx * L, (idx + 1) * L)
+    if shd.is_dtensor(ck):
+        rows, seq = shd.dtensor_box(ck)[:2]
+        if seq != cols:
+            raise ValueError(f"flash-decode: the cache's shard {seq} is not this rank's "
+                             f"slice {cols} of the sequence over {axis!r}")
+        k, v = ck.to_local(), cv.to_local()
+    else:
+        rows = slice(0, ck.shape[0])
+        k, v = ck[:, cols], cv[:, cols]
+    q = shd.local_value(qh)
+    val = valid[rows, cols] if valid.ndim == 2 else valid[cols]
+
+    s = _mask(torch.einsum("bgrh,bkgh->bgrk", q, k).to(torch.float32) * scale, val)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    g_m = m.clone()
+    dist.all_reduce(g_m, op=dist.ReduceOp.MAX, group=group)
+    finite = torch.isfinite(m)
+    c = torch.where(finite, torch.exp(m - g_m), 0.0)[..., 0]
+    p = torch.where(torch.isfinite(s), torch.exp(s - torch.where(finite, m, 0.0)), 0.0)
+    num = torch.einsum("bgrk,bkgh->bgrh", p.to(v.dtype), v).to(torch.float32) * c[..., None]
+    den = torch.sum(p, dim=-1) * c
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(den, group=group)
+    return (num / torch.clamp_min(den, 1e-30)[..., None]).to(out_dtype)
 
 
 def _chunk_cache_attention(qh, ck, cv, qpos, window: int, scale: float, out_dtype):

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core import quantized
+from repro_torch.distributed.sharding import dp_sum
 from repro_torch.models.params import Param, dense_init, param
 
 __all__ = [
@@ -153,4 +154,5 @@ def chunked_softmax_cross_entropy(h: torch.Tensor, head_w: torch.Tensor, labels:
         # each chunk under remat, as the reference's scan body
         tot = tot + remat(chunk_sum, h[:, s:s + ck], head_w, labels[:, s:s + ck], ms)
         cnt = cnt + torch.sum(ms)
-    return tot / torch.clamp_min(cnt, 1.0)
+    # over the whole batch: a sharded train step's other ranks' rows too
+    return dp_sum(tot) / torch.clamp_min(dp_sum(cnt), 1.0)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantized
+from repro_torch.distributed.sharding import dp_mean
 from repro_torch.models import layers
 from repro_torch.models.params import dense_init
 
@@ -110,7 +111,8 @@ def moe_block(h: torch.Tensor, p: dict, cfg: ModelConfig):
 
     # Switch load-balance loss
     routed = onehot[..., 0, :] if k == 1 else onehot.amax(dim=2)
-    frac_routed = routed.mean(dim=(0, 1))
-    mean_prob = probs.mean(dim=(0, 1))
+    # means over the whole batch: a sharded train step's other ranks' rows too
+    frac_routed = dp_mean(routed, (0, 1))
+    mean_prob = dp_mean(probs, (0, 1))
     aux = E * torch.sum(frac_routed * mean_prob)
     return out.reshape(B0, S0, d), aux

@@ -7,11 +7,15 @@ them into (values, axes).  Trees are nested dicts, as in ``repro``.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
 
-__all__ = ["Param", "param", "dense_init", "split"]
+__all__ = ["Param", "param", "dense_init", "split", "placing"]
+
+_PLACE = threading.local()
 
 
 class Param(NamedTuple):
@@ -22,7 +26,22 @@ class Param(NamedTuple):
 def param(value: torch.Tensor, axes: tuple) -> Param:
     if len(axes) != value.ndim:
         raise ValueError(f"axes {axes} do not match shape {tuple(value.shape)}")
-    return Param(value, axes)
+    place = getattr(_PLACE, "fn", None)
+    return Param(value if place is None else place(value, axes), axes)
+
+
+@contextlib.contextmanager
+def placing(fn):
+    """Inside, every Param made keeps ``fn(value, axes)`` in place of its
+    value: a sharded initialisation keeps each rank's shard of a weight as
+    soon as the weight is drawn (the draws, and so the values, stay those
+    of an unsharded initialisation)."""
+    prev = getattr(_PLACE, "fn", None)
+    _PLACE.fn = fn
+    try:
+        yield
+    finally:
+        _PLACE.fn = prev
 
 
 def dense_init(generator, shape, axes, dtype, scale: float | None = None) -> Param:

@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator as make_generator
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain, gather_params
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.params import Param
@@ -250,14 +251,24 @@ def forward(
     logits for the final position only; ``return_hidden`` skips the head and
     returns the post-final-norm hidden states.  A given cache is written in
     place (see ``models/attention.py``) and returned; both cache forms of
-    ``init_cache`` are accepted."""
+    ``init_cache`` are accepted.
+
+    The ``constrain`` points are the reference's; no path of the port
+    passes DTensor activations, so they return their input
+    (``distributed.sharding.constrain``).  ``gather_params`` makes a sharded
+    train step's parameter shards whole, one group at a time, and is the
+    identity elsewhere."""
     p = _values(params)
+    # a sharded train step's shards made whole (identity elsewhere): the
+    # top level's here, each group's and remainder layer's inside its remat
+    p = {k: v if k in ("groups", "rem") else gather_params(v, k) for k, v in p.items()}
     dtype = model_dtype(cfg)
 
     if "tokens" in inputs:
         h = layers.embed_lookup(inputs["tokens"], p["embed"]).to(dtype)
     else:
         h = inputs["embeds"].to(dtype)
+    h = constrain(h, "hidden")
     window = cfg.sliding_window if window is None else window
     shared = p.get("shared")
     kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
@@ -267,7 +278,8 @@ def forward(
     remat = cfg.remat and cache is None
 
     def group_fn(h_, gp_, shared_):
-        return _apply_group(h_, gp_, cfg, shared_, cache=None, **kw)
+        return _apply_group(h_, gather_params(gp_, "groups", stacked=True), cfg, shared_,
+                            cache=None, **kw)
 
     aux_total = 0.0
     gcache = cache["groups"] if cache is not None else None
@@ -281,7 +293,9 @@ def forward(
             gc = None
             if gcache is not None:
                 gc = gcache[g] if cache_is_list else _index(gcache, g)
-            h, nc, aux = _apply_group(h, gp, cfg, shared, cache=gc, **kw)
+            h, nc, aux = _apply_group(h, gather_params(gp, "groups", stacked=True), cfg,
+                                      shared, cache=gc, **kw)
+        h = constrain(h, "hidden")
         aux_total = aux_total + aux
         if cache is not None:
             new_groups.append(nc)
@@ -295,13 +309,13 @@ def forward(
         for i, kind in enumerate(cfg.remainder_pattern):
             if remat:
                 h, nc, aux = layers.remat(
-                    lambda h_, bp_, sh_, kind=kind: _apply_block(h_, bp_, kind, cfg, sh_,
-                                                                 cache=None, **kw),
+                    lambda h_, bp_, sh_, kind=kind, i=i: _apply_block(
+                        h_, gather_params(bp_, f"rem/{i}"), kind, cfg, sh_, cache=None, **kw),
                     h, p["rem"][f"{i}"], shared,
                 )
             else:
                 h, nc, aux = _apply_block(
-                    h, p["rem"][f"{i}"], kind, cfg, shared,
+                    h, gather_params(p["rem"][f"{i}"], f"rem/{i}"), kind, cfg, shared,
                     cache=None if rcache is None else rcache[f"{i}"], **kw,
                 )
             aux_total = aux_total + aux
@@ -321,6 +335,7 @@ def forward(
         logits = layers.apply_dense(h, p["head"])
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    logits = constrain(logits, "logits")
     return logits, new_cache, aux_total
 
 
@@ -333,7 +348,8 @@ def train_loss(params, batch, cfg: ModelConfig):
     ``loss_mask``."""
     h, _, aux = forward(params, batch, cfg, return_hidden=True)
     p = _values(params)
-    head_w = p["embed"]["table"].T if cfg.tie_embeddings else p["head"]["w"]
+    head_w = gather_params(p["embed"], "embed")["table"].T if cfg.tie_embeddings \
+        else gather_params(p["head"], "head")["w"]
     if "labels" in batch:
         labels, hh = batch["labels"], h
     else:

@@ -81,8 +81,11 @@ def adamw(
         return {"m": _map(zeros, params), "v": _map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step, lr):
-        gnorm = global_norm(grads)
+    def update(grads, state, params, step, lr, norm=None):
+        """``norm``: the global gradient norm when ``grads`` are shards of
+        the gradients (the sharded train step computes it from the whole
+        gradients, each element counted once)."""
+        gnorm = global_norm(grads) if norm is None else norm
         scale = _clip_scale(gnorm, clip_norm)
         t = torch.as_tensor(step + 1).to(torch.float32)
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t

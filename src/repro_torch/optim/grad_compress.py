@@ -6,8 +6,11 @@ Counterpart of ``repro/optim/grad_compress.py``.
 with the quantisation residual kept and re-injected at the next step
 (Seide et al.; Karimireddy et al. 2019), so the payload of a cross-host
 gradient all-reduce shrinks 4x without hurting convergence.  The
-quantise/dequantise pair is solver-agnostic; the all-reduce that would use
-it comes with the multi-GPU slice.
+quantise/dequantise pair is solver-agnostic.  The reference's training
+loop never wires it into its gradient all-reduce
+(``ParallelConfig.grad_compress`` is read nowhere), so the port's sharded
+train step (``training/loop.py``) all-reduces the gradients uncompressed
+as well.
 
 **Periodic weight recompression** (:class:`CompressionCycle`): the host-side
 hook that turns train -> compress -> serve into a cycle (docs/delta.md).

@@ -6,8 +6,8 @@ step functions over ``models.forward``, and ``Engine`` drives greedy or
 temperature sampling with EOS masking over one rectangular batch.  PyTorch
 runs eagerly, so there is no jit: each step calls the forward directly,
 under ``torch.inference_mode()``.  The continuous-batching scheduler over
-a paged KV cache is ``serving/scheduler.py``; ``cache_shardings``
-(multi-GPU) is not ported yet (ROADMAP.md).
+a paged KV cache is ``serving/scheduler.py``.  ``cache_shardings`` places
+a cache tree on a mesh, as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,7 +21,49 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward, init_cache
 from repro_torch.models.frontends import needs_embeds
 
-__all__ = ["make_decode_step", "make_prefill", "make_prefill_chunk", "Engine"]
+__all__ = ["make_decode_step", "make_prefill", "make_prefill_chunk", "cache_shardings",
+           "Engine"]
+
+
+def cache_shardings(cfg: ModelConfig, pcfg, mesh, batch: int, max_len: int,
+                    stacked: bool = True):
+    """NamedSharding tree matching ``init_cache(cfg, batch, max_len,
+    stacked)`` (and ``PagePool.view_template()``): k/v (B, S, KV, hd)
+    sequence-sharded over ``model``, SSM state (B, nh, hp, ds) head-sharded,
+    conv (B, dconv-1, conv_dim) channel-sharded, each where ``model``
+    divides, and the batch over the dp axes only when they divide it.
+    ``mesh`` may be a mesh shape; ``pcfg`` is unused, as in the reference."""
+    from repro_torch.compression.plan import tree_paths, tree_rebuild
+    from repro_torch.distributed.sharding import NamedSharding, mesh_shape
+
+    sizes = mesh_shape(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes)
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+    model = "model" if "model" in sizes else None
+    m = sizes.get("model", 1)
+
+    def spec(path, leaf):
+        names = path.split("/")
+        lead = (None,) if stacked and "groups" in names else ()
+        shape = tuple(leaf.shape)
+        nd = len(shape) - len(lead)
+        b = dp if shape[len(lead)] % max(dp_size, 1) == 0 else None
+        if names[-1] in ("k", "v"):
+            seq = model if shape[len(lead) + 1] % m == 0 else None
+            return (*lead, b, seq, None, None)
+        if names[-1] == "state":
+            h = model if model and shape[len(lead) + 1] % m == 0 else None
+            return (*lead, b, h, None, None)
+        if names[-1] == "conv":
+            c = model if model and shape[len(lead) + 2] % m == 0 else None
+            return (*lead, b, None, c)
+        return (*lead, b, *([None] * (nd - 1)))
+
+    shapes = init_cache(cfg, batch, max_len, stacked=stacked, device="meta")
+    return tree_rebuild(shapes, {p: NamedSharding(mesh, spec(p, leaf))
+                                 for p, leaf in tree_paths(shapes)})
 
 
 def make_prefill(cfg: ModelConfig):

@@ -15,24 +15,67 @@ runs the model's own attention (``_chunked_attention`` under remat) with
 every kernel hook cleared (``kernels.ops.kernels_off``): K5 has no backward,
 and the JAX trainer registers no hook either.
 
-Not ported yet (the multi-GPU slice): ``state_shardings`` and
-``batch_sharding``, which place the state and the batch over a mesh; the
-port's state lives on one device.
+On a mesh (``init_train_state(..., mesh=)``) the state's leaves are
+DTensors placed by ``state_shardings``, the reference's logical-axis rules:
+parameters stored sharded over ``data`` (FSDP) and ``model``, same-shape
+moments as their parameter, Adafactor's factored moments and the step
+replicated.  The step computes data-parallel with explicit collectives, one layer group
+at a time (DTensor propagation through the model's ops is not used):
+
+* microbatch i is the global batch's i-th block of rows, as the
+  reference's reshape gives it, and each rank runs its share of the block's
+  rows, split over the dp axes (``fit`` of the ``batch`` rule);
+* the model runs on the rank's shards: it all-gathers the top level's
+  weights (embedding, head, final norm, zamba2's shared block) when the
+  forward starts, and each group's (and remainder layer's) weights inside
+  that group's remat (``sharding.gather_params``), so beside its shards a
+  rank holds the top level and one group whole, and the recompute gathers
+  the group again;
+* the backward of each gather sums the whole gradient of those weights
+  over the dp group in ``accum_dtype`` into the rank's box: a
+  reduce-scatter where the weight is sharded over exactly the dp axes (the
+  FSDP dim), else an all-reduce and a slice.  A rank holds the whole
+  gradient of one group at a time, and its gradients are its boxes;
+* the loss's batch statistics (the CE's sums, the MoE balance loss's
+  means) are reduced over the dp group inside the forward
+  (``sharding.data_parallel``), so every rank's loss is the global batch's;
+* the global norm sums each box once (on the first rank that holds it)
+  and all-reduces that sum;
+* AdamW updates each rank's shards of the parameters and moments from its
+  boxes (elementwise, with that norm); Adafactor, whose factored moments
+  and update clipping reduce over whole dims, gathers one leaf at a time,
+  updates it whole and keeps each rank's box.
+
+This is data parallelism over sharded storage, not tensor parallelism:
+the ranks along ``model`` (unless ``dp_includes_model``) run the same rows
+and do the same work, and each rank computes with whole weights.  On a
+one-rank mesh every collective is skipped and the step is the unsharded
+step bit for bit.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.device import dtype_from_name, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import init_model, train_loss
-from repro_torch.models.params import split
+from repro_torch.models.params import placing, split
 from repro_torch.optim import adafactor, adamw
+from repro_torch.optim.adamw import global_norm
 
-__all__ = ["TrainState", "make_optimizer", "init_train_state", "make_train_step"]
+__all__ = [
+    "TrainState",
+    "make_optimizer",
+    "init_train_state",
+    "make_train_step",
+    "state_shardings",
+    "batch_sharding",
+]
 
 
 class TrainState(NamedTuple):
@@ -45,15 +88,92 @@ def make_optimizer(pcfg: ParallelConfig):
     return {"adamw": adamw, "adafactor": adafactor}[pcfg.optimizer]()
 
 
+def _axes_trees(cfg: ModelConfig):
+    """(meta values tree, logical-axes tree): shapes without allocating."""
+    return split(init_model(cfg, device="meta"))
+
+
+def _subtree(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def state_shardings(cfg: ModelConfig, pcfg: ParallelConfig, mesh) -> TrainState:
+    """NamedSharding tree matching ``TrainState``.  Same-shape moments
+    inherit the parameter's sharding; factored (lower-rank) Adafactor
+    moments are replicated; so is the step."""
+    shapes, axes = _axes_trees(cfg)
+    p_sh = shd.param_shardings(axes, shapes, shd.make_rules(pcfg), mesh)
+    opt_shapes = make_optimizer(pcfg).init(shapes)
+    replicated = shd.NamedSharding(mesh, ())
+
+    def match(shape_tree, sh_tree, opt_tree):
+        def one(pshape, psh, osub):
+            return _map(lambda o: psh if tuple(o.shape) == tuple(pshape.shape) else replicated,
+                        osub)
+        if isinstance(shape_tree, dict):
+            return {k: match(shape_tree[k], sh_tree[k], opt_tree[k]) for k in shape_tree}
+        return one(shape_tree, sh_tree, opt_tree)
+
+    if pcfg.optimizer == "adamw":
+        opt_sh = {k: match(shapes, p_sh, opt_shapes[k]) for k in opt_shapes}
+    else:
+        opt_sh = match(shapes, p_sh, opt_shapes)
+    return TrainState(step=replicated, params=p_sh, opt=opt_sh)
+
+
+def batch_sharding(mesh, ndim: int = 2) -> shd.NamedSharding:
+    dp = tuple(a for a in ("pod", "data") if a in shd.mesh_shape(mesh))
+    return shd.NamedSharding(mesh, (dp,) + (None,) * (ndim - 1))
+
+
 def init_train_state(seed: int, cfg: ModelConfig, pcfg: ParallelConfig,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """Step 0, the model's weights from ``seed`` and zero optimiser moments,
     on ``device`` (default: the GPU; ``"meta"`` gives a template that holds
-    shapes and dtypes only)."""
-    device = resolve_device(device)
-    values, _ = split(init_model(cfg, seed=seed, device=device))
-    return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
-                      params=values, opt=make_optimizer(pcfg).init(values))
+    shapes and dtypes only).
+
+    With ``mesh``, on this rank's device: DTensor leaves placed by
+    ``state_shardings``, each rank holding exactly its shards of what the
+    unsharded ``init_train_state(seed)`` gives.  The weights are drawn one
+    Param at a time in the unsharded order, and each is cut to this rank's
+    shard as soon as it is drawn: a stacked leaf is never whole, and
+    beyond the shards a device holds at most one layer's weight at once."""
+    if mesh is None:
+        device = resolve_device(device)
+        values, _ = split(init_model(cfg, seed=seed, device=device))
+        return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
+                          params=values, opt=make_optimizer(pcfg).init(values))
+
+    dev = shd.mesh_device(mesh)
+    rules = shd.make_rules(pcfg)
+    sh = state_shardings(cfg, pcfg, mesh)
+
+    def keep(v, axes):
+        box = shd.NamedSharding(mesh, shd.spec_for(axes, tuple(v.shape), rules, mesh)) \
+            .local_box(v.shape)
+        return v[box].clone()
+
+    with placing(keep):
+        local, _ = split(init_model(cfg, seed=seed, device=dev))
+    shapes, _ = _axes_trees(cfg)
+    params = _map(lambda v, s, ns: ns.from_local(v, s.shape), local, shapes, sh.params)
+
+    def zeros(o, ns):
+        box = ns.local_box(o.shape)
+        local_shape = [b.stop - b.start for b in box]
+        return ns.from_local(torch.zeros(local_shape, dtype=o.dtype, device=dev), o.shape)
+
+    opt = _map(zeros, make_optimizer(pcfg).init(shapes), sh.opt)
+    step = sh.step.from_local(torch.zeros((), dtype=torch.int32, device=dev), ())
+    return TrainState(step=step, params=params, opt=opt)
 
 
 def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
@@ -61,7 +181,11 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
     ``loss``, ``grad_norm`` and ``lr`` (0-d float32 tensors).  The batch's
     leading dim splits into ``pcfg.microbatches`` microbatches; the loss and
     the gradients are their means, the gradients summed in
-    ``pcfg.accum_dtype``."""
+    ``pcfg.accum_dtype``.  A state of DTensors (``init_train_state(...,
+    mesh=)``) takes the sharded step (module docstring); its batch is the
+    global batch, as DTensors (``make_pipeline(..., mesh)``) or whole."""
+    import torch.distributed as dist
+
     from repro_torch.compression.execute import _replace
     from repro_torch.compression.plan import tree_paths
     from repro_torch.kernels.ops import kernels_off
@@ -70,8 +194,10 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
     n_micro = pcfg.microbatches
     accum_dtype = dtype_from_name(pcfg.accum_dtype)
 
-    def train_step(state: TrainState, batch: dict):
-        paths, params = zip(*tree_paths(state.params))
+    def gradients(state, params, micro_batches):
+        """(mean loss, mean-over-microbatch gradients in accum_dtype) of the
+        given parameter tensors, summed over the microbatches given."""
+        paths = [p for p, _ in tree_paths(state.params)]
 
         def loss_and_grads(mb):
             live = [p.detach().requires_grad_(True) for p in params]
@@ -81,28 +207,98 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
             return loss.detach(), [torch.zeros_like(p) if g is None else g
                                    for p, g in zip(params, grads)]
 
+        if n_micro == 1:
+            loss, grads = loss_and_grads(micro_batches[0])
+            return loss, [g.to(accum_dtype) for g in grads]
+        grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in params]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        for mb in micro_batches:
+            loss, g = loss_and_grads(mb)
+            for a, b in zip(grads, g):
+                a.add_(b.to(a.dtype))
+            del g
+            loss_sum = loss_sum + loss
+        return loss_sum, grads
+
+    def train_step(state: TrainState, batch: dict):
+        if shd.is_dtensor(state.step):
+            return sharded_step(state, batch)
+        paths, params = zip(*tree_paths(state.params))
         micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
-        if n_micro == 1:
-            loss, grads = loss_and_grads({k: v[0] for k, v in micro.items()})
-            grads = [g.to(accum_dtype) for g in grads]
-        else:
-            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in params]
-            loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
-            for i in range(n_micro):
-                loss, g = loss_and_grads({k: v[i] for k, v in micro.items()})
-                for a, b in zip(grads, g):
-                    a.add_(b.to(a.dtype))
-                del g
-                loss_sum = loss_sum + loss
+        loss, grads = gradients(state, params, [{k: v[i] for k, v in micro.items()}
+                                                for i in range(n_micro)])
+        if n_micro > 1:
             for a in grads:
                 a.div_(n_micro)
-            loss = loss_sum / n_micro
+            loss = loss / n_micro
 
         lr = lr_schedule(state.step)
         new_params, new_opt, gnorm = opt.update(_replace(state.params, dict(zip(paths, grads))),
                                                 state.opt, state.params, state.step, lr)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return TrainState(state.step + 1, new_params, new_opt), metrics
+
+    def sharded_step(state: TrainState, batch: dict):
+        mesh = state.step.device_mesh
+        sizes = shd.mesh_shape(mesh)
+        paths, leaves = zip(*tree_paths(state.params))
+        local = [shd.local_value(p).detach() for p in leaves]
+        shardings = {p: shd.sharding_of(x) for p, x in zip(paths, leaves)}
+
+        # microbatch i = the global batch's i-th block of rows; this rank
+        # runs its share of the block over the dp axes
+        glob = {k: shd.full_value(v) for k, v in batch.items()}
+        rows = next(iter(glob.values())).shape[0] // n_micro
+        dp_names = ("pod", "data", "model") if pcfg.dp_includes_model else ("pod", "data")
+        row_axes = shd.fit(rows, tuple(a for a in dp_names if a in sizes), sizes)
+        row_axes = () if row_axes is None else (row_axes if isinstance(row_axes, tuple)
+                                                else (row_axes,))
+        idx, count = shd.axes_index(mesh, row_axes)
+        group = shd.axes_group(mesh, row_axes) if count > 1 else None
+        per = rows // count
+        micro = [{k: v[i * rows + idx * per:i * rows + (idx + 1) * per] for k, v in glob.items()}
+                 for i in range(n_micro)]
+        # each group's weights gathered where the model uses them, their
+        # gradients summed over the dp group into this rank's boxes
+        with shd.data_parallel(group, count), \
+                shd.gathering(_replace(state.params, shardings), group, row_axes, accum_dtype):
+            loss, grads = gradients(state, local, micro)
+        if n_micro > 1:
+            for a in grads:
+                a.div_(n_micro)
+            loss = loss / n_micro
+
+        step = shd.local_value(state.step)
+        lr = lr_schedule(step)
+        if math.prod(sizes.values()) == 1:
+            gnorm = global_norm(_replace(state.params, dict(zip(paths, grads))))
+        else:
+            # each element once: a box held by several ranks counts on one
+            sq = [torch.sum(torch.square(g.to(torch.float32))) *
+                  float(shardings[p].holds_first_replica()) for p, g in zip(paths, grads)]
+            gnorm = torch.sum(torch.stack(sq))
+            dist.all_reduce(gnorm)
+            gnorm = torch.sqrt(gnorm)
+        if pcfg.optimizer == "adamw":
+            opt.update(_replace(state.params, dict(zip(paths, grads))),
+                       _map(shd.local_value, state.opt), _replace(state.params,
+                                                              dict(zip(paths, local))),
+                       step, lr, norm=gnorm)
+        else:
+            # factored moments and update clipping reduce over whole dims:
+            # one whole leaf at a time, each rank keeping its box
+            for p, x, g in zip(paths, leaves, grads):
+                moments = _subtree(state.opt, p)
+                whole = [shd.full_value(x)] + [shd.full_value(m) for m in moments.values()]
+                grad = shardings[p].from_local(g, x.shape)
+                opt.update({"x": shd.full_value(grad)}, {"x": dict(zip(moments, whole[1:]))},
+                           {"x": whole[0]}, step, lr)
+                for dt, full in zip([x, *moments.values()], whole):
+                    if not shd.is_whole(dt):
+                        dt.to_local().copy_(full[shd.dtensor_box(dt)])
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        new_step = shd.NamedSharding(mesh, ()).from_local(step + 1, ())
+        return TrainState(new_step, state.params, state.opt), metrics
 
     return train_step

@@ -1141,3 +1141,69 @@ def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _one_rank_mesh(rank, world):
+    """On a one-rank NCCL group: reduced granite-moe trained 2 steps on the
+    (1, 1) mesh and unsharded, from the same seed and batches."""
+    from repro_torch.compression.plan import tree_paths
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.training import init_train_state, make_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cfg = reduced_for_smoke(get_config("granite-moe-1b-a400m"))
+    pcfg = ParallelConfig(mesh_shape=(1, 1), mesh_axes=("data", "model"), microbatches=2)
+    shape = ShapeConfig("s", "train", 64, 4)
+    out = {}
+    for name, kw in (("mesh", {"mesh": mesh}), ("plain", {"device": "cuda"})):
+        state = init_train_state(0, cfg, pcfg, **kw)
+        step_fn = make_train_step(cfg, pcfg, warmup_cosine(1e-3, 1, 4))
+        pipe = make_pipeline(cfg, shape, kw.get("mesh"), device=kw.get("device"))
+        metrics = []
+        for i in range(2):
+            state, m = step_fn(state, pipe.batch_at(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[name] = (metrics, {p: shd.full_value(x).cpu() for p, x in tree_paths(state)},
+                     shd.is_dtensor(state.step))
+    return out
+
+
+def test_one_rank_nccl_mesh_gives_the_unsharded_result(dev, tmp_path):
+    """The sharded train step on the card's (1, 1) mesh (every collective
+    skipped) gives the unsharded step's losses, grad norms and state bit
+    for bit."""
+    from repro_torch.distributed.local_ranks import run_ranks
+
+    (got,) = run_ranks(_one_rank_mesh, 1, str(tmp_path), backend="nccl")
+    (m_metrics, m_state, m_sharded), (p_metrics, p_state, p_sharded) = got["mesh"], got["plain"]
+    assert m_sharded and not p_sharded
+    assert m_metrics == p_metrics
+    assert sorted(m_state) == sorted(p_state)
+    for p, x in p_state.items():
+        assert torch.equal(m_state[p], x), p
+
+
+def test_launcher_refuses_two_ranks_on_one_gpu(dev, tmp_path):
+    """``torch.distributed.run --nproc-per-node 2`` on a host with one GPU
+    is refused by name before any process group forms."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs a host with exactly one GPU")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "repro_torch.launch.train", "--arch", "granite-moe-1b-a400m", "--reduced",
+         "--mesh", "1x2", "--steps", "1", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert r.returncode != 0
+    assert "--mesh 1x2: 2 ranks on this host but only 1 GPU(s)" in r.stderr

@@ -42,6 +42,7 @@ from repro_torch.compression.plan import tree_paths
 from repro_torch.configs import SHAPES, get_config, reduced_for_smoke
 from repro_torch.configs.base import ParallelConfig, ShapeConfig
 from repro_torch.data import make_pipeline
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault_tolerance import run_with_restarts
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.presets import parallel_preset
@@ -120,10 +121,38 @@ def test_batch_at_is_bit_equal_to_jax(arch):
             assert tb[k].numpy().dtype == np.asarray(jb[k]).dtype
 
 
-def test_pipeline_refuses_a_mesh():
-    cfg = reduced_for_smoke(get_config("qwen3-32b"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_pipeline(cfg, ShapeConfig("s", "train", 8, 2), mesh=object(), device="cpu")
+def _meshed_pipeline_rows(rank, world, arch, batch):
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world, 1), ("data", "model"), "cpu")
+    pipe = make_pipeline(reduced_for_smoke(get_config(arch)), ShapeConfig("s", "train", 24, batch),
+                         mesh, seed=3)
+    try:
+        b = pipe.batch_at(7)
+    except ValueError as e:
+        return str(e)
+    return {k: (shd.dtensor_box(v), v.to_local().clone(), tuple(v.shape)) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "musicgen-medium"])
+def test_pipeline_refuses_a_mesh(tmp_path, arch):
+    """A pipeline on a mesh keeps on each rank exactly its block of JAX's
+    rows (the reference's ``P(dp, None)``: rank r of the dp axis holds rows
+    r*B/dp ...), and refuses a batch the dp axes do not divide, as JAX's
+    ``device_put`` does."""
+    from repro_torch.distributed.local_ranks import run_ranks
+
+    jb = j_make_pipeline(j_reduced(j_get_config(arch)), JShape("s", "train", 24, 4),
+                         seed=3).batch_at(7)
+    got = run_ranks(_meshed_pipeline_rows, 2, str(tmp_path / "a"), arch, 4)
+    for r, leaves in enumerate(got):
+        assert sorted(leaves) == sorted(jb)
+        for k, (box, local, shape) in leaves.items():
+            assert shape == tuple(np.shape(jb[k]))
+            assert box[0] == slice(2 * r, 2 * r + 2)
+            assert np.array_equal(local.numpy(), np.asarray(jb[k])[box]), (r, k)
+    refused = run_ranks(_meshed_pipeline_rows, 2, str(tmp_path / "b"), arch, 5)
+    assert all("does not split evenly" in e for e in refused)
 
 
 # -- train_loss -------------------------------------------------------------
@@ -315,11 +344,21 @@ def test_train_once_killed_and_resumed_matches_an_uninterrupted_run(tmp_path):
 
 
 def test_train_cli_refuses_a_mesh(capsys):
+    """The refusals that stay: a world size other than the mesh's product
+    (here no launcher, so one rank) and more ranks on a host than GPUs."""
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "qwen3-32b", "--reduced", "--mesh", "2x2"])
-    assert "--mesh 2x2" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="multi-GPU"):
+    assert "--mesh 2x2 needs 4 ranks" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         train_cli.train_once(_args("unused", mesh="1x2"), 0, device="cpu")
+    with pytest.raises(ValueError, match="world size is 2"):
+        train_cli.check_launch("2x2", 2, 2, None)
+    with pytest.raises(ValueError, match="2 ranks on this host but only 1 GPU"):
+        train_cli.check_launch("1x2", 2, 2, 1)
+    train_cli.check_launch("1x2", 2, 2, 2)
+    train_cli.check_launch("2x1x2", 4, 4, None)
+    with pytest.raises(ValueError, match="at most 3 dims"):
+        train_cli.parse_mesh("1x1x1x1")
 
 
 def test_jax_train_state_checkpoint_restores_in_the_port(tmp_path):

@@ -240,6 +240,22 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      checkpoint (one file per rank and leaf), then take a 4th step; the card
      restores the checkpoint whole onto its (1, 1) mesh and takes that step:
      its loss within 1e-4 of the CPU ranks'.
+  13. Costing and the dry run (roofline.py, launch/cells.py, costing.py,
+     dryrun.py; after 12, whose group is gone: each costing plays rank 0 of
+     a fake process group on fake tensors).  (13a) phase 11a's train step
+     costed on a fake (1, 1) mesh: its argument bytes within 1% of the
+     device memory 11a's state held when built, its dot FLOPs equal to
+     those counted over one real step of 11a's on the card; per-device
+     total beside 11a's peak; then phase 7's compressed zamba2-1.2b
+     prefill (4 x 1,024) and batch-4 decode step costed through the
+     kernels' costing adapters; each with its roofline terms and the share
+     bound / measured of 11a's median step and 7's TTFT and decode step.
+     (13b) the dry run at full width: qwen3-32b x train_4k and x
+     decode_32k on the fake 16 x 16 mesh (256 H100s): per-device GiB
+     against the card's memory, FLOPs, collective bytes by kind, roofline
+     terms, walls; every count finite and positive.  (13c) kernels/ops.py's
+     seven entry points once each at their phases' shapes against their
+     plain versions (annealers bit-identical on dyadic problems).
 
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
@@ -263,9 +279,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-F32_FLOPS = 67e12               # H100 SXM float32, outside the tensor cores
-BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the card's datasheet figures live in one place (outside the repository this
+# import fails, and the script exits non-zero with no result)
+from repro_torch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.roofline import PEAK_F32_FLOPS as F32_FLOPS  # noqa: E402
+from repro_torch.roofline import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
+
 SPIN_CYCLES = 200_000           # ~0.1 ms of the card's clock, longer than a call's host time
 ADD_CYCLES = 4                  # latency of one dependent f32 add (the annealers' chain bound)
 
@@ -3656,12 +3676,21 @@ def phase_granite_train(torch, dev, ckpt_dir):
     events, finals, failures = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def report(e):
+        # the device memory the state holds, read as soon as it is built
+        if e["event"] == "state":
+            torch.cuda.synchronize()
+            e = dict(e, memory_allocated=torch.cuda.memory_allocated() - base)
+        events.append(e)
+
     sa.sa_sweep_many.launches = 0
     bl.reset_counts()
     fa.flash_attention.launches = 0
     t0 = time.time()
     restarts = run_with_restarts(
-        lambda a: finals.append(train_cli.train_once(args, a, device=dev, report=events.append)),
+        lambda a: finals.append(train_cli.train_once(args, a, device=dev, report=report)),
         max_restarts=1, on_failure=lambda a, e: failures.append(f"attempt {a}: {e}"))
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -3704,6 +3733,9 @@ def phase_granite_train(torch, dev, ckpt_dir):
            "median_tokens_per_s": tokens / (statistics.median(steady) / 1e3),
            "resume_loss_rel_gap": gaps, "restarts": restarts,
            "peak_memory_allocated_bytes": peak,
+           # attempt 0's state (weights, moments, step) right after it was built
+           "state_memory_allocated_bytes": next(e["memory_allocated"] for e in events
+                                                if e["event"] == "state" and e["attempt"] == 0),
            "checkpoint_bytes": dir_bytes(os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}")),
            "saves": [{k: e[k] for k in ("step", "host_copy_s", "write_s")} for e in saves],
            "restore_s": resumes[0]["restore_s"],
@@ -4131,6 +4163,225 @@ def phase_mesh_restore(torch, dev, mesh, work_dir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: costing and the dry run (roofline.py, launch/cells.py,
+# launch/costing.py, launch/dryrun.py), and kernels/ops.py's entry points
+# ---------------------------------------------------------------------------
+
+COST_ARG_TOL = 0.01          # 13a: costed argument bytes against the state's memory
+DRYRUN_ARCH, DRYRUN_SHAPES = "qwen3-32b", ("train_4k", "decode_32k")   # 13b, 16 x 16
+
+
+def roofline_share(rec, measured_s) -> dict:
+    """A costed step's least time (its roofline terms) beside the time the
+    card took for it: ``share`` = bound_s / measured."""
+    return {"bound_s": rec["bound_s"], "dominant": rec["dominant"],
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "collective_s": rec["collective_s"], "measured_s": measured_s,
+            "share": rec["bound_s"] / measured_s}
+
+
+def phase_costing(torch, dev, train, zamba_gen, zamba_artifact):
+    """13a, the card's own cells costed (``launch/dryrun.run_cell`` and
+    ``launch/costing.cost_cell`` on a fake (1, 1) mesh) and held to the
+    card: phase 11a's granite-moe train step (8 x 1,024, AdamW, remat,
+    kernels off): its argument bytes within COST_ARG_TOL of the device
+    memory 11a's state held when built, and its dot FLOPs equal to those
+    counted over one real step of 11a's on the card; its per-device total
+    beside 11a's peak.  Then phase 7's compressed zamba2-1.2b prefill (4 x
+    1,024) and batch-4 decode step through the kernels' costing adapters.
+    Each with its roofline terms and its share of the time the card took
+    (11a's median step; 7's median time to first token and decode step)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import costing, dryrun
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.training import init_train_state, make_train_step
+
+    one = {"data": 1, "model": 1}
+    cfg, pcfg = moe_config(), mesh_pcfg((1, 1))
+    overrides = {f.name: getattr(pcfg, f.name) for f in dataclasses.fields(pcfg)}
+    shape = ShapeConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t = time.time()
+    rec = dryrun.run_cell(MOE_ARCH, shape, False, None, mesh=one, overrides=overrides)
+    cost_s = time.time() - t
+    mem = rec["memory"]
+    measured = train["state_memory_allocated_bytes"]
+    rel = abs(mem["argument_bytes"] - measured) / measured
+    check(rel <= COST_ARG_TOL, f"13a: argument bytes {mem['argument_bytes']} against the "
+                               f"state's {measured} on the card ({rel:.3g} > {COST_ARG_TOL})")
+
+    # one real step of 11a's, counted by the same mode
+    torch.cuda.synchronize()
+    state = init_train_state(SEED, cfg, pcfg, device=dev)
+    step_fn = make_train_step(cfg, pcfg, warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    batch = make_pipeline(cfg, shape, None, seed=SEED, device=dev).batch_at(0)
+    t = time.time()
+    with costing.counting() as c:
+        state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.time() - t
+    real = c.record()
+    check(math.isfinite(float(metrics["loss"])), "13a: the counted step's loss is not finite")
+    check(real["dot_flops"] == rec["cost"]["dot_flops"],
+          f"13a: costed dot FLOPs {rec['cost']['dot_flops']:.6e}, the real step's "
+          f"{real['dot_flops']:.6e}")
+    del state, step_fn, batch, metrics
+    torch.cuda.empty_cache()
+    out = {"granite_train": {
+        "cell": f"{MOE_ARCH} x train {TRAIN_BATCH}x{TRAIN_SEQ}, micro {TRAIN_MICRO}",
+        "mesh": rec["mesh"], "argument_bytes": mem["argument_bytes"],
+        "state_memory_allocated_bytes": measured, "argument_rel_diff": rel,
+        "per_device_total": mem["per_device_total"], "temp_bytes": mem["temp_bytes"],
+        "peak_memory_allocated_bytes": train["peak_memory_allocated_bytes"],
+        "dot_flops": rec["cost"]["dot_flops"], "real_step_dot_flops": real["dot_flops"],
+        "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes"],
+        "real_step_flops": real["dot_flops"] + real["elementwise_flops"],
+        "real_step_bytes": real["bytes"], "real_step_ops": real["ops"],
+        "counted_step_s": counted_s, "cost_s": cost_s,
+        **roofline_share(rec["roofline"], train["median_ms"] / 1e3)}}
+
+    zover = {"mesh_shape": (1, 1), "mesh_axes": ("data", "model")}
+    measured_s = {"prefill": zamba_gen["ttft_median_s"],
+                  "decode": zamba_gen["decode_ms_per_step"] / 1e3}
+    for kind, zshape in (("prefill", ShapeConfig("custom", "prefill", GEN_PROMPT, GEN_BATCH)),
+                         ("decode", ShapeConfig("custom", "decode", GEN_PROMPT + GEN_STEPS,
+                                                GEN_BATCH))):
+        t = time.time()
+        cc = costing.cost_cell(ZAMBA_ARCH, zshape, overrides=zover, mesh=one,
+                               artifact=zamba_artifact)
+        check(all(math.isfinite(cc[k]) and cc[k] > 0 for k in ("flops", "bytes", "bound_s")),
+              f"13a: zamba2 {kind} costs {cc}")
+        out[f"zamba2_{kind}"] = {"cell": f"{ZAMBA_ARCH} x {kind} {GEN_BATCH}x{zshape.seq_len}, "
+                                         "compressed (phase 7's artifact)",
+                                 "flops": cc["flops"], "dot_flops": cc["dot_flops"],
+                                 "bytes": cc["bytes"], "temp_bytes": cc["temp_bytes"],
+                                 "cost_s": time.time() - t,
+                                 **roofline_share(cc, measured_s[kind])}
+    emit({"costing_13a": out})
+    return out
+
+
+def phase_dryrun(torch):
+    """13b, the dry run at full width: qwen3-32b x train_4k and x decode_32k
+    on the fake 16 x 16 mesh (256 H100s), through ``run_cell`` (whose costs
+    are ``cost_cell``'s composition), and ``cost_cell`` alone on the decode
+    cell (the same dot FLOPs).  Per-device GiB against HBM_BYTES, FLOPs,
+    collective bytes by kind, roofline terms and walls; every count finite
+    and positive."""
+    from repro_torch import roofline
+    from repro_torch.launch import costing, dryrun
+
+    out = {"hbm_bytes": roofline.HBM_BYTES,
+           "total_memory": torch.cuda.get_device_properties(0).total_memory}
+    for shape in DRYRUN_SHAPES:
+        t = time.time()
+        rec = dryrun.run_cell(DRYRUN_ARCH, shape, False, None)
+        wall = time.time() - t
+        counts = [rec["memory"]["per_device_total"], rec["memory"]["argument_bytes"],
+                  rec["cost"]["flops"], rec["cost"]["dot_flops"], rec["cost"]["bytes"],
+                  rec["collectives"]["total"], rec["roofline"]["bound_s"]]
+        check(all(math.isfinite(v) and v > 0 for v in counts),
+              f"13b: {DRYRUN_ARCH} x {shape}: a count is not finite and positive {counts}")
+        out[shape] = {"mesh": rec["mesh"], "microbatches": rec["pcfg"]["microbatches"],
+                      "per_device_gib": rec["memory"]["per_device_total"] / 2 ** 30,
+                      "hbm_gib": roofline.HBM_BYTES / 2 ** 30, "fits_hbm": rec["fits_hbm"],
+                      "memory": rec["memory"], "cost": rec["cost"],
+                      "collectives": rec["collectives"], "roofline": rec["roofline"],
+                      "trace_s": rec["trace_s"], "wall_s": wall}
+    t = time.time()
+    cc = costing.cost_cell(DRYRUN_ARCH, "decode_32k")
+    check(cc["dot_flops"] == out["decode_32k"]["cost"]["dot_flops"],
+          f"13b: cost_cell's dot FLOPs {cc['dot_flops']} against run_cell's "
+          f"{out['decode_32k']['cost']['dot_flops']}")
+    out["cost_cell_decode_32k"] = {k: cc[k] for k in ("flops", "dot_flops", "coll_bytes",
+                                                      "bound_s", "dominant")}
+    out["cost_cell_decode_32k"]["wall_s"] = time.time() - t
+    emit({"dryrun_13b": out})
+    return out
+
+
+def phase_entry_points(torch, dev):
+    """13c, ``kernels/ops.py``'s seven entry points once each on the card
+    at their phases' shapes, against the plain versions: K3 at qwen's wq
+    (T = 4) and K4 at granite's gate stack (T = 4 per expert) in bf16
+    within BF16_TOL of max|y|; K5 at phase 4's prefill in bf16 within
+    ATTN_TOL; K1 (``sa_sweep``, ``sa_sweep_many``, ``sq_sweep_many``) at
+    phase 6's shape and K2 (``sqa_sweep_many``) at its nBOCSqa shape on
+    dyadic problems: identical bits."""
+    from repro_torch.core import ising
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out = {}
+
+    def packed(lead, n_r, n_c, tn, K, td):
+        mp = torch.randint(0, 1 << K, (*lead, n_r, n_c, tn, (K + 7) // 8), generator=g,
+                           device=dev, dtype=torch.int32).to(torch.uint8)
+        C = (0.05 * torch.randn((*lead, n_r, n_c, K, td), generator=g, device=dev))
+        return mp, C.to(torch.bfloat16)
+
+    _, qcfg = full_width_config()
+    d, hq = qcfg.d_model, qcfg.num_heads * qcfg.resolved_head_dim
+    mp, C = packed((), d // 32, hq // 128, 32, 4, 128)
+    x = torch.randn((GEN_BATCH, d), generator=g, device=dev).to(torch.bfloat16)
+    err, ok = variant_error(torch, ops.bitlinear(x, mp, C), ref.bitlinear_ref(x, mp, C, "unpack"),
+                            "bfloat16", "bfloat16")
+    check(ok, f"13c: ops.bitlinear differs from the plain version by {err:.3g}")
+    out["bitlinear"] = {"shape": list(mp.shape), "T": GEN_BATCH, "max_abs_err": err}
+
+    m = moe_config()
+    mp, C = packed((m.num_experts,), m.d_model // 32, m.d_ff // 128, 32, 4, 128)
+    x = torch.randn((m.num_experts, GEN_BATCH, m.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    err, ok = variant_error(torch, ops.bitlinear_grouped(x, mp, C),
+                            ref.bitlinear_grouped_ref(x, mp, C, "unpack"), "bfloat16", "bfloat16")
+    check(ok, f"13c: ops.bitlinear_grouped differs from the plain version by {err:.3g}")
+    out["bitlinear_grouped"] = {"shape": list(mp.shape), "T": GEN_BATCH, "max_abs_err": err}
+
+    B, H, KV, S, hd, win = (GEN_BATCH, qcfg.num_heads, qcfg.num_kv_heads, GEN_PROMPT,
+                            qcfg.resolved_head_dim, 0)
+    q, k, v = (torch.randn((B, h_, S, hd), generator=g, device=dev).to(torch.bfloat16)
+               for h_ in (H, KV, KV))
+    o, r = ops.flash_attention(q, k, v, win), ref.flash_attention_ref(q, k, v, win)
+    tol = ATTN_TOL["bfloat16"]
+    diff = (o.float() - r.float()).abs()
+    check(bool((diff <= tol + tol * r.float().abs()).all()),
+          f"13c: ops.flash_attention beyond {tol}: {float(diff.max()):.3g}")
+    out["flash_attention"] = {"shape": [B, H, KV, S, hd], "max_abs_err": float(diff.max())}
+    del q, k, v, o, r, diff
+
+    P, Cc, Sw, n = K1_FIXTURES["sa_phase6_25"][:4]
+    h, Bm = dyadic_problems(torch, g, P, n, dev)
+    x0 = (2.0 * torch.randint(0, 2, (P, Cc, n), generator=g, device=dev) - 1.0).contiguous()
+    u = torch.rand((P, Cc, Sw, n), generator=g, device=dev)
+    temps = ising._temperature_schedule(h, Bm, Sw).float().contiguous()
+    runs = {
+        "sa_sweep_many": (ops.sa_sweep_many(h, Bm, x0, u, temps),
+                          ref.sa_sweep_many_ref(h, Bm, x0, u, temps)),
+        "sq_sweep_many": (ops.sq_sweep_many(h, Bm, x0, u, 0.1),
+                          ref.sa_sweep_many_ref(h, Bm, x0, u, torch.full_like(temps, 0.1))),
+        "sa_sweep": (ops.sa_sweep(h[0], Bm[0], x0[0], u[0], temps[0]),
+                     tuple(t[0] for t in ref.sa_sweep_many_ref(h[:1], Bm[:1], x0[:1], u[:1],
+                                                               temps[:1]))),
+    }
+    P2, C2, T2, S2, n2 = K2_FIXTURES["paper_shape"]
+    h2, B2 = dyadic_problems(torch, g, P2, n2, dev)
+    X0 = (2.0 * torch.randint(0, 2, (P2, C2, T2, n2), generator=g, device=dev) - 1.0)
+    u2 = torch.rand((P2, C2, S2, T2, n2), generator=g, device=dev)
+    jp = ising.sqa_jperps(S2, T2, SQA_TEMPERATURE, SQA_GAMMA0, dev).contiguous()
+    runs["sqa_sweep_many"] = (ops.sqa_sweep_many(h2, B2, X0, u2, jp, SQA_TEMPERATURE),
+                              ref.sqa_sweep_many_ref(h2, B2, X0.contiguous(), u2, jp,
+                                                     SQA_TEMPERATURE))
+    torch.cuda.synchronize()
+    for name, ((xk, ek), (xr, er)) in runs.items():
+        check(torch.equal(xk, xr) and torch.equal(ek, er),
+              f"13c: ops.{name} differs from the plain version")
+        out[name] = {"shape": list(xk.shape), "identical": True}
+    emit({"entry_points_13c": out})
+    return out
+
+
 def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
     launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
@@ -4202,7 +4453,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4307,6 +4557,9 @@ def main() -> int:
         t = time.time()
         zamba_gen = phase_zamba_generate(torch, dev, zamba_dir)
         phases["zamba2_generate_s"] = time.time() - t
+        from repro_torch.compression import CompressionArtifact
+
+        zamba_artifact = CompressionArtifact.load(zamba_dir)     # costed in phase 13a
         t = time.time()
         sched7c = phase_zamba_sched(torch, dev, zamba_dir)
         phases["scheduler_7c_s"] = time.time() - t
@@ -4391,6 +4644,16 @@ def main() -> int:
     finally:
         for d in (train_dir, cycle_dir):
             shutil.rmtree(d, ignore_errors=True)
+    t13 = time.time()
+    phase_costing(torch, dev, train, zamba_gen, zamba_artifact)
+    phases["costing_13a_s"] = time.time() - t13
+    t = time.time()
+    phase_dryrun(torch)
+    phases["dryrun_13b_s"] = time.time() - t
+    t = time.time()
+    phase_entry_points(torch, dev)
+    phases["entry_points_13c_s"] = time.time() - t
+    phases["phase13_s"] = time.time() - t13
     emit({"phase_s": phases})
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
     launch = kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned)

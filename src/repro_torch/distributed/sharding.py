@@ -55,6 +55,7 @@ __all__ = [
     "current_rule",
     "constrain",
     "fit",
+    "row_axes",
     "axes_group",
     "axes_index",
     "data_parallel",
@@ -312,6 +313,16 @@ def fit(dim: int, entry, sizes: dict):
     return None
 
 
+def row_axes(rows: int, mesh, include_model: bool = False) -> tuple:
+    """The mesh axes a step splits ``rows`` over: the largest dividing
+    suffix of the dp axes ((pod, data), with ``model`` too when
+    ``include_model``), () for none."""
+    sizes = mesh_shape(mesh)
+    names = ("pod", "data", "model") if include_model else ("pod", "data")
+    axes = fit(rows, tuple(a for a in names if a in sizes), sizes)
+    return () if axes is None else axes if isinstance(axes, tuple) else (axes,)
+
+
 def constrain(x, kind: str):
     """Redistribute a DTensor to the installed rule ``kind`` (each entry
     fitted to its dim); a plain tensor, or no rule, passes unchanged.
@@ -336,8 +347,13 @@ def constrain(x, kind: str):
 def axes_group(mesh, axes: tuple):
     """The process group of the ranks that differ only along ``axes`` from
     this one (None for no axes).  Every rank must call it with the same
-    ``axes``: a group over several axes is made collectively, once."""
+    ``axes``: a group over several axes is made collectively, once.  The
+    rank lists come from the mesh's rank grid read outside any dispatch
+    mode, in Python ints, so this runs under ``FakeTensorMode`` too."""
+    import itertools
+
     import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
 
     axes = tuple(axes)
     if not axes:
@@ -346,13 +362,28 @@ def axes_group(mesh, axes: tuple):
         return mesh.get_group(axes[0])
     cache = mesh.__dict__.setdefault("_repro_axes_groups", {})
     if axes not in cache:
-        names = list(mesh.mesh_dim_names)
-        grid = mesh.mesh
+        names, sizes = list(mesh.mesh_dim_names), [int(s) for s in mesh.shape]
+        with _disable_current_modes():
+            grid = mesh.mesh.tolist()
         keep = [names.index(a) for a in axes]
-        rest = [i for i in range(grid.ndim) if i not in keep]
-        slices = grid.permute(rest + keep).reshape(-1, math.prod(grid.shape[i] for i in keep))
+        rest = [i for i in range(len(sizes)) if i not in keep]
+
+        def rank(idx):
+            v = grid
+            for i in idx:
+                v = v[i]
+            return v
+
         me = dist.get_rank()
-        for ranks in slices.tolist():
+        # the ranks of each group: row-major over the other axes, then over
+        # ``axes`` (the first major) inside a group
+        for outer in itertools.product(*(range(sizes[i]) for i in rest)):
+            ranks = []
+            for inner in itertools.product(*(range(sizes[i]) for i in keep)):
+                idx = [0] * len(sizes)
+                for i, v in zip(rest + keep, outer + inner):
+                    idx[i] = v
+                ranks.append(rank(idx))
             g = dist.new_group(ranks)
             if me in ranks:
                 cache[axes] = g

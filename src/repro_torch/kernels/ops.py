@@ -1,6 +1,11 @@
-"""Kernel routing for the model's hot paths.
+"""The kernels' direct entry points, and kernel routing for the model's hot paths.
 
-Counterpart of ``repro/kernels/ops.py``.  ``enable_kernels()`` registers
+Counterpart of ``repro/kernels/ops.py``.  ``bitlinear``,
+``bitlinear_grouped``, ``flash_attention``, ``sa_sweep``,
+``sa_sweep_many``, ``sq_sweep_many`` and ``sqa_sweep_many`` take the
+reference's parameters but ``interpret``, which has no counterpart: the
+route is the tensors' device, the CUDA kernel for CUDA tensors and its
+plain version for CPU ones.  ``enable_kernels()`` registers
 the flash-attention adapter into :mod:`repro_torch.models.attention` (every
 prefill without ``attend_cache`` runs ``kernels.flash_attention``) and the
 fused bitlinear hooks into :mod:`repro_torch.core.quantized` (every
@@ -19,19 +24,81 @@ import torch
 
 from repro_torch.core import quantized
 from repro_torch.kernels import autotune
-from repro_torch.kernels.bitlinear import bitlinear, bitlinear_grouped
+from repro_torch.kernels import sa_sweep as _sa
+from repro_torch.kernels import sqa_sweep as _sqa
+from repro_torch.kernels.bitlinear import bitlinear as _bitlinear
+from repro_torch.kernels.bitlinear import bitlinear_grouped as _bitlinear_grouped
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_lib
 
 __all__ = [
+    "bitlinear",
+    "bitlinear_grouped",
+    "flash_attention",
+    "sa_sweep",
+    "sa_sweep_many",
+    "sq_sweep_many",
+    "sqa_sweep_many",
     "enable_kernels",
     "disable_kernels",
     "kernels_off",
     "apply_compressed_fused",
     "apply_compressed_grouped_fused",
-    "flash_attention",
     "flash_attention_model_layout",
 ]
+
+
+def bitlinear(x, m_packed, C, block_t: int = 128, mode: str = "auto", math: str = "unpack",
+              r_chunk: int = 1, vmem_budget: int | None = None):
+    """y (T, n_c*td) = x @ decompress(m_packed, C): kernel K3
+    (``kernels.bitlinear.bitlinear``).  ``vmem_budget``, the reference's
+    budget of its schedule, is the shared memory a block may take here (the
+    budget of ``default_schedule`` and of the launch; default the card's)."""
+    return _bitlinear(x, m_packed, C, block_t=block_t, mode=mode, math=math, r_chunk=r_chunk,
+                      smem_budget=vmem_budget)
+
+
+def bitlinear_grouped(x, m_packed, C, block_t: int = 128, mode: str = "auto",
+                      math: str = "unpack", r_chunk: int = 1, vmem_budget: int | None = None):
+    """The grouped form, one expert per leading index: kernel K4
+    (``kernels.bitlinear.bitlinear_grouped``); ``vmem_budget`` as in
+    :func:`bitlinear`."""
+    return _bitlinear_grouped(x, m_packed, C, block_t=block_t, mode=mode, math=math,
+                              r_chunk=r_chunk, smem_budget=vmem_budget)
+
+
+def _f32(*ts):
+    return tuple(t.to(torch.float32).contiguous() for t in ts)
+
+
+def sa_sweep_many(h, B, x0, rand, temps, block_p: int | None = None):
+    """Batched SA (kernel K1): h (P, n), B (P, n, n), x0 (P, C, n), rand
+    (P, C, S, n), temps (P, S) -> (x (P, C, n), energy (P, C)), cast to
+    float32 as the reference casts.  ``block_p``, the reference's block of
+    problems a Pallas program takes, changes nothing here: the kernel lays
+    out its blocks by its own rule (``sa_sweep.lanes_per_chain``)."""
+    del block_p
+    return _sa.sa_sweep_many(*_f32(h, B, x0, rand, temps))
+
+
+def sq_sweep_many(h, B, x0, rand, temperature: float = 0.1, block_p: int | None = None):
+    """Simulated quench: K1 at one constant temperature (``block_p`` as in
+    :func:`sa_sweep_many`)."""
+    del block_p
+    return _sa.sq_sweep_many(*_f32(h, B, x0, rand), temperature=temperature)
+
+
+def sa_sweep(h, B, x0, rand, temps):
+    """One problem: h (n,), B (n, n), x0 (C, n), rand (C, S, n), temps (S,)
+    -> (x (C, n), energy (C,)), through :func:`sa_sweep_many` at P = 1."""
+    x, e = sa_sweep_many(h[None], B[None], x0[None], rand[None], temps[None])
+    return x[0], e[0]
+
+
+def sqa_sweep_many(h, B, X0, rand, jperps, temperature: float = 0.05):
+    """Path-integral SQA over Trotter replicas (kernel K2), cast to float32
+    as the reference casts; shapes as ``kernels.sqa_sweep.sqa_sweep_many``."""
+    return _sqa.sqa_sweep_many(*_f32(h, B, X0, rand, jperps), temperature=temperature)
 
 
 def flash_attention_model_layout(qh, k, v, window: int):
@@ -99,7 +166,7 @@ def apply_compressed_fused(x, w, block_t: int = 128, mode: str = "auto",
     x2 = x.reshape(-1, x.shape[-1])
     kw = _schedule_kwargs(schedule, mode, block_t,
                           lambda: autotune.resolve_fused(x2, w["m_packed"], C))
-    y = bitlinear(x2, w["m_packed"], C, **kw)
+    y = _bitlinear(x2, w["m_packed"], C, **kw)
     return y.reshape(*lead, n_c * td)
 
 
@@ -116,5 +183,5 @@ def apply_compressed_grouped_fused(x, w, block_t: int = 128, mode: str = "auto",
     x3 = x.reshape(E, -1, x.shape[-1]).contiguous()
     kw = _schedule_kwargs(schedule, mode, block_t,
                           lambda: autotune.resolve_grouped(x3, w["m_packed"], C))
-    y = bitlinear_grouped(x3, w["m_packed"], C, **kw)
+    y = _bitlinear_grouped(x3, w["m_packed"], C, **kw)
     return y.reshape(E, *lead, n_c * td)

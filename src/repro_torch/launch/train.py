@@ -85,7 +85,9 @@ def train_once(args, attempt: int, device=None, report=None):
     at step 0), train to ``args.steps`` on ``device`` (default: the GPU),
     saving every ``args.ckpt_every`` steps and at the end.  Returns the
     final ``TrainState``.  ``report``, when given, receives a dict per
-    event: ``{"event": "resume", "step", "restore_s"}``, ``{"event":
+    event: ``{"event": "state", "step"}`` once the state is built or
+    restored (before the pipeline: a caller reads the device memory it
+    holds there), ``{"event": "resume", "step", "restore_s"}``, ``{"event":
     "step", "step", "loss", "grad_norm", "lr", "s"}`` and ``{"event":
     "save", "step", "host_copy_s", "write_s"}`` (each with ``attempt``).
 
@@ -147,6 +149,7 @@ def train_once(args, attempt: int, device=None, report=None):
         say(f"[resume] from step {start} (attempt {attempt})")
     else:
         state = init_train_state(args.seed, cfg, pcfg, device=device, mesh=mesh)
+    emit("state", step=start if start is not None else 0)
 
     step_fn = make_train_step(cfg, pcfg, warmup_cosine(args.lr, args.warmup, args.steps))
     pipe = make_pipeline(cfg, shape, mesh, seed=args.seed, device=device)

@@ -19,8 +19,19 @@ more than one rank and divides the cache, ``_decode_attention`` computes
 each rank's partial softmax statistics over its slice of the cache's
 sequence and combines them with all-reduces (MAX, then SUM) over that mesh
 axis, as the reference's ``shard_map`` branch does with pmax/psum; plain
-torch and collectives, as in JAX no Pallas kernel.  The costing twin
-``_chunked_attention_unrolled`` is not ported yet (ROADMAP.md).
+torch and collectives, as in JAX no Pallas kernel.  A cache whose k/v
+are such DTensors is written in place too: each rank writes the positions
+that fall in its slice (``_write_cache``).
+
+The costing twin ``_chunked_attention_unrolled`` (``unroll=True``, taken
+before any flash hook, as the reference checks ``unroll`` first) walks the
+reference's block pairs: every pair, or with ``CAUSAL_SKIP_UNROLL`` the
+causal lower triangle from the twin's own lower bound.  The port's loops
+are eager Python, so the twin changes which pairs are visited, not how
+they are counted; unlike the reference's twin it runs under the same
+``layers.remat`` as the production loop, so a costed train step recomputes
+the attention core in backward exactly as the trained one does
+(ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -40,7 +51,13 @@ __all__ = ["init_attention", "attention", "init_kv_cache", "register_flash", "cl
 # fn(q (B, S, KV, rep, hd), k, v (B, S, KV, hd), window) -> (B, S, KV, rep, hd)
 _FLASH_IMPL = None
 
-# q/kv chunk of the plain prefill loop
+# Costing toggle: False makes the costing twin visit ALL (q, kv) block pairs,
+# as the training loop does (masked blocks included); True costs the
+# causal-block-skipping variant (launch/costing.py sets it per cell).
+CAUSAL_SKIP_UNROLL = False
+
+# q/kv chunk of the plain prefill loop and the twin; the costing overrides
+# it at long sequences (launch/costing.py)
 Q_CHUNK_DEFAULT = 512
 
 
@@ -133,6 +150,51 @@ def _chunked_attention(q, k, v, window: int, q_chunk: int, causal_skip: bool = F
     return o.permute(1, 0, 4, 2, 3, 5).reshape(B, S, KV, rep, hd)
 
 
+def _chunked_attention_unrolled(q, k, v, window: int, q_chunk: int):
+    """Costing twin of :func:`_chunked_attention` (the reference's, block
+    for block): the same math over every (q, kv) block pair, or with
+    ``CAUSAL_SKIP_UNROLL`` over the causal lower triangle from the twin's
+    lower bound ``(i*qc - (window-1) - qc + 1) // qc``, which is the
+    reference twin's, one block below the production loop's."""
+    B, S, KV, rep, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    nq = max(S // q_chunk, 1)
+    qc = S // nq
+    ar = torch.arange(qc, device=q.device)
+    outs = []
+    for i in range(nq):
+        qb = q[:, i * qc:(i + 1) * qc]
+        m = torch.full((B, KV, rep, qc), float("-inf"), dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, KV, rep, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KV, rep, qc, hd), dtype=torch.float32, device=q.device)
+        if CAUSAL_SKIP_UNROLL:
+            j_lo = 0 if window <= 0 else max(0, (i * qc - (window - 1) - qc + 1) // qc)
+            j_range = range(j_lo, i + 1)
+        else:
+            j_range = range(nq)
+        for j in j_range:
+            kj, vj = k[:, j * qc:(j + 1) * qc], v[:, j * qc:(j + 1) * qc]
+            s = torch.einsum("bqgrh,bkgh->bgrqk", qb, kj).to(torch.float32) * scale
+            q_pos = i * qc + ar
+            k_pos = j * qc + ar
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if window > 0:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = s.masked_fill(~mask, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None]).masked_fill(~mask, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgh->bgrqh", p.to(qb.dtype), vj
+            ).to(torch.float32)
+            m = m_new
+        out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+        outs.append(out.permute(0, 3, 1, 2, 4))       # (B, qc, KV, rep, hd)
+    return torch.cat(outs, dim=1)
+
+
 def _mask(s, valid):
     vb = valid[:, None, None, :] if valid.ndim == 2 else valid[None, None, None]
     return s.masked_fill(~vb, float("-inf"))
@@ -152,7 +214,7 @@ def _decode_attention(qh, ck, cv, valid, scale: float, out_dtype):
 
     axis, dp, mesh = shd.current_rule("decode_sp_axis"), shd.current_rule("dp_axes"), \
         shd.current_mesh()
-    B, Smax = qh.shape[0], ck.shape[1]
+    B, Smax = ck.shape[0], ck.shape[1]      # the cache's rows: all of them for a DTensor
     if axis is not None and mesh is not None:
         sizes = shd.mesh_shape(mesh)
         ax = sizes.get(axis, 0)
@@ -224,12 +286,54 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> 
     }
 
 
+def _slots(pos_offset: int, S: int, cache_len: int, ring: bool) -> list:
+    """[(first token, first slot, count)]: the runs of slots that a write of
+    S tokens from one start position fills, as ``_write_cache`` places them
+    in a whole cache."""
+    if not (ring and S >= cache_len):
+        wp = pos_offset % cache_len if ring else pos_offset
+        return [(0, min(max(wp, 0), cache_len - S), S)]
+    # only the last cache_len tokens land: token t in slot (pos + t) % cache_len
+    runs, t = [], S - cache_len
+    while t < S:
+        slot = (pos_offset + t) % cache_len
+        n = min(S - t, cache_len - slot)
+        runs.append((t, slot, n))
+        t += n
+    return runs
+
+
+def _write_sharded_cache(ck, cv, k, v, pos_offset: int, ring: bool):
+    """A DTensor cache sharded over its rows and sequence: this rank writes
+    the positions of its rows that fall in its sequence slice."""
+    from repro_torch.distributed import sharding as shd
+
+    rows, seq = shd.dtensor_box(ck)[:2]
+    if k.shape[0] != rows.stop - rows.start:
+        raise ValueError(f"cache write: {k.shape[0]} rows of k for this rank's {rows} of the "
+                         "cache")
+    lk, lv = ck.to_local(), cv.to_local()
+    for t, slot, n in _slots(pos_offset, k.shape[1], ck.shape[1], ring):
+        lo, hi = max(slot, seq.start), min(slot + n, seq.stop)
+        if lo < hi:
+            src = slice(t + lo - slot, t + hi - slot)
+            lk[:, lo - seq.start:hi - seq.start] = k[:, src]
+            lv[:, lo - seq.start:hi - seq.start] = v[:, src]
+    return {"k": ck, "v": cv}
+
+
 def _write_cache(cache, k, v, pos_offset, pos_is_vec: bool, ring: bool):
     """Write this call's k/v into the cache in place (JAX writes a new one);
     start positions clamp so the slice fits, as dynamic_update_slice does."""
+    from repro_torch.distributed import sharding as shd
+
     ck, cv = cache["k"], cache["v"]
     B, S = k.shape[:2]
     cache_len = ck.shape[1]
+    if shd.is_dtensor(ck):
+        if pos_is_vec:
+            raise NotImplementedError("a sharded cache takes one start position for all rows")
+        return _write_sharded_cache(ck, cv, k, v, pos_offset, ring)
     if pos_is_vec:
         if ring and S > 1:
             raise NotImplementedError(
@@ -264,6 +368,7 @@ def attention(
     window: int | None = None,
     q_chunk: int | None = None,
     attend_cache: bool = False,
+    unroll: bool = False,
 ):
     """Returns (out, new_cache).  Modes:
       cache is None              -> prefill without a cache
@@ -276,7 +381,8 @@ def attention(
 
     ``pos_offset`` is an int (every row at the same position) or a (B,)
     tensor of per-row positions.  A cache exactly ``window`` long on a
-    sliding-window layer is a ring buffer."""
+    sliding-window layer is a ring buffer.  ``unroll`` runs the costing
+    twin in place of the prefill loop and of any flash hook."""
     B, S, _ = h.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     rep = H // KV
@@ -328,7 +434,10 @@ def attention(
         o = o.reshape(B, S, H * hd)
     else:
         qh = q.reshape(B, S, KV, rep, hd)
-        if _FLASH_IMPL is not None:
+        if unroll:
+            o = layers.remat(functools.partial(
+                _chunked_attention_unrolled, window=window, q_chunk=q_chunk), qh, k, v)
+        elif _FLASH_IMPL is not None:
             o = _FLASH_IMPL(qh, k, v, window)
         else:
             # under remat while autograd records, as the reference checkpoints

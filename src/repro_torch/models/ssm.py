@@ -140,12 +140,16 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     }
 
 
-def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None = None):
+def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None = None,
+              unroll: bool = False):
     """Returns (out (B, S, d), cache); ``p`` holds tensors (``forward``
     strips the Params).  With a cache, S == 1 is an O(1) decode step and
     S > 1 a prefill continuing from the cache's state; the new conv window
     and state are copied into the cache, which is returned.  Without one,
-    the state starts at zero and None is returned."""
+    the state starts at zero and None is returned.  ``unroll`` (the
+    reference's costing twin of the SSD's chunk scan) is accepted and
+    changes nothing: the port's chunk loop is already eager Python, and
+    every chunk is counted as it runs."""
     B, S, d = h.shape
     di, ds, ng, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads
     hp = cfg.ssm_headdim

@@ -69,18 +69,19 @@ def _init_shared_attn(generator, cfg: ModelConfig, dtype) -> dict:
 
 
 def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_offset,
-                 window, attend_cache=False):
+                 window, attend_cache=False, unroll=False):
     """Returns (h, new_cache, aux); aux (the MoE balance loss) is 0.0 for
     every block but ``attn_moe``.  With ``parallel_block`` both attention
     kinds run the dense MLP beside attention, as ``repro`` does.
     ``ssm_attn`` runs the SSM, then the shared attention block with the
-    ``shared`` parameters."""
+    ``shared`` parameters.  ``unroll`` takes the costing twin of attention
+    (``models/attention.py``)."""
     aux = 0.0
-    kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
+    kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache, unroll=unroll)
     if kind in ("ssm", "ssm_attn"):
         sc = cache["ssm"] if cache is not None else None
         s, new_sc = ssm.ssm_block(layers.rms_norm(h, p["norm1"], cfg.norm_eps), p["ssm"], cfg,
-                                  cache=sc)
+                                  cache=sc, unroll=unroll)
         h = h + s
         new_cache = {"ssm": new_sc} if cache is not None else None
         if kind == "ssm_attn":
@@ -116,14 +117,14 @@ def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_o
 
 
 def _apply_group(h, gp, cfg: ModelConfig, shared=None, *, cache, pos_offset, window,
-                 attend_cache=False):
+                 attend_cache=False, unroll=False):
     aux = 0.0
     new_cache = {} if cache is not None else None
     for i, kind in enumerate(cfg.block_pattern):
         key = f"{i}"
         h, nc, a = _apply_block(
             h, gp[key], kind, cfg, shared, cache=None if cache is None else cache[key],
-            pos_offset=pos_offset, window=window, attend_cache=attend_cache,
+            pos_offset=pos_offset, window=window, attend_cache=attend_cache, unroll=unroll,
         )
         if cache is not None:
             new_cache[key] = nc
@@ -245,13 +246,16 @@ def forward(
     last_only: bool = False,
     return_hidden: bool = False,
     attend_cache: bool = False,
+    unroll: bool = False,
 ):
     """inputs: {"tokens": (B, S) int} or {"embeds": (B, S, d)}.
     Returns (logits (B, S, V), new_cache, aux_loss).  ``last_only`` computes
     logits for the final position only; ``return_hidden`` skips the head and
     returns the post-final-norm hidden states.  A given cache is written in
     place (see ``models/attention.py``) and returned; both cache forms of
-    ``init_cache`` are accepted.
+    ``init_cache`` are accepted.  ``unroll`` runs the costing twins
+    (``launch/costing.py``): attention's block loop as the reference's twin
+    walks it, under the same remat as the production loop.
 
     The ``constrain`` points are the reference's; no path of the port
     passes DTensor activations, so they return their input
@@ -271,7 +275,7 @@ def forward(
     h = constrain(h, "hidden")
     window = cfg.sliding_window if window is None else window
     shared = p.get("shared")
-    kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache)
+    kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache, unroll=unroll)
 
     # remat per group and per remainder layer, as the reference's
     # jax.checkpoint around its scan body and its remainder blocks
@@ -339,14 +343,14 @@ def forward(
     return logits, new_cache, aux_total
 
 
-def train_loss(params, batch, cfg: ModelConfig):
+def train_loss(params, batch, cfg: ModelConfig, *, unroll: bool = False):
     """Next-token CE (+ z-loss) + 0.01 x the MoE balance loss; returns
     (loss, metrics).  The CE is computed from the hidden states one sequence
     chunk at a time (``layers.chunked_softmax_cross_entropy``), so the (B,
     S, V) logits are never all alive.  ``batch`` holds ``tokens`` (targets
     are the next tokens) or ``embeds`` with ``labels``, and an optional
     ``loss_mask``."""
-    h, _, aux = forward(params, batch, cfg, return_hidden=True)
+    h, _, aux = forward(params, batch, cfg, return_hidden=True, unroll=unroll)
     p = _values(params)
     head_w = gather_params(p["embed"], "embed")["table"].T if cfg.tie_embeddings \
         else gather_params(p["head"], "head")["w"]

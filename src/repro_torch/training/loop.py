@@ -75,6 +75,7 @@ __all__ = [
     "make_train_step",
     "state_shardings",
     "batch_sharding",
+    "sharded_update",
 ]
 
 
@@ -176,16 +177,59 @@ def init_train_state(seed: int, cfg: ModelConfig, pcfg: ParallelConfig,
     return TrainState(step=step, params=params, opt=opt)
 
 
-def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
+def sharded_update(opt, pcfg: ParallelConfig, state: TrainState, grads: list, step, lr):
+    """The sharded step's update of ``state`` (DTensor leaves) in place from
+    ``grads``, this rank's boxes of the gradients in ``tree_paths`` order:
+    the global norm, each element counted once over the ranks, then the
+    optimiser on this rank's shards.  Returns the norm."""
+    import torch.distributed as dist
+
+    from repro_torch.compression.execute import _replace
+    from repro_torch.compression.plan import tree_paths
+
+    mesh = state.step.device_mesh
+    paths, leaves = zip(*tree_paths(state.params))
+    local = [shd.local_value(p).detach() for p in leaves]
+    shardings = {p: shd.sharding_of(x) for p, x in zip(paths, leaves)}
+    if math.prod(shd.mesh_shape(mesh).values()) == 1:
+        gnorm = global_norm(_replace(state.params, dict(zip(paths, grads))))
+    else:
+        # each element once: a box held by several ranks counts on one
+        sq = [torch.sum(torch.square(g.to(torch.float32))) *
+              float(shardings[p].holds_first_replica()) for p, g in zip(paths, grads)]
+        gnorm = torch.sum(torch.stack(sq))
+        dist.all_reduce(gnorm)
+        gnorm = torch.sqrt(gnorm)
+    if pcfg.optimizer == "adamw":
+        opt.update(_replace(state.params, dict(zip(paths, grads))),
+                   _map(shd.local_value, state.opt), _replace(state.params,
+                                                          dict(zip(paths, local))),
+                   step, lr, norm=gnorm)
+    else:
+        # factored moments and update clipping reduce over whole dims:
+        # one whole leaf at a time, each rank keeping its box
+        for p, x, g in zip(paths, leaves, grads):
+            moments = _subtree(state.opt, p)
+            whole = [shd.full_value(x)] + [shd.full_value(m) for m in moments.values()]
+            grad = shardings[p].from_local(g, x.shape)
+            opt.update({"x": shd.full_value(grad)}, {"x": dict(zip(moments, whole[1:]))},
+                       {"x": whole[0]}, step, lr)
+            for dt, full in zip([x, *moments.values()], whole):
+                if not shd.is_whole(dt):
+                    dt.to_local().copy_(full[shd.dtensor_box(dt)])
+    return gnorm
+
+
+def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule, *,
+                    unroll: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)`` with metrics
-    ``loss``, ``grad_norm`` and ``lr`` (0-d float32 tensors).  The batch's
+    ``loss``, ``grad_norm`` and ``lr`` (0-d float32 tensors).  ``unroll``
+    runs the model's costing twins (``models.forward``).  The batch's
     leading dim splits into ``pcfg.microbatches`` microbatches; the loss and
     the gradients are their means, the gradients summed in
     ``pcfg.accum_dtype``.  A state of DTensors (``init_train_state(...,
     mesh=)``) takes the sharded step (module docstring); its batch is the
     global batch, as DTensors (``make_pipeline(..., mesh)``) or whole."""
-    import torch.distributed as dist
-
     from repro_torch.compression.execute import _replace
     from repro_torch.compression.plan import tree_paths
     from repro_torch.kernels.ops import kernels_off
@@ -202,7 +246,8 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
         def loss_and_grads(mb):
             live = [p.detach().requires_grad_(True) for p in params]
             with kernels_off(), torch.enable_grad():
-                loss = train_loss(_replace(state.params, dict(zip(paths, live))), mb, cfg)[0]
+                loss = train_loss(_replace(state.params, dict(zip(paths, live))), mb, cfg,
+                                  unroll=unroll)[0]
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
             return loss.detach(), [torch.zeros_like(p) if g is None else g
                                    for p, g in zip(params, grads)]
@@ -241,7 +286,6 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
 
     def sharded_step(state: TrainState, batch: dict):
         mesh = state.step.device_mesh
-        sizes = shd.mesh_shape(mesh)
         paths, leaves = zip(*tree_paths(state.params))
         local = [shd.local_value(p).detach() for p in leaves]
         shardings = {p: shd.sharding_of(x) for p, x in zip(paths, leaves)}
@@ -250,10 +294,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
         # runs its share of the block over the dp axes
         glob = {k: shd.full_value(v) for k, v in batch.items()}
         rows = next(iter(glob.values())).shape[0] // n_micro
-        dp_names = ("pod", "data", "model") if pcfg.dp_includes_model else ("pod", "data")
-        row_axes = shd.fit(rows, tuple(a for a in dp_names if a in sizes), sizes)
-        row_axes = () if row_axes is None else (row_axes if isinstance(row_axes, tuple)
-                                                else (row_axes,))
+        row_axes = shd.row_axes(rows, mesh, pcfg.dp_includes_model)
         idx, count = shd.axes_index(mesh, row_axes)
         group = shd.axes_group(mesh, row_axes) if count > 1 else None
         per = rows // count
@@ -271,32 +312,7 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule):
 
         step = shd.local_value(state.step)
         lr = lr_schedule(step)
-        if math.prod(sizes.values()) == 1:
-            gnorm = global_norm(_replace(state.params, dict(zip(paths, grads))))
-        else:
-            # each element once: a box held by several ranks counts on one
-            sq = [torch.sum(torch.square(g.to(torch.float32))) *
-                  float(shardings[p].holds_first_replica()) for p, g in zip(paths, grads)]
-            gnorm = torch.sum(torch.stack(sq))
-            dist.all_reduce(gnorm)
-            gnorm = torch.sqrt(gnorm)
-        if pcfg.optimizer == "adamw":
-            opt.update(_replace(state.params, dict(zip(paths, grads))),
-                       _map(shd.local_value, state.opt), _replace(state.params,
-                                                              dict(zip(paths, local))),
-                       step, lr, norm=gnorm)
-        else:
-            # factored moments and update clipping reduce over whole dims:
-            # one whole leaf at a time, each rank keeping its box
-            for p, x, g in zip(paths, leaves, grads):
-                moments = _subtree(state.opt, p)
-                whole = [shd.full_value(x)] + [shd.full_value(m) for m in moments.values()]
-                grad = shardings[p].from_local(g, x.shape)
-                opt.update({"x": shd.full_value(grad)}, {"x": dict(zip(moments, whole[1:]))},
-                           {"x": whole[0]}, step, lr)
-                for dt, full in zip([x, *moments.values()], whole):
-                    if not shd.is_whole(dt):
-                        dt.to_local().copy_(full[shd.dtensor_box(dt)])
+        gnorm = sharded_update(opt, pcfg, state, grads, step, lr)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         new_step = shd.NamedSharding(mesh, ()).from_local(step + 1, ())
         return TrainState(new_step, state.params, state.opt), metrics

@@ -1207,3 +1207,64 @@ def test_launcher_refuses_two_ranks_on_one_gpu(dev, tmp_path):
         capture_output=True, text=True, timeout=300, env=env, cwd=root)
     assert r.returncode != 0
     assert "--mesh 1x2: 2 ranks on this host but only 1 GPU(s)" in r.stderr
+
+
+# kernels/ops.py's direct entry points: each launches its kernel on CUDA
+# tensors and agrees with its plain version (annealers bit for bit on dyadic
+# problems; K3/K4 in bf16 within 2e-2 of max|y|; K5 as the K5 checks)
+@pytest.mark.parametrize("name", ["bitlinear", "bitlinear_grouped", "flash_attention",
+                                  "sa_sweep", "sa_sweep_many", "sq_sweep_many",
+                                  "sqa_sweep_many"])
+def test_entry_point_launches_and_matches_plain(dev, name):
+    g = torch.Generator(device=dev).manual_seed(27)
+    rng = np.random.default_rng(27)
+    if name in ("bitlinear", "bitlinear_grouped"):
+        lead = (3,) if name == "bitlinear_grouped" else ()
+        mp = torch.randint(0, 16, (*lead, 4, 2, 32, 1), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.uint8)
+        C = (0.05 * torch.randn((*lead, 4, 2, 4, 128), generator=g, device=dev)).bfloat16()
+        x = torch.randn((*lead, 5, 128), generator=g, device=dev).bfloat16()
+        fn, plain = ((ops.bitlinear, ref.bitlinear_ref) if not lead
+                     else (ops.bitlinear_grouped, ref.bitlinear_grouped_ref))
+        before = (bl.bitlinear if not lead else bl.bitlinear_grouped).launches
+        y, yp = fn(x, mp, C), plain(x, mp, C, "unpack")
+        assert (bl.bitlinear if not lead else bl.bitlinear_grouped).launches == before + 1
+        assert float((y.float() - yp.float()).abs().max()) <= 2e-2 * float(yp.float().abs().max())
+        return
+    if name == "flash_attention":
+        q = torch.randn((2, 8, 96, 64), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((2, 2, 96, 64), generator=g, device=dev).bfloat16() for _ in "kv")
+        before = fa.flash_attention.launches
+        o, r = ops.flash_attention(q, k, v, 32), ref.flash_attention_ref(q, k, v, 32)
+        assert fa.flash_attention.launches == before + 1
+        assert bool(((o.float() - r.float()).abs() <= 5e-2 + 5e-2 * r.float().abs()).all())
+        return
+    P, C_, S, n = 4, 3, 6, 24
+    h, B = _dyadic_problems(rng, P, n)
+    x0 = np.where(rng.random((P, C_, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+    u = rng.random((P, C_, S, n), dtype=np.float32)
+    temps = np.broadcast_to(np.geomspace(8.0, 0.05, S, dtype=np.float32), (P, S)).copy()
+    h, B, x0, u, temps = (torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps))
+    if name == "sqa_sweep_many":
+        T = 4
+        X0 = torch.where(torch.rand((P, C_, T, n), generator=g, device=dev) < 0.5, -1.0, 1.0)
+        uq = torch.rand((P, C_, S, T, n), generator=g, device=dev)
+        jp = torch.linspace(0.1, 2.0, S, device=dev)
+        before = sqa.sqa_sweep_many.launches
+        got = ops.sqa_sweep_many(h, B, X0, uq, jp, 0.05)
+        assert sqa.sqa_sweep_many.launches == before + 1
+        want = ref.sqa_sweep_many_ref(h, B, X0, uq, jp, 0.05)
+    else:
+        before = sa.sa_sweep_many.launches
+        if name == "sa_sweep":
+            got = ops.sa_sweep(h[0], B[0], x0[0], u[0], temps[0])
+            want = tuple(t[0] for t in ref.sa_sweep_many_ref(h[:1], B[:1], x0[:1], u[:1],
+                                                             temps[:1]))
+        elif name == "sa_sweep_many":
+            got, want = (ops.sa_sweep_many(h, B, x0, u, temps),
+                         ref.sa_sweep_many_ref(h, B, x0, u, temps))
+        else:
+            got = ops.sq_sweep_many(h, B, x0, u, 0.1)
+            want = ref.sa_sweep_many_ref(h, B, x0, u, torch.full_like(temps, 0.1))
+        assert sa.sa_sweep_many.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -257,6 +257,29 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      seven entry points once each at their phases' shapes against their
      plain versions (annealers bit-identical on dyadic problems).
 
+  14. The rest of the zoo and the examples, after 13.  (14a) on random
+     weights from seed 0, each through init on the card, ``compress_model``
+     with the default policy (no kernel launched; the tiles as the config
+     gives them), the artifact and checkpoint restored through the manifest
+     (``validate_params`` clean, every leaf equal to the compressed one), a
+     4 x 1,024 prefill and 8 decode steps with the kernels on and off:
+     musicgen-medium whole (48 layers, MHA 24 x 64, biases on every
+     projection, redrawn from the seed after init; stub frame embeddings in
+     and for each decode step), internvl2-2b whole (24 layers, GQA 16/8 x
+     128, stub patch embeddings; its head skipped as indivisible, dense)
+     and command-r-plus-104b at one layer of 64 (the parallel block, GQA
+     96/8 x 128, d_ff 33,792, the tied 256,000 x 12,288 head; tokens from
+     seed 1, and through ``Engine.generate``: 8 greedy tokens identical with
+     the kernels on and off).  Logits within 5e-2 of max|logit| (every
+     position for the first two, the last for command-r-plus), argmax
+     mismatches reported; K3 once per compressed layer slice a forward, K5
+     once per layer a prefill.  Each cell's K5 prefill shape and its MLP's
+     up and down (K3 at T = 4,096 and 4) held to their plain versions and
+     timed beside their bounds and SDPA / a dense matmul.  (14b) the four
+     ``examples/torch_*.py`` through ``main(argv)`` on the card with small
+     arguments, each returning 0; the quickstart's BBO no worse than greedy
+     with K1 launched.
+
 Prints JSON lines along the way (early on, the -Xptxas -v registers,
 shared memory and spills of the tensor-core instantiations), the card's
 ``nvidia-smi`` name and power limit, a ``kernels`` line, and last
@@ -298,9 +321,23 @@ GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 1024, 32
 # kernel: |o - ref| <= tol + tol * |ref|
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 BF16_U = 2.0 ** -8              # unit roundoff of bfloat16 (8 significant bits)
-# kernels on vs off, of max|logit|: z is rounded to bf16 in K3, and the plain
-# attention forms its scores in bf16 where K5 keeps them in f32
-LOGIT_TOL = 5e-2
+
+
+def load_example(path):
+    """An example or tool of the repository as a module (they are scripts)."""
+    import importlib.util
+
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the zoo sweep: phase 14a runs its compress/restore and logits checks, and
+# every phase holds kernels on vs off to its LOGIT_TOL of max|logit|
+ZOO_SWEEP = load_example(os.path.join("tools", "torch_config_zoo_smoke.py"))
+LOGIT_TOL = ZOO_SWEEP.LOGIT_TOL
 
 
 def emit(obj) -> None:
@@ -1303,15 +1340,61 @@ def attention_f32_scores(torch, q, k, v, window):
     return p @ vr, p @ vr.abs()
 
 
+def k5_f32_scores_check(torch, q, k, v, o, win, label):
+    """bf16 K5's output ``o`` held to attention from f32 scores, K5's own
+    rounding: p and o are each rounded once to bf16 (relative error <=
+    2^-8) in K5 and p once in the reference, so |o - o32| <= 2^-8 (|o32| +
+    2 p@|v|) up to f32 noise.  Returns the error, its largest ratio to the
+    bound and the largest bound."""
+    o32, pv_abs = attention_f32_scores(torch, q, k, v, win)
+    d32 = (o.float() - o32).abs()
+    bound = BF16_U * (o32.abs() + 2.0 * pv_abs) + ATTN_TOL["float32"]
+    ratio = float((d32 / bound).max())
+    check(ratio <= 1.0, f"{label}: |o - o32| beyond 2^-8 (|o32| + 2 p@|v|), "
+                        f"{ratio:.3g} x the bound")
+    return {"max_abs_err": float(d32.max()), "max_err_over_bound": ratio,
+            "max_bound": float(bound.max())}
+
+
 # K5's timed fixtures (bf16, the prefill shapes of phases 4, 5 and 7) and
 # the key each one's timing goes under
 K5_TIMED = {"prefill_bf16": "timing", "moe_prefill_bf16": "timing_moe",
             "zamba2_prefill_bf16": "timing_zamba2"}
 
 
-def phase_k5(torch, dev, flush):
+def k5_timing(torch, q, k, v, win, r, flush):
+    """K5 on bf16 q, k, v (window ``win``; ``r`` its plain version's output)
+    timed beside its bound, the plain version and
+    ``scaled_dot_product_attention`` (causal, GQA), each also as device time
+    alone."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, H, S, hd = q.shape
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
+    device_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush, busy=True)
+    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, win), 3, flush)
+    check(win == 0 or win >= S, f"K5 at {tuple(q.shape)}: SDPA's causal mask is not window {win}")
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                  enable_gqa=True)
+    library_ms = cuda_ms(torch, sdpa, 10, flush)
+    library_device_ms = cuda_ms(torch, sdpa, 10, flush, busy=True)
+    lib_err = float((sdpa().float() - r.float()).abs().max())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()   # q, k, v and o
+    # causal (query, key) pairs within the window (0: none)
+    pairs = sum(min(i + 1, win) if win > 0 else i + 1 for i in range(S))
+    ops_ = 4 * B * H * hd * pairs       # q.k and p.v, 2 operations per mul-add
+    b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "library_max_abs_err": lib_err, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "bytes": nbytes, "operations": ops_}
+
+
+def phase_k5(torch, dev, flush):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1334,40 +1417,11 @@ def phase_k5(torch, dev, flush):
         out[label] = {"shape": [B, H, KV, S, hd], "window": win, "dtype": dt,
                       "max_abs_err": float(diff.max()), "tol": tol}
         if dtype == torch.bfloat16:
-            # against f32 scores, K5's own rounding: p and o are each rounded
-            # once to bf16 (relative error <= 2^-8) in K5 and p once in the
-            # reference, so |o - o32| <= 2^-8 (|o32| + 2 p@|v|) up to f32 noise
-            o32, pv_abs = attention_f32_scores(torch, q, k, v, win)
-            d32 = (o.float() - o32).abs()
-            bound = BF16_U * (o32.abs() + 2.0 * pv_abs) + ATTN_TOL["float32"]
-            ratio = float((d32 / bound).max())
-            check(ratio <= 1.0, f"K5 {label}: |o - o32| beyond 2^-8 (|o32| + 2 p@|v|), "
-                                f"{ratio:.3g} x the bound")
-            out[label]["f32_scores"] = {"max_abs_err": float(d32.max()),
-                                        "max_err_over_bound": ratio,
-                                        "max_bound": float(bound.max())}
-            del o32, pv_abs, d32, bound
+            out[label]["f32_scores"] = k5_f32_scores_check(torch, q, k, v, o, win,
+                                                           f"K5 {label}")
         if label not in K5_TIMED:
             continue
-        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush)
-        device_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, win), 10, flush, busy=True)
-        plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, win), 3, flush)
-        check(win == 0 or win >= S, f"K5 {label}: SDPA's causal mask is not window {win}")
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
-                                                      enable_gqa=True)
-        library_ms = cuda_ms(torch, sdpa, 10, flush)
-        library_device_ms = cuda_ms(torch, sdpa, 10, flush, busy=True)
-        lib_err = float((sdpa().float() - r.float()).abs().max())
-        nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * q.element_size()
-        # causal (query, key) pairs within the window (0: none)
-        pairs = sum(min(i + 1, win) if win > 0 else i + 1 for i in range(S))
-        ops_ = 4 * B * H * hd * pairs       # q.k and p.v, 2 operations per mul-add
-        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / BF16_FLOPS * 1e3
-        out[K5_TIMED[label]] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                                "library_ms": library_ms, "library_device_ms": library_device_ms,
-                                "library_max_abs_err": lib_err, "bound_ms": max(b_bytes, b_ops),
-                                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                                "bytes": nbytes, "operations": ops_}
+        out[K5_TIMED[label]] = k5_timing(torch, q, k, v, win, r, flush)
         del q, k, v, o, r
     return out
 
@@ -2254,6 +2308,45 @@ ZAMBA_K3 = (("in_proj_T4", "in_proj", GEN_BATCH),
             ("mamba2_in_proj_T4096", "mamba2_in_proj", GEN_BATCH * GEN_PROMPT))
 
 
+def k3_timing(torch, x, w, flush):
+    """K3 on bf16 x and a compressed weight ``w`` at the schedule the default
+    rule resolves, held against its plain version (max|y - y_plain| /
+    max|y_plain|) and timed beside its bound, the plain version and a dense
+    bf16 ``torch.matmul`` on the decompressed weight, each also as device
+    time alone."""
+    from repro_torch.core import quantized
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import bitlinear as bl
+
+    mp, C = w["m_packed"], w["C"]
+    T = x.shape[0]
+    n_r, n_c, tn, _ = mp.shape
+    K, td = C.shape[2], C.shape[3]
+    sched = autotune.resolve_fused(x, mp, C)
+    kw = sched.kwargs()
+    y, yp = bl.bitlinear(x, mp, C, **kw).float(), ref.bitlinear_ref(x, mp, C, sched.math).float()
+    rel = float((y - yp).abs().max() / yp.abs().max())
+    del y, yp
+    w_dense = quantized.decompress(w, torch.bfloat16)
+    ms, device_ms = (cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, **kw), 5, flush,
+                             busy=busy) for busy in (False, True))
+    plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C, sched.math), 2, flush)
+    library_ms, library_device_ms = (cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5,
+                                             flush, busy=busy) for busy in (False, True))
+    del w_dense
+    b_bytes, b_ops = k3_bound(mp, C, T, 2)
+    on_mma = sched.mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, 2, 2)
+    return {
+        "T": T, "shape": [n_r, n_c, tn, K, td],
+        "schedule": f"{sched.mode}/{sched.math}", "tensor_cores": on_mma,
+        # (columns, chunks) of the tensor-core body's column chunks
+        **({"mma_chunk": list(bl.grid_mma_chunk(td))} if on_mma else {}),
+        "max_err_over_max_y": rel,
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_device_ms": library_device_ms, "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+
+
 def phase_zamba_k3(torch, dev, cvalues, flush):
     """K3 at phase 7's tiles before anything is served from them: every
     schedule x bit algebra x activation x C dtype against the plain version
@@ -2264,7 +2357,6 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
     4096 and mamba2-130m's in_proj at 4096 at the default rule's schedule,
     timed beside their bound, the plain version and a dense bf16 matmul."""
     from repro_torch.configs import get_config
-    from repro_torch.core import quantized
     from repro_torch.core.compress import pick_tile
     from repro_torch.kernels import autotune, ref
     from repro_torch.kernels import bitlinear as bl
@@ -2310,30 +2402,11 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
         if label == "mamba2_in_proj_T4":
             continue
         w = weights[name]
-        mp, C = w["m_packed"], w["C"]
-        n_r, _, tn, _ = mp.shape
-        K, td = C.shape[2], C.shape[3]
-        x = torch.randn((T, n_r * tn), generator=g, device=dev).to(torch.bfloat16)
-        sched = autotune.resolve_fused(x, mp, C)
-        kw = sched.kwargs()
-        w_dense = quantized.decompress(w, torch.bfloat16)
-        ms, device_ms = (cuda_ms(torch, lambda: bl.bitlinear(x, mp, C, **kw), 5, flush,
-                                 busy=busy) for busy in (False, True))
-        plain_ms = cuda_ms(torch, lambda: ref.bitlinear_ref(x, mp, C, sched.math), 2, flush)
-        library_ms, library_device_ms = (cuda_ms(torch, lambda: torch.matmul(x, w_dense), 5,
-                                                 flush, busy=busy) for busy in (False, True))
-        del w_dense
-        b_bytes, b_ops = k3_bound(mp, C, T, 2)
-        on_mma = sched.mode == "grid" and bl.grid_on_tensor_cores(T, tn, K, td, 2, 2)
-        check(on_mma == (T > bl.SMALL_T), f"{label}: tensor cores {on_mma} at T = {T}")
-        timing[label] = {
-            "T": T, "shape": [n_r, mp.shape[1], tn, K, td],
-            "schedule": f"{sched.mode}/{sched.math}", "tensor_cores": on_mma,
-            # (columns, chunks) of the tensor-core body's column chunks
-            **({"mma_chunk": list(bl.grid_mma_chunk(td))} if on_mma else {}),
-            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_device_ms": library_device_ms, "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        mp = w["m_packed"]
+        x = torch.randn((T, mp.shape[0] * mp.shape[2]), generator=g, device=dev).to(torch.bfloat16)
+        timing[label] = k3_timing(torch, x, w, flush)
+        check(timing[label]["tensor_cores"] == (T > bl.SMALL_T),
+              f"{label}: tensor cores {timing[label]['tensor_cores']} at T = {T}")
     autotune.clear_log()
     out = {"checks": checks, "max_abs_err": errs, "timing": timing}
     emit({"zamba2_k3": out})
@@ -4382,6 +4455,320 @@ def phase_entry_points(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the zoo on the card (14a) and the examples (14b)
+# ---------------------------------------------------------------------------
+
+# (line, arch, config overrides, what was cut): musicgen-medium and
+# internvl2-2b whole, command-r-plus-104b at one layer of its 64
+ZOO_CELLS = (("zoo_musicgen", "musicgen-medium", {}, []),
+             ("zoo_internvl2", "internvl2-2b", {}, []),
+             ("zoo_command_r", "command-r-plus-104b", {"num_layers": 1},
+              ["num_layers 64 -> 1 (as phase 2 cuts qwen3-32b)"]))
+# the default policy's tiles (32 x 128, K = 4) of each: musicgen's 48 layers
+# (442,368) and its untied head (768); internvl2's 24 layers (its head, 2,048
+# x 92,553, is skipped as indivisible); command-r's one layer
+ZOO_TILES = {"musicgen-medium": 443136, "internvl2-2b": 368640, "command-r-plus-104b": 384000}
+ZOO_STEPS = 8                        # decode steps after the 4 x 1,024 prefill
+ZOO_BIAS_SCALE = 0.1                 # biases drawn after init (the init's are zero)
+ZOO_FULL_LOGITS = ("musicgen-medium", "internvl2-2b")   # every position compared
+
+
+def zoo_bias_draw(torch, values, dev):
+    """Every bias leaf of ``values`` redrawn from the seed: normal x
+    ZOO_BIAS_SCALE in the leaf's dtype.  Returns their paths."""
+    from repro_torch.compression.plan import tree_paths
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    paths = []
+    for path, leaf in tree_paths(values):
+        if path.endswith("/b"):
+            leaf.copy_((ZOO_BIAS_SCALE * torch.randn(leaf.shape, generator=g, device=dev))
+                       .to(leaf.dtype))
+            paths.append(path)
+    return paths
+
+
+def zoo_serve(torch, dev, cfg, params, prompt, steps_in, full, setup):
+    """A 4 x 1,024 prefill (``make_prefill``, or ``make_prefill_chunk`` at
+    position 0 without attending to the cache where every position is
+    compared) then ``steps`` decode steps (``make_decode_step``) from that
+    cache, after ``setup()`` chose the path.  ``steps_in``: the decode
+    steps' inputs ((B, d) embeddings), or None to feed each step the
+    previous logits' greedy tokens.  Returns (prefill logits, [step
+    logits], the greedy tokens fed, launches of the prefill and of the
+    decode steps, prefill s, decode s)."""
+    from repro_torch.models import init_cache
+    from repro_torch.serving import make_decode_step, make_prefill, make_prefill_chunk
+
+    setup()
+    B, P = GEN_BATCH, GEN_PROMPT
+    cache = init_cache(cfg, B, P + ZOO_STEPS + 1, device=dev)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    c0 = launch_counts()
+    t0 = time.time()
+    with torch.inference_mode():
+        if full:
+            logits, cache = make_prefill_chunk(cfg, attend_cache=False)(params, prompt, cache, 0)
+            last = logits[:, -1]
+        else:
+            last, cache = make_prefill(cfg)(params, prompt, cache)
+            logits = last[:, None]
+        torch.cuda.synchronize()
+        t1 = time.time()
+        c1 = launch_counts()
+        steps, fed, cur = [], [], last
+        for t in range(ZOO_STEPS):
+            if steps_in is None:
+                inp = cur.argmax(-1)
+                fed.append(inp)
+            else:
+                inp = steps_in[t]
+            cur, cache = decode(params, inp, cache, P + t)
+            steps.append(cur)
+        torch.cuda.synchronize()
+    t2 = time.time()
+    c2 = launch_counts()
+    pre = {k: c1[k] - c0[k] for k in c0}
+    dec = {k: c2[k] - c1[k] for k in c0}
+    return logits, steps, fed, pre, dec, t1 - t0, t2 - t1
+
+
+def zoo_kernel_shapes(torch, dev, cfg, params, flush, label):
+    """K5 at the cell's prefill shape and K3 at its MLP's up (d_model ->
+    d_ff) and down (d_ff -> d_model) at T = 4,096 and 4, each held to its
+    plain version (K5 within ATTN_TOL and within its rounding bound of
+    attention from f32 scores, K3 within BF16_TOL of max|y|) and timed
+    beside its bound and the library call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    B, H, KV, S, hd = GEN_BATCH, cfg.num_heads, cfg.num_kv_heads, GEN_PROMPT, cfg.resolved_head_dim
+    q = torch.randn((B, H, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, KV, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, KV, S, hd), generator=g, device=dev).to(torch.bfloat16)
+    o = fa.flash_attention(q, k, v, 0)
+    r = ref.flash_attention_ref(q, k, v, 0)
+    diff = (o.float() - r.float()).abs()
+    tol = ATTN_TOL["bfloat16"]
+    check(bool(torch.isfinite(o).all()) and bool((diff <= tol + tol * r.float().abs()).all()),
+          f"{label}: K5 at {(B, H, KV, S, hd)}: max |o - ref| {float(diff.max()):.3g} "
+          f"beyond tol {tol}")
+    k5 = {"shape": [B, H, KV, S, hd], "group": H // KV, "max_abs_err": float(diff.max()),
+          "tol": tol,
+          "f32_scores": k5_f32_scores_check(torch, q, k, v, o, 0,
+                                            f"{label}: K5 at {(B, H, KV, S, hd)}"),
+          **k5_timing(torch, q, k, v, 0, r, flush)}
+    del q, k, v, o, r, diff
+    mlp = params["groups"]["0"]["mlp"]
+    k3 = {}
+    for name in ("up", "down"):
+        w = {key: t[0] for key, t in mlp[name]["w"].items()}
+        d_in = w["m_packed"].shape[0] * w["m_packed"].shape[2]
+        for T in (GEN_BATCH * GEN_PROMPT, GEN_BATCH):
+            x = torch.randn((T, d_in), generator=g, device=dev).to(torch.bfloat16)
+            tm = k3_timing(torch, x, w, flush)
+            check(tm["max_err_over_max_y"] <= BF16_TOL,
+                  f"{label}: K3 {name} at T = {T}: {tm['max_err_over_max_y']:.3g} of max|y| "
+                  f"beyond {BF16_TOL}")
+            k3[f"{name}_T{T}"] = tm
+            del x
+    return k5, k3
+
+
+def phase_zoo(torch, dev, flush, line, arch, overrides, reduced, work_dir):
+    """One architecture of phase 14a on random weights from SEED: init on the
+    card (biases redrawn from the seed where the config has them),
+    ``compress_model`` with the default policy (no kernel may launch; the
+    tiles as the config gives them), the artifact and checkpoint restored
+    through the manifest (``validate_params`` clean, every leaf equal to the
+    compressed one), then a 4 x 1,024 prefill and 8 decode steps, kernels
+    on against the plain path (logits within LOGIT_TOL of max|logit|),
+    with K3 once per compressed layer slice a forward and K5 once per
+    layer a prefill; command-r-plus also through ``Engine.generate`` (8
+    greedy tokens identical kernels on and off).  Then the cell's new K3
+    and K5 shapes held and timed."""
+    from repro_torch.compression import CompressionPolicy
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import PROMPT_SEED
+    from repro_torch.models import init_model
+    from repro_torch.models.frontends import needs_embeds, stub_embeddings
+    from repro_torch.models.params import count, split
+    from repro_torch.serving import Engine
+
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()        # by earlier phases, within the peak
+    walls = {}
+    t = time.time()
+    values, _ = split(init_model(cfg, seed=SEED, device=dev))
+    biases = zoo_bias_draw(torch, values, dev) if cfg.use_bias else []
+    torch.cuda.synchronize()
+    walls["init_s"] = time.time() - t
+    check(cfg.use_bias == bool(biases), f"{line}: bias leaves {biases}")
+    n_params = count(values)
+
+    before = launch_counts()
+    # raises AssertionError on a failed roundtrip check
+    params, art, w = ZOO_SWEEP.compress_and_restore(cfg, CompressionPolicy(), values, work_dir,
+                                                    seed=SEED, device=dev)
+    walls.update(w)
+    del values
+    torch.cuda.empty_cache()
+    check(launch_counts() == before, f"{line}: compression or restore launched a kernel")
+    m = art.manifest
+    tiles = sum(p["num_tiles"] for p in m["pools"])
+    check(tiles == ZOO_TILES[arch], f"{line}: {tiles} tiles, the config gives "
+                                    f"{ZOO_TILES[arch]}")
+    if arch == "internvl2-2b":
+        check(m["skipped"].get("head/w", "").startswith("indivisible dims"),
+              f"{line}: the head was not skipped as indivisible: {m['skipped'].get('head/w')}")
+
+    # the compressed tensors K3 serves a forward (each layer slice) and the
+    # attention layers K5 serves a prefill
+    per_forward = sum(math.prod(e["group_dims"]) if e["group_dims"] else 1
+                      for e in art.manifest["tensors"].values())
+    B, P = GEN_BATCH, GEN_PROMPT
+    full = arch in ZOO_FULL_LOGITS
+    if needs_embeds(cfg):
+        emb = stub_embeddings(torch.Generator(device=dev).manual_seed(PROMPT_SEED), cfg, B,
+                              P + ZOO_STEPS)
+        prompt, steps_in = {"embeds": emb[:, :P]}, [emb[:, P + i] for i in range(ZOO_STEPS)]
+    else:
+        prompt = {"tokens": torch.randint(0, cfg.vocab_size, (B, P),
+                                          generator=torch.Generator(device=dev)
+                                          .manual_seed(PROMPT_SEED), device=dev)}
+        steps_in = None
+    lk, sk, fed, pre_k, dec_k, walls["prefill_s"], dec_s = zoo_serve(
+        torch, dev, cfg, params, prompt, steps_in, full, ops.enable_kernels)
+    walls["decode_ms_per_step"] = 1e3 * dec_s / ZOO_STEPS
+    want_pre = {"sa_sweep_many": 0, "sqa_sweep_many": 0, "bitlinear": per_forward,
+                "bitlinear_grouped": 0, "flash_attention": cfg.num_layers}
+    want_dec = {**want_pre, "bitlinear": per_forward * ZOO_STEPS, "flash_attention": 0}
+    check(pre_k == want_pre and dec_k == want_dec,
+          f"{line}: launches prefill {pre_k} decode {dec_k}, want {want_pre}, {want_dec}")
+    plain_in = steps_in if steps_in is not None else fed     # the same inputs, teacher-forced
+    lp, sp, _, pre_p, dec_p, plain_prefill_s, plain_dec_s = zoo_serve(
+        torch, dev, cfg, params, prompt, plain_in, full, ops.disable_kernels)
+    check(sum(pre_p.values()) + sum(dec_p.values()) == 0, f"{line}: the plain path launched")
+    check(tuple(lk.shape) == (B, P if full else 1, cfg.vocab_size)
+          and all(tuple(x.shape) == (B, cfg.vocab_size) for x in sk),
+          f"{line}: logits of shape {tuple(lk.shape)}, steps {tuple(sk[0].shape)}")
+    # finite, within LOGIT_TOL of max|logit|, or AssertionError
+    pre_err, pre_mis = ZOO_SWEEP.check_logits(f"{line} prefill", lp, lk, exact=False)
+    dec = [ZOO_SWEEP.check_logits(f"{line} decode step {i}", b, a, exact=False)
+           for i, (a, b) in enumerate(zip(sk, sp))]
+    dec_err, dec_mis = max(e for e, _ in dec), sum(n for _, n in dec)
+    del lk, lp, sk, sp
+    out = {"arch": arch, "config": {
+               "num_layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+               "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "use_bias": cfg.use_bias,
+               "parallel_block": cfg.parallel_block, "tie_embeddings": cfg.tie_embeddings,
+               "frontend": cfg.frontend, "dtype": cfg.dtype, "params": n_params},
+           "reduced": reduced, "biases_drawn": len(biases),
+           "walls": walls, "tiles": tiles, "tensors": len(m["tensors"]),
+           "skipped": m["skipped"], "ratio": art.total_ratio,
+           "logits_compared": "every position" if full else "last position (make_prefill)",
+           "prefill_logits_rel_err": pre_err, "decode_logits_rel_err": dec_err,
+           "argmax_mismatches": {"prefill": pre_mis, "decode": dec_mis},
+           "launches": {"prefill": pre_k, "decode": dec_k},
+           "plain_walls": {"prefill_s": plain_prefill_s,
+                           "decode_ms_per_step": 1e3 * plain_dec_s / ZOO_STEPS}}
+
+    if steps_in is None:
+        # the serve CLI's path: Engine.generate, kernels on and off
+        before = launch_counts()
+        eng = Engine(cfg, params, max_len=P + ZOO_STEPS, batch=B, eos_id=cfg.vocab_size,
+                     artifact=art)
+        toks = eng.generate(prompt["tokens"], ZOO_STEPS)
+        torch.cuda.synchronize()
+        gen_launches = {k: v - before[k] for k, v in launch_counts().items()}
+        ops.disable_kernels()
+        plain = Engine(cfg, params, max_len=P + ZOO_STEPS, batch=B, eos_id=cfg.vocab_size,
+                       artifact=art, use_fused_bitlinear=False)
+        toks_plain = plain.generate(prompt["tokens"], ZOO_STEPS)
+        check(launch_counts() == {k: before[k] + gen_launches[k] for k in before},
+              f"{line}: the plain engine launched a kernel")
+        check(gen_launches["bitlinear"] == per_forward * ZOO_STEPS
+              and gen_launches["flash_attention"] == 1,
+              f"{line}: Engine.generate launched {gen_launches}")
+        check(torch.equal(toks, toks_plain),
+              f"{line}: greedy tokens kernels on {toks[:, P:].tolist()} vs off "
+              f"{toks_plain[:, P:].tolist()}")
+        out["engine_generate"] = {
+            "new_tokens": ZOO_STEPS, "identical_kernels_on_off": True,
+            # the tokens the decode steps above were fed: the same picks
+            "same_as_fed_greedy": bool(torch.equal(toks[:, P:], torch.stack(fed, 1))),
+            "launches": gen_launches, "timing": eng.last_timing,
+            "plain_timing": plain.last_timing}
+        del eng, plain
+    t = time.time()
+    k5, k3 = zoo_kernel_shapes(torch, dev, cfg, params, flush, line)
+    walls["kernel_shapes_s"] = time.time() - t
+    torch.cuda.synchronize()
+    out["k5"], out["k3"] = k5, k3
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["memory_held_before_bytes"] = held
+    ops.disable_kernels()
+    del params
+    torch.cuda.empty_cache()
+    emit({line: out})
+    return out
+
+
+def phase_examples(torch, work_dir):
+    """Phase 14b: each example's ``main(argv)`` in this process on the card,
+    with small arguments; each must return 0.  Their output is kept and
+    the quickstart's costs read from it: BBO no worse than greedy (its
+    rc says so too), with K1 launched."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+
+    runs = (("quickstart", "examples/torch_quickstart.py", []),
+            ("compress_then_serve", "examples/torch_compress_then_serve.py",
+             ["--train-steps", "20"]),
+            ("delta_recompress", "examples/torch_delta_recompress.py",
+             ["--train-steps", "12", "--every", "6"]),
+            ("train_small", "examples/torch_train_small.py",
+             ["--steps", "20", "--ckpt-dir", os.path.join(work_dir, "train_small")]))
+    out, texts = {}, {}
+    for name, path, argv in runs:
+        mod = load_example(path)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t = time.time()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv)
+        finally:
+            ops.disable_kernels()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        texts[name] = buf.getvalue()
+        lines = texts[name].splitlines()
+        check(rc == 0, f"example {name} {argv} returned {rc}: {lines[-5:]}")
+        out[name] = {"argv": argv, "rc": rc, "wall_s": wall,
+                     "launches": {k: v - before[k] for k, v in launch_counts().items()},
+                     "last_lines": lines[-3:]}
+    costs = {key: float(re.search(pattern, texts["quickstart"]).group(1))
+             for key, pattern in (("greedy", r"greedy\s+cost\s+=\s+([0-9.]+)"),
+                                  ("bbo", r"nBOCS/SA cost\s+=\s+([0-9.]+)"))}
+    k1 = out["quickstart"]["launches"]["sa_sweep_many"]
+    check(costs["bbo"] <= costs["greedy"] and k1 > 0,
+          f"quickstart: BBO {costs['bbo']} vs greedy {costs['greedy']}, K1 launched {k1}")
+    out["quickstart"]["costs"] = costs
+    emit({"examples_14b": out})
+    return out
+
+
 def kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned):
     """{kind: {part: {"mode/math": n}}} for K3 and K4: the tuner's trial
     launches ("tuning"), the tuned serves' ("serving"; phases 4b, 5b),
@@ -4654,7 +5041,36 @@ def main() -> int:
     phase_entry_points(torch, dev)
     phases["entry_points_13c_s"] = time.time() - t
     phases["phase13_s"] = time.time() - t13
+    t14 = time.time()
+    zoo = {}
+    zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    for line, arch, overrides, reduced in ZOO_CELLS:
+        shutil.rmtree(zoo_dir, ignore_errors=True)
+        try:
+            t = time.time()
+            zoo[line] = phase_zoo(torch, dev, flush, line, arch, overrides, reduced, zoo_dir)
+            phases[f"{line}_14a_s"] = time.time() - t
+        finally:
+            shutil.rmtree(zoo_dir, ignore_errors=True)
+    examples_dir = os.path.join(ROOT, "build", "chip_smoke_examples")
+    shutil.rmtree(examples_dir, ignore_errors=True)
+    try:
+        t = time.time()
+        examples = phase_examples(torch, examples_dir)
+        phases["examples_14b_s"] = time.time() - t
+    finally:
+        shutil.rmtree(examples_dir, ignore_errors=True)
+    phases["phase14_s"] = time.time() - t14
     emit({"phase_s": phases})
+
+    def zoo_launches(kind):
+        # phase 14a: each cell's prefill and 8 decode steps (and command-r's
+        # Engine.generate) with the kernels on; 14b: each example's
+        out = {line: {"prefill": z["launches"]["prefill"][kind],
+                      "decode": z["launches"]["decode"][kind],
+                      **({"engine_generate": z["engine_generate"]["launches"][kind]}
+                         if "engine_generate" in z else {})} for line, z in zoo.items()}
+        return out, {name: ex["launches"][kind] for name, ex in examples.items()}
     k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
     launch = kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned)
 
@@ -4706,6 +5122,8 @@ def main() -> int:
                               "delta": cycle["delta"]["k1_launches"]},
          # phase 12a: execute_plan(mesh=) on the (1, 1) mesh
          "launches_phase12": mesh12["launches"]["sa_sweep_many"],
+         # phase 14b: the examples (the quickstart's BBO on the paper's instance)
+         "launches_phase14b": zoo_launches("sa_sweep_many")[1],
          "qubo_spins_phase10b": plan405["qubo_spins"],
          "qubo_shape_phase8": zamba_auto["qubo_shape"],
          "allocator": {label: {k: tm[k] for k in ANNEAL_KEYS}
@@ -4756,7 +5174,12 @@ def main() -> int:
          # 4096 and mamba2-130m's in_proj (32 x 419) at 4096, at the default
          # rule's schedule, and the worst error of every variant held at
          # phase 7's tiles
-         "zamba2": {**zamba_k3["timing"], "max_abs_err": zamba_k3["max_abs_err"]}},
+         "zamba2": {**zamba_k3["timing"], "max_abs_err": zamba_k3["max_abs_err"]},
+         "launches_phase14a": zoo_launches("bitlinear")[0],
+         "launches_phase14b": zoo_launches("bitlinear")[1],
+         # phase 14a: each cell's MLP up and down at T = 4096 and 4, at the
+         # default rule's schedule, held and timed
+         "zoo": {line: z["k3"] for line, z in zoo.items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:79",
@@ -4782,7 +5205,12 @@ def main() -> int:
          # the same at phase 7's prefill shape (4, 32, 32, 1024, 64), window 4096
          "zamba2_prefill": {k: k5["timing_zamba2"][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                             "device_ms", "library_device_ms")}},
+                             "device_ms", "library_device_ms")},
+         "launches_phase14a": zoo_launches("flash_attention")[0],
+         "launches_phase14b": zoo_launches("flash_attention")[1],
+         # phase 14a: each cell's prefill shape (MHA 24 x 64; GQA 16/8 x 128;
+         # GQA 96/8 x 128), held and timed
+         "zoo": {line: z["k5"] for line, z in zoo.items()}},
         {"name": "bitlinear_grouped", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:583",

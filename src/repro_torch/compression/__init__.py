@@ -4,12 +4,23 @@
 since a parent artifact, warm-started from its factors; the **streaming**
 tier (:mod:`repro_torch.compression.streaming`) plans from metadata, probes
 with SVD-tail surrogates and executes one leaf at a time under a host
-budget, resumably."""
+budget, resumably.  The **autotuner**
+(:mod:`repro_torch.compression.autotune`) allocates a byte budget across
+tensors from probed rate-distortion curves."""
 
 from repro_torch.compression.artifact import (
     MANIFEST_FORMAT,
     MANIFEST_NAME,
     CompressionArtifact,
+)
+from repro_torch.compression.autotune import (
+    Allocation,
+    AutotuneResult,
+    BudgetInfeasibleError,
+    allocate_budget,
+    autotune_plan,
+    calibration_weights,
+    probe_tensors,
 )
 from repro_torch.compression.delta import (
     DEFAULT_DRIFT_THRESHOLD,
@@ -27,7 +38,7 @@ from repro_torch.compression.plan import (
     plan_compression,
     tree_paths,
 )
-from repro_torch.compression.policy import CompressionPolicy, CompressionRule
+from repro_torch.compression.policy import DEFAULT_EXCLUDE, CompressionPolicy, CompressionRule
 from repro_torch.compression.streaming import (
     CheckpointLeafSource,
     TreeLeafSource,
@@ -42,6 +53,7 @@ __all__ = [
     "CompressionPlan",
     "CompressionPolicy",
     "CompressionRule",
+    "DEFAULT_EXCLUDE",
     "MANIFEST_FORMAT",
     "MANIFEST_NAME",
     "TensorPlan",
@@ -55,6 +67,13 @@ __all__ = [
     "compute_drift",
     "delta_recompress",
     "plan_delta",
+    "Allocation",
+    "AutotuneResult",
+    "BudgetInfeasibleError",
+    "allocate_budget",
+    "autotune_plan",
+    "calibration_weights",
+    "probe_tensors",
     "CheckpointLeafSource",
     "TreeLeafSource",
     "execute_streaming",

@@ -51,6 +51,7 @@ __all__ = [
     "spec_for",
     "param_shardings",
     "NamedSharding",
+    "activation_spec",
     "activation_rules",
     "current_rule",
     "constrain",
@@ -256,33 +257,46 @@ def param_shardings(axes_tree, shapes_tree, rules: dict, mesh):
 _TLS = threading.local()
 
 
-@contextlib.contextmanager
-def activation_rules(pcfg: ParallelConfig, mesh):
-    """Install the reference's activation specs for ``constrain`` and
-    ``current_rule`` (hidden (B, S, d): batch over the dp axes, embed over
-    ``model``; or batch over the whole mesh with ``dp_includes_model``)."""
+def _activation_specs(pcfg: ParallelConfig, mesh) -> dict:
+    """The reference's activation specs (hidden (B, S, d): batch over the dp
+    axes, embed over ``model``; or batch over the whole mesh with
+    ``dp_includes_model``)."""
     sizes = mesh_shape(mesh)
     dp_names = ("pod", "data", "model") if pcfg.dp_includes_model else ("pod", "data")
     dp = tuple(a for a in dp_names if a in sizes)
     if pcfg.dp_includes_model:
-        specs = {
+        return {
             "hidden": P(dp, None, None),
             "hidden_nosp": P(dp, None, None),
             "logits": P(dp, None, None),
             "batch": P(dp),
         }
-    else:
-        model = "model" if "model" in sizes else None
-        specs = {
-            "hidden": P(dp, None, model),
-            "hidden_nosp": P(dp, None, None),
-            "logits": P(dp, None, model),
-            "batch": P(dp),
-            # flash-decode: decode attention over a cache sequence-sharded
-            # on this axis, partial softmax stats combined across it
-            "decode_sp_axis": model,
-            "dp_axes": dp,
-        }
+    model = "model" if "model" in sizes else None
+    return {
+        "hidden": P(dp, None, model),
+        "hidden_nosp": P(dp, None, None),
+        "logits": P(dp, None, model),
+        "batch": P(dp),
+        # flash-decode: decode attention over a cache sequence-sharded
+        # on this axis, partial softmax stats combined across it
+        "decode_sp_axis": model,
+        "dp_axes": dp,
+    }
+
+
+def activation_spec(pcfg: ParallelConfig, mesh, kind: str):
+    """The spec ``activation_rules(pcfg, mesh)`` installs for ``kind``
+    (``"hidden"``, ``"logits"``, ``"batch"``, ...; None for a kind it
+    installs none for), without installing it.  The reference lists the
+    name in its ``__all__`` but defines no such function."""
+    return _activation_specs(pcfg, mesh).get(kind)
+
+
+@contextlib.contextmanager
+def activation_rules(pcfg: ParallelConfig, mesh):
+    """Install the reference's activation specs (``activation_spec``) for
+    ``constrain`` and ``current_rule``."""
+    specs = _activation_specs(pcfg, mesh)
     prev = getattr(_TLS, "rules", None)
     _TLS.rules = (specs, mesh)
     try:

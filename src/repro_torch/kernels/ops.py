@@ -90,9 +90,9 @@ def sq_sweep_many(h, B, x0, rand, temperature: float = 0.1, block_p: int | None 
 
 def sa_sweep(h, B, x0, rand, temps):
     """One problem: h (n,), B (n, n), x0 (C, n), rand (C, S, n), temps (S,)
-    -> (x (C, n), energy (C,)), through :func:`sa_sweep_many` at P = 1."""
-    x, e = sa_sweep_many(h[None], B[None], x0[None], rand[None], temps[None])
-    return x[0], e[0]
+    -> (x (C, n), energy (C,)), cast to float32: ``kernels.sa_sweep.sa_sweep``
+    (K1 at P = 1)."""
+    return _sa.sa_sweep(*_f32(h, B, x0, rand, temps))
 
 
 def sqa_sweep_many(h, B, X0, rand, jperps, temperature: float = 0.05):

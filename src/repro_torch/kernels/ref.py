@@ -17,8 +17,10 @@ __all__ = [
     "bitlinear_ref",
     "bitlinear_grouped_ref",
     "flash_attention_ref",
+    "sa_sweep_ref",
     "sa_sweep_many_ref",
     "sq_sweep_many_ref",
+    "sqa_sweep_ref",
     "sqa_sweep_many_ref",
 ]
 
@@ -151,6 +153,14 @@ def sa_sweep_many_ref(h, B, x0, rand, temps):
     return x, e
 
 
+def sa_sweep_ref(h, B, x0, rand, temps):
+    """One problem of ``sa_sweep_many_ref``: h (n,), B (n, n), x0 (C, n),
+    rand (C, S, n), temps (S,) -> (x (C, n), e (C,)), as
+    ``repro.kernels.ref.sa_sweep_ref``."""
+    x, e = sa_sweep_many_ref(h[None], B[None], x0[None], rand[None], temps[None])
+    return x[0], e[0]
+
+
 def sq_sweep_many_ref(h, B, x0, rand, temperature: float = 0.1):
     """Constant-temperature (simulated quench) path of the SA version."""
     P, _, S, _ = rand.shape
@@ -193,3 +203,11 @@ def sqa_sweep_many_ref(h, B, X0, rand, jperps, temperature: float = 0.05):
                 X[:, :, p, i] = xi + delta
     E = (X * h[:, None, None, :]).sum(-1) + (X * torch.einsum("pij,pctj->pcti", B, X)).sum(-1)
     return X, E
+
+
+def sqa_sweep_ref(h, B, X0, rand, jperps, temperature: float = 0.05):
+    """One problem of ``sqa_sweep_many_ref``: h (n,), B (n, n), X0 (C, T, n),
+    rand (C, S, T, n), jperps (S,) -> (X (C, T, n), E (C, T)), as
+    ``repro.kernels.ref.sqa_sweep_ref``."""
+    X, E = sqa_sweep_many_ref(h[None], B[None], X0[None], rand[None], jperps, temperature)
+    return X[0], E[0]

@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/sa_sweep.py``.  ``sa_sweep_many`` launches
 the hand-written CUDA kernel ``csrc/sa_sweep.cu`` for CUDA tensors and runs
 the plain version (``ref.sa_sweep_many_ref``) for CPU tensors; both consume
 the same pre-drawn uniforms and initial spins, so they realise the same
-Metropolis chains.  ``sq_sweep_many`` is the constant-temperature path.
+Metropolis chains.  ``sq_sweep_many`` is the constant-temperature path;
+``sa_sweep`` is the single-problem wrapper (one problem's chains in one
+launch).
 ``lanes_per_chain`` is the kernel's schedule rule; ``max_spins`` and
 ``MAX_SPINS`` mirror the rule that picks its body (``shared_body``: B in
 shared memory up to ``max_spins(C)`` spins, else read from device memory
@@ -22,8 +24,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sa_sweep_many_ref
 
-__all__ = ["sa_sweep_many", "sa_sweep_many_global", "sq_sweep_many", "max_spins", "shared_body",
-           "MAX_SPINS", "lanes_per_chain", "direct_acceptance", "expf_decreases"]
+__all__ = ["sa_sweep", "sa_sweep_many", "sa_sweep_many_global", "sq_sweep_many", "max_spins",
+           "shared_body", "MAX_SPINS", "lanes_per_chain", "direct_acceptance", "expf_decreases"]
 
 # csrc/anneal_step.cuh's kSaSmemBytes, kSaMaxWarps, kSaSharedMaxSpins,
 # kSaGlobalMaxSpins (tests/test_torch_guards.py holds them to the header)
@@ -190,3 +192,13 @@ def sq_sweep_many(h, B, x0, rand, temperature: float = 0.1):
     P, _, S, _ = rand.shape
     temps = torch.full((P, S), temperature, dtype=torch.float32, device=rand.device)
     return sa_sweep_many(h, B, x0, rand, temps)
+
+
+def sa_sweep(h, B, x0, rand, temps):
+    """Single-problem SA: h (n,), B (n, n) symmetric zero-diagonal, x0
+    (chains, n) +-1, rand (chains, sweeps, n) uniforms, temps (sweeps,) ->
+    (x (chains, n), energy (chains,)).  ``sa_sweep_many`` on a batch of one
+    problem: K1 on CUDA tensors, its plain version on CPU ones."""
+    x, e = sa_sweep_many(h[None].contiguous(), B[None].contiguous(), x0[None].contiguous(),
+                         rand[None].contiguous(), temps[None].contiguous())
+    return x[0], e[0]

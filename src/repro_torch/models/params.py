@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Param", "param", "dense_init", "split", "placing"]
+__all__ = ["Param", "param", "dense_init", "split", "merge", "count", "placing"]
 
 _PLACE = threading.local()
 
@@ -63,3 +63,17 @@ def _map(fn, tree):
 def split(tree):
     """params-with-axes tree -> (values tree, axes tree)."""
     return _map(lambda p: p.value, tree), _map(lambda p: p.axes, tree)
+
+
+def merge(values, axes):
+    """(values tree, axes tree) -> params-with-axes tree: ``split``'s inverse."""
+    if isinstance(values, dict):
+        return {k: merge(v, axes[k]) for k, v in values.items()}
+    return Param(values, axes)
+
+
+def count(values) -> int:
+    """Number of elements over a values tree's leaves."""
+    if isinstance(values, dict):
+        return sum(count(v) for v in values.values())
+    return values.numel()

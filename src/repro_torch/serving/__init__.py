@@ -4,6 +4,7 @@ end + load generator that drive it."""
 
 from repro_torch.serving.engine import (
     Engine,
+    cache_shardings,
     make_decode_step,
     make_prefill,
     make_prefill_chunk,
@@ -15,6 +16,7 @@ from repro_torch.serving.scheduler import Request, Scheduler, SchedulerStats
 
 __all__ = [
     "Engine",
+    "cache_shardings",
     "make_decode_step",
     "make_prefill",
     "make_prefill_chunk",

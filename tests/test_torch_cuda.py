@@ -1268,3 +1268,55 @@ def test_entry_point_launches_and_matches_plain(dev, name):
             want = ref.sa_sweep_many_ref(h, B, x0, u, torch.full_like(temps, 0.1))
         assert sa.sa_sweep_many.launches == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the zoo's prefill shapes (chip_smoke.py phase 14a): command-r-plus's GQA
+# group of 12 (96 q heads over 8 kv heads of 128), musicgen-medium's MHA 24 x
+# 64 and internvl2-2b's GQA 16/8 x 128, at a shorter S
+@pytest.mark.parametrize("B,H,KV,S,hd", [(1, 96, 8, 256, 128), (2, 96, 8, 65, 128),
+                                         (2, 24, 24, 256, 64), (1, 16, 8, 129, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_zoo_shapes(dev, B, H, KV, S, hd, dtype):
+    g = torch.Generator(device=dev).manual_seed(H * 1_000 + S)
+    q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, KV, S, hd, generator=g, device=dev).to(dtype)
+    before = fa.flash_attention.launches
+    o = fa.flash_attention(q, k, v, 0)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    r = ref.flash_attention_ref(q, k, v, 0)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(o.float(), r.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        # the tensor-core body against f32 scores, within its rounding bound
+        o32, pv_abs = _f32_score_attention(q, k, v, 0)
+        bound = 2.0 ** -8 * (o32.abs() + 2.0 * pv_abs) + 2e-5
+        assert bool(((o.float() - o32).abs() <= bound).all())
+    # each q head reads its own kv head: head h of group g = h // (H // KV)
+    rep = H // KV
+    for h in (0, rep - 1, rep, H - 1):
+        one = ref.flash_attention_ref(q[:, h:h + 1], k[:, h // rep:h // rep + 1],
+                                      v[:, h // rep:h // rep + 1], 0)
+        torch.testing.assert_close(o[:, h:h + 1].float(), one.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("C,S,n", [(10, 64, 24), (8, 6, 238)])
+def test_sa_sweep_single_problem_is_row_zero_of_the_batch(dev, C, S, n):
+    """The single-problem wrapper launches K1 on one problem: bit for bit
+    what ``sa_sweep_many`` gives that problem as row 0 of a batch."""
+    rng = np.random.default_rng(C * n)
+    h, B = _dyadic_problems(rng, 3, n)
+    x0 = np.where(rng.random((3, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
+    u = rng.random((3, C, S, n), dtype=np.float32)
+    temps = np.broadcast_to(np.geomspace(8.0, 0.05, S, dtype=np.float32), (3, S)).copy()
+    args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
+    before = sa.sa_sweep_many.launches
+    x1, e1 = sa.sa_sweep(*(a[0] for a in args))
+    torch.cuda.synchronize()
+    assert sa.sa_sweep_many.launches == before + 1
+    xm, em = sa.sa_sweep_many(*args)
+    assert x1.shape == (C, n) and e1.shape == (C,)
+    assert torch.equal(x1, xm[0]) and torch.equal(e1, em[0])
+    xr, er = ref.sa_sweep_ref(*(a[0] for a in args))
+    assert torch.equal(x1, xr) and torch.equal(e1, er)

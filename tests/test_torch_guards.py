@@ -22,7 +22,8 @@ _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "tools" / "torch_decode_ab.py", _ROOT / "tools" / "torch_anneal_ab.py",
     _ROOT / "tools" / "torch_anneal_variants.py", _ROOT / "tools" / "torch_stream_ab.py",
     _ROOT / "tools" / "torch_stream_variants.py", _ROOT / "tools" / "torch_serve_ab.py",
-    _ROOT / "tools" / "torch_k1_global_ab.py", _ROOT / "tools" / "torch_train_profile.py"]
+    _ROOT / "tools" / "torch_k1_global_ab.py", _ROOT / "tools" / "torch_train_profile.py",
+    _ROOT / "tools" / "torch_config_zoo_smoke.py"] + sorted((_ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_roots(path):

@@ -229,7 +229,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      mesh: a one-rank NCCL group and the (1, 1) ("data", "model") mesh.
      (12a) the whole granite-moe-1b-a400m initialised on the mesh (DTensor
      state, each leaf cut to its shard as drawn), its pipeline on the mesh
-     and the sharded train step, 2 steps at 11a's seed, batch and schedule:
+     and the sharded train step (tensor-parallel along its one-rank
+     ``model`` axis), 2 steps at 11a's seed, batch and schedule:
      losses and grad norms identical to 11a's first two; phase 2's policy on
      the first 2 layers' attention of those weights (chunks of up to 10,240
      tiles, as phase 2): ``execute_plan(mesh=)``
@@ -239,7 +240,18 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      reduced granite-moe (f32) on (2, 2) for 3 steps and write a sharded
      checkpoint (one file per rank and leaf), then take a 4th step; the card
      restores the checkpoint whole onto its (1, 1) mesh and takes that step:
-     its loss within 1e-4 of the CPU ranks'.
+     its loss within 1e-4 of the CPU ranks'.  (12c) each rank's share of
+     one full-width layer on ``model`` = 4 and 16, the ranks one after
+     another (a ``TurnGroup`` stands in for the process group): qwen3-32b
+     (bf16; 16 and 4 q heads a rank, kv boxes of 2 heads and of half a
+     head) and granite-moe-1b-a400m (bf16 and f32; 8 and 2 experts a
+     rank), a 4 x 1,024 prefill with K5 at the rank's heads; the joined
+     shares within LOGIT_TOL of the whole layer's update on the tokens
+     whose router top-k is the whole layer's (the others counted, at most
+     5%), a bf16 layer's and its shares' distance from the layer in f32, K5
+     launched once a rank a pass;
+     K5 at each rank shape held to its plain version (ATTN_TOL, and bf16
+     to its rounding bound) and timed beside its bound and SDPA.
   13. Costing and the dry run (roofline.py, launch/cells.py, costing.py,
      dryrun.py; after 12, whose group is gone: each costing plays rank 0 of
      a fake process group on fake tensors).  (13a) phase 11a's train step
@@ -251,9 +263,11 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      kernels' costing adapters; each with its roofline terms and the share
      bound / measured of 11a's median step and 7's TTFT and decode step.
      (13b) the dry run at full width: qwen3-32b x train_4k and x
-     decode_32k on the fake 16 x 16 mesh (256 H100s): per-device GiB
-     against the card's memory, FLOPs, collective bytes by kind, roofline
-     terms, walls; every count finite and positive.  (13c) kernels/ops.py's
+     decode_32k on the fake 16 x 16 mesh (256 H100s), tensor-parallel
+     along ``model``: per-device GiB against the card's memory, per-rank
+     (dot) FLOPs, collective bytes by kind, roofline terms, walls; every
+     count finite and positive, train_4k's dot FLOPs within 2% of a 16th
+     of the step's, decode_32k's all-gather below 8.7 GB.  (13c) kernels/ops.py's
      seven entry points once each at their phases' shapes against their
      plain versions (annealers bit-identical on dyadic problems).
 
@@ -4237,12 +4251,219 @@ def phase_mesh_restore(torch, dev, mesh, work_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 12c: each rank's share of one full-width layer, one rank at a time
+# ---------------------------------------------------------------------------
+
+# (architecture, model-axis sizes, dtypes): qwen3-32b's 64 q / 8 kv heads
+# give 16 / 2 and 4 / 1 (a kv box of half a head at 16); granite-moe's 32
+# experts 8 and 2, in its own bf16 and in f32.  A token whose router top-k
+# differs between the whole layer and the joined shares (a near tie that the
+# partial sums' rounding flips) takes other experts: such tokens are counted
+# and the rest held to LOGIT_TOL
+TP_SHARES = (("qwen3-32b", (4, 16), ("bfloat16",)),
+             (MOE_ARCH, (4, 16), ("bfloat16", "float32")))
+
+
+def k5_rank_shape(cfg, m):
+    """(B, H, KV, S, hd) of K5 in a rank's prefill share on ``model`` = m."""
+    from repro_torch.models import attention
+
+    Hl = cfg.num_heads // m
+    _, nkv, _ = attention._kv_heads(0, Hl, cfg.num_heads // cfg.num_kv_heads)
+    return GEN_BATCH, Hl, nkv, GEN_PROMPT, cfg.resolved_head_dim
+
+
+def phase_tp_shares(torch, dev, flush):
+    """12c: one full-width layer of qwen3-32b (bf16) and of
+    granite-moe-1b-a400m (bf16 and f32: TP_SHARES) on random weights from
+    seed 0, a 4 x 1,024 prefill through K5, computed whole and as each
+    rank's share for ``model`` = 4 and 16: the rank's boxes of the weights
+    as the rules place them on a (1, m) mesh, its box of the carry, the TP
+    block (``sharding.model_parallel``) with a ``TurnGroup``, the ranks one
+    after another (``local_ranks.run_in_turns``).  The shares' carries,
+    joined, hold the whole layer's update within LOGIT_TOL of its max on
+    every token whose router top-k is the whole layer's (all tokens without
+    experts; the others are counted); K5 ran at the rank's heads.  A bf16
+    layer is also run whole in f32 (the same weights and input, cast): the
+    whole bf16 layer's and the shares' distances from it say how much of
+    their difference is bf16 rounding.  Then K5 at each rank shape against
+    its plain version at the K5 check's tolerances, bf16 timed beside its
+    bound and SDPA."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.local_ranks import RankMesh, local_boxes, run_in_turns
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.params import split
+
+    out, k5_launches = {}, 0
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    routes, moe_block = [], moe.moe_block
+
+    def routed(h, p, cfg):
+        routes.append(_expert_sets(torch, h, p["router"], cfg.experts_per_token))
+        return moe_block(h, p, cfg)
+
+    def err_of(a, b, keep, scale):
+        return float(((a - b).float().abs().amax(-1) * keep).max()) / scale
+
+    ops.enable_kernels()
+    moe.moe_block = routed
+    try:
+        for arch, ms, dts in TP_SHARES:
+            for dt in dts:
+                cfg = dataclasses.replace(get_config(arch), dtype=dt)
+                kind, dtype = cfg.block_pattern[0], getattr(torch, dt)
+                values, axes = split(tr._init_block(g, kind, cfg, dtype))
+                x = torch.randn((GEN_BATCH, GEN_PROMPT, cfg.d_model), generator=g,
+                                device=dev).to(dtype)
+                kw = dict(cache=None, pos_offset=0, window=cfg.sliding_window)
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    t = time.time()
+                    routes.clear()
+                    whole, _, aux = tr._apply_block(x, values, kind, cfg, **kw)
+                    torch.cuda.synchronize()
+                    whole_s = time.time() - t
+                    whole_route = routes[0] if routes else None
+                    whole32 = route32 = None
+                    if dtype != torch.float32:
+                        routes.clear()
+                        whole32, _, _ = tr._apply_block(x.float(), _to_f32(values), kind, cfg,
+                                                        **kw)
+                        route32 = routes[0] if routes else None
+                    upd = (whole - x).float()
+                    scale = float(upd.abs().max())
+                    for m in ms:
+                        d = cfg.d_model // m
+                        rules = shd.make_rules(ParallelConfig(mesh_shape=(1, m),
+                                                              mesh_axes=("data", "model")))
+                        ranks = []
+                        for r in range(m):
+                            sh = shd.param_shardings(axes, values, rules, RankMesh(m, r, "cuda"))
+                            ranks.append(({"block": local_boxes(values, sh)}, {"block": sh}))
+
+                        def share(r, grp, ranks=ranks, m=m, d=d, cfg=cfg, dtype=dtype,
+                                  kind=kind, kw=kw, x=x):
+                            local, sh = ranks[r]
+                            with shd.gathering(sh, None, (), dtype), \
+                                    shd.model_parallel((grp, m, r)):
+                                p = shd.gather_params(local["block"], "block")
+                                y, _, a = tr._apply_block(x[..., r * d:(r + 1) * d], p, kind,
+                                                          cfg, **kw)
+                            return y, float(a)
+
+                        launched = fa.flash_attention.launches
+                        routes.clear()
+                        torch.cuda.synchronize()
+                        t = time.time()
+                        outs, passes, calls = run_in_turns(share, m)
+                        torch.cuda.synchronize()
+                        shares_s = time.time() - t
+                        launches = fa.flash_attention.launches - launched
+                        k5_launches += launches
+                        joined = torch.cat([y for y, _ in outs], dim=-1)
+                        aux_r = [a for _, a in outs]
+                        # every token agrees unless the layer routes: then
+                        # the last pass's routes (one a rank, all alike)
+                        keep = torch.ones(x.shape[:-1], device=dev)
+                        flips = 0
+                        if whole_route is not None:
+                            last = routes[-m:]
+                            check(all(torch.equal(last[0], q) for q in last[1:]),
+                                  f"12c: {arch} {dt} on model = {m}: the ranks route alike")
+                            agree = (last[0] == whole_route).all(-1).reshape(x.shape[:-1])
+                            flips = int((~agree).sum())
+                            keep = agree.float()
+                        err = err_of(joined - x, upd, keep, scale)
+                        check(err <= LOGIT_TOL,
+                              f"12c: {arch} {dt} on model = {m}: the joined shares' update "
+                              f"{err:.3g} of max from the whole layer's on the {int(keep.sum())} "
+                              f"tokens routed alike ({flips} flipped)")
+                        # rounding flips near ties only; a fault upstream of
+                        # the router would reroute most tokens
+                        check(flips <= 0.05 * keep.numel(),
+                              f"12c: {arch} {dt} on model = {m}: {flips} tokens routed "
+                              "otherwise than the whole layer")
+                        check(launches == passes * m,
+                              f"12c: {arch} {dt} on model = {m}: K5 launched {launches}, "
+                              f"want {passes} x {m}")
+                        rec = {"dtype": dt, "err_of_max": err, "passes": passes,
+                               "collectives_a_rank": calls, "tokens": keep.numel(),
+                               "router_flips": flips if whole_route is not None else None,
+                               "aux": aux_r[0] if kind == "attn_moe" else None,
+                               "k5_launches": launches, "k5_shape": list(k5_rank_shape(cfg, m)),
+                               "whole_s": whole_s, "shares_s": shares_s}
+                        if whole32 is not None:
+                            # bf16 rounding: each's distance from the f32
+                            # layer, on tokens all three route alike
+                            k32 = keep if route32 is None else \
+                                keep * (route32 == whole_route).all(-1).reshape(keep.shape)
+                            rec.update(whole_vs_f32=err_of(whole, whole32, k32, scale),
+                                       shares_vs_f32=err_of(joined, whole32, k32, scale))
+                        if kind == "attn_moe":
+                            # the router reads the carry after attention's
+                            # sums over model: the same loss on every rank,
+                            # the whole layer's to rounding
+                            check(len(set(aux_r)) == 1 and
+                                  abs(aux_r[0] - float(aux)) <= 1e-3 * abs(float(aux)),
+                                  f"12c: {arch} {dt} on model = {m}: balance losses {aux_r} "
+                                  f"against the whole layer's {float(aux)}")
+                        out[f"{arch}/{dt}/model={m}"] = rec
+                        del ranks, outs, joined, share
+                del values, x, whole, upd, whole32
+    finally:
+        moe.moe_block = moe_block
+        ops.disable_kernels()
+
+    k5 = {}
+    for arch, ms, _ in TP_SHARES:
+        cfg = get_config(arch)
+        for m in ms:
+            B, H, KV, S, hd = k5_rank_shape(cfg, m)
+            label = f"{arch}/model={m}"
+            for dt in ("float32", "bfloat16"):
+                dtype = getattr(torch, dt)
+                q = torch.randn((B, H, S, hd), generator=g, device=dev).to(dtype)
+                kk = torch.randn((B, KV, S, hd), generator=g, device=dev).to(dtype)
+                v = torch.randn((B, KV, S, hd), generator=g, device=dev).to(dtype)
+                o = fa.flash_attention(q, kk, v, 0)
+                r = ref.flash_attention_ref(q, kk, v, 0)
+                torch.cuda.synchronize()
+                diff = (o.float() - r.float()).abs()
+                tol = ATTN_TOL[dt]
+                check(bool(torch.isfinite(o).all()) and bool((diff <= tol + tol * r.float().abs())
+                                                             .all()),
+                      f"12c: K5 at {label} {dt}: max |o - ref| {float(diff.max()):.3g} beyond "
+                      f"tol {tol}")
+                entry = k5.setdefault(label, {"shape": [B, H, KV, S, hd]})
+                entry[f"max_abs_err_{dt}"] = float(diff.max())
+                if dtype == torch.bfloat16:
+                    entry["f32_scores"] = k5_f32_scores_check(torch, q, kk, v, o, 0,
+                                                              f"12c: K5 at {label}")
+                    entry["timing"] = k5_timing(torch, q, kk, v, 0, r, flush)
+                del q, kk, v, o, r
+    out["k5"] = k5
+    emit({"tp_shares_12c": out})
+    return dict(out, k5_launches=k5_launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 13: costing and the dry run (roofline.py, launch/cells.py,
 # launch/costing.py, launch/dryrun.py), and kernels/ops.py's entry points
 # ---------------------------------------------------------------------------
 
 COST_ARG_TOL = 0.01          # 13a: costed argument bytes against the state's memory
 DRYRUN_ARCH, DRYRUN_SHAPES = "qwen3-32b", ("train_4k", "decode_32k")   # 13b, 16 x 16
+# 13b's tensor-parallel step: train_4k's per-rank dot FLOPs are the whole
+# step's / 16 (model = 16), that is a data-parallel step's along model,
+# 1.848e16 on the same cell, / 16; decode_32k all-gathers the rank's model
+# box of the weights over data, well below the whole bf16 model's 65.6 GB
+DRYRUN_TRAIN_DOT_FLOPS, DRYRUN_DOT_TOL = 1.848e16 / 16, 0.02
+DRYRUN_DECODE_ALL_GATHER_MAX = 8.7e9
 
 
 def roofline_share(rec, measured_s) -> dict:
@@ -4356,12 +4577,24 @@ def phase_dryrun(torch):
                   rec["collectives"]["total"], rec["roofline"]["bound_s"]]
         check(all(math.isfinite(v) and v > 0 for v in counts),
               f"13b: {DRYRUN_ARCH} x {shape}: a count is not finite and positive {counts}")
-        out[shape] = {"mesh": rec["mesh"], "microbatches": rec["pcfg"]["microbatches"],
+        out[shape] = {"per_rank": {"dot_flops": rec["cost"]["dot_flops"],
+                                   "collective_bytes": {k: v for k, v in
+                                                        rec["collectives"].items()
+                                                        if k != "counts"}},
+                      "mesh": rec["mesh"], "microbatches": rec["pcfg"]["microbatches"],
                       "per_device_gib": rec["memory"]["per_device_total"] / 2 ** 30,
                       "hbm_gib": roofline.HBM_BYTES / 2 ** 30, "fits_hbm": rec["fits_hbm"],
                       "memory": rec["memory"], "cost": rec["cost"],
                       "collectives": rec["collectives"], "roofline": rec["roofline"],
                       "trace_s": rec["trace_s"], "wall_s": wall}
+    dot = out["train_4k"]["cost"]["dot_flops"]
+    check(abs(dot - DRYRUN_TRAIN_DOT_FLOPS) <= DRYRUN_DOT_TOL * DRYRUN_TRAIN_DOT_FLOPS,
+          f"13b: train_4k's per-rank dot FLOPs {dot:.4g}, want {DRYRUN_TRAIN_DOT_FLOPS:.4g} "
+          f"within {DRYRUN_DOT_TOL:.0%} (a rank's model share)")
+    ag = out["decode_32k"]["collectives"]["all-gather"]
+    check(ag < DRYRUN_DECODE_ALL_GATHER_MAX,
+          f"13b: decode_32k all-gathers {ag:.4g} bytes a step, want below "
+          f"{DRYRUN_DECODE_ALL_GATHER_MAX:.3g} (no weight gathered over model)")
     t = time.time()
     cc = costing.cost_cell(DRYRUN_ARCH, "decode_32k")
     check(cc["dot_flops"] == out["decode_32k"]["cost"]["dot_flops"],
@@ -5031,6 +5264,9 @@ def main() -> int:
     finally:
         for d in (train_dir, cycle_dir):
             shutil.rmtree(d, ignore_errors=True)
+    t = time.time()
+    tp_shares = phase_tp_shares(torch, dev, flush)
+    phases["tp_shares_12c_s"] = time.time() - t
     t13 = time.time()
     phase_costing(torch, dev, train, zamba_gen, zamba_artifact)
     phases["costing_13a_s"] = time.time() - t13
@@ -5071,7 +5307,9 @@ def main() -> int:
                       **({"engine_generate": z["engine_generate"]["launches"][kind]}
                          if "engine_generate" in z else {})} for line, z in zoo.items()}
         return out, {name: ex["launches"][kind] for name, ex in examples.items()}
-    k5_err = max(v["max_abs_err"] for v in k5.values() if "max_abs_err" in v)
+    k5_err = max([v["max_abs_err"] for v in k5.values() if "max_abs_err" in v]
+                 + [max(e["max_abs_err_float32"], e["max_abs_err_bfloat16"])
+                    for e in tp_shares["k5"].values()])
     launch = kernel_launches(k3v, k4v, gen, tuned, moe_gen, moe_tuned)
 
     def variants(timing, errs, launches, replaces):
@@ -5193,6 +5431,9 @@ def main() -> int:
          "launches_phase10": zamba_stream["serve"]["launches"]["flash_attention"],
          "launches_phase11": granite_serve["launches"]["flash_attention"],
          "launches_phase12": mesh12["launches"]["flash_attention"],
+         # phase 12c: each rank's prefill share of a qwen3-32b and a
+         # granite-moe layer on model = 4 and 16, every pass of the ranks
+         "launches_phase12c": tp_shares["k5_launches"],
          "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
          "bound_ms": k5["timing"]["bound_ms"], "bound_by": k5["timing"]["bound_by"],
@@ -5210,7 +5451,17 @@ def main() -> int:
          "launches_phase14b": zoo_launches("flash_attention")[1],
          # phase 14a: each cell's prefill shape (MHA 24 x 64; GQA 16/8 x 128;
          # GQA 96/8 x 128), held and timed
-         "zoo": {line: z["k5"] for line, z in zoo.items()}},
+         "zoo": {line: z["k5"] for line, z in zoo.items()},
+         # phase 12c: a rank's prefill shape on model = 4 and 16 (qwen3-32b:
+         # 16/2 and 4/1 heads x 128; granite-moe: 4/2 and 1/1 x 64), held
+         # and timed
+         "tp_shares": {label: {"shape": e["shape"],
+                               "max_abs_err": max(e["max_abs_err_float32"],
+                                                  e["max_abs_err_bfloat16"]),
+                               **{k: e["timing"][k] for k in
+                                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "device_ms", "library_device_ms")}}
+                       for label, e in tp_shares["k5"].items()}},
         {"name": "bitlinear_grouped", "route": "cuda",
          "source": "src/repro_torch/csrc/bitlinear.cu",
          "replaces": "src/repro/kernels/bitlinear.py:583",

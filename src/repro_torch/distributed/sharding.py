@@ -23,14 +23,38 @@ mesh order, major first, so the rank -> box map is JAX's
 ``devices_indices_map`` for ranks laid out row-major.
 
 ``activation_rules`` installs the reference's activation specs for
-``constrain`` (a no-op on the port's paths today: its docstring) and
-``current_rule`` (flash-decode reads it).  For the port's sharded train
-step (``training/loop.py``), which runs each rank on its rows of the
-batch, ``data_parallel`` installs the group over which ``dp_sum`` and
-``dp_mean`` reduce a loss's batch statistics, and ``gathering`` the
-parameter shards that ``gather_params`` makes whole one layer group at a
-time.  Outside them every helper is the identity, so model code runs on
-one device unchanged.
+``constrain`` and ``current_rule`` (flash-decode reads it).  The port's
+sharded steps (``training/loop.py``, ``launch/cells.py``) run each rank on
+its rows of the batch with explicit collectives over three pieces of
+process-wide state, each installed by a context:
+
+* ``data_parallel``: the group over which ``dp_sum`` and ``dp_mean``
+  reduce a loss's batch statistics;
+* ``model_parallel``: the ``model`` group, along which the model computes
+  as the reference's rules partition it (tensor parallelism of heads, kv,
+  mlp and vocab, expert parallelism of experts): a weight dim on ``model``
+  stays this rank's box and is computed on, and activations move between
+  ranks through the collectives below;
+* ``gathering``: the parameter shards that ``gather_params`` gathers one
+  layer group at a time, over the data-parallel axes only for a leaf with a
+  dim on ``model``.
+
+Along ``model`` every value is one of: *whole* (the same on every rank),
+*split* (this rank's box of one dim) or *partial* (this rank's term of a
+sum over the ranks).  The collectives are autograd functions, each with
+its transpose: ``model_gather`` split -> whole (all-gather; backward
+reduce-scatter), ``model_scatter`` partial -> split (reduce-scatter;
+backward all-gather), ``model_sum`` partial -> whole (all-reduce; backward
+all-reduce), ``model_slice`` whole -> split (no communication; backward
+pads with zeros) and ``model_once`` whole -> partial (rank 0 keeps it).
+The backward of each makes one convention hold: the cotangent of a whole
+value is partial, so the step seeds its replicated loss with 1/m on each of
+the ``m`` ranks (``training/loop.py``) and a weight that is whole over
+``model`` has its gradient summed over ``model`` as well as over the dp
+group (``gather_params``).  Every rank runs the same graph, so each
+collective of the backward (and of a remat's recompute) is issued on every
+rank in the same order.  Outside these contexts every helper is the
+identity, so model code runs on one device unchanged.
 """
 
 from __future__ import annotations
@@ -60,6 +84,20 @@ __all__ = [
     "axes_group",
     "axes_index",
     "data_parallel",
+    "model_parallel",
+    "model_axis",
+    "model_size",
+    "model_index",
+    "model_gather",
+    "model_scatter",
+    "model_sum",
+    "model_slice",
+    "model_once",
+    "model_max",
+    "tp_dim",
+    "rows_whole",
+    "mark_tp",
+    "whole_over_model",
     "dp_sum",
     "dp_mean",
     "gathering",
@@ -338,20 +376,30 @@ def row_axes(rows: int, mesh, include_model: bool = False) -> tuple:
 
 
 def constrain(x, kind: str):
-    """Redistribute a DTensor to the installed rule ``kind`` (each entry
-    fitted to its dim); a plain tensor, or no rule, passes unchanged.
+    """``x`` moved to the installed rule ``kind`` (each entry fitted to its
+    dim): a DTensor is redistributed; a plain tensor under
+    ``model_parallel``, whole along ``model`` and holding this rank's rows,
+    is cut to this rank's box of each dim the rule puts on ``model``
+    (``model_slice``).  Anything else, or no rule, passes unchanged.
 
-    No path of the port hands the model DTensor activations today (the
-    sharded train step runs on plain tensors, serving on whole ones), so
-    the model's ``constrain`` points return their input there; they mark
-    where the reference constrains, for a tensor-parallel step."""
+    The model calls it where the reference constrains: the carry after the
+    embedding (``hidden``, embed on ``model``) and logits from a head that
+    is not vocab-sharded (``logits``)."""
     specs = current_rule(kind) if getattr(_TLS, "rules", None) else None
-    if specs is None or not is_dtensor(x):
+    if specs is None:
         return x
-    sizes = mesh_shape(x.device_mesh)
     entries = list(specs) + [None] * (x.ndim - len(specs))
-    spec = tuple(fit(d, e, sizes) for d, e in zip(x.shape, entries))
-    return x.redistribute(x.device_mesh, NamedSharding(x.device_mesh, spec).placements())
+    if is_dtensor(x):
+        sizes = mesh_shape(x.device_mesh)
+        spec = tuple(fit(d, e, sizes) for d, e in zip(x.shape, entries))
+        return x.redistribute(x.device_mesh, NamedSharding(x.device_mesh, spec).placements())
+    m = model_size()
+    if m == 1:
+        return x
+    for t, (d, e) in enumerate(zip(x.shape, entries)):
+        if "model" in _entry_axes(e) and d % m == 0:
+            x = model_slice(x, t)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -414,10 +462,10 @@ def axes_index(mesh, axes: tuple) -> tuple:
     return idx, total
 
 
-# The sharded train step's state, process-wide and not thread-local: the
+# The sharded steps' state, process-wide and not thread-local: the
 # autograd engine runs a CUDA graph's backward, and so the recompute of a
 # remat'd group, on its device thread.
-_STEP = {"dp": None, "gather": None}
+_STEP = {"dp": None, "gather": None, "model": None}
 
 
 class _GroupSum(torch.autograd.Function):
@@ -467,16 +515,229 @@ def dp_mean(x: torch.Tensor, dim) -> torch.Tensor:
     return dp_sum(x.sum(dim=dim)) / (n * dp[1])
 
 
-class _GatherParam(torch.autograd.Function):
-    """A parameter's whole value from this rank's shard (an all-gather).
-    Backward: the whole gradient summed over the data-parallel group in
-    ``dtype``, this rank's box of it: a reduce-scatter where one dim is
-    sharded over exactly the group's axes, else an all-reduce and a slice."""
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism along ``model``
+# ---------------------------------------------------------------------------
+
+def model_axis(mesh, pcfg: ParallelConfig):
+    """(group, size, this rank's index) of the ``model`` axis when the
+    rules shard over it (a ``model`` axis and not ``dp_includes_model``),
+    else None.  Every rank must call it (the group is made collectively)."""
+    sizes = mesh_shape(mesh)
+    if "model" not in sizes or pcfg.dp_includes_model:
+        return None
+    idx, size = axes_index(mesh, ("model",))
+    return axes_group(mesh, ("model",)), size, idx
+
+
+@contextlib.contextmanager
+def model_parallel(axis):
+    """Make the model compute along ``model``: ``axis`` is ``model_axis``'s
+    (group, size, index), or None (nothing installed).  A size-1 axis is
+    installed too: every helper is then the identity and the step is the
+    unsharded one, op for op.  The group may also be a stand-in object, not
+    a ``ProcessGroup``, with ``all_gather(x, dim)``, ``reduce_scatter(x,
+    dim)`` and ``all_reduce(x, op)`` methods: one rank's share computed at a
+    time on one device."""
+    prev = _STEP["model"]
+    _STEP["model"] = None if axis is None else tuple(axis)
+    try:
+        yield
+    finally:
+        _STEP["model"] = prev
+
+
+def model_size() -> int:
+    """The number of ranks along ``model`` under ``model_parallel`` (1
+    outside it)."""
+    state = _STEP["model"]
+    return 1 if state is None else state[1]
+
+
+def model_index() -> int:
+    """This rank's index along ``model`` (0 outside ``model_parallel``)."""
+    state = _STEP["model"]
+    return 0 if state is None else state[2]
+
+
+def tp_dim(w):
+    """The dim of a gathered weight that is this rank's box along
+    ``model`` (``gather_params`` marks it), None for a weight whole over
+    ``model``, outside ``model_parallel``, or for anything but a tensor.
+    Under ``model_parallel`` a tensor without the mark (made by an op from
+    a gathered weight, or never gathered) raises: read as whole, a rank's
+    box would silently drop the other ranks' terms."""
+    if model_size() == 1 or not isinstance(w, torch.Tensor):
+        return None
+    if not hasattr(w, "_tp_dim"):
+        raise ValueError(f"a weight of shape {tuple(w.shape)} without its placement along "
+                         "model: take it from gather_params, or mark it (mark_tp)")
+    return w._tp_dim
+
+
+def mark_tp(w: torch.Tensor, dim) -> torch.Tensor:
+    """``w`` marked as this rank's box of ``dim`` along ``model`` (None:
+    whole), the mark that :func:`tp_dim` reads."""
+    w._tp_dim = dim
+    return w
+
+
+def whole_over_model(w):
+    """A gathered weight made whole along ``model`` (its boxes all-gathered;
+    the gradient reduce-scattered back), for a module that is not
+    tensor-parallel yet; a whole weight, or a non-tensor, as it is."""
+    dim = tp_dim(w)
+    return w if dim is None else mark_tp(model_gather(w, dim), None)
+
+
+def _stand_in(group) -> bool:
+    import torch.distributed as dist
+
+    return not isinstance(group, dist.ProcessGroup)
+
+
+def _all_gather(x, dim: int, group, size: int):
+    if _stand_in(group):
+        return group.all_gather(x, dim)
+    import torch.distributed as dist
+
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((size * x0.shape[0],) + tuple(x0.shape[1:]))
+    dist.all_gather_into_tensor(out, x0, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x, dim: int, group, size: int):
+    if _stand_in(group):
+        return group.reduce_scatter(x, dim)
+    import torch.distributed as dist
+
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((x0.shape[0] // size,) + tuple(x0.shape[1:]))
+    dist.reduce_scatter_tensor(out, x0, group=group)
+    return out.movedim(0, dim)
+
+
+def _all_reduce(x, group, op: str = "sum"):
+    if _stand_in(group):
+        return group.all_reduce(x, op)
+    import torch.distributed as dist
+
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+    return y
+
+
+class _ModelGather(torch.autograd.Function):
+    """split -> whole: all-gather along ``dim``; backward reduce-scatter."""
 
     @staticmethod
-    def forward(ctx, local, sharding, shape, group, axes, dtype):
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        group, size, _ = _STEP["model"]
+        ctx.group, ctx.size = group, size
+        return _all_gather(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.size), None
+
+
+class _ModelScatter(torch.autograd.Function):
+    """partial -> split: reduce-scatter along ``dim``; backward all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        group, size, _ = _STEP["model"]
+        ctx.group, ctx.size = group, size
+        return _reduce_scatter(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.size), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """partial -> whole: all-reduce; backward all-reduce (the whole value's
+    cotangent is partial, each term's is the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.group = _STEP["model"][0]
+        return _all_reduce(x, ctx.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group)
+
+
+class _ModelSlice(torch.autograd.Function):
+    """whole -> split: this rank's box of ``dim``; backward pads the box's
+    cotangent with zeros (a partial cotangent of the whole value)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        _, size, idx = _STEP["model"]
+        ctx.dim, ctx.shape, ctx.n = dim, x.shape, x.shape[dim] // size
+        ctx.start = idx * ctx.n
+        return x.narrow(dim, ctx.start, ctx.n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.narrow(ctx.dim, ctx.start, ctx.n).copy_(g)
+        return out, None
+
+
+def model_gather(x, dim: int = -1):
+    """This rank's box of ``dim`` (split) -> the whole value on every rank."""
+    return x if model_size() == 1 else _ModelGather.apply(x, dim % x.ndim)
+
+
+def model_scatter(x, dim: int = -1):
+    """This rank's term of a sum (partial) -> its box of ``dim`` of the sum."""
+    return x if model_size() == 1 else _ModelScatter.apply(x, dim % x.ndim)
+
+
+def model_sum(x):
+    """This rank's term of a sum (partial) -> the sum on every rank."""
+    return x if model_size() == 1 else _ModelSum.apply(x)
+
+
+def model_slice(x, dim: int = -1):
+    """A whole value -> this rank's box of ``dim``."""
+    return x if model_size() == 1 else _ModelSlice.apply(x, dim % x.ndim)
+
+
+def model_once(x):
+    """A whole value -> a partial one whose sum over ``model`` counts it
+    once: ``x`` on rank 0, zeros elsewhere (a product with a 0/1 factor,
+    so every rank keeps the same graph)."""
+    return x if model_size() == 1 else x * float(model_index() == 0)
+
+
+def model_max(x):
+    """Elementwise max over ``model`` (no gradient: a stabiliser)."""
+    return x if model_size() == 1 else _all_reduce(x.detach(), _STEP["model"][0], "max")
+
+
+class _GatherParam(torch.autograd.Function):
+    """A parameter's value for this rank's compute from its shard: gathered
+    over every axis that shards it (``whole``) or, under
+    ``model_parallel``, over all but ``model``, whose dim stays this rank's
+    box (an all-gather over the dp axes).  Backward: the gradient summed
+    over the data-parallel group in ``dtype`` into this rank's box, a
+    reduce-scatter where one dim is sharded over exactly the group's axes,
+    else an all-reduce and a slice; and, for a value whole over ``model``
+    under ``model_parallel`` (whose gradient is partial there), summed over
+    ``model`` too."""
+
+    @staticmethod
+    def forward(ctx, local, sharding, shape, group, axes, dtype, model_group, name):
         ctx.box, ctx.group, ctx.dtype = sharding.local_box(shape), group, dtype
         ctx.dim = next((t for t, e in enumerate(sharding.spec) if _entry_axes(e) == axes), None)
+        ctx.model_group = model_group
         if sharding.is_whole():
             return local.view_as(local)
         return sharding.from_local(local.contiguous(), shape).full_tensor()
@@ -485,20 +746,24 @@ class _GatherParam(torch.autograd.Function):
     def backward(ctx, g):
         import torch.distributed as dist
 
-        none = (None,) * 5
+        none = (None,) * 7
         if ctx.group is None:
-            return (g[ctx.box],) + none
-        if ctx.dim is None:
+            g = g[ctx.box]
+        elif ctx.dim is None:
             g = g.to(ctx.dtype, copy=True)
             dist.all_reduce(g, group=ctx.group)
-            return (g[ctx.box],) + none
-        t = ctx.dim
-        rows = tuple(slice(None) if d == t else b for d, b in enumerate(ctx.box))
-        whole = g[rows].to(ctx.dtype).movedim(t, 0).contiguous()
-        n = ctx.box[t].stop - ctx.box[t].start
-        out = whole.new_empty((n,) + tuple(whole.shape[1:]))
-        dist.reduce_scatter_tensor(out, whole, group=ctx.group)
-        return (out.movedim(0, t),) + none
+            g = g[ctx.box]
+        else:
+            t = ctx.dim
+            rows = tuple(slice(None) if d == t else b for d, b in enumerate(ctx.box))
+            whole = g[rows].to(ctx.dtype).movedim(t, 0).contiguous()
+            n = ctx.box[t].stop - ctx.box[t].start
+            out = whole.new_empty((n,) + tuple(whole.shape[1:]))
+            dist.reduce_scatter_tensor(out, whole, group=ctx.group)
+            g = out.movedim(0, t)
+        if ctx.model_group is not None:
+            g = _all_reduce(g.to(ctx.dtype), ctx.model_group)
+        return (g,) + none
 
 
 @contextlib.contextmanager
@@ -515,36 +780,68 @@ def gathering(shardings, group, axes: tuple, dtype: torch.dtype):
         _STEP["gather"] = prev
 
 
-def gather_params(tree, path: str, stacked: bool = False):
-    """The whole values of ``tree``, this rank's shards of the parameters at
-    ``path`` of the model's values tree (one group's slice of them when
-    ``stacked``), inside :func:`gathering`; ``tree`` itself outside it.
+def _without_model(ns: NamedSharding) -> tuple:
+    """(the spec without ``model``, the dim it held or None)."""
+    spec, dim = [], None
+    for t, e in enumerate(ns.spec):
+        axes = _entry_axes(e)
+        if "model" in axes:
+            dim = t
+            axes = tuple(a for a in axes if a != "model")
+        spec.append(axes if axes else None)
+    return P(*spec), dim
 
-    The model calls it where a group's (or the top level's) weights are
-    used, inside the group's remat: a rank holds one group's whole weights
-    at a time, and the whole gradient of one group's weights at a time."""
+
+def gather_params(tree, path: str, stacked: bool = False):
+    """The values of ``tree`` for this rank's compute, from this rank's
+    shards of the parameters at ``path`` of the model's values tree (one
+    group's slice of them when ``stacked``), inside :func:`gathering`;
+    ``tree`` itself outside it.
+
+    Under ``model_parallel`` a leaf with a dim on ``model`` is gathered over
+    the other axes only, and every leaf is marked with its dim on ``model``
+    or None (``tp_dim``).  The model
+    calls it where a group's (or the top level's) weights are used, inside
+    the group's remat: a rank holds one group's gathered weights at a time,
+    and their gradient, one group at a time."""
     state = _STEP["gather"]
     if state is None:
         return tree
     shardings, group, axes, dtype = state
     for k in path.split("/"):
         shardings = shardings[k]
+    model = _STEP["model"]
+    model_group = model[0] if model is not None and model[1] > 1 else None
 
-    def one(x, ns):
+    def one(x, ns, name):
         if stacked:
             if ns.spec and ns.spec[0] is not None:
                 raise ValueError(f"{path}: a stacked leaf sharded over its layers {ns.spec}")
             ns = NamedSharding(ns.mesh, ns.spec[1:])
-        if group is None and ns.is_whole():
-            return x
-        return _GatherParam.apply(x, ns, ns.global_shape(x.shape), group, axes, dtype)
+        dim = None
+        if model_group is not None:
+            spec, dim = _without_model(ns)
+            if dim is not None:
+                ns = NamedSharding(ns.mesh, spec)
+        # a value whole over ``model`` is used alike on every model rank:
+        # its gradient there is partial, summed over ``model`` by the gather
+        # (an all-reduce) or by the transpose of the gather over ``model``
+        mg = model_group if dim is None else None
+        if group is None and mg is None and ns.is_whole():
+            if dim is None:
+                return x
+            y = x.view_as(x)
+        else:
+            y = _GatherParam.apply(x, ns, ns.global_shape(x.shape), group, axes, dtype, mg,
+                                   name)
+        return mark_tp(y, dim)
 
-    def walk(x, ns):
+    def walk(x, ns, name):
         if isinstance(x, dict):
-            return {k: walk(v, ns[k]) for k, v in x.items()}
-        return one(x, ns)
+            return {k: walk(v, ns[k], f"{name}/{k}") for k, v in x.items()}
+        return one(x, ns, name)
 
-    return walk(tree, shardings)
+    return walk(tree, shardings, path)
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +873,17 @@ def full_value(x):
     if not is_dtensor(x):
         return x
     return x.to_local() if is_whole(x) else x.full_tensor()
+
+
+def rows_whole(x, rows_dim: int):
+    """A DTensor as this rank's rows (its box of ``rows_dim``) with every
+    other dim made whole over its mesh axes (an all-gather over those)."""
+    from torch.distributed.tensor import Replicate
+
+    keep = [p if p.is_shard() and p.dim == rows_dim else Replicate() for p in x.placements]
+    if keep == list(x.placements):
+        return x.to_local()
+    return x.redistribute(x.device_mesh, keep).to_local()
 
 
 def sharding_of(x) -> NamedSharding:

@@ -13,14 +13,19 @@ inside ``launch/fakeworld.fake_world``).
 The steps are the port's own programs on a mesh:
 
 * train: ``make_train_step``'s sharded step (``training/loop.py``): each
-  rank its rows over the dp axes with whole weights gathered one group at a
-  time, gradients reduce-scattered into its boxes;
+  rank its rows over the dp axes, tensor- and expert-parallel along
+  ``model``, its weights' ``model`` boxes gathered over the dp axes one
+  group at a time, gradients reduce-scattered into its boxes;
 * prefill and decode (:func:`serving_step`): each rank its rows of the
-  batch over the dp axes, the weights stored as the reference places them
-  and gathered one group at a time (``sharding.gather_params``), the KV
-  cache's rows and its slice of the sequence over ``model`` as DTensors
-  (written where they fall, read by flash-decode), each SSM state made
-  whole over ``model`` for the step and its box written back.
+  batch over the dp axes and its share of each product along ``model``
+  (``sharding.model_parallel``), as the train step; the weights stored as
+  the reference places them and gathered over the dp axes one group at a
+  time (``sharding.gather_params``; compressed leaves are replicated, so
+  kernels K3 and K4 run on whole compressed layers, computed alike on every
+  model rank), the KV cache's rows and its slice of the sequence over
+  ``model`` as DTensors (written where they fall, read by flash-decode with
+  every head), each SSM state made whole over ``model`` for the step and
+  its box written back; the logits gathered whole over ``model``.
 """
 
 from __future__ import annotations
@@ -181,15 +186,22 @@ def local_rows(rows: int, mesh, include_model: bool = False) -> int:
     return rows // n
 
 
-def _rows_whole(x, rows_dim: int):
-    """A cache leaf's DTensor as this rank's rows with every other dim made
-    whole over its mesh axes (an all-gather over those)."""
-    from torch.distributed.tensor import Replicate
+def _cache_rows(cache) -> slice:
+    """The rows of the batch that this rank's box of the cache holds (over
+    the dp axes, as the reference's cache shardings place them)."""
+    path, x = next(_paths(cache))
+    if not shd.is_dtensor(x):
+        return slice(None)
+    return shd.dtensor_box(x)[1 if path.split("/")[0] == "groups" else 0]
 
-    keep = [p if p.is_shard() and p.dim == rows_dim else Replicate() for p in x.placements]
-    if keep == list(x.placements):
-        return x.to_local()
-    return x.redistribute(x.device_mesh, keep).to_local()
+
+def _input_rows(x, rows: slice):
+    """This rank's rows of a step's input, the cache's ``rows``: a prompt
+    whose rows are placed over ``model`` too (``dp_includes_model``, as
+    the reference's prefill cells place it) is gathered and cut to them."""
+    if not shd.is_dtensor(x) or shd.dtensor_box(x)[0] == rows:
+        return shd.local_value(x)
+    return shd.full_value(x)[rows]
 
 
 def _box_of(x, whole, rows_dim: int):
@@ -203,7 +215,8 @@ def _box_of(x, whole, rows_dim: int):
 @contextlib.contextmanager
 def serving_context(cfg: ModelConfig, pcfg: ParallelConfig, p_sh, cache):
     """The serving steps' setting on a mesh, for the block: no autograd, the
-    activation rules (flash-decode), parameter gathers by ``p_sh``; the
+    activation rules (flash-decode), tensor parallelism along ``model``,
+    parameter gathers by ``p_sh``; the
     value is the cache to run on, the KV leaves the given DTensors and
     every SSM leaf this rank's rows made whole, whose box is written back
     into its DTensor on exit."""
@@ -214,11 +227,12 @@ def serving_context(cfg: ModelConfig, pcfg: ParallelConfig, p_sh, cache):
         if path.rsplit("/", 1)[-1] in ("k", "v"):
             return x
         rows_dim = 1 if path.split("/")[0] == "groups" else 0
-        ssm.append((x, _rows_whole(x, rows_dim), rows_dim))
+        ssm.append((x, shd.rows_whole(x, rows_dim), rows_dim))
         return ssm[-1][1]
 
     work = _map_paths(prep, cache)
     with torch.no_grad(), shd.activation_rules(pcfg, mesh), \
+            shd.model_parallel(shd.model_axis(mesh, pcfg)), \
             shd.gathering(p_sh, None, (), model_dtype(cfg)):
         yield work
         for x, whole, rows_dim in ssm:
@@ -238,10 +252,13 @@ def serving_step(cfg: ModelConfig, pcfg: ParallelConfig, p_sh, kind: str, *,
 
     def run(params, inputs, cache, pos):
         local_p = _tree_map(shd.local_value, params)
-        local_in = {k: shd.local_value(v) for k, v in inputs.items()}
+        rows = _cache_rows(cache)
+        local_in = {k: _input_rows(v, rows) for k, v in inputs.items()}
         with serving_context(cfg, pcfg, p_sh, cache) as work:
             logits, _, _ = forward(local_p, local_in, cfg, cache=work, pos_offset=pos,
                                    last_only=kind == "prefill", unroll=unroll)
+            if logits.shape[-1] < cfg.vocab_size:
+                logits = shd.model_gather(logits, -1)     # the rank's vocabulary box
         return logits, cache
 
     if kind == "prefill":

@@ -94,6 +94,8 @@ _COUNTER = []       # the CostCounter the kernel adapters add to
 
 
 def _flash_adapter(qh, k, v, window):
+    # K5 at the shape the model hands it: under tensor parallelism the
+    # rank's q heads and the kv heads they read
     B, S, KV, rep, hd = qh.shape
     pairs = sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
     _COUNTER[-1].extra(flops=4 * B * KV * rep * hd * pairs,
@@ -178,13 +180,27 @@ def _fake(shape, dtype, device, requires_grad):
     return x.requires_grad_() if requires_grad and x.is_floating_point() else x
 
 
-def _group_local(shapes, shardings, device, requires_grad=False):
+def _group_local(shapes, shardings, device, requires_grad=False, stacked=True):
     """One group's local tensors: each stacked leaf's rank-0 box without
-    its leading (layer) axis."""
+    its leading (layer) axis (``stacked=False``: each leaf's box)."""
     from repro_torch.launch.cells import _local_shape, _tree_map
 
-    return _tree_map(lambda t, ns: _fake(_local_shape(ns, t.shape)[1:], t.dtype, device,
+    lead = 1 if stacked else 0
+    return _tree_map(lambda t, ns: _fake(_local_shape(ns, t.shape)[lead:], t.dtype, device,
                                          requires_grad), shapes, shardings)
+
+
+def _leaf_input(x):
+    """A gathered weight as a leaf of its own (its ``model`` placement
+    kept), so that a program's gradient stops there."""
+    return shd.mark_tp(x.detach().requires_grad_(x.is_floating_point()), shd.tp_dim(x))
+
+
+def _carry_width(cfg, axis) -> int:
+    """The carry's last dim on a rank: its box of d_model along ``model``
+    under tensor parallelism (``axis``: ``sharding.model_axis``'s)."""
+    m = 1 if axis is None else axis[1]
+    return cfg.d_model // m if cfg.d_model % m == 0 else cfg.d_model
 
 
 def _sub_artifact(artifact, groups: int):
@@ -246,9 +262,10 @@ def _train_parts(cfg, shape, pcfg, mesh, arch) -> tuple[dict, dict]:
     # B: one group as the step runs it, under the model's remat (whose
     # recompute is then inside B; the reference adds a forward for it)
     gp = _group_local(shapes["groups"], p_sh["groups"], dev, requires_grad=True)
-    shared = _tree_map(lambda t: _fake(t.shape, t.dtype, dev, True), shapes["shared"]) \
-        if "shared" in shapes else None
-    h = torch.empty((b_loc, shape.seq_len, cfg.d_model), dtype=dtype, device=dev,
+    shared = _group_local(shapes["shared"], p_sh["shared"], dev, requires_grad=True,
+                          stacked=False) if "shared" in shapes else None
+    axis = shd.model_axis(mesh, pcfg)
+    h = torch.empty((b_loc, shape.seq_len, _carry_width(cfg, axis)), dtype=dtype, device=dev,
                     requires_grad=True)
     sizes_out["h"] = h.numel() * h.element_size()
     sizes_out["group_grads"] = sum(x.numel() for x in _leaves(gp)) * accum.itemsize
@@ -258,12 +275,16 @@ def _train_parts(cfg, shape, pcfg, mesh, arch) -> tuple[dict, dict]:
                                shared_, cache=None, pos_offset=0, window=cfg.sliding_window,
                                unroll=True)
 
-    with counting() as c, torch.enable_grad(), shd.data_parallel(group, count), \
-            shd.gathering(p_sh, group, row_axes, accum):
-        out, _, aux = layers.remat(group_fn, h, gp, shared) if cfg.remat \
-            else group_fn(h, gp, shared)
-        wrt = [h] + _leaves(gp) + (_leaves(shared) if shared is not None else [])
-        torch.autograd.grad(torch.sum(out.to(torch.float32)) + aux, wrt, allow_unused=True)
+    with torch.enable_grad(), shd.data_parallel(group, count), shd.model_parallel(axis), \
+            shd.activation_rules(pcfg, mesh), shd.gathering(p_sh, group, row_axes, accum):
+        # the shared block is gathered once a forward, in the stem
+        shared = None if shared is None else _tree_map(_leaf_input,
+                                                       shd.gather_params(shared, "shared"))
+        with counting() as c:
+            out, _, aux = layers.remat(group_fn, h, gp, shared) if cfg.remat \
+                else group_fn(h, gp, shared)
+            wrt = [h] + _leaves(gp) + (_leaves(shared) if shared is not None else [])
+            torch.autograd.grad(torch.sum(out.to(torch.float32)) + aux, wrt, allow_unused=True)
     parts["layer"] = _costs(c)
     del gp, shared, h, out, aux
 
@@ -320,16 +341,19 @@ def _serve_parts(cfg, shape, pcfg, mesh, arch, artifact) -> tuple[dict, dict]:
     b_loc = local_rows(shape.global_batch, mesh)
     dev = mesh.device_type
     S = 1 if shape.kind == "decode" else shape.seq_len
-    h = torch.empty((b_loc, S, cfg.d_model), dtype=tr.model_dtype(cfg), device=dev)
+    h = torch.empty((b_loc, S, _carry_width(cfg, shd.model_axis(mesh, pcfg))),
+                    dtype=tr.model_dtype(cfg), device=dev)
     gp = tr._index(_tree_map(shd.local_value, params["groups"]), 0)
     shared = _tree_map(shd.local_value, params["shared"]) if "shared" in params else None
     with serving_context(cfg, pcfg, p_sh, cache) as work:
-        gc = tr._index(work["groups"], 0) if shape.kind == "decode" else None
+        # the group's cache slice: a prefill writes it too (every kv head)
+        gc = tr._index(work["groups"], 0)
         # the shared block is gathered once a forward, in the stem
         shared = None if shared is None else shd.gather_params(shared, "shared")
         with counting(kernels) as c:
             tr._apply_group(h, shd.gather_params(gp, "groups", stacked=True), cfg, shared,
-                            cache=gc, pos_offset=shape.seq_len - 1 if gc is not None else 0,
+                            cache=gc,
+                            pos_offset=shape.seq_len - 1 if shape.kind == "decode" else 0,
                             window=cfg.sliding_window, unroll=True)
     parts["layer"] = _costs(c)
     del args, params, cache, work

@@ -23,6 +23,18 @@ torch and collectives, as in JAX no Pallas kernel.  A cache whose k/v
 are such DTensors is written in place too: each rank writes the positions
 that fall in its slice (``_write_cache``).
 
+Under ``sharding.model_parallel`` (tensor parallelism over ``model``) a
+rank computes its own q heads (``wq``'s box) and the kv heads they read:
+its box of ``wk``/``wv`` when that box is exactly those heads, else the
+whole kv projection gathered over ``model`` (a box smaller than a head, as
+qwen3-32b's 8 kv heads on 16 ranks give, or a cache to write, which holds
+every kv head) and those heads taken from it.  qk-norm and RoPE act per
+head; prefill runs its heads alone (kernel K5 at the rank's heads when
+registered); decode gathers q's heads over ``model`` for flash-decode over
+the sequence-sharded cache, as the reference's ``shard_map`` branch runs
+every head, and keeps its heads after.  ``wo`` is row-parallel: the result
+is this rank's partial sum.
+
 The costing twin ``_chunked_attention_unrolled`` (``unroll=True``, taken
 before any flash hook, as the reference checks ``unroll`` first) walks the
 reference's block pairs: every pair, or with ``CAUSAL_SKIP_UNROLL`` the
@@ -42,6 +54,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models.params import param
 
@@ -210,8 +223,6 @@ def _decode_attention(qh, ck, cv, valid, scale: float, out_dtype):
     DTensors sequence-sharded over the axis (``serving.engine.
     cache_shardings``), whose rows are this rank's, as are the result's;
     ``qh`` is whole or a DTensor of those rows."""
-    from repro_torch.distributed import sharding as shd
-
     axis, dp, mesh = shd.current_rule("decode_sp_axis"), shd.current_rule("dp_axes"), \
         shd.current_mesh()
     B, Smax = ck.shape[0], ck.shape[1]      # the cache's rows: all of them for a DTensor
@@ -222,6 +233,10 @@ def _decode_attention(qh, ck, cv, valid, scale: float, out_dtype):
         if ax > 1 and Smax % ax == 0 and B % max(dp_size, 1) == 0:
             return _flash_decode(qh, ck, cv, valid, scale, out_dtype, mesh, axis, ax)
         qh, ck, cv = (shd.full_value(x) for x in (qh, ck, cv))
+    if shd.is_dtensor(ck):
+        # no flash-decode axis (``dp_includes_model``): this rank's rows of
+        # the cache, its sequence gathered
+        ck, cv = (shd.rows_whole(x, 0) for x in (ck, cv))
     s = _mask(torch.einsum("bgrh,bkgh->bgrk", qh, ck).to(torch.float32) * scale, valid)
     w = torch.softmax(s, dim=-1).to(out_dtype)
     return torch.einsum("bgrk,bkgh->bgrh", w, cv)
@@ -230,7 +245,6 @@ def _decode_attention(qh, ck, cv, valid, scale: float, out_dtype):
 def _flash_decode(qh, ck, cv, valid, scale, out_dtype, mesh, axis, ax):
     import torch.distributed as dist
 
-    from repro_torch.distributed import sharding as shd
 
     idx, _ = shd.axes_index(mesh, (axis,))
     group = shd.axes_group(mesh, (axis,))
@@ -306,7 +320,6 @@ def _slots(pos_offset: int, S: int, cache_len: int, ring: bool) -> list:
 def _write_sharded_cache(ck, cv, k, v, pos_offset: int, ring: bool):
     """A DTensor cache sharded over its rows and sequence: this rank writes
     the positions of its rows that fall in its sequence slice."""
-    from repro_torch.distributed import sharding as shd
 
     rows, seq = shd.dtensor_box(ck)[:2]
     if k.shape[0] != rows.stop - rows.start:
@@ -325,7 +338,6 @@ def _write_sharded_cache(ck, cv, k, v, pos_offset: int, ring: bool):
 def _write_cache(cache, k, v, pos_offset, pos_is_vec: bool, ring: bool):
     """Write this call's k/v into the cache in place (JAX writes a new one);
     start positions clamp so the slice fits, as dynamic_update_slice does."""
-    from repro_torch.distributed import sharding as shd
 
     ck, cv = cache["k"], cache["v"]
     B, S = k.shape[:2]
@@ -390,9 +402,25 @@ def attention(
     q_chunk = Q_CHUNK_DEFAULT if q_chunk is None else q_chunk
     scale = 1.0 / math.sqrt(hd)
 
-    q = layers.apply_dense(h, p["wq"]).reshape(B, S, H, hd)
-    k = layers.apply_dense(h, p["wk"]).reshape(B, S, KV, hd)
-    v = layers.apply_dense(h, p["wv"]).reshape(B, S, KV, hd)
+    # this rank's q heads [h0, h0 + Hl) and the kv heads they read; a box of
+    # wq that splits a head (24 heads of 64 on 16 ranks) computes every head
+    q = layers.apply_dense(h, p["wq"])
+    if q.shape[-1] % hd:
+        q = shd.model_gather(q, -1)
+    Hl = q.shape[-1] // hd
+    h0 = shd.model_index() * Hl if Hl < H else 0
+    kv0, nkv, kv_idx = _kv_heads(h0, Hl, rep)
+    k = layers.apply_dense(h, p["wk"])
+    v = layers.apply_dense(h, p["wv"])
+    if k.shape[-1] < KV * hd:
+        own = k.shape[-1] // hd
+        exact = k.shape[-1] % hd == 0 and kv_idx is None and own == nkv \
+            and shd.model_index() * own == kv0
+        if cache is not None or not exact:
+            k, v = shd.model_gather(k, -1), shd.model_gather(v, -1)
+    q = q.reshape(B, S, Hl, hd)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd)
+    v = v.reshape(B, S, v.shape[-1] // hd, hd)
     if cfg.qk_norm:
         q = _head_rms(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = _head_rms(k, p["k_norm"]["scale"], cfg.norm_eps)
@@ -413,6 +441,13 @@ def attention(
     if cache is not None:
         new_cache = _write_cache(cache, k, v, pos_offset, pos_is_vec, ring)
 
+    def mine(x):
+        """The kv heads this rank's q heads read, of a whole (all-head) x."""
+        if x.shape[2] == nkv and kv_idx is None:
+            return x
+        return x[:, :, kv0:kv0 + nkv] if kv_idx is None else x[:, :, kv_idx.to(x.device)]
+
+    rep_l = Hl // nkv
     if S == 1 and cache is not None:
         ck, cv = new_cache["k"], new_cache["v"]
         kpos = torch.arange(ck.shape[1], device=h.device)
@@ -424,16 +459,22 @@ def attention(
             valid = valid | (pb >= cache_len)
         elif window > 0:
             valid &= kpos > pb - window
-        o = _decode_attention(q.reshape(B, KV, rep, hd), ck, cv, valid, scale, h.dtype)
+        # every head, as the cache holds them: flash-decode combines over
+        # the cache's sequence slices
+        qa = shd.model_gather(q.reshape(B, Hl * hd), -1) if Hl < H else q.reshape(B, H * hd)
+        o = _decode_attention(qa.reshape(B, KV, rep, hd), ck, cv, valid, scale, h.dtype)
         o = o.reshape(B, 1, H * hd)
+        if Hl < H:
+            o = shd.model_slice(o, -1)
     elif cache is not None and attend_cache:
         o = _chunk_cache_attention(
-            q.reshape(B, S, KV, rep, hd), new_cache["k"], new_cache["v"], positions, window,
-            scale, h.dtype,
+            q.reshape(B, S, nkv, rep_l, hd), mine(new_cache["k"]), mine(new_cache["v"]),
+            positions, window, scale, h.dtype,
         )
-        o = o.reshape(B, S, H * hd)
+        o = o.reshape(B, S, Hl * hd)
     else:
-        qh = q.reshape(B, S, KV, rep, hd)
+        qh = q.reshape(B, S, nkv, rep_l, hd)
+        k, v = mine(k), mine(v)
         if unroll:
             o = layers.remat(functools.partial(
                 _chunked_attention_unrolled, window=window, q_chunk=q_chunk), qh, k, v)
@@ -445,5 +486,30 @@ def attention(
             o = layers.remat(functools.partial(
                 _chunked_attention, window=window, q_chunk=q_chunk, causal_skip=cache is not None,
             ), qh, k, v)
-        o = o.reshape(B, S, H * hd)
-    return layers.apply_dense(o, p["wo"]), new_cache
+        o = o.reshape(B, S, Hl * hd)
+    return _out_proj(o, p["wo"], H * hd), new_cache
+
+
+def _kv_heads(h0: int, Hl: int, rep: int):
+    """(first kv head, count, index or None) read by q heads [h0, h0 + Hl):
+    a contiguous run of kv heads, each read by Hl / count consecutive q
+    heads, or else ``index`` (one kv head per q head, as a tensor)."""
+    first, last = h0 // rep, (h0 + Hl - 1) // rep
+    n = last - first + 1
+    if n == 1 or (h0 % rep == 0 and Hl % rep == 0):
+        return first, n, None
+    if Hl % n == 0 and all((h0 + j) // rep - first == j // (Hl // n) for j in range(Hl)):
+        return first, n, None
+    return first, Hl, torch.tensor([(h0 + j) // rep for j in range(Hl)])
+
+
+def _out_proj(o, wo: dict, width: int):
+    """``o @ wo``: row-parallel (a partial sum) when ``wo``'s input dim is
+    this rank's box along ``model``; a whole product counted once else."""
+    row = shd.tp_dim(layers._value(wo["w"])) == 0
+    if row and o.shape[-1] == width:
+        o = shd.model_slice(o, -1)
+    elif not row and o.shape[-1] < width:
+        o = shd.model_gather(o, -1)
+    y = layers.apply_dense(o, wo)
+    return y if row else shd.model_once(y)

@@ -13,6 +13,15 @@ Ties in the top-k are broken towards the lower expert index, as
 order is unspecified).  Compressed expert stacks ({m_packed, C} with a
 leading expert axis) go through ``quantized.apply_compressed``: the grouped
 kernel K4 when it is registered, the grouped einsum form otherwise.
+
+Under ``sharding.model_parallel`` the router and the routing are computed
+alike on every rank (the capacity and the tie order are the reference's),
+and a rank runs its box of the experts: its ``E/m`` experts when the
+expert dim is on ``model`` (expert parallelism: it dispatches its rows'
+tokens to them and combines their outputs), or every expert with its box
+of the ``mlp`` dim when the rules put ``model`` there instead.  Either way
+the result is this rank's partial sum; the shared expert is a
+tensor-parallel ``mlp``.  The balance loss is unchanged.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantized
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import dp_mean
 from repro_torch.models import layers
 from repro_torch.models.params import dense_init
@@ -100,11 +110,21 @@ def moe_block(h: torch.Tensor, p: dict, cfg: ModelConfig):
     dispatch = torch.einsum("bske,bskc->bsec", onehot, pos_oh)
     combine = torch.einsum("bske,bskc->bsec", onehot * gate_vals[..., None], pos_oh)
 
+    tp = tuple(shd.tp_dim(p[n]) for n in ("gate", "up", "down"))
+    if tp == (0, 0, 0):
+        # expert parallelism: this rank's experts [e0, e0 + El)
+        El = p["gate"].shape[0]
+        e0 = shd.model_index() * El
+        dispatch, combine = dispatch[:, :, e0:e0 + El], combine[:, :, e0:e0 + El]
+    elif tp not in ((2, 2, 1), (None, None, None)):
+        raise NotImplementedError(f"expert stacks placed unlike each other along model: {tp}")
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(h.dtype), h)        # (E, B, C, d)
     act = F.silu(_expert_linear(xin, p["gate"]))
     act = act * _expert_linear(xin, p["up"])
     xout = _expert_linear(act, p["down"])                                # (E, B, C, d)
     out = torch.einsum("bsec,ebcd->bsd", combine.to(h.dtype), xout)
+    if tp == (None, None, None):
+        out = shd.model_once(out)
 
     if "shared" in p:
         out = out + layers.mlp(h, p["shared"])

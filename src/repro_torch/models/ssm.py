@@ -17,6 +17,11 @@ and returned, as ``models/attention.py`` does with its KV cache, so both
 cache forms of ``transformer.init_cache`` carry the state from one call to
 the next.  JAX's ``jax.checkpoint`` around the SSD is ``layers.remat``
 here, which applies only while autograd records.
+
+Under ``sharding.model_parallel`` the block is not tensor-parallel yet (the
+reference's ``ssm_in`` over ``model`` splits the fused ``in_proj`` across
+its z/x/B/C/dt parts): ``ssm_block`` makes its weights' boxes along
+``model`` whole and every rank computes the whole block.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers
 from repro_torch.models.params import param
 
@@ -140,6 +146,13 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
     }
 
 
+def _whole_over_model(p):
+    """The block's weights whole along ``model`` (module docstring)."""
+    if isinstance(p, dict):
+        return {k: _whole_over_model(v) for k, v in p.items()}
+    return shd.whole_over_model(p)
+
+
 def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None = None,
               unroll: bool = False):
     """Returns (out (B, S, d), cache); ``p`` holds tensors (``forward``
@@ -153,6 +166,7 @@ def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None 
     B, S, d = h.shape
     di, ds, ng, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads
     hp = cfg.ssm_headdim
+    p = _whole_over_model(p)
 
     zxbcdt = layers.apply_dense(h, p["in_proj"])
     z = zxbcdt[..., :di]

@@ -14,6 +14,16 @@ settings), attention + MoE (``attn_moe``), Mamba2 SSD (``ssm``,
 zamba2's *shared* attention block: one parameter tree ``p["shared"]``
 reused by every invocation, its KV cache per invocation (window-sized, a
 ring, once ``max_len`` reaches ``sliding_window``).
+
+Under ``sharding.model_parallel`` the carry between blocks is this rank's
+box of the embed dim (the reference's ``hidden`` rule, P(dp, None,
+model)), whole where ``model`` does not divide ``d_model``: a block
+gathers it before each norm (``_whole``) and adds its attention's, MLP's
+or MoE's partial sums by a reduce-scatter (``_add``), as the reference's
+GSPMD lowering does.  SSM layers (``ssm_in`` over ``model`` is not yet
+tensor-parallel) compute the whole output on every rank
+(``ssm.ssm_block`` makes its weights whole over ``model``) and keep their
+box of it.
 """
 
 from __future__ import annotations
@@ -23,13 +33,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator as make_generator
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import constrain, gather_params
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.params import Param
 
 __all__ = ["init_model", "forward", "train_loss", "init_cache", "model_dtype"]
-
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
@@ -68,6 +78,23 @@ def _init_shared_attn(generator, cfg: ModelConfig, dtype) -> dict:
     }
 
 
+def _whole(h, cfg: ModelConfig):
+    """The carry made whole along ``model`` (identity when it is)."""
+    return shd.model_gather(h, -1) if h.shape[-1] < cfg.d_model else h
+
+
+def _add(h, cfg: ModelConfig, *ys):
+    """The carry plus the partial sums ``ys`` (whole values outside
+    ``model_parallel``), in the carry's placement: a reduce-scatter onto a
+    split carry, an all-reduce onto a whole one."""
+    if shd.model_size() == 1:
+        for y in ys:
+            h = h + y
+        return h
+    y = sum(ys[1:], ys[0])
+    return h + (shd.model_scatter(y, -1) if h.shape[-1] < cfg.d_model else shd.model_sum(y))
+
+
 def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_offset,
                  window, attend_cache=False, unroll=False):
     """Returns (h, new_cache, aux); aux (the MoE balance loss) is 0.0 for
@@ -75,23 +102,24 @@ def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_o
     kinds run the dense MLP beside attention, as ``repro`` does.
     ``ssm_attn`` runs the SSM, then the shared attention block with the
     ``shared`` parameters.  ``unroll`` takes the costing twin of attention
-    (``models/attention.py``)."""
+    (``models/attention.py``).  ``h`` is the carry (module docstring)."""
     aux = 0.0
     kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache, unroll=unroll)
     if kind in ("ssm", "ssm_attn"):
         sc = cache["ssm"] if cache is not None else None
-        s, new_sc = ssm.ssm_block(layers.rms_norm(h, p["norm1"], cfg.norm_eps), p["ssm"], cfg,
-                                  cache=sc, unroll=unroll)
-        h = h + s
+        s, new_sc = ssm.ssm_block(layers.rms_norm(_whole(h, cfg), p["norm1"], cfg.norm_eps),
+                                  p["ssm"], cfg, cache=sc, unroll=unroll)
+        h = h + (shd.model_slice(s, -1) if h.shape[-1] < cfg.d_model else s)
         new_cache = {"ssm": new_sc} if cache is not None else None
         if kind == "ssm_attn":
             kv = cache["kv"] if cache is not None else None
             a, new_kv = attn_lib.attention(
-                layers.rms_norm(h, shared["norm1"], cfg.norm_eps), shared["attn"], cfg,
-                cache=kv, **kw,
+                layers.rms_norm(_whole(h, cfg), shared["norm1"], cfg.norm_eps), shared["attn"],
+                cfg, cache=kv, **kw,
             )
-            h = h + a
-            h = h + layers.mlp(layers.rms_norm(h, shared["norm2"], cfg.norm_eps), shared["mlp"])
+            h = _add(h, cfg, a)
+            h = _add(h, cfg, layers.mlp(layers.rms_norm(_whole(h, cfg), shared["norm2"],
+                                                        cfg.norm_eps), shared["mlp"]))
             if cache is not None:
                 new_cache["kv"] = new_kv
         return h, new_cache, aux
@@ -99,20 +127,20 @@ def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_o
         raise ValueError(kind)
     kw["cache"] = cache["kv"] if cache is not None else None
     if cfg.parallel_block:
-        n = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+        n = layers.rms_norm(_whole(h, cfg), p["norm1"], cfg.norm_eps)
         a, new_kv = attn_lib.attention(n, p["attn"], cfg, **kw)
-        h = h + a + layers.mlp(n, p["mlp"])
+        h = _add(h, cfg, a, layers.mlp(n, p["mlp"]))
     else:
         a, new_kv = attn_lib.attention(
-            layers.rms_norm(h, p["norm1"], cfg.norm_eps), p["attn"], cfg, **kw
+            layers.rms_norm(_whole(h, cfg), p["norm1"], cfg.norm_eps), p["attn"], cfg, **kw
         )
-        h = h + a
-        n = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
+        h = _add(h, cfg, a)
+        n = layers.rms_norm(_whole(h, cfg), p["norm2"], cfg.norm_eps)
         if kind == "attn":
-            h = h + layers.mlp(n, p["mlp"])
+            h = _add(h, cfg, layers.mlp(n, p["mlp"]))
         else:
             mo, aux = moe.moe_block(n, p["moe"], cfg)
-            h = h + mo
+            h = _add(h, cfg, mo)
     return h, ({"kv": new_kv} if cache is not None else None), aux
 
 
@@ -257,22 +285,30 @@ def forward(
     (``launch/costing.py``): attention's block loop as the reference's twin
     walks it, under the same remat as the production loop.
 
-    The ``constrain`` points are the reference's; no path of the port
-    passes DTensor activations, so they return their input
-    (``distributed.sharding.constrain``).  ``gather_params`` makes a sharded
-    train step's parameter shards whole, one group at a time, and is the
-    identity elsewhere."""
+    The ``constrain`` points are the reference's but the one after each
+    group, where the blocks keep the carry in the ``hidden`` placement: a
+    DTensor is redistributed there, and under ``model_parallel`` a whole
+    activation is cut to this rank's box (``distributed.sharding.
+    constrain``), so there the logits are this rank's box of the vocabulary
+    when ``model`` divides it (the ``logits`` rule).  ``gather_params``
+    gives a sharded step the weights for its rank's compute, one group at a
+    time, and is the identity elsewhere."""
     p = _values(params)
-    # a sharded train step's shards made whole (identity elsewhere): the
-    # top level's here, each group's and remainder layer's inside its remat
+    # a sharded step's weights for this rank (identity elsewhere): the top
+    # level's here, each group's and remainder layer's inside its remat
     p = {k: v if k in ("groups", "rem") else gather_params(v, k) for k, v in p.items()}
     dtype = model_dtype(cfg)
 
     if "tokens" in inputs:
         h = layers.embed_lookup(inputs["tokens"], p["embed"]).to(dtype)
+        if shd.tp_dim(p["embed"]["table"]) == 0:
+            # a vocab-sharded table gives this rank's term of the embedding
+            h = shd.model_scatter(h, -1) if cfg.d_model % shd.model_size() == 0 \
+                else shd.model_sum(h)
+        else:
+            h = constrain(h, "hidden")
     else:
-        h = inputs["embeds"].to(dtype)
-    h = constrain(h, "hidden")
+        h = constrain(inputs["embeds"].to(dtype), "hidden")
     window = cfg.sliding_window if window is None else window
     shared = p.get("shared")
     kw = dict(pos_offset=pos_offset, window=window, attend_cache=attend_cache, unroll=unroll)
@@ -299,7 +335,6 @@ def forward(
                 gc = gcache[g] if cache_is_list else _index(gcache, g)
             h, nc, aux = _apply_group(h, gather_params(gp, "groups", stacked=True), cfg,
                                       shared, cache=gc, **kw)
-        h = constrain(h, "hidden")
         aux_total = aux_total + aux
         if cache is not None:
             new_groups.append(nc)
@@ -330,16 +365,20 @@ def forward(
 
     if last_only:
         h = h[:, -1:]
-    h = layers.rms_norm(h, p["final_norm"], cfg.norm_eps)
+    h = layers.rms_norm(_whole(h, cfg), p["final_norm"], cfg.norm_eps)
     if return_hidden:
         return h, new_cache, aux_total
     if cfg.tie_embeddings:
-        logits = h @ p["embed"]["table"].T
+        w = p["embed"]["table"]
+        logits = h @ w.T
+        vocab_box = shd.tp_dim(w) == 0
     else:
         logits = layers.apply_dense(h, p["head"])
+        vocab_box = shd.tp_dim(p["head"]["w"]) == 1
     if cfg.logits_softcap > 0:
         logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
-    logits = constrain(logits, "logits")
+    if not vocab_box:
+        logits = constrain(logits, "logits")
     return logits, new_cache, aux_total
 
 
@@ -352,8 +391,14 @@ def train_loss(params, batch, cfg: ModelConfig, *, unroll: bool = False):
     ``loss_mask``."""
     h, _, aux = forward(params, batch, cfg, return_hidden=True, unroll=unroll)
     p = _values(params)
-    head_w = gather_params(p["embed"], "embed")["table"].T if cfg.tie_embeddings \
-        else gather_params(p["head"], "head")["w"]
+    if cfg.tie_embeddings:
+        w = gather_params(p["embed"], "embed")["table"]
+        head_w, vocab_dim = w.T, 0
+    else:
+        w = head_w = gather_params(p["head"], "head")["w"]
+        vocab_dim = 1
+    # a vocab-sharded head: this rank's box of the vocabulary
+    start = shd.model_index() * head_w.shape[1] if shd.tp_dim(w) == vocab_dim else None
     if "labels" in batch:
         labels, hh = batch["labels"], h
     else:
@@ -364,7 +409,7 @@ def train_loss(params, batch, cfg: ModelConfig, *, unroll: bool = False):
     elif "labels" not in batch:
         mask = mask[:, 1:]
     ce = layers.chunked_softmax_cross_entropy(hh, head_w, labels, mask, cfg.z_loss,
-                                              cfg.logits_softcap)
+                                              cfg.logits_softcap, vocab_start=start)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}

@@ -19,23 +19,37 @@ On a mesh (``init_train_state(..., mesh=)``) the state's leaves are
 DTensors placed by ``state_shardings``, the reference's logical-axis rules:
 parameters stored sharded over ``data`` (FSDP) and ``model``, same-shape
 moments as their parameter, Adafactor's factored moments and the step
-replicated.  The step computes data-parallel with explicit collectives, one layer group
-at a time (DTensor propagation through the model's ops is not used):
+replicated.  The step computes as those rules partition the work, with
+explicit collectives, one layer group at a time (DTensor propagation
+through the model's ops is not used):
 
 * microbatch i is the global batch's i-th block of rows, as the
   reference's reshape gives it, and each rank runs its share of the block's
   rows, split over the dp axes (``fit`` of the ``batch`` rule);
-* the model runs on the rank's shards: it all-gathers the top level's
-  weights (embedding, head, final norm, zamba2's shared block) when the
-  forward starts, and each group's (and remainder layer's) weights inside
-  that group's remat (``sharding.gather_params``), so beside its shards a
-  rank holds the top level and one group whole, and the recompute gathers
-  the group again;
-* the backward of each gather sums the whole gradient of those weights
-  over the dp group in ``accum_dtype`` into the rank's box: a
-  reduce-scatter where the weight is sharded over exactly the dp axes (the
-  FSDP dim), else an all-reduce and a slice.  A rank holds the whole
-  gradient of one group at a time, and its gradients are its boxes;
+* along ``model`` (unless ``dp_includes_model``) the ranks compute one
+  product each, tensor- and expert-parallel (``sharding.model_parallel``):
+  a weight dim on ``model`` (heads, kv, mlp, vocab, experts) stays the
+  rank's box and the rank computes with it, the carry between blocks is
+  its box of the embed dim, and activations move by all-gathers,
+  reduce-scatters and all-reduces along ``model`` whose transposes the
+  backward runs (``distributed/sharding.py``).  SSM layers, not split
+  over ``model`` yet, gather their weights whole and compute alike on
+  every model rank;
+* the model gathers the top level's weights (embedding, head, final norm,
+  zamba2's shared block) when the forward starts, and each group's (and
+  remainder layer's) inside that group's remat (``sharding.gather_params``),
+  over the dp axes only for a weight with a dim on ``model``: beside its
+  shards a rank holds the top level and one group, each its ``model`` box,
+  and the recompute gathers the group again;
+* the backward of each gather sums the gradient over the dp group in
+  ``accum_dtype`` into the rank's box: a reduce-scatter where the weight
+  is sharded over exactly the dp axes (the FSDP dim), else an all-reduce
+  and a slice.  The gradient of a weight whole over ``model`` (norm scales,
+  the router, qk-norm, a replicated vocabulary, the SSM layers) is each
+  model rank's term, so it is summed over ``model`` too; a weight's
+  ``model`` box gets its own gradient there and is not.  The loss, whole
+  on the model ranks, seeds the backward with 1/m on each of them, so that
+  those terms sum to the gradient;
 * the loss's batch statistics (the CE's sums, the MoE balance loss's
   means) are reduced over the dp group inside the forward
   (``sharding.data_parallel``), so every rank's loss is the global batch's;
@@ -46,11 +60,10 @@ at a time (DTensor propagation through the model's ops is not used):
   and update clipping reduce over whole dims, gathers one leaf at a time,
   updates it whole and keeps each rank's box.
 
-This is data parallelism over sharded storage, not tensor parallelism:
-the ranks along ``model`` (unless ``dp_includes_model``) run the same rows
-and do the same work, and each rank computes with whole weights.  On a
-one-rank mesh every collective is skipped and the step is the unsharded
-step bit for bit.
+With ``dp_includes_model`` the whole mesh is data-parallel: the rules put
+nothing on ``model``, the rows split over it too and every rank computes
+with whole weights.  On a one-rank mesh every collective is skipped and
+the step is the unsharded step bit for bit.
 """
 
 from __future__ import annotations
@@ -240,15 +253,19 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule, *,
 
     def gradients(state, params, micro_batches):
         """(mean loss, mean-over-microbatch gradients in accum_dtype) of the
-        given parameter tensors, summed over the microbatches given."""
+        given parameter tensors, summed over the microbatches given.  Under
+        ``model_parallel`` each of the m model ranks seeds the backward of
+        the loss with 1/m (module docstring)."""
         paths = [p for p, _ in tree_paths(state.params)]
+        m = shd.model_size()
 
         def loss_and_grads(mb):
             live = [p.detach().requires_grad_(True) for p in params]
             with kernels_off(), torch.enable_grad():
                 loss = train_loss(_replace(state.params, dict(zip(paths, live))), mb, cfg,
                                   unroll=unroll)[0]
-                grads = torch.autograd.grad(loss, live, allow_unused=True)
+                seed = None if m == 1 else torch.full_like(loss, 1.0 / m)
+                grads = torch.autograd.grad(loss, live, grad_outputs=seed, allow_unused=True)
             return loss.detach(), [torch.zeros_like(p) if g is None else g
                                    for p, g in zip(params, grads)]
 
@@ -301,8 +318,11 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, lr_schedule, *,
         micro = [{k: v[i * rows + idx * per:i * rows + (idx + 1) * per] for k, v in glob.items()}
                  for i in range(n_micro)]
         # each group's weights gathered where the model uses them, their
-        # gradients summed over the dp group into this rank's boxes
+        # gradients summed over the dp group (and over model for a weight
+        # whole there) into this rank's boxes; the model computes along model
         with shd.data_parallel(group, count), \
+                shd.model_parallel(shd.model_axis(mesh, pcfg)), \
+                shd.activation_rules(pcfg, mesh), \
                 shd.gathering(_replace(state.params, shardings), group, row_axes, accum_dtype):
             loss, grads = gradients(state, local, micro)
         if n_micro > 1:

@@ -244,11 +244,24 @@ def test_slots_place_tokens_as_the_whole_cache_write(pos, S, L, ring):
     assert torch.equal(got, want)
 
 
+# label -> (architecture, vocabulary (None: the reduced config's 257),
+# ParallelConfig overrides): ``dp_includes_model`` keeps the whole mesh
+# data-parallel, the weights gathered whole and no collective along ``model``
+SERVING_ARCHS = {"qwen3-32b": ("qwen3-32b", None, {}), "qwen3-32b/v256": ("qwen3-32b", 256, {}),
+                 "qwen3-32b/dp_includes_model": ("qwen3-32b", None,
+                                                 {"dp_includes_model": True}),
+                 "granite-moe-1b-a400m": ("granite-moe-1b-a400m", 256, {}),
+                 "mamba2-130m": ("mamba2-130m", None, {}), "zamba2-1.2b": ("zamba2-1.2b", None, {})}
+
+
 def _serving_ranks(rank, world):
     """On a (1, 2) gloo mesh: the prefill and decode cells' steps on real
-    DTensors (weights gathered a group at a time, the KV cache sequence-
+    DTensors (tensor- and expert-parallel along ``model``: each rank its
+    heads, kv heads, mlp and experts, and its vocabulary box where 2
+    divides it; weights gathered a group at a time, the KV cache sequence-
     sharded over ``model``, the SSM states head-sharded) against the plain
-    forward on whole tensors, for an attention and an SSM model."""
+    forward on whole tensors, for attention, MoE, SSM and hybrid models;
+    and qwen3-32b with ``dp_includes_model`` (no tensor parallelism)."""
     import dataclasses
 
     import torch
@@ -272,14 +285,15 @@ def _serving_ranks(rank, world):
                    for d, x in zip(cells._leaves(c_dt), cells._leaves(cache)))
 
     out = {}
-    for arch in ("qwen3-32b", "mamba2-130m"):
-        cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype="float32")
+    for label, (arch, vocab, over) in SERVING_ARCHS.items():
+        cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype="float32",
+                                  vocab_size=vocab or 257)
         cells.get_config = lambda a, cfg=cfg: cfg
         params = split(init_model(cfg, seed=0, device="cpu"))[0]
         toks = torch.randint(0, cfg.vocab_size, (B, S),
                              generator=torch.Generator().manual_seed(1))
         cache = init_cache(cfg, B, S, device="cpu")
-        pre = cells.build_cell(arch, ShapeConfig("p", "prefill", S, B), mesh)
+        pre = cells.build_cell(arch, ShapeConfig("p", "prefill", S, B), mesh, **over)
         p_dt, c_dt = placed(params, pre.in_shardings[0]), placed(cache, pre.in_shardings[2])
         tok_dt = pre.in_shardings[1]["tokens"].shard(toks)
         got, _ = pre.fn(p_dt, {"tokens": tok_dt}, c_dt)
@@ -287,7 +301,7 @@ def _serving_ranks(rank, world):
                              last_only=True)
         r = {"prefill_logits": float((got - want[:, -1]).abs().max()),
              "prefill_cache": cache_err(c_dt, cache)}
-        dec = cells.build_cell(arch, ShapeConfig("d", "decode", S, B), mesh)
+        dec = cells.build_cell(arch, ShapeConfig("d", "decode", S, B), mesh, **over)
         tok = toks[:, -1]
         got, _ = dec.fn(p_dt, dec.in_shardings[1].shard(tok), c_dt,
                         torch.zeros((), dtype=torch.int32))
@@ -295,20 +309,24 @@ def _serving_ranks(rank, world):
         r.update(decode_logits=float((got - want[:, 0]).abs().max()),
                  decode_cache=cache_err(c_dt, cache), scale=float(want.abs().max()),
                  cache_scale=max(float(x.abs().max()) for x in cells._leaves(cache)))
-        out[arch] = r
+        out[label] = r
     return out
 
 
 def test_serving_steps_on_a_mesh_match_the_plain_forward(tmp_path):
     """Each rank's prefill and decode logits within 1e-5 of max|logit| of
-    the plain forward's (f32; flash-decode sums in another order), and its
-    boxes of the cache the plain forward's: the prefill's KV exactly, the
-    rest within 1e-5 of max|cache| (a later layer's inputs come from the
-    earlier layers' flash-decode output)."""
+    the plain forward's (f32; the row-parallel products' partial sums and
+    flash-decode add in another order), and its boxes of the cache the
+    plain forward's within 1e-5 of max|cache| (a later layer's inputs come
+    from the earlier layers' sums over ``model``); without tensor
+    parallelism (``dp_includes_model``) the prefill's KV exactly."""
     from repro_torch.distributed.local_ranks import run_ranks
 
     for ranks in run_ranks(_serving_ranks, 2, str(tmp_path)):
+        assert sorted(ranks) == sorted(SERVING_ARCHS)
         for arch, r in ranks.items():
-            assert r["prefill_cache"] <= (0.0 if arch == "qwen3-32b" else 1e-5 * r["cache_scale"])
+            if arch == "qwen3-32b/dp_includes_model":
+                assert r["prefill_cache"] == 0.0, arch
+            assert r["prefill_cache"] <= 1e-5 * r["cache_scale"], arch
             assert r["decode_cache"] <= 1e-5 * r["cache_scale"], arch
             assert max(r["prefill_logits"], r["decode_logits"]) <= 1e-5 * r["scale"], arch

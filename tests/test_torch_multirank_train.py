@@ -194,9 +194,21 @@ def _train_ranks(rank, world, out):
     pipe = make_pipeline(cfg, ShapeConfig("t", "train", SEQ, BATCH), mesh)
     metrics = []
     # the first step's gathers (their outputs) and gradient reductions
+    def tp_shape(x):
+        """A group's slice of a stacked leaf as the TP step gathers it: its
+        dims on ``data`` whole, its dim on ``model`` this rank's box."""
+        shape = list(x.shape[1:])
+        mesh_ = x.device_mesh
+        for name, p, n in zip(mesh_.mesh_dim_names, x.placements, mesh_.shape):
+            if name == "model" and p.is_shard():
+                shape[p.dim - 1] //= int(n)
+        return tuple(shape)
+
     gathers = {"out": [], "reduced": [], "scattered": 0,
                "stacked": {p: (tuple(x.shape), shd.is_whole(x))
-                           for p, x in tree_paths(state.params) if p.startswith("groups/")}}
+                           for p, x in tree_paths(state.params) if p.startswith("groups/")},
+               "tp_shape": {p: tp_shape(x) for p, x in tree_paths(state.params)
+                            if p.startswith("groups/")}}
     fwd, bwd = shd._GatherParam.forward, shd._GatherParam.backward
 
     def rec_fwd(ctx, *a):
@@ -317,9 +329,10 @@ def test_sharded_training_matches_jax_on_the_same_mesh(runs):
 def test_sharded_step_gathers_and_reduces_one_group_at_a_time(runs):
     """The first step never makes a stacked leaf whole: each group's slice
     of a sharded leaf is gathered inside the group's remat, in the forward
-    and again in the recompute, every microbatch, and its gradient is
-    reduced alone, once a microbatch, a leaf sharded over ``data`` (the
-    dp axis here) by a reduce-scatter."""
+    and again in the recompute, every microbatch, over ``data`` alone (its
+    dim on ``model`` stays the rank's box: the step is tensor-parallel),
+    and its gradient is reduced alone, once a microbatch, a leaf sharded
+    over ``data`` (the dp axis here) by a reduce-scatter."""
     from collections import Counter
 
     _, _, _, ranks = runs
@@ -329,7 +342,8 @@ def test_sharded_step_gathers_and_reduces_one_group_at_a_time(runs):
         stacked = {shape for shape, _ in g["stacked"].values()}
         assert G > 1 and not stacked & set(out) and not stacked & set(reduced)
         assert not reduced - out                 # only gathered values are reduced
-        sharded = Counter(shape[1:] for shape, whole in g["stacked"].values() if not whole)
+        sharded = Counter(g["tp_shape"][p] for p, (_, whole) in g["stacked"].items()
+                          if not whole)
         assert sharded
         for shape, k in sharded.items():
             assert out[shape] >= 2 * MICRO * G * k, (shape, out[shape])

@@ -244,8 +244,11 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      one full-width layer on ``model`` = 4 and 16, the ranks one after
      another (a ``TurnGroup`` stands in for the process group): qwen3-32b
      (bf16; 16 and 4 q heads a rank, kv boxes of 2 heads and of half a
-     head) and granite-moe-1b-a400m (bf16 and f32; 8 and 2 experts a
-     rank), a 4 x 1,024 prefill with K5 at the rank's heads; the joined
+     head), granite-moe-1b-a400m (bf16 and f32; 8 and 2 experts a
+     rank), zamba2-1.2b's ssm_attn layer (bf16 and f32; 16 and 4 SSM heads
+     a rank, then the shared block's 8 and 2) and mamba2-130m's ssm layer
+     (bf16; 6 heads a rank, every head at 16), a 4 x 1,024 prefill with K5
+     at the rank's heads where the layer has attention; the joined
      shares within LOGIT_TOL of the whole layer's update on the tokens
      whose router top-k is the whole layer's (the others counted, at most
      5%), a bf16 layer's and its shares' distance from the layer in f32, K5
@@ -267,7 +270,12 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      along ``model``: per-device GiB against the card's memory, per-rank
      (dot) FLOPs, collective bytes by kind, roofline terms, walls; every
      count finite and positive, train_4k's dot FLOPs within 2% of a 16th
-     of the step's, decode_32k's all-gather below 8.7 GB.  (13c) kernels/ops.py's
+     of the step's, decode_32k's all-gather below 8.7 GB; zamba2-1.2b x
+     decode_32k and x long_500k, each rank its SSM heads: dot FLOPs below
+     a quarter and all-gather below half of the counts with every SSM
+     weight made whole over ``model``, all-to-all bytes > 0; mamba2-130m
+     x decode_32k (24 heads on 16 ranks: every head a rank, out_proj
+     row-parallel): dot FLOPs below those counts, no all-to-all.  (13c) kernels/ops.py's
      seven entry points once each at their phases' shapes against their
      plain versions (annealers bit-identical on dyadic problems).
 
@@ -4254,28 +4262,42 @@ def phase_mesh_restore(torch, dev, mesh, work_dir):
 # phase 12c: each rank's share of one full-width layer, one rank at a time
 # ---------------------------------------------------------------------------
 
-# (architecture, model-axis sizes, dtypes): qwen3-32b's 64 q / 8 kv heads
-# give 16 / 2 and 4 / 1 (a kv box of half a head at 16); granite-moe's 32
-# experts 8 and 2, in its own bf16 and in f32.  A token whose router top-k
-# differs between the whole layer and the joined shares (a near tie that the
-# partial sums' rounding flips) takes other experts: such tokens are counted
-# and the rest held to LOGIT_TOL
+# (architecture, model-axis sizes, dtypes), each its config's last block
+# kind: qwen3-32b's 64 q / 8 kv heads give 16 / 2 and 4 / 1 (a kv box of
+# half a head at 16); granite-moe's 32 experts 8 and 2, in its own bf16 and
+# in f32; zamba2's ssm_attn layer (its SSM, 64 heads: 16 and 4 a rank, then
+# the shared attention block, 32 heads: 8 and 2) in bf16 and f32;
+# mamba2-130m's ssm layer (24 heads: 6 a rank at 4, every head at 16, where
+# the d_inner box is 1.5 heads).  A token whose router top-k differs between
+# the whole layer and the joined shares (a near tie that the partial sums'
+# rounding flips) takes other experts: such tokens are counted and the rest
+# held to LOGIT_TOL
 TP_SHARES = (("qwen3-32b", (4, 16), ("bfloat16",)),
-             (MOE_ARCH, (4, 16), ("bfloat16", "float32")))
+             (MOE_ARCH, (4, 16), ("bfloat16", "float32")),
+             (ZAMBA_ARCH, (4, 16), ("bfloat16", "float32")),
+             (MAMBA2_ARCH, (4, 16), ("bfloat16",)))
+
+
+def has_attention(cfg) -> bool:
+    return cfg.block_pattern[-1] != "ssm"
 
 
 def k5_rank_shape(cfg, m):
-    """(B, H, KV, S, hd) of K5 in a rank's prefill share on ``model`` = m."""
+    """(B, H, KV, S, hd) of K5 in a rank's prefill share on ``model`` = m
+    (None for a layer without attention)."""
     from repro_torch.models import attention
 
+    if not has_attention(cfg):
+        return None
     Hl = cfg.num_heads // m
     _, nkv, _ = attention._kv_heads(0, Hl, cfg.num_heads // cfg.num_kv_heads)
     return GEN_BATCH, Hl, nkv, GEN_PROMPT, cfg.resolved_head_dim
 
 
 def phase_tp_shares(torch, dev, flush):
-    """12c: one full-width layer of qwen3-32b (bf16) and of
-    granite-moe-1b-a400m (bf16 and f32: TP_SHARES) on random weights from
+    """12c: one full-width layer of qwen3-32b (bf16), granite-moe-1b-a400m
+    (bf16 and f32), zamba2-1.2b (ssm_attn, with the shared block: bf16 and
+    f32) and mamba2-130m (ssm, bf16: TP_SHARES) on random weights from
     seed 0, a 4 x 1,024 prefill through K5, computed whole and as each
     rank's share for ``model`` = 4 and 16: the rank's boxes of the weights
     as the rules place them on a (1, m) mesh, its box of the carry, the TP
@@ -4283,7 +4305,8 @@ def phase_tp_shares(torch, dev, flush):
     after another (``local_ranks.run_in_turns``).  The shares' carries,
     joined, hold the whole layer's update within LOGIT_TOL of its max on
     every token whose router top-k is the whole layer's (all tokens without
-    experts; the others are counted); K5 ran at the rank's heads.  A bf16
+    experts; the others are counted); K5 ran at the rank's heads (not at
+    all in mamba2's layer, which has no attention).  A bf16
     layer is also run whole in f32 (the same weights and input, cast): the
     whole bf16 layer's and the shares' distances from it say how much of
     their difference is bf16 rounding.  Then K5 at each rank shape against
@@ -4316,8 +4339,11 @@ def phase_tp_shares(torch, dev, flush):
         for arch, ms, dts in TP_SHARES:
             for dt in dts:
                 cfg = dataclasses.replace(get_config(arch), dtype=dt)
-                kind, dtype = cfg.block_pattern[0], getattr(torch, dt)
+                kind, dtype = cfg.block_pattern[-1], getattr(torch, dt)
                 values, axes = split(tr._init_block(g, kind, cfg, dtype))
+                shared = shared_axes = None
+                if kind == "ssm_attn":
+                    shared, shared_axes = split(tr._init_shared_attn(g, cfg, dtype))
                 x = torch.randn((GEN_BATCH, GEN_PROMPT, cfg.d_model), generator=g,
                                 device=dev).to(dtype)
                 kw = dict(cache=None, pos_offset=0, window=cfg.sliding_window)
@@ -4325,15 +4351,16 @@ def phase_tp_shares(torch, dev, flush):
                     torch.cuda.synchronize()
                     t = time.time()
                     routes.clear()
-                    whole, _, aux = tr._apply_block(x, values, kind, cfg, **kw)
+                    whole, _, aux = tr._apply_block(x, values, kind, cfg, shared, **kw)
                     torch.cuda.synchronize()
                     whole_s = time.time() - t
                     whole_route = routes[0] if routes else None
                     whole32 = route32 = None
                     if dtype != torch.float32:
                         routes.clear()
-                        whole32, _, _ = tr._apply_block(x.float(), _to_f32(values), kind, cfg,
-                                                        **kw)
+                        whole32, _, _ = tr._apply_block(
+                            x.float(), _to_f32(values), kind, cfg,
+                            None if shared is None else _to_f32(shared), **kw)
                         route32 = routes[0] if routes else None
                     upd = (whole - x).float()
                     scale = float(upd.abs().max())
@@ -4343,8 +4370,14 @@ def phase_tp_shares(torch, dev, flush):
                                                               mesh_axes=("data", "model")))
                         ranks = []
                         for r in range(m):
-                            sh = shd.param_shardings(axes, values, rules, RankMesh(m, r, "cuda"))
-                            ranks.append(({"block": local_boxes(values, sh)}, {"block": sh}))
+                            sh = {"block": shd.param_shardings(axes, values, rules,
+                                                               RankMesh(m, r, "cuda"))}
+                            local = {"block": local_boxes(values, sh["block"])}
+                            if shared is not None:
+                                sh["shared"] = shd.param_shardings(shared_axes, shared, rules,
+                                                                   RankMesh(m, r, "cuda"))
+                                local["shared"] = local_boxes(shared, sh["shared"])
+                            ranks.append((local, sh))
 
                         def share(r, grp, ranks=ranks, m=m, d=d, cfg=cfg, dtype=dtype,
                                   kind=kind, kw=kw, x=x):
@@ -4352,8 +4385,10 @@ def phase_tp_shares(torch, dev, flush):
                             with shd.gathering(sh, None, (), dtype), \
                                     shd.model_parallel((grp, m, r)):
                                 p = shd.gather_params(local["block"], "block")
+                                sp = shd.gather_params(local["shared"], "shared") \
+                                    if "shared" in local else None
                                 y, _, a = tr._apply_block(x[..., r * d:(r + 1) * d], p, kind,
-                                                          cfg, **kw)
+                                                          cfg, sp, **kw)
                             return y, float(a)
 
                         launched = fa.flash_attention.launches
@@ -4388,14 +4423,17 @@ def phase_tp_shares(torch, dev, flush):
                         check(flips <= 0.05 * keep.numel(),
                               f"12c: {arch} {dt} on model = {m}: {flips} tokens routed "
                               "otherwise than the whole layer")
-                        check(launches == passes * m,
+                        want = passes * m if has_attention(cfg) else 0
+                        check(launches == want,
                               f"12c: {arch} {dt} on model = {m}: K5 launched {launches}, "
-                              f"want {passes} x {m}")
+                              f"want {want}")
+                        k5_shape = k5_rank_shape(cfg, m)
                         rec = {"dtype": dt, "err_of_max": err, "passes": passes,
                                "collectives_a_rank": calls, "tokens": keep.numel(),
                                "router_flips": flips if whole_route is not None else None,
                                "aux": aux_r[0] if kind == "attn_moe" else None,
-                               "k5_launches": launches, "k5_shape": list(k5_rank_shape(cfg, m)),
+                               "k5_launches": launches,
+                               "k5_shape": None if k5_shape is None else list(k5_shape),
                                "whole_s": whole_s, "shares_s": shares_s}
                         if whole32 is not None:
                             # bf16 rounding: each's distance from the f32
@@ -4414,7 +4452,7 @@ def phase_tp_shares(torch, dev, flush):
                                   f"against the whole layer's {float(aux)}")
                         out[f"{arch}/{dt}/model={m}"] = rec
                         del ranks, outs, joined, share
-                del values, x, whole, upd, whole32
+                del values, shared, x, whole, upd, whole32
     finally:
         moe.moe_block = moe_block
         ops.disable_kernels()
@@ -4422,6 +4460,8 @@ def phase_tp_shares(torch, dev, flush):
     k5 = {}
     for arch, ms, _ in TP_SHARES:
         cfg = get_config(arch)
+        if not has_attention(cfg):
+            continue
         for m in ms:
             B, H, KV, S, hd = k5_rank_shape(cfg, m)
             label = f"{arch}/model={m}"
@@ -4464,6 +4504,17 @@ DRYRUN_ARCH, DRYRUN_SHAPES = "qwen3-32b", ("train_4k", "decode_32k")   # 13b, 16
 # box of the weights over data, well below the whole bf16 model's 65.6 GB
 DRYRUN_TRAIN_DOT_FLOPS, DRYRUN_DOT_TOL = 1.848e16 / 16, 0.02
 DRYRUN_DECODE_ALL_GATHER_MAX = 8.7e9
+# 13b's SSM cells, each rank its SSM heads (ssm_in over model): (arch,
+# shape, the per-rank dot FLOPs and all-gather bytes of the same cell with
+# every SSM weight gathered whole over model and every layer repeated on
+# each model rank, and whether the cell moves in_proj's columns by
+# all-to-all; the counts must be below a quarter and half of those);
+# mamba2-130m's 24 heads on 16 ranks are all computed on every rank from
+# its replicated in_proj (3,352 columns), and only out_proj and the norm
+# divide: its dot FLOPs below those and its all-gather no more
+DRYRUN_SSM_CELLS = (("zamba2-1.2b", "decode_32k", 1.630e10, 2.137e9, True),
+                    ("zamba2-1.2b", "long_500k", 2.236e9, 2.302e9, True),
+                    ("mamba2-130m", "decode_32k", 2.135e9, 0.262e9, False))
 
 
 def roofline_share(rec, measured_s) -> dict:
@@ -4560,9 +4611,9 @@ def phase_dryrun(torch):
     """13b, the dry run at full width: qwen3-32b x train_4k and x decode_32k
     on the fake 16 x 16 mesh (256 H100s), through ``run_cell`` (whose costs
     are ``cost_cell``'s composition), and ``cost_cell`` alone on the decode
-    cell (the same dot FLOPs).  Per-device GiB against HBM_BYTES, FLOPs,
-    collective bytes by kind, roofline terms and walls; every count finite
-    and positive."""
+    cell (the same dot FLOPs); then DRYRUN_SSM_CELLS against the counts
+    with every SSM weight made whole.  Per-device GiB against HBM_BYTES, FLOPs, collective bytes by
+    kind, roofline terms and walls; every count finite and positive."""
     from repro_torch import roofline
     from repro_torch.launch import costing, dryrun
 
@@ -4603,6 +4654,30 @@ def phase_dryrun(torch):
     out["cost_cell_decode_32k"] = {k: cc[k] for k in ("flops", "dot_flops", "coll_bytes",
                                                       "bound_s", "dominant")}
     out["cost_cell_decode_32k"]["wall_s"] = time.time() - t
+    for arch, shape, dot0, ag0, moves in DRYRUN_SSM_CELLS:
+        t = time.time()
+        rec = dryrun.run_cell(arch, shape, False, None)
+        coll = {k: v for k, v in rec["collectives"].items() if k != "counts"}
+        dot, ag, a2a = rec["cost"]["dot_flops"], coll["all-gather"], coll["all-to-all"]
+        label = f"13b: {arch} x {shape}"
+        check(all(math.isfinite(v) and v > 0 for v in
+                  (rec["memory"]["per_device_total"], rec["cost"]["flops"], dot,
+                   rec["cost"]["bytes"], coll["total"], rec["roofline"]["bound_s"])),
+              f"{label}: a count is not finite and positive")
+        if moves:
+            check(dot < dot0 / 4 and ag < ag0 / 2 and a2a > 0,
+                  f"{label}: dot FLOPs {dot:.4g} (want < {dot0 / 4:.4g}), all-gather "
+                  f"{ag:.4g} (want < {ag0 / 2:.4g}), all-to-all {a2a:.4g} (want > 0)")
+        else:
+            check(dot < dot0 and ag <= ag0 and a2a == 0,
+                  f"{label}: dot FLOPs {dot:.4g} (want < {dot0:.4g}), all-gather {ag:.4g} "
+                  f"(want <= {ag0:.4g}), all-to-all {a2a:.4g} (want 0)")
+        out[f"{arch}/{shape}"] = {
+            "per_rank": {"dot_flops": dot, "collective_bytes": coll},
+            "whole_ssm_weights": {"dot_flops": dot0, "all_gather": ag0},
+            "per_device_gib": rec["memory"]["per_device_total"] / 2 ** 30,
+            "cost": rec["cost"], "roofline": rec["roofline"], "trace_s": rec["trace_s"],
+            "wall_s": time.time() - t}
     emit({"dryrun_13b": out})
     return out
 
@@ -5431,8 +5506,9 @@ def main() -> int:
          "launches_phase10": zamba_stream["serve"]["launches"]["flash_attention"],
          "launches_phase11": granite_serve["launches"]["flash_attention"],
          "launches_phase12": mesh12["launches"]["flash_attention"],
-         # phase 12c: each rank's prefill share of a qwen3-32b and a
-         # granite-moe layer on model = 4 and 16, every pass of the ranks
+         # phase 12c: each rank's prefill share of a qwen3-32b, a
+         # granite-moe and a zamba2 layer on model = 4 and 16, every pass
+         # of the ranks
          "launches_phase12c": tp_shares["k5_launches"],
          "max_abs_err": k5_err,
          "ms": k5["timing"]["ms"], "plain_ms": k5["timing"]["plain_ms"],
@@ -5453,8 +5529,8 @@ def main() -> int:
          # GQA 96/8 x 128), held and timed
          "zoo": {line: z["k5"] for line, z in zoo.items()},
          # phase 12c: a rank's prefill shape on model = 4 and 16 (qwen3-32b:
-         # 16/2 and 4/1 heads x 128; granite-moe: 4/2 and 1/1 x 64), held
-         # and timed
+         # 16/2 and 4/1 heads x 128; granite-moe: 4/2 and 1/1 x 64; zamba2's
+         # shared block: 8/8 and 2/2 x 64), held and timed
          "tp_shares": {label: {"shape": e["shape"],
                                "max_abs_err": max(e["max_abs_err_float32"],
                                                   e["max_abs_err_bfloat16"]),

@@ -103,7 +103,8 @@ class TurnGroup:
 
     def _parts(self, x):
         i, self.calls = self.calls, self.calls + 1
-        self.cur.setdefault(i, {})[self.rank] = x.detach().clone()
+        self.cur.setdefault(i, {})[self.rank] = (
+            x.detach().clone() if isinstance(x, torch.Tensor) else [t.detach().clone() for t in x])
         parts = self.prev.get(i)
         return [parts[r] for r in range(self.m)] if parts and len(parts) == self.m else None
 
@@ -130,6 +131,18 @@ class TurnGroup:
         if op == "max":
             return torch.stack(parts).amax(0)
         return self._sum(parts)
+
+    def all_to_all(self, x, send_sizes, recv_sizes):
+        """Dim 0 of ``x`` in parts of ``send_sizes``, part t to rank t; in
+        the first pass zeros of the received shape."""
+        parts = self._parts(torch.split(x, list(send_sizes)))
+        if parts is None:
+            return x.new_zeros((sum(recv_sizes),) + tuple(x.shape[1:]))
+        got = [parts[s][self.rank] for s in range(self.m)]
+        if [g.shape[0] for g in got] != list(recv_sizes):
+            raise ValueError(f"all_to_all: rank {self.rank} expects {list(recv_sizes)} rows, "
+                             f"the ranks send {[g.shape[0] for g in got]}")
+        return torch.cat(got, 0)
 
 
 def run_in_turns(share, m: int) -> tuple[list, int, int]:

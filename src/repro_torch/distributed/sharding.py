@@ -46,7 +46,10 @@ its transpose: ``model_gather`` split -> whole (all-gather; backward
 reduce-scatter), ``model_scatter`` partial -> split (reduce-scatter;
 backward all-gather), ``model_sum`` partial -> whole (all-reduce; backward
 all-reduce), ``model_slice`` whole -> split (no communication; backward
-pads with zeros) and ``model_once`` whole -> partial (rank 0 keeps it).
+pads with zeros), ``model_once`` whole -> partial (rank 0 keeps it) and
+``model_all_to_all``, which sends chosen indices of a dim to each rank
+(an all-to-all with uneven splits; backward the reverse all-to-all, the
+cotangents of an index sent to several ranks summed).
 The backward of each makes one convention hold: the cotangent of a whole
 value is partial, so the step seeds its replicated loss with 1/m on each of
 the ``m`` ranks (``training/loop.py``) and a weight that is whole over
@@ -94,6 +97,7 @@ __all__ = [
     "model_slice",
     "model_once",
     "model_max",
+    "model_all_to_all",
     "tp_dim",
     "rows_whole",
     "mark_tp",
@@ -537,8 +541,9 @@ def model_parallel(axis):
     installed too: every helper is then the identity and the step is the
     unsharded one, op for op.  The group may also be a stand-in object, not
     a ``ProcessGroup``, with ``all_gather(x, dim)``, ``reduce_scatter(x,
-    dim)`` and ``all_reduce(x, op)`` methods: one rank's share computed at a
-    time on one device."""
+    dim)``, ``all_reduce(x, op)`` and ``all_to_all(x, send_sizes,
+    recv_sizes)`` methods: one rank's share computed at a time on one
+    device."""
     prev = _STEP["model"]
     _STEP["model"] = None if axis is None else tuple(axis)
     try:
@@ -584,8 +589,9 @@ def mark_tp(w: torch.Tensor, dim) -> torch.Tensor:
 
 def whole_over_model(w):
     """A gathered weight made whole along ``model`` (its boxes all-gathered;
-    the gradient reduce-scattered back), for a module that is not
-    tensor-parallel yet; a whole weight, or a non-tensor, as it is."""
+    the gradient reduce-scattered back), for a weight too small to compute
+    on in boxes (the SSM's conv); a whole weight, or a non-tensor, as it
+    is."""
     dim = tp_dim(w)
     return w if dim is None else mark_tp(model_gather(w, dim), None)
 
@@ -626,6 +632,44 @@ def _all_reduce(x, group, op: str = "sum"):
     y = x.contiguous().clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
     return y
+
+
+def _all_to_all(x, send_sizes, recv_sizes, group):
+    """Dim 0 of ``x`` in parts of ``send_sizes``, part t to rank t; the
+    parts received, ``recv_sizes`` rows from each rank, in rank order."""
+    if _stand_in(group):
+        return group.all_to_all(x, send_sizes, recv_sizes)
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = x.new_empty((sum(recv_sizes),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=list(recv_sizes),
+                           input_split_sizes=list(send_sizes), group=group)
+    return out
+
+
+class _ModelAllToAll(torch.autograd.Function):
+    """Indices of ``dim`` sent to each rank; backward the reverse
+    all-to-all, its rows added back at their indices (in f32 for a
+    narrower dtype), so that the cotangents of an index sent to several
+    ranks are summed."""
+
+    @staticmethod
+    def forward(ctx, x, index, send_sizes, recv_sizes, dim):
+        group = _STEP["model"][0]
+        ctx.group, ctx.index, ctx.dim, ctx.shape = group, index, dim, x.shape
+        ctx.sizes = (send_sizes, recv_sizes)
+        buf = x.index_select(dim, index).movedim(dim, 0)
+        return _all_to_all(buf, send_sizes, recv_sizes, group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_sizes, recv_sizes = ctx.sizes
+        back = _all_to_all(g.movedim(ctx.dim, 0), recv_sizes, send_sizes, ctx.group)
+        acc = torch.float32 if g.element_size() < 4 and g.is_floating_point() else g.dtype
+        out = g.new_zeros(ctx.shape, dtype=acc)
+        out.index_add_(ctx.dim, ctx.index, back.movedim(0, ctx.dim).to(acc))
+        return out.to(g.dtype), None, None, None, None
 
 
 class _ModelGather(torch.autograd.Function):
@@ -720,6 +764,18 @@ def model_once(x):
 def model_max(x):
     """Elementwise max over ``model`` (no gradient: a stabiliser)."""
     return x if model_size() == 1 else _all_reduce(x.detach(), _STEP["model"][0], "max")
+
+
+def model_all_to_all(x, send, recv, dim: int = -1):
+    """The indices ``send[t]`` of ``x``'s ``dim`` sent to rank t along
+    ``model``, for every t; the result holds, along ``dim``, the ``recv[s]``
+    indices that each rank s sends this one, in rank order (an index may go
+    to several ranks).  With one rank, ``x``'s ``send[0]`` indices."""
+    dim = dim % x.ndim
+    index = torch.as_tensor([i for s in send for i in s], dtype=torch.long, device=x.device)
+    if model_size() == 1:
+        return x.index_select(dim, index)
+    return _ModelAllToAll.apply(x, index, [len(s) for s in send], [int(n) for n in recv], dim)
 
 
 class _GatherParam(torch.autograd.Function):

@@ -24,8 +24,11 @@ The steps are the port's own programs on a mesh:
   kernels K3 and K4 run on whole compressed layers, computed alike on every
   model rank), the KV cache's rows and its slice of the sequence over
   ``model`` as DTensors (written where they fall, read by flash-decode with
-  every head), each SSM state made whole over ``model`` for the step and
-  its box written back; the logits gathered whole over ``model``.
+  every head), each SSM state used in place where its box of the heads is
+  the heads the rank computes (``ssm.rank_heads``), each conv window made
+  whole over ``model`` for the step (a rank's box of the channels is not
+  the channels it computes) and its box written back; the logits gathered
+  whole over ``model``.
 """
 
 from __future__ import annotations
@@ -216,23 +219,31 @@ def _box_of(x, whole, rows_dim: int):
 def serving_context(cfg: ModelConfig, pcfg: ParallelConfig, p_sh, cache):
     """The serving steps' setting on a mesh, for the block: no autograd, the
     activation rules (flash-decode), tensor parallelism along ``model``,
-    parameter gathers by ``p_sh``; the
-    value is the cache to run on, the KV leaves the given DTensors and
-    every SSM leaf this rank's rows made whole, whose box is written back
-    into its DTensor on exit."""
+    parameter gathers by ``p_sh``; the value is the cache to run on: the
+    KV leaves the given DTensors, each SSM state its local tensor where that
+    holds the heads the rank computes (``cache_shardings`` splits the heads
+    over ``model`` only), and every other SSM leaf this rank's rows made
+    whole, whose box is written back into its DTensor on exit."""
+    from repro_torch.models.ssm import rank_heads
+
     mesh = next(x for _, x in _paths(cache)).device_mesh
+    axis = shd.model_axis(mesh, pcfg)
+    heads = rank_heads(cfg, 1 if axis is None else axis[1])
     ssm = []
 
     def prep(path, x):
-        if path.rsplit("/", 1)[-1] in ("k", "v"):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("k", "v"):
             return x
         rows_dim = 1 if path.split("/")[0] == "groups" else 0
+        if name == "state" and x.to_local().shape[rows_dim + 1] == heads:
+            return x.to_local()
         ssm.append((x, shd.rows_whole(x, rows_dim), rows_dim))
         return ssm[-1][1]
 
     work = _map_paths(prep, cache)
     with torch.no_grad(), shd.activation_rules(pcfg, mesh), \
-            shd.model_parallel(shd.model_axis(mesh, pcfg)), \
+            shd.model_parallel(axis), \
             shd.gathering(p_sh, None, (), model_dtype(cfg)):
         yield work
         for x, whole, rows_dim in ssm:

@@ -40,7 +40,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+
 import torch
+
+from repro_torch.distributed import sharding as shd
 
 __all__ = [
     "cost_cell",
@@ -234,7 +237,6 @@ def _sub_artifact(artifact, groups: int):
 
 def _train_parts(cfg, shape, pcfg, mesh, arch) -> tuple[dict, dict]:
     from repro_torch.device import dtype_from_name
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.cells import _build, _leaves, _tree_map, materialize
     from repro_torch.models import layers
     from repro_torch.models import transformer as tr
@@ -322,7 +324,6 @@ def _train_parts(cfg, shape, pcfg, mesh, arch) -> tuple[dict, dict]:
 
 
 def _serve_parts(cfg, shape, pcfg, mesh, arch, artifact) -> tuple[dict, dict]:
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.cells import (
         _build,
         _tree_map,

@@ -18,12 +18,11 @@ ring, once ``max_len`` reaches ``sliding_window``).
 Under ``sharding.model_parallel`` the carry between blocks is this rank's
 box of the embed dim (the reference's ``hidden`` rule, P(dp, None,
 model)), whole where ``model`` does not divide ``d_model``: a block
-gathers it before each norm (``_whole``) and adds its attention's, MLP's
-or MoE's partial sums by a reduce-scatter (``_add``), as the reference's
-GSPMD lowering does.  SSM layers (``ssm_in`` over ``model`` is not yet
-tensor-parallel) compute the whole output on every rank
-(``ssm.ssm_block`` makes its weights whole over ``model``) and keep their
-box of it.
+gathers it before each norm (``_whole``) and adds its attention's, MLP's,
+MoE's or SSM's partial sums by a reduce-scatter (``_add``), as the
+reference's GSPMD lowering does.  An SSM layer computes its rank's heads
+(``ssm.ssm_block``); with a whole (compressed) ``out_proj`` its output is
+whole and the carry keeps its box of it.
 """
 
 from __future__ import annotations
@@ -109,7 +108,10 @@ def _apply_block(h, p, kind: str, cfg: ModelConfig, shared=None, *, cache, pos_o
         sc = cache["ssm"] if cache is not None else None
         s, new_sc = ssm.ssm_block(layers.rms_norm(_whole(h, cfg), p["norm1"], cfg.norm_eps),
                                   p["ssm"], cfg, cache=sc, unroll=unroll)
-        h = h + (shd.model_slice(s, -1) if h.shape[-1] < cfg.d_model else s)
+        if shd.tp_dim(layers._value(p["ssm"]["out_proj"]["w"])) == 0:
+            h = _add(h, cfg, s)           # a row-parallel out_proj's partial sum
+        else:
+            h = h + (shd.model_slice(s, -1) if h.shape[-1] < cfg.d_model else s)
         new_cache = {"ssm": new_sc} if cache is not None else None
         if kind == "ssm_attn":
             kv = cache["kv"] if cache is not None else None

@@ -28,13 +28,12 @@ through the model's ops is not used):
   rows, split over the dp axes (``fit`` of the ``batch`` rule);
 * along ``model`` (unless ``dp_includes_model``) the ranks compute one
   product each, tensor- and expert-parallel (``sharding.model_parallel``):
-  a weight dim on ``model`` (heads, kv, mlp, vocab, experts) stays the
-  rank's box and the rank computes with it, the carry between blocks is
-  its box of the embed dim, and activations move by all-gathers,
-  reduce-scatters and all-reduces along ``model`` whose transposes the
-  backward runs (``distributed/sharding.py``).  SSM layers, not split
-  over ``model`` yet, gather their weights whole and compute alike on
-  every model rank;
+  a weight dim on ``model`` (heads, kv, mlp, vocab, experts, the SSM's
+  ``ssm_in``) stays the rank's box and the rank computes with it, the
+  carry between blocks is its box of the embed dim, and activations move
+  by all-gathers, reduce-scatters, all-reduces and (the SSM's fused
+  ``in_proj`` columns) all-to-alls along ``model`` whose transposes the
+  backward runs (``distributed/sharding.py``);
 * the model gathers the top level's weights (embedding, head, final norm,
   zamba2's shared block) when the forward starts, and each group's (and
   remainder layer's) inside that group's remat (``sharding.gather_params``),
@@ -45,9 +44,13 @@ through the model's ops is not used):
   ``accum_dtype`` into the rank's box: a reduce-scatter where the weight
   is sharded over exactly the dp axes (the FSDP dim), else an all-reduce
   and a slice.  The gradient of a weight whole over ``model`` (norm scales,
-  the router, qk-norm, a replicated vocabulary, the SSM layers) is each
-  model rank's term, so it is summed over ``model`` too; a weight's
-  ``model`` box gets its own gradient there and is not.  The loss, whole
+  the router, qk-norm, a replicated vocabulary, the SSM's ``A_log``, ``D``
+  and ``dt_bias``) is each model rank's term, so it is summed over
+  ``model`` too; a weight's ``model`` box (among them the SSM's
+  ``in_proj``, ``out_proj`` and norm scale) gets its own gradient there
+  and is not.  The SSM's conv weights, made whole over ``model`` by an
+  all-gather, get their gradient summed into their boxes by its
+  reduce-scatter.  The loss, whole
   on the model ranks, seeds the backward with 1/m on each of them, so that
   those terms sum to the gradient;
 * the loss's batch statistics (the CE's sums, the MoE balance loss's

@@ -213,6 +213,39 @@ def test_run_cell_writes_the_references_record(run):
     assert rec["collectives"]["total"] > 0 and rec["roofline"]["bound_s"] > 0
 
 
+_SHARED_TRAIN = r"""
+import json
+import repro_torch.configs as C
+from repro_torch.configs import reduced_for_smoke
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import cells, costing, dryrun
+
+red = reduced_for_smoke(C.get_config("zamba2-1.2b"))
+C.get_config = cells.get_config = lambda a: red
+shape = ShapeConfig("t", "train", 32, 8)
+cc = costing.cost_cell("zamba2-1.2b", shape, mesh={"data": 2, "model": 2})
+rec = dryrun.run_cell("zamba2-1.2b", shape, False, None, mesh={"data": 2, "model": 2})
+print("RESULT " + json.dumps({"cost_cell": [cc["dot_flops"], cc["coll_bytes"]],
+                              "run_cell": [rec["cost"]["dot_flops"],
+                                           rec["collectives"]["total"]]}))
+"""
+
+
+def test_a_train_cell_with_a_shared_block_is_costed():
+    """Reduced zamba2 (its shared attention block gathered once a forward,
+    in the stem) costed as a train cell on a fake (2, 2) mesh by
+    ``cost_cell`` and by ``run_cell``: both complete, with the same
+    positive dot FLOPs and collective bytes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(_SHARED_TRAIN)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = json.loads(next(ln for ln in r.stdout.splitlines()
+                          if ln.startswith("RESULT "))[len("RESULT "):])
+    assert res["cost_cell"] == res["run_cell"]
+    assert min(res["cost_cell"]) > 0
+
+
 def test_fake_world_refuses_a_second_group(run):
     """Inside a fake world, another is refused (as is any process that
     already has a process group), and the group is gone after it."""
@@ -284,8 +317,11 @@ def _serving_ranks(rank, world):
         return max(float((shd.local_value(d) - x[shd.dtensor_box(d)]).abs().max())
                    for d, x in zip(cells._leaves(c_dt), cells._leaves(cache)))
 
+    rows_whole, whole = shd.rows_whole, []
+    shd.rows_whole = lambda x, d: (whole.append(x.shape), rows_whole(x, d))[1]
     out = {}
     for label, (arch, vocab, over) in SERVING_ARCHS.items():
+        whole.clear()
         cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)), dtype="float32",
                                   vocab_size=vocab or 257)
         cells.get_config = lambda a, cfg=cfg: cfg
@@ -308,7 +344,10 @@ def _serving_ranks(rank, world):
         want, _, _ = forward(params, {"tokens": tok[:, None]}, cfg, cache=cache, pos_offset=S - 1)
         r.update(decode_logits=float((got - want[:, 0]).abs().max()),
                  decode_cache=cache_err(c_dt, cache), scale=float(want.abs().max()),
-                 cache_scale=max(float(x.abs().max()) for x in cells._leaves(cache)))
+                 cache_scale=max(float(x.abs().max()) for x in cells._leaves(cache)),
+                 made_whole=[list(x) for x in whole],
+                 state_shapes=[list(x.shape) for p, x in cells._paths(cache)
+                               if p.endswith("/state")])
         out[label] = r
     return out
 
@@ -319,7 +358,8 @@ def test_serving_steps_on_a_mesh_match_the_plain_forward(tmp_path):
     flash-decode add in another order), and its boxes of the cache the
     plain forward's within 1e-5 of max|cache| (a later layer's inputs come
     from the earlier layers' sums over ``model``); without tensor
-    parallelism (``dp_includes_model``) the prefill's KV exactly."""
+    parallelism (``dp_includes_model``) the prefill's KV exactly.  The SSM
+    models' states are used in place as the rank's boxes of the heads."""
     from repro_torch.distributed.local_ranks import run_ranks
 
     for ranks in run_ranks(_serving_ranks, 2, str(tmp_path)):
@@ -330,3 +370,7 @@ def test_serving_steps_on_a_mesh_match_the_plain_forward(tmp_path):
             assert r["prefill_cache"] <= 1e-5 * r["cache_scale"], arch
             assert r["decode_cache"] <= 1e-5 * r["cache_scale"], arch
             assert max(r["prefill_logits"], r["decode_logits"]) <= 1e-5 * r["scale"], arch
+            if arch in ("mamba2-130m", "zamba2-1.2b"):
+                # the conv windows made whole, never a state
+                assert r["made_whole"] and r["state_shapes"], arch
+                assert not any(x in r["state_shapes"] for x in r["made_whole"]), arch

@@ -213,3 +213,81 @@ def test_helpers_are_the_identity_outside_installed_rules():
         assert shd.constrain(x, "hidden") is x          # a plain tensor passes unchanged
     with shd.data_parallel(None, 1):
         assert shd.dp_sum(x) is x
+
+
+# model_all_to_all on three ranks: rank r's x is (5, 6) of r * 100 + its
+# index; SEND[r][t] the indices of dim 1 it sends rank t: uneven, empty,
+# and an index sent to several ranks (and twice to one)
+A2A_M = 3
+A2A_SEND = [[[0, 1], [1, 4, 5], []],
+            [[2], [0], [2, 3, 2, 5]],
+            [[5, 0, 1], [], [0]]]
+
+
+def _a2a_x(r, dtype):
+    return (torch.arange(30, dtype=torch.float64).reshape(5, 6) + 100 * r).to(dtype)
+
+
+def _a2a_cot(r, n, dtype):
+    return torch.randn((5, n), generator=torch.Generator().manual_seed(7 + r),
+                       dtype=torch.float64).to(dtype)
+
+
+def _a2a_share(r, group, dtype=torch.float32):
+    """Rank r's result and the gradient of <result, its cotangent> on x,
+    with the ones the definition gives."""
+    recv = [len(A2A_SEND[s][r]) for s in range(A2A_M)]
+    x = _a2a_x(r, dtype).requires_grad_()
+    with shd.model_parallel((group, A2A_M, r)):
+        y = shd.model_all_to_all(x, A2A_SEND[r], recv, dim=1)
+        (grad,) = torch.autograd.grad(y, x, _a2a_cot(r, sum(recv), dtype))
+    want_y = torch.cat([_a2a_x(s, dtype)[:, A2A_SEND[s][r]] for s in range(A2A_M)], 1)
+    # rank t's cotangent, read at the columns rank r sent it, summed back at
+    # their indices
+    want_g = torch.zeros((5, 6), dtype=torch.float64)
+    for t in range(A2A_M):
+        off = sum(len(A2A_SEND[s][t]) for s in range(r))
+        n = sum(len(A2A_SEND[s][t]) for s in range(A2A_M))
+        part = _a2a_cot(t, n, dtype).double()[:, off:off + len(A2A_SEND[r][t])]
+        for j, i in enumerate(A2A_SEND[r][t]):
+            want_g[:, i] += part[:, j]
+    return y.detach(), grad, want_y, want_g
+
+
+def _a2a_ranks(rank, world):
+    import torch.distributed as dist
+
+    return [_a2a_share(rank, dist.group.WORLD, dt) for dt in (torch.float32, torch.bfloat16)]
+
+
+def _check_a2a(results, dtype):
+    for y, grad, want_y, want_g in results:
+        assert y.dtype == grad.dtype == dtype
+        assert torch.equal(y, want_y)
+        tol = 1e-6 if dtype == torch.float32 else 1e-2
+        assert float((grad.double() - want_g).abs().max()) <= tol * float(want_g.abs().max())
+
+
+def test_model_all_to_all_on_gloo(tmp_path):
+    """On three gloo ranks: each rank receives, in rank order, the indices
+    every rank sends it (uneven, some none, some to several ranks), and
+    the backward is the reverse all-to-all with the copies of an index
+    summed, in f32 and (accumulated in f32) in bf16."""
+    from repro_torch.distributed.local_ranks import run_ranks
+
+    ranks = run_ranks(_a2a_ranks, A2A_M, str(tmp_path))
+    for i, dt in enumerate((torch.float32, torch.bfloat16)):
+        _check_a2a([r[i] for r in ranks], dt)
+
+
+def test_model_all_to_all_on_the_stand_in():
+    """The same three ranks one after another on ``TurnGroup``; and with
+    one rank, an index select."""
+    from repro_torch.distributed.local_ranks import run_in_turns
+
+    outs, passes, calls = run_in_turns(_a2a_share, A2A_M)
+    assert calls == 2 and passes == 3         # forward, then the reverse in backward
+    _check_a2a(outs, torch.float32)
+    x = _a2a_x(0, torch.float32)
+    with shd.model_parallel(None):
+        assert torch.equal(shd.model_all_to_all(x, [[4, 1, 1]], [3]), x[:, [4, 1, 1]])

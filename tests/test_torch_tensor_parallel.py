@@ -9,10 +9,13 @@ tolerances.  The cases cover what the port's tensor-parallel step must get
 right: kv shards smaller than a head (2 kv heads on 4 ranks), a vocabulary
 that ``model`` divides (vocab-parallel embedding, head and CE, tied and
 untied) and one that it does not (257: replicated), expert parallelism (2
-and 1 experts a rank), and ``dp_includes_model``, which keeps the whole
-mesh data-parallel.  The gathers the step issues are recorded: no weight
-with a dim on ``model`` is gathered over ``model``."""
+and 1 experts a rank), ``dp_includes_model``, which keeps the whole
+mesh data-parallel, and the SSM layers of zamba2 and mamba2 (each rank its
+heads, the fused ``in_proj``'s columns moved by an all-to-all).  The
+gathers the step issues are recorded: no weight with a dim on ``model`` is
+gathered over ``model``."""
 
+import functools
 import json
 import os
 import subprocess
@@ -31,6 +34,12 @@ CASES = {
     "granite_2x2": ("granite-moe-1b-a400m", (2, 2), None, False),
     "granite_1x4_v256": ("granite-moe-1b-a400m", (1, 4), 256, False),
     "qwen_1x4_dp_includes_model": ("qwen3-32b", (1, 4), None, True),
+}
+# the SSM cases, run by a fixture of their own: a rank's 128 rows take
+# in_proj's weight route (its needed columns of the weight moved)
+SSM_CASES = {
+    "zamba2_1x4": ("zamba2-1.2b", (1, 4), None, False),
+    "mamba2_1x4": ("mamba2-130m", (1, 4), None, False),
 }
 
 JAX_TRAIN = """
@@ -86,7 +95,7 @@ def _cfgs(arch, shape, vocab, dpm):
                                microbatches=MICRO, dp_includes_model=dpm)
 
 
-def _tp_ranks(rank, world, out):
+def _tp_ranks(rank, world, out, cases):
     """Every case on this rank: restore JAX's initial state, train, record
     the step's gathers and model collectives, return the metrics and
     (rank 0) the whole final parameters."""
@@ -100,7 +109,7 @@ def _tp_ranks(rank, world, out):
     from repro_torch.training import init_train_state, make_train_step, state_shardings
 
     res = {}
-    for name, (arch, shape, vocab, dpm) in CASES.items():
+    for name, (arch, shape, vocab, dpm) in cases.items():
         mesh = make_mesh(shape, ("data", "model"), "cpu")
         cfg, pcfg = _cfgs(arch, shape, vocab, dpm)
         sh = state_shardings(cfg, pcfg, mesh)
@@ -112,7 +121,8 @@ def _tp_ranks(rank, world, out):
         pipe = make_pipeline(cfg, ShapeConfig("t", "train", SEQ, BATCH), mesh)
         gathers, model_colls = [], []
         fwd = shd._GatherParam.forward
-        fns = {f: getattr(shd, f) for f in ("_all_gather", "_reduce_scatter", "_all_reduce")}
+        fns = {f: getattr(shd, f) for f in ("_all_gather", "_reduce_scatter", "_all_reduce",
+                                            "_all_to_all")}
 
         def rec(ctx, local, sharding, shp, *a, fwd=fwd, gathers=gathers):
             y = fwd(ctx, local, sharding, shp, *a)
@@ -142,27 +152,45 @@ def _tp_ranks(rank, world, out):
     return res
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _run_cases(tmp_path_factory, cases: dict):
+    """JAX's references for ``cases`` in a subprocess, then the port's four
+    ranks: (references by case, each rank's results)."""
     from repro_torch.distributed.local_ranks import run_ranks
 
     out = str(tmp_path_factory.mktemp("tp"))
     code = textwrap.dedent(JAX_TRAIN.format(micro=MICRO, seq=SEQ, batch=BATCH, steps=STEPS))
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", code, out, json.dumps(CASES)],
+    r = subprocess.run([sys.executable, "-c", code, out, json.dumps(cases)],
                        capture_output=True, text=True, timeout=400, env=env)
     assert r.returncode == 0 and "JAX_OK" in r.stdout, r.stderr[-3000:]
-    refs = {name: dict(np.load(f"{out}/{name}/ref.npz")) for name in CASES}
-    return refs, run_ranks(_tp_ranks, 4, out + "/w", out)
+    refs = {name: dict(np.load(f"{out}/{name}/ref.npz")) for name in cases}
+    return refs, run_ranks(_tp_ranks, 4, out + "/w", out, cases)
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_tensor_parallel_step_matches_jax(runs, name):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _run_cases(tmp_path_factory, CASES)
+
+
+@pytest.fixture(scope="module")
+def ssm_runs(tmp_path_factory):
+    return _run_cases(tmp_path_factory, SSM_CASES)
+
+
+def _case_runs(request, name):
+    return request.getfixturevalue("ssm_runs" if name in SSM_CASES else "runs")
+
+
+ALL_CASES = {**CASES, **SSM_CASES}
+
+
+@pytest.mark.parametrize("name", list(ALL_CASES))
+def test_tensor_parallel_step_matches_jax(request, name):
     """Two steps: every rank's loss and grad norm equal JAX's sharded
     step's within the unsharded parity's tolerances, and so do the final
     parameters."""
-    refs, ranks = runs
+    refs, ranks = _case_runs(request, name)
     ref = refs[name]
     for r in ranks:
         got = r[name]["metrics"]
@@ -178,16 +206,17 @@ def test_tensor_parallel_step_matches_jax(runs, name):
         assert np.abs(t - j).max() <= PARAM_TOL * max(np.abs(j).max(), 1e-30), p
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_no_model_sharded_weight_is_gathered_over_model(runs, name):
+@pytest.mark.parametrize("name", list(ALL_CASES))
+def test_no_model_sharded_weight_is_gathered_over_model(request, name):
     """Every gather the first step issues keeps a dim on ``model`` at the
     rank's box (the weights' ``data`` part alone is gathered; on one data
     rank such a weight is not gathered at all), each group's weights are
     gathered in the forward and again in the recompute, and collectives
     along ``model`` run exactly when the rules put something there: none
-    with ``dp_includes_model``."""
-    _, ranks = runs
-    arch, shape, _, dpm = CASES[name]
+    with ``dp_includes_model``; the SSM layers move their columns by
+    all-to-all."""
+    _, ranks = _case_runs(request, name)
+    arch, shape, _, dpm = ALL_CASES[name]
     m = shape[1]
     for r in ranks:
         rec = r[name]
@@ -209,6 +238,7 @@ def test_no_model_sharded_weight_is_gathered_over_model(runs, name):
         assert bool(rec["model_colls"]) == (not dpm)
         if not dpm:
             assert {"_all_gather", "_reduce_scatter", "_all_reduce"} <= set(rec["model_colls"])
+        assert ("_all_to_all" in rec["model_colls"]) == (name in SSM_CASES)
 
 
 _FLOPS = r"""
@@ -244,25 +274,58 @@ def test_per_rank_dot_flops_divide_by_the_model_axis():
     assert res["4"]["coll_bytes"] > 0
 
 
-# (label, arch, overrides, model ranks)
+# (label, arch, overrides, model ranks, in_proj and out_proj compressed)
 SHARE_CASES = [
-    ("kv_box_half_a_head", "qwen3-32b", {}, 4),
-    ("kv_heads_aligned", "qwen3-32b", {"num_heads": 8, "num_kv_heads": 4}, 2),
+    ("kv_box_half_a_head", "qwen3-32b", {}, 4, False),
+    ("kv_heads_aligned", "qwen3-32b", {"num_heads": 8, "num_kv_heads": 4}, 2, False),
     ("q_heads_across_kv_groups", "qwen3-32b", {"num_heads": 12, "num_kv_heads": 3,
-                                               "d_model": 96}, 4),
-    ("q_box_splits_a_head", "qwen3-32b", {"num_heads": 6, "num_kv_heads": 6, "d_model": 96}, 4),
+                                               "d_model": 96}, 4, False),
+    ("q_box_splits_a_head", "qwen3-32b", {"num_heads": 6, "num_kv_heads": 6, "d_model": 96}, 4,
+     False),
     ("only_the_carry_divides", "qwen3-32b", {"num_heads": 5, "num_kv_heads": 5,
-                                             "d_model": 96}, 3),
-    ("mha_with_biases", "musicgen-medium", {}, 2),
-    ("parallel_block", "command-r-plus-104b", {}, 2),
-    ("experts_on_model", "granite-moe-1b-a400m", {}, 4),
-    ("experts_fall_back_to_mlp", "granite-moe-1b-a400m", {"num_experts": 3}, 2),
-    ("ssm_and_shared_block", "zamba2-1.2b", {}, 2),
+                                             "d_model": 96}, 3, False),
+    ("mha_with_biases", "musicgen-medium", {}, 2, False),
+    ("parallel_block", "command-r-plus-104b", {}, 2, False),
+    ("experts_on_model", "granite-moe-1b-a400m", {}, 4, False),
+    ("experts_fall_back_to_mlp", "granite-moe-1b-a400m", {"num_experts": 3}, 2, False),
+    ("ssm_and_shared_block", "zamba2-1.2b", {}, 2, False),
+    ("ssm_box_splits_a_head", "mamba2-130m", {"d_model": 96, "ssm_headdim": 32}, 4, False),
+    ("ssm_weight_route", "mamba2-130m", {"d_model": 16, "ssm_headdim": 8}, 4, False),
+    ("ssm_compressed_projections", "zamba2-1.2b", {}, 2, True),
 ]
 
 
-@pytest.mark.parametrize("label,arch,over,m", SHARE_CASES, ids=[c[0] for c in SHARE_CASES])
-def test_rank_shares_join_to_the_whole_block(label, arch, over, m):
+def _compressed_block(values, axes):
+    """``values`` with its ``w`` leaves of at least 4,096 elements
+    compressed on the CPU (``execute_plan``, tiles of 16 x 8), and a
+    function of a mesh giving their shardings: the compressed leaves
+    replicated, as the serving cells place them."""
+    from repro_torch.compression import CompressionPolicy, execute_plan, plan_compression
+    from repro_torch.compression.plan import tree_paths
+    from repro_torch.distributed import sharding as shd
+
+    policy = CompressionPolicy(method="greedy", tile_n=16, tile_d=8, rank_ratio=0.5,
+                               min_size=4096)
+    plan = plan_compression(values, policy)
+    new, _ = execute_plan(plan, values, device="cpu")
+    packed = {p for p, x in tree_paths(new) if p.endswith(("/m_packed", "/C"))}
+    assert {p.rsplit("/", 2)[0] for p in packed} == {"ssm/in_proj", "ssm/out_proj"}, packed
+
+    def shardings(rules, mesh):
+        def walk(v, a, path):
+            if isinstance(v, dict) and "m_packed" in v:
+                return {k: shd.NamedSharding(mesh, ()) for k in v}
+            if isinstance(v, dict):
+                return {k: walk(v[k], a[k], f"{path}/{k}") for k in v}
+            return shd.NamedSharding(mesh, shd.spec_for(a, tuple(v.shape), rules, mesh))
+        return walk(new, axes, "")
+
+    return new, shardings
+
+
+@pytest.mark.parametrize("label,arch,over,m,compressed", SHARE_CASES,
+                         ids=[c[0] for c in SHARE_CASES])
+def test_rank_shares_join_to_the_whole_block(label, arch, over, m, compressed):
     """One block (f32, reduced widths) computed whole and as each rank's
     share along ``model`` = m, the ranks one after another
     (``model_parallel`` with a stand-in group): the shares' carries,
@@ -270,9 +333,12 @@ def test_rank_shares_join_to_the_whole_block(label, arch, over, m):
     half a head, q heads that straddle kv groups (one kv head a q head), a
     q box that splits a head (every head computed), heads, kv, mlp or
     experts that ``model`` does not divide (whole, counted once, or the
-    experts' mlp on ``model``), biases added once, the parallel block and
-    zamba2's SSM (gathered whole over ``model``) with its tensor-parallel
-    shared block."""
+    experts' mlp on ``model``), biases added once, the parallel block,
+    zamba2's SSM (each rank its heads, the fused columns' product moved)
+    with its tensor-parallel shared block, an SSM whose ``d_inner`` box
+    splits a head (every head computed, the box's channels for the norm
+    and ``out_proj``), one whose rank rows exceed ``d_model`` (the weight's
+    columns moved) and compressed (whole) ``in_proj`` and ``out_proj``."""
     import dataclasses
 
     import torch
@@ -288,6 +354,9 @@ def test_rank_shares_join_to_the_whole_block(label, arch, over, m):
     kind = cfg.block_pattern[-1]
     g = torch.Generator().manual_seed(0)
     values, axes = split(tr._init_block(g, kind, cfg, torch.float32))
+    block_shardings = functools.partial(shd.param_shardings, axes, values)
+    if compressed:
+        values, block_shardings = _compressed_block(values, axes)
     shared = shared_axes = None
     if kind == "ssm_attn":
         shared, shared_axes = split(tr._init_shared_attn(g, cfg, torch.float32))
@@ -304,7 +373,7 @@ def test_rank_shares_join_to_the_whole_block(label, arch, over, m):
     d = cfg.d_model // m if cfg.d_model % m == 0 else cfg.d_model
 
     def share(r, grp):
-        sh = {"block": shd.param_shardings(axes, values, rules, RankMesh(m, r))}
+        sh = {"block": block_shardings(rules, RankMesh(m, r))}
         local = {"block": local_boxes(values, sh["block"])}
         if shared is not None:
             sh["shared"] = shd.param_shardings(shared_axes, shared, rules, RankMesh(m, r))
@@ -324,6 +393,78 @@ def test_rank_shares_join_to_the_whole_block(label, arch, over, m):
     err = float((joined - whole).abs().max())
     assert err <= 1e-5 * float((whole - x).abs().max()), (label, err)
     assert abs(float(a) - float(aux)) <= 1e-5 * max(abs(float(aux)), 1.0)
+
+
+@pytest.mark.parametrize("route,seq", [("activation", 16), ("weight", 48)])
+def test_ssm_share_moves_columns_and_gathers_no_projection(route, seq):
+    """Reduced zamba2's SSM layer as four ranks' shares: no rank gathers
+    ``in_proj``, ``out_proj`` or the norm's scale over ``model`` (only the
+    conv weights, a few KiB), the fused columns move by all-to-all (the
+    product's at 32 rows a rank, the weight's at 96 > ``d_model``), and the
+    SSD runs on the rank's nh / 4 heads."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.local_ranks import RankMesh, local_boxes, run_in_turns
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.params import split
+
+    m = 4
+    cfg = reduced_for_smoke(get_config("zamba2-1.2b"))
+    cfg = dataclasses.replace(cfg, block_pattern=("ssm",), num_layers=cfg.num_groups)
+    g = torch.Generator().manual_seed(0)
+    values, axes = split(tr._init_block(g, "ssm", cfg, torch.float32))
+    x = torch.randn((2, seq, cfg.d_model), generator=g)
+    kw = dict(cache=None, pos_offset=0, window=0)
+    whole, _, _ = tr._apply_block(x, values, "ssm", cfg, **kw)
+    rules = shd.make_rules(ParallelConfig(mesh_shape=(1, m), mesh_axes=("data", "model")))
+    gathered, moved, heads = [], [], []
+    fns = shd._all_gather, shd._all_to_all, ssm._ssd
+
+    def rec_gather(x, dim, *a):
+        gathered.append(tuple(x.shape))
+        return fns[0](x, dim, *a)
+
+    def rec_move(x, send, recv, group):
+        moved.append((tuple(x.shape), sum(recv)))
+        return fns[1](x, send, recv, group)
+
+    def rec_ssd(u, *a):
+        heads.append(u.shape[2])
+        return fns[2](u, *a)
+
+    def share(r, grp):
+        sh = shd.param_shardings(axes, values, rules, RankMesh(m, r))
+        with torch.no_grad(), shd.gathering({"b": sh}, None, (), torch.float32), \
+                shd.model_parallel((grp, m, r)):
+            p = shd.gather_params(local_boxes(values, sh), "b")
+            d = cfg.d_model // m
+            return tr._apply_block(x[..., r * d:(r + 1) * d], p, "ssm", cfg, **kw)[0]
+
+    shd._all_gather, shd._all_to_all, ssm._ssd = rec_gather, rec_move, rec_ssd
+    try:
+        outs, _, _ = run_in_turns(share, m)
+    finally:
+        shd._all_gather, shd._all_to_all, ssm._ssd = fns
+    err = float((torch.cat(outs, -1) - whole).abs().max())
+    assert err <= 1e-5 * float((whole - x).abs().max()), err
+    di, ds, nh, d = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.d_model
+    conv_dim = di + 2 * ds
+    # the carry before the norm, then the conv weights' boxes: nothing else
+    assert set(gathered) <= {(2, seq, d // m), (cfg.ssm_dconv, conv_dim // m),
+                             (conv_dim // m,)}, gathered
+    need = 2 * di // m + 2 * ds + nh // m
+    # each rank sends columns of its box and receives its heads' columns:
+    # of the product (their rows after them) or of the weight (d_model)
+    assert moved and all(n == need and x[0] <= need * m for x, n in moved), moved
+    rest = (2, seq) if route == "activation" else (d,)
+    assert all(x[1:] == rest for x, _ in moved), moved
+    assert set(heads) == {nh // m}, heads
 
 
 def test_a_weight_without_its_placement_fails_loudly():

@@ -811,6 +811,58 @@ def leaf(tree, path):
     return tree
 
 
+# phase 2's int8 check: execute_plan(method="int8") on one full-width block
+# tensor on the card and on the CPU, byte for byte
+INT8_PATH = "groups/0/attn/wq/w"
+
+
+def int8_card_vs_cpu(torch, dev, values):
+    """``execute_plan`` with ``method="int8"`` on ``INT8_PATH`` of the
+    full-width qwen3-32b block, on the card and on the CPU: every leaf of
+    the two compressed trees (codes and scales) and their manifests'
+    entries must be equal byte for byte (eager f32 products and divisions
+    round to nearest on both)."""
+    from repro_torch.compression import CompressionPolicy, execute_plan, plan_compression
+    from repro_torch.compression.plan import tree_paths
+
+    def tree(w):
+        out = node = {}
+        *dirs, last = INT8_PATH.split("/")
+        for k in dirs:
+            node[k] = {}
+            node = node[k]
+        node[last] = w
+        return out
+
+    w = leaf(values, INT8_PATH)
+    pol = CompressionPolicy(method="int8", tile_d=32, min_size=4096)
+    runs = {}
+    for name, where, src in (("card", dev, tree(w)), ("cpu", "cpu", tree(w.cpu()))):
+        torch.cuda.synchronize()
+        t = time.time()
+        cv, art = execute_plan(plan_compression(src, pol), src, seed=SEED, device=where,
+                               verbose=False)
+        torch.cuda.synchronize()
+        runs[name] = ({p: v.cpu() for p, v in tree_paths(cv)}, art.manifest["tensors"],
+                      time.time() - t)
+    (card, card_m, card_s), (cpu, cpu_m, cpu_s) = runs["card"], runs["cpu"]
+    check(list(card) == list(cpu) and any(p.endswith("/q") for p in card),
+          f"int8: the trees' leaves {list(card)} and {list(cpu)}")
+    differ = [p for p in card if card[p].dtype != cpu[p].dtype
+              or card[p].shape != cpu[p].shape or not torch.equal(card[p], cpu[p])]
+    check(not differ, f"int8: the card's leaves {differ} differ from the CPU's")
+    keys = ("method", "num_tiles", "q", "scale", "new_bytes")
+    check([{k: e.get(k) for k in keys} for e in card_m.values()]
+          == [{k: e.get(k) for k in keys} for e in cpu_m.values()],
+          "int8: the card's manifest entries differ from the CPU's")
+    out = {"path": INT8_PATH, "shape": list(w.shape), "dtype": str(w.dtype).split(".")[-1],
+           "leaves": {p: list(v.shape) for p, v in card.items()},
+           "tiles": [e["num_tiles"] for e in card_m.values()], "bytes_equal": True,
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit({"int8_card_vs_cpu": out})
+    return out
+
+
 def phase_compress(torch, dev, out_dir):
     from repro_torch.checkpoint import checkpointer
     from repro_torch.compression import CompressionArtifact
@@ -867,6 +919,7 @@ def phase_compress(torch, dev, out_dir):
         err_sums[1] += float(err.sum())
         n_tiles += err.numel()
     check(worst <= 1e-5, f"a BBO tile ended {worst:.3g} above its alternating start")
+    int8_card_vs_cpu(torch, dev, values)
 
     # the checkpoint and manifest restore to what was computed
     art = CompressionArtifact.load(out_dir)
@@ -1472,7 +1525,7 @@ def phase_generate(torch, dev, out_dir):
     from repro_torch.kernels import sa_sweep as sa
     from repro_torch.launch.serve import serve_model
     from repro_torch.models import init_cache
-    from repro_torch.serving import Engine
+    from repro_torch.serving import Engine, make_prefill
 
     full, cfg = full_width_config()
     emit({"reduced": {"arch": cfg.name, "num_layers": [full.num_layers, cfg.num_layers],
@@ -1484,9 +1537,14 @@ def phase_generate(torch, dev, out_dir):
     bl.reset_counts()
     fa.flash_attention.launches = 0
     autotune.clear_log()
+    hooks = ops.kernel_hooks()
     res = serve_model(cfg, ckpt_dir=out_dir, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                       steps=GEN_STEPS, eos_id=eos, seed=SEED, device=dev, verbose=False)
     torch.cuda.synchronize()
+    # the Engine held its kernels to its own work
+    check(ops.kernel_hooks() == hooks and res.engine.kernel_hooks != hooks,
+          f"phase 4: the process's hooks {ops.kernel_hooks()} after the serve, "
+          f"{hooks} before it")
     launches = {"flash_attention": fa.flash_attention.launches,
                 "bitlinear": bl.bitlinear.launches, "sa_sweep_many": sa.sa_sweep_many.launches}
     by_schedule = served(bl.bitlinear)
@@ -1512,9 +1570,9 @@ def phase_generate(torch, dev, out_dir):
     with torch.inference_mode():
         lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
                             init_cache(cfg, GEN_BATCH, max_len, device=dev))
-        ops.disable_kernels()
-        lp, _ = eng.prefill(eng.params, {"tokens": res.prompts},
-                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+        with ops.kernels_off():
+            lp, _ = make_prefill(cfg)(eng.params, {"tokens": res.prompts},
+                                      init_cache(cfg, GEN_BATCH, max_len, device=dev))
     lk, lp = lk.float(), lp.float()
     check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
           "prefill logits are not finite")
@@ -1756,6 +1814,7 @@ def phase_tuned_generate(torch, dev, out_dir, heuristic):
     (``tuned_serve``); its prefill logits must agree with the plain path."""
     from repro_torch.kernels import autotune, ops
     from repro_torch.models import init_cache
+    from repro_torch.serving import make_prefill
 
     _, cfg = full_width_config()
     res, out = tuned_serve(torch, dev, out_dir, cfg, qwen_tokens)
@@ -1764,9 +1823,9 @@ def phase_tuned_generate(torch, dev, out_dir, heuristic):
     with torch.inference_mode():
         lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
                             init_cache(cfg, GEN_BATCH, max_len, device=dev))
-        ops.disable_kernels()
-        lp, _ = eng.prefill(eng.params, {"tokens": res.prompts},
-                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+        with ops.kernels_off():
+            lp, _ = make_prefill(cfg)(eng.params, {"tokens": res.prompts},
+                                      init_cache(cfg, GEN_BATCH, max_len, device=dev))
     lk, lp = lk.float(), lp.float()
     check(bool(torch.isfinite(lk).all()), "tuned prefill logits are not finite")
     scale = float(lp.abs().max())
@@ -2020,6 +2079,12 @@ def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
     return tree.float() if tree.is_floating_point() else tree
+
+
+def _to_f64(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f64(v) for k, v in tree.items()}
+    return tree.double() if tree.is_floating_point() else tree
 
 
 def moe_prefill(torch, cfg, params, prompts, dev, setup):
@@ -2436,14 +2501,16 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
 
 
 def zamba_prefill(torch, cfg, eng, prompts, dev, setup):
-    """The engine's prefill after ``setup()`` chose the path: ((the last
-    position's logits in f32, [(block kind, the residual stream after each
-    block)]), the K3 and K5 launches it made).  The blocks' outputs are read
-    by wrapping ``transformer._apply_block``."""
+    """A prefill of the engine's weights after ``setup()`` chose the path
+    (``make_prefill``: the Engine's own prefill runs its own kernels):
+    ((the last position's logits in f32, [(block kind, the residual stream
+    after each block)]), the K3 and K5 launches it made).  The blocks'
+    outputs are read by wrapping ``transformer._apply_block``."""
     from repro_torch.kernels import bitlinear as bl
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import init_cache
     from repro_torch.models import transformer
+    from repro_torch.serving.engine import make_prefill
 
     block, hs = transformer._apply_block, []
 
@@ -2457,9 +2524,9 @@ def zamba_prefill(torch, cfg, eng, prompts, dev, setup):
     transformer._apply_block = tap
     try:
         with torch.inference_mode():
-            logits, _ = eng.prefill(eng.params, {"tokens": prompts},
-                                    init_cache(cfg, prompts.shape[0],
-                                               prompts.shape[1] + GEN_STEPS, device=dev))
+            logits, _ = make_prefill(cfg)(eng.params, {"tokens": prompts},
+                                          init_cache(cfg, prompts.shape[0],
+                                                     prompts.shape[1] + GEN_STEPS, device=dev))
         torch.cuda.synchronize()
     finally:
         transformer._apply_block = block
@@ -3255,6 +3322,7 @@ def qwen_serve_check(torch, dev, cfg, ckpt_dir, steps, label):
     from repro_torch.kernels import sa_sweep as sa
     from repro_torch.launch.serve import serve_model
     from repro_torch.models import init_cache
+    from repro_torch.serving import make_prefill
 
     eos = cfg.vocab_size
     autotune.clear_schedules()
@@ -3285,16 +3353,12 @@ def qwen_serve_check(torch, dev, cfg, ckpt_dir, steps, label):
           and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
           f"{label}: generated tokens {tuple(toks.shape)} out of shape or range")
     max_len = GEN_PROMPT + steps
-    try:
-        with torch.inference_mode():
-            ops.enable_kernels()
-            lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
-                                init_cache(cfg, GEN_BATCH, max_len, device=dev))
-            ops.disable_kernels()
-            lp, _ = eng.prefill(eng.params, {"tokens": res.prompts},
-                                init_cache(cfg, GEN_BATCH, max_len, device=dev))
-    finally:
-        ops.enable_kernels()
+    with torch.inference_mode():
+        lk, _ = eng.prefill(eng.params, {"tokens": res.prompts},
+                            init_cache(cfg, GEN_BATCH, max_len, device=dev))
+        with ops.kernels_off():
+            lp, _ = make_prefill(cfg)(eng.params, {"tokens": res.prompts},
+                                      init_cache(cfg, GEN_BATCH, max_len, device=dev))
     lk, lp = lk.float(), lp.float()
     check(bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all()),
           f"{label}: prefill logits are not finite")
@@ -4309,9 +4373,12 @@ def phase_tp_shares(torch, dev, flush):
     all in mamba2's layer, which has no attention).  A bf16
     layer is also run whole in f32 (the same weights and input, cast): the
     whole bf16 layer's and the shares' distances from it say how much of
-    their difference is bf16 rounding.  Then K5 at each rank shape against
-    its plain version at the K5 check's tolerances, bf16 timed beside its
-    bound and SDPA."""
+    their difference is bf16 rounding.  zamba2's f32 layer is also run whole
+    in f64 on the plain path: the whole f32 layer's and the shares'
+    distances from it (``whole_vs_f64``, ``shares_vs_f64``) say which of
+    the two lies farther from the exact value.  Then K5 at each rank shape
+    against its plain version at the K5 check's tolerances, bf16 timed
+    beside its bound and SDPA."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.distributed import sharding as shd
@@ -4355,7 +4422,13 @@ def phase_tp_shares(torch, dev, flush):
                     torch.cuda.synchronize()
                     whole_s = time.time() - t
                     whole_route = routes[0] if routes else None
-                    whole32 = route32 = None
+                    whole32 = route32 = whole64 = None
+                    if kind == "ssm_attn" and dtype == torch.float32:
+                        # the exact value to rounding: the plain path in f64
+                        with ops.kernels_off():
+                            whole64, _, _ = tr._apply_block(x.double(), _to_f64(values), kind,
+                                                            cfg, _to_f64(shared), **kw)
+                        scale64 = float((whole64 - x.double()).abs().max())
                     if dtype != torch.float32:
                         routes.clear()
                         whole32, _, _ = tr._apply_block(
@@ -4442,6 +4515,13 @@ def phase_tp_shares(torch, dev, flush):
                                 keep * (route32 == whole_route).all(-1).reshape(keep.shape)
                             rec.update(whole_vs_f32=err_of(whole, whole32, k32, scale),
                                        shares_vs_f32=err_of(joined, whole32, k32, scale))
+                        if whole64 is not None:
+                            # each f32 result's distance from the f64 layer, of
+                            # max|update| in f64 (tools/torch_ssm_share_error.py)
+                            rec.update(whole_vs_f64=float((whole - whole64).abs().max())
+                                       / scale64,
+                                       shares_vs_f64=float((joined - whole64).abs().max())
+                                       / scale64)
                         if kind == "attn_moe":
                             # the router reads the carry after attention's
                             # sums over model: the same loss on every rank,
@@ -4452,7 +4532,7 @@ def phase_tp_shares(torch, dev, flush):
                                   f"against the whole layer's {float(aux)}")
                         out[f"{arch}/{dt}/model={m}"] = rec
                         del ranks, outs, joined, share
-                del values, shared, x, whole, upd, whole32
+                del values, shared, x, whole, upd, whole32, whole64
     finally:
         moe.moe_block = moe_block
         ops.disable_kernels()
@@ -4996,7 +5076,6 @@ def phase_zoo(torch, dev, flush, line, arch, overrides, reduced, work_dir):
         toks = eng.generate(prompt["tokens"], ZOO_STEPS)
         torch.cuda.synchronize()
         gen_launches = {k: v - before[k] for k, v in launch_counts().items()}
-        ops.disable_kernels()
         plain = Engine(cfg, params, max_len=P + ZOO_STEPS, batch=B, eos_id=cfg.vocab_size,
                        artifact=art, use_fused_bitlinear=False)
         toks_plain = plain.generate(prompt["tokens"], ZOO_STEPS)
@@ -5022,7 +5101,6 @@ def phase_zoo(torch, dev, flush, line, arch, overrides, reduced, work_dir):
     out["k5"], out["k3"] = k5, k3
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     out["memory_held_before_bytes"] = held
-    ops.disable_kernels()
     del params
     torch.cuda.empty_cache()
     emit({line: out})
@@ -5036,8 +5114,6 @@ def phase_examples(torch, work_dir):
     rc says so too), with K1 launched."""
     import contextlib
     import io
-
-    from repro_torch.kernels import ops
 
     runs = (("quickstart", "examples/torch_quickstart.py", []),
             ("compress_then_serve", "examples/torch_compress_then_serve.py",
@@ -5053,11 +5129,8 @@ def phase_examples(torch, work_dir):
         torch.cuda.synchronize()
         before = launch_counts()
         t = time.time()
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = mod.main(argv)
-        finally:
-            ops.disable_kernels()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t
         texts[name] = buf.getvalue()

@@ -143,7 +143,10 @@ def quantize_tile_batch(tiles: torch.Tensor):
     symmetric per-tile rounding, scale = max|W_t| / 127."""
     tiles = tiles.to(torch.float32)
     amax = tiles.abs().amax(dim=(1, 2), keepdim=True)
-    scale = amax / 127.0
+    # the reference is jitted, and XLA folds a division by a constant into a
+    # product with its f32 reciprocal (one ulp off a true division for some
+    # amax); the division by the non-constant ``safe`` below it leaves alone
+    scale = amax * torch.tensor(1 / 127, dtype=torch.float32)
     safe = torch.clamp_min(scale, 1e-30)
     q = torch.clamp(torch.round(tiles / safe), -127.0, 127.0).to(torch.int8)
     resid = tiles - q.to(torch.float32) * scale

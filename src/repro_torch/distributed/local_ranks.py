@@ -90,7 +90,8 @@ class TurnGroup:
     gave the i-th collective in the pass before (in the first pass: its own
     input, repeated or cut).  A share whose collectives chain c deep is
     exact after c + 1 passes, and the last pass's results are what a real
-    group of the ranks would give (sums in f32, cast back)."""
+    group of the ranks would give (sums in f32, or f64 for f64 parts, cast
+    back)."""
 
     def __init__(self, m: int):
         self.m, self.prev, self.cur, self.rank, self.calls = m, {}, {}, 0, 0
@@ -110,9 +111,10 @@ class TurnGroup:
 
     @staticmethod
     def _sum(parts):
-        acc = parts[0].float()
+        f = torch.promote_types(parts[0].dtype, torch.float32)
+        acc = parts[0].to(f)
         for x in parts[1:]:
-            acc = acc + x.float()
+            acc = acc + x.to(f)
         return acc.to(parts[0].dtype)
 
     def all_gather(self, x, dim: int):

@@ -42,6 +42,8 @@ __all__ = [
     "enable_kernels",
     "disable_kernels",
     "kernels_off",
+    "kernel_hooks",
+    "hooks_as",
     "apply_compressed_fused",
     "apply_compressed_grouped_fused",
     "flash_attention_model_layout",
@@ -119,7 +121,8 @@ def flash_attention_model_layout(qh, k, v, window: int):
 def enable_kernels() -> None:
     """Route attention prefill through K5, compressed layers through K3 and
     compressed expert stacks through K4.  The hooks are process-global;
-    ``disable_kernels()`` removes them all."""
+    ``disable_kernels()`` removes them all.  A ``serving.Engine`` records
+    its setting at construction and applies it only around its own work."""
     attn_lib.register_flash(flash_attention_model_layout)
     quantized.register_bitlinear_fused(apply_compressed_fused)
     quantized.register_bitlinear_grouped(apply_compressed_grouped_fused)
@@ -130,19 +133,35 @@ def disable_kernels() -> None:
     quantized.clear_bitlinear()
 
 
+def kernel_hooks() -> tuple:
+    """The hooks registered now (flash attention; the partial, fused and
+    grouped bitlinear), for ``hooks_as``."""
+    return (attn_lib._FLASH_IMPL, quantized._BITLINEAR_IMPL,
+            quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL)
+
+
+def _set_hooks(hooks: tuple) -> None:
+    (attn_lib._FLASH_IMPL, quantized._BITLINEAR_IMPL,
+     quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL) = hooks
+
+
 @contextlib.contextmanager
+def hooks_as(hooks: tuple):
+    """Register ``hooks`` (a ``kernel_hooks()`` tuple) for the block's
+    duration and restore whatever was registered before."""
+    saved = kernel_hooks()
+    _set_hooks(hooks)
+    try:
+        yield
+    finally:
+        _set_hooks(saved)
+
+
 def kernels_off():
     """Clear the flash-attention and bitlinear hooks for the block's
     duration and restore whatever was registered: the kernels have no
     backward, so gradients (calibration, training) take the plain path."""
-    saved = (attn_lib._FLASH_IMPL, quantized._BITLINEAR_IMPL,
-             quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL)
-    disable_kernels()
-    try:
-        yield
-    finally:
-        (attn_lib._FLASH_IMPL, quantized._BITLINEAR_IMPL,
-         quantized._BITLINEAR_FUSED_IMPL, quantized._BITLINEAR_GROUPED_IMPL) = saved
+    return hooks_as((None, None, None, None))
 
 
 def _schedule_kwargs(schedule, mode: str, block_t: int, resolve) -> dict:

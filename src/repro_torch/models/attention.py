@@ -103,11 +103,12 @@ def init_attention(generator, cfg: ModelConfig, dtype) -> dict:
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Half-split RoPE in f32.  x (B, S, H, hd), positions (S,) or (B, S)."""
     half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    ang = positions[..., None].to(torch.float32) * freqs
+    f = layers.f32_or_wider(x)
+    freqs = theta ** (-torch.arange(0, half, dtype=f, device=x.device) / half)
+    ang = positions[..., None].to(f) * freqs
     ang = ang[None, :, None, :] if ang.ndim == 2 else ang[:, :, None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    x1, x2 = x[..., :half].to(f), x[..., half:].to(f)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
@@ -128,13 +129,14 @@ def _chunked_attention(q, k, v, window: int, q_chunk: int, causal_skip: bool = F
     nq = max(S // q_chunk, 1)
     qc = S // nq
     ar = torch.arange(qc, device=q.device)
+    f = layers.f32_or_wider(q)
     outs = []
     for i in range(nq):
         qb = q[:, i * qc:(i + 1) * qc]
         q_pos = i * qc + ar
-        m = torch.full((B, KV, rep, qc), float("-inf"), dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, KV, rep, qc), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, KV, rep, qc, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((B, KV, rep, qc), float("-inf"), dtype=f, device=q.device)
+        l = torch.zeros((B, KV, rep, qc), dtype=f, device=q.device)
+        acc = torch.zeros((B, KV, rep, qc, hd), dtype=f, device=q.device)
         if causal_skip:
             j_lo = 0 if window <= 0 else max((i * qc - (window - 1)) // qc, 0)
             blocks = range(j_lo, i + 1)
@@ -143,7 +145,7 @@ def _chunked_attention(q, k, v, window: int, q_chunk: int, causal_skip: bool = F
         for j in blocks:
             kj, vj = k[:, j * qc:(j + 1) * qc], v[:, j * qc:(j + 1) * qc]
             k_pos = j * qc + ar
-            s = torch.einsum("bqgrh,bkgh->bgrqk", qb, kj).to(torch.float32) * scale
+            s = torch.einsum("bqgrh,bkgh->bgrqk", qb, kj).to(f) * scale
             mask = q_pos[:, None] >= k_pos[None, :]
             if window > 0:
                 mask &= q_pos[:, None] - k_pos[None, :] < window
@@ -156,7 +158,7 @@ def _chunked_attention(q, k, v, window: int, q_chunk: int, causal_skip: bool = F
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum(
                 "bgrqk,bkgh->bgrqh", p.to(qb.dtype), vj
-            ).to(torch.float32)
+            ).to(f)
             m = m_new
         outs.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
     o = torch.stack(outs)                       # (nq, B, KV, rep, qc, hd)

@@ -16,6 +16,12 @@ returns its partial sum; ``embed_lookup`` on a vocab-sharded table is a
 masked local lookup (a partial sum); ``chunked_softmax_cross_entropy``
 on a vocab-sharded head reduces its max, sum of exponentials and label
 logit over ``model``.  Outside it each is the plain layer.
+
+Where the reference computes in f32 (a norm's statistic, RoPE, attention's
+softmax, the SSD's state), the port computes in ``f32_or_wider(x)``: f32
+for bf16 and f32 inputs, as the reference, and f64 for f64 ones, so the
+same forward on f64 weights and inputs is an f64 reference for measuring
+the f32 one.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.distributed.sharding import dp_sum
 from repro_torch.models.params import Param, dense_init, param
 
 __all__ = [
+    "f32_or_wider",
     "rms_norm",
     "init_rms_norm",
     "apply_dense",
@@ -70,9 +77,14 @@ def init_rms_norm(d: int, dtype, device) -> dict:
     return {"scale": param(torch.ones((d,), dtype=torch.float32, device=device), ("embed",))}
 
 
+def f32_or_wider(x: torch.Tensor) -> torch.dtype:
+    """f32, or f64 for an f64 ``x`` (module docstring)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     """RMS norm in f32 (scale f32), cast back to x's dtype."""
-    xf = x.to(torch.float32)
+    xf = x.to(f32_or_wider(x))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * _value(p["scale"])).to(x.dtype)
 

@@ -112,12 +112,13 @@ def _ssd_chunk(u, dA_cum, Bm, Cm, S_prev, rep: int):
 
     last = dA_cum[:, -1:, :]                                            # (B, 1, nh)
     Ch = Cm.repeat_interleave(rep, dim=2)                               # (B, L, nh, ds)
-    y_inter = torch.einsum("blhn,bhpn->blhp", Ch.float(), S_prev.float())
+    f = layers.f32_or_wider(u)
+    y_inter = torch.einsum("blhn,bhpn->blhp", Ch.to(f), S_prev.to(f))
     y_inter = y_inter * torch.exp(dA_cum)[..., None]
 
     w_state = torch.exp(last - dA_cum)                                  # (B, L, nh)
     Bh = Bm.repeat_interleave(rep, dim=2)                               # (B, L, nh, ds)
-    S_chunk = torch.einsum("blh,blhn,blhp->bhpn", w_state.float(), Bh.float(), u.float())
+    S_chunk = torch.einsum("blh,blhn,blhp->bhpn", w_state.to(f), Bh.to(f), u.to(f))
     S_new = S_prev * torch.exp(last[:, 0, :])[:, :, None, None] + S_chunk
     return y_intra + y_inter.to(u.dtype), S_new
 
@@ -223,7 +224,7 @@ def _gated_norm(y, z, scale, cfg: ModelConfig, c0: int):
     di = cfg.d_inner
     if x.shape[-1] == di and scale.shape[-1] == di:
         return layers.rms_norm(x, {"scale": scale}, cfg.norm_eps)
-    xf = x.to(torch.float32)
+    xf = x.to(layers.f32_or_wider(x))
     if x.shape[-1] < di:
         var = shd.model_sum(torch.sum(xf * xf, dim=-1, keepdim=True)) / di
     else:
@@ -281,7 +282,8 @@ def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None 
     dt_bias, A_log, Dp = p["dt_bias"], p["A_log"], p["D"]
     if nl < nh:
         dt_bias, A_log, Dp = (t[h0:h0 + nl] for t in (dt_bias, A_log, Dp))
-    dt = F.softplus(dt_raw.float() + dt_bias)
+    f = layers.f32_or_wider(h)
+    dt = F.softplus(dt_raw.to(f) + dt_bias)
     A = -torch.exp(A_log)                                               # (nl,)
     dA = dt * A                                                         # (B, S, nl) log-decay
     u = x * dt.to(x.dtype)[..., None]
@@ -292,7 +294,7 @@ def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None 
         if state.shape[1] != nl:
             state = state[:, h0:h0 + nl]
     S0 = (state if state is not None
-          else torch.zeros((B, nl, hp, ds), dtype=torch.float32, device=h.device))
+          else torch.zeros((B, nl, hp, ds), dtype=f, device=h.device))
     if S == 1 and cache is not None:
         # ---- O(1) decode step ----
         a = torch.exp(dA[:, 0])                                         # (B, nl)
@@ -300,9 +302,9 @@ def ssm_block(h: torch.Tensor, p: dict, cfg: ModelConfig, *, cache: dict | None 
         Bh = Bm[:, 0].repeat_interleave(rep_l, dim=1)                   # (B, nl, ds)
         Ch = Cm[:, 0].repeat_interleave(rep_l, dim=1)
         S_new = S0 * a[..., None, None] + torch.einsum(
-            "bhn,bhp->bhpn", Bh.float(), u[:, 0].float()
+            "bhn,bhp->bhpn", Bh.to(f), u[:, 0].to(f)
         )
-        y = torch.einsum("bhn,bhpn->bhp", Ch.float(), S_new)
+        y = torch.einsum("bhn,bhpn->bhp", Ch.to(f), S_new)
         y = y[:, None].to(h.dtype)
         S_final = S_new
     else:

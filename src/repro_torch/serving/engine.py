@@ -13,6 +13,7 @@ a cache tree on a mesh, as the reference's does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import torch
@@ -128,10 +129,17 @@ class Engine:
       True            enable them unconditionally;
       False           clear the fused bitlinear hook, so compressed layers
                       take the unpack+einsum form.
-    The hooks are process-global and read at call time.  With the kernels
-    enabled, a manifest's tuned ``kernel_schedules`` table is installed
-    (``kernels.autotune.load_schedules``) before they are, so every fused
-    call resolves its tuned schedule; ``self.kernel_schedules`` (and
+    The hooks are process-global and read at call time.  An Engine records
+    its setting at construction (``self.kernel_hooks``, the hooks the
+    choice above gives over those registered then) and leaves the process's
+    hooks as it found them: ``self.prefill`` and ``self.decode`` (so
+    ``generate`` and a ``Scheduler`` over the Engine) register the
+    Engine's hooks for the call and restore the caller's after it
+    (``scoped``), as the reference's Engine compiles the hooks of its first
+    trace into its jitted steps.  With the kernels enabled, a manifest's
+    tuned ``kernel_schedules`` table is installed
+    (``kernels.autotune.load_schedules``), so every fused call resolves its
+    tuned schedule; ``self.kernel_schedules`` (and
     ``compression["kernel_schedules"]``) counts its entries.
     """
 
@@ -170,21 +178,37 @@ class Engine:
         if fused is None:
             fused = self.artifact is not None
         self.kernel_schedules = 0
-        if fused:
-            if self.compression is not None:
-                table = self.artifact.manifest.get("kernel_schedules")
-                if table:
-                    from repro_torch.kernels import autotune
+        if fused and self.compression is not None:
+            table = self.artifact.manifest.get("kernel_schedules")
+            if table:
+                from repro_torch.kernels import autotune
 
-                    self.kernel_schedules = autotune.load_schedules(table)
-                    self.compression["kernel_schedules"] = self.kernel_schedules
-            ops.enable_kernels()
-        elif self.use_fused_bitlinear is False:
-            quantized.clear_bitlinear()
-        self.fused_bitlinear = fused and quantized.has_fused_bitlinear()
-        self.prefill = make_prefill(self.cfg)
-        self.decode = make_decode_step(self.cfg)
+                self.kernel_schedules = autotune.load_schedules(table)
+                self.compression["kernel_schedules"] = self.kernel_schedules
+        with ops.hooks_as(ops.kernel_hooks()):
+            if fused:
+                ops.enable_kernels()
+            elif self.use_fused_bitlinear is False:
+                quantized.clear_bitlinear()
+            self.kernel_hooks = ops.kernel_hooks()
+            self.fused_bitlinear = fused and quantized.has_fused_bitlinear()
+        self.prefill = self.scoped(make_prefill(self.cfg))
+        self.decode = self.scoped(make_decode_step(self.cfg))
         self.last_timing = None
+
+    def scoped(self, fn):
+        """``fn`` run with this Engine's kernel hooks registered, and the
+        caller's restored after it."""
+        from repro_torch.kernels import ops
+
+        hooks = self.kernel_hooks
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with ops.hooks_as(hooks):
+                return fn(*args, **kwargs)
+
+        return run
 
     @torch.inference_mode()
     def generate(self, prompts: torch.Tensor, steps: int,

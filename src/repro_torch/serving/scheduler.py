@@ -107,8 +107,9 @@ class Scheduler:
     ``num_slots`` is the decode batch width (idle slots are masked, their
     writes land on the scratch page).  ``num_pages`` bounds total KV
     memory; by default fully provisioned, pass a smaller pool to exercise
-    admission control and preemption.  The kernels are the engine's: its
-    hooks are process-global and read at call time.
+    admission control and preemption.  The kernels are the engine's: every
+    prefill chunk and decode tick runs with the engine's hooks
+    (``Engine.scoped``).
     """
 
     def __init__(self, engine: Engine, num_slots: int = 4,
@@ -146,7 +147,7 @@ class Scheduler:
         self.stats = SchedulerStats()
         self._next_rid = 0
         self._next_admit_seq = 0
-        self._decode_step = make_decode_step(self.cfg)
+        self._decode_step = engine.scoped(make_decode_step(self.cfg))
         self._prefill_fns: dict[bool, Callable] = {}
 
     # ------------------------------------------------------------------
@@ -255,7 +256,7 @@ class Scheduler:
         fn = self._prefill_fns.get(attend)
         if fn is None:
             pool = self.pool
-            fwd = make_prefill_chunk(self.cfg, attend_cache=attend)
+            fwd = self.engine.scoped(make_prefill_chunk(self.cfg, attend_cache=attend))
 
             def fn(params, toks, table_row, slot, start, real_len, chunk):
                 cache = pool.gather_slot(pool.pools, pool.resident, table_row, slot)

@@ -37,18 +37,9 @@ from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.eval import allocate_lp as tlp
 from repro_torch.eval import harness as tharness
 from repro_torch.eval import metric_table as tmt
-from repro_torch.kernels import ops as tops
 from repro_torch.models import layers as tlayers
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture(autouse=True)
-def _no_port_hooks():
-    # the kernel hooks are process-global: an Engine built here turns them
-    # on, and a later test file in the same process would run through them
-    yield
-    tops.disable_kernels()
 
 _POLICY = dict(method="alternating", tile_n=16, tile_d=32, rank_ratio=0.5, min_size=4096)
 _KFR = (0.25, 0.5)

@@ -29,7 +29,6 @@ from repro.models import init_model as j_init_model
 from repro.models import train_loss as j_train_loss
 from repro.models.params import split as j_split
 from repro_torch.configs import get_config, reduced_for_smoke
-from repro_torch.kernels import ops as tops
 from repro_torch.launch.costing import counting
 from repro_torch.models import attention as attn
 from repro_torch.models import forward, init_cache, init_model, train_loss
@@ -37,15 +36,6 @@ from repro_torch.models.params import split
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TWIN_TOL = 2e-4
-
-
-@pytest.fixture(autouse=True)
-def _no_port_hooks():
-    # the kernel hooks are process-global; a test file that ran earlier in
-    # the same process may have left an Engine's on, and the production
-    # path would then run the attention's plain twin (flash_attention_ref)
-    tops.disable_kernels()
-    yield
 
 ARCHS = ("qwen3-32b", "granite-moe-1b-a400m", "mamba2-130m", "zamba2-1.2b")
 B, S = 2, 32

@@ -127,6 +127,24 @@ def test_compress_tile_batch_with_jax_draws_identical(method, warm):
     np.testing.assert_allclose(et.numpy(), np.asarray(ej), rtol=1e-5)
 
 
+def test_int8_tile_scales_and_codes_equal_the_jitted_reference():
+    """``quantize_tile_batch`` is jitted in JAX, where XLA turns
+    ``amax / 127`` into ``amax * f32(1/127)``: the port's scales and codes
+    equal it bit for bit, and a true division differs on this batch."""
+    from repro.core import compress as jcomp
+    from repro_torch.core import compress as tcomp
+
+    tiles = (0.02 * np.random.default_rng(0).standard_normal((2000, 32, 128))).astype(np.float32)
+    qj, sj, ej = (np.asarray(a) for a in jcomp.quantize_tile_batch(jnp.asarray(tiles)))
+    qt, st, et = (a.numpy() for a in tcomp.quantize_tile_batch(torch.from_numpy(tiles)))
+    assert qt.dtype == qj.dtype == np.int8 and st.dtype == sj.dtype == np.float32
+    np.testing.assert_array_equal(st, sj)
+    np.testing.assert_array_equal(qt, qj)
+    np.testing.assert_allclose(et, ej, rtol=1e-5)
+    divided = torch.from_numpy(tiles).abs().amax(dim=(1, 2), keepdim=True) / 127.0
+    assert int((divided.numpy() != sj).sum()) > 0
+
+
 def test_compress_matrix_and_int8_quantize_match_jax():
     from repro.configs.base import CompressionConfig as JCfg
     from repro.core import compress as jcomp
@@ -144,7 +162,7 @@ def test_compress_matrix_and_int8_quantize_match_jax():
     qt, st, rt = tcomp.quantize_tile_batch(tiles)
     qj, sj, rj = jcomp.quantize_tile_batch(jnp.asarray(tiles.numpy()))
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
-    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=1e-5)
     for dim, want, cap in ((100, 32, None), (151936, 128, None), (5120, 8, 16), (1018, 32, None)):
         assert tcomp.pick_tile(dim, want, cap) == jcomp.pick_tile(dim, want, cap)

@@ -359,20 +359,23 @@ def _jax_tokens(m, compressed, fused, prompts):
 
 
 @pytest.mark.parametrize("compressed,fused", [(False, None), (True, None), (True, False)])
-def test_generate_tokens_identical_to_jax_engine_granite(granite, compressed, fused):
+def test_generate_tokens_identical_to_jax_engine_granite(granite, compressed, fused,
+                                                        monkeypatch):
     prompts = np.random.default_rng(0).integers(0, granite["tcfg"].vocab_size, (B, P))
     want, jeng = _jax_tokens(granite, compressed, fused, prompts)
     calls = []
+    grouped = tops.apply_compressed_grouped_fused
+
+    def counting(x, w):
+        calls.append(tuple(x.shape))
+        return grouped(x, w)
+
+    # the adapter enable_kernels registers, which the Engine records
+    monkeypatch.setattr(tops, "apply_compressed_grouped_fused", counting)
     eng = Engine(granite["tcfg"], granite["tcv"] if compressed else granite["tvals"],
                  max_len=P + STEPS, batch=B,
                  artifact=granite["jart"].manifest if compressed else None,
                  use_fused_bitlinear=fused)
-    if eng.fused_bitlinear:
-        def counting(x, w):
-            calls.append(tuple(x.shape))
-            return tops.apply_compressed_grouped_fused(x, w)
-
-        tq.register_bitlinear_grouped(counting)
     got = eng.generate(torch.from_numpy(prompts), STEPS)
     np.testing.assert_array_equal(got.numpy(), want)
     assert eng.fused_bitlinear == jeng.fused_bitlinear

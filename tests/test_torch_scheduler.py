@@ -318,6 +318,33 @@ def test_scheduler_tokens_equal_jax_moe_fused(models):
     assert ts.stats.prefill_chunks == 2
 
 
+def test_scheduler_runs_its_engines_kernels_whatever_the_process_registers(models,
+                                                                          monkeypatch):
+    """A Scheduler's prefill chunks and decode ticks run with its Engine's
+    hooks, after a disable_kernels() as before it, and leave the process's
+    hooks as they were."""
+    calls = []
+    fused = tops.apply_compressed_fused
+
+    def counting(x, w, **kw):
+        calls.append(x.shape[0])
+        return fused(x, w, **kw)
+
+    monkeypatch.setattr(tops, "apply_compressed_fused", counting)
+    m = models("qwen3-32b", compressed=True)
+    prompts = _prompts(m.tcfg.vocab_size, [4, 6], seed=3)
+    runs = []
+    for off in (False, True):
+        ts = _port_scheduler(m, 32, num_slots=2, page_size=8, prefill_chunk=8)
+        if off:
+            tops.disable_kernels()
+        before = tops.kernel_hooks()
+        calls.clear()
+        runs.append((ts.generate_batch(prompts, max_tokens=4), list(calls)))
+        assert tops.kernel_hooks() == before
+    assert runs[0][1] and runs[0] == runs[1]
+
+
 @pytest.mark.parametrize("arch,max_len", [("zamba2-1.2b", 32), ("zamba2-1.2b", 64),
                                           ("mamba2-130m", 32)])
 def test_scheduler_tokens_equal_jax_hybrid(models, arch, max_len):

@@ -4,6 +4,7 @@ package's on reduced qwen3-32b, float32, weights carried across."""
 
 import copy
 import dataclasses
+import math
 import os
 import time
 
@@ -39,9 +40,8 @@ B, P, STEPS = 3, 8, 8
 
 @pytest.fixture(autouse=True)
 def _no_port_hooks():
-    # the hooks are process-global: a test file that ran earlier in the same
-    # process (tests/test_torch_budget_autotune.py's serves) can leave an
-    # Engine's on
+    # the hooks are process-global: every test here starts and ends with
+    # none registered, whatever an earlier test file registered explicitly
     tops.disable_kernels()
     yield
     tops.disable_kernels()
@@ -98,11 +98,73 @@ def test_generate_tokens_identical_to_jax_engine(model, compressed, fused):
     want, jeng = _jax_tokens(model, compressed, fused)
     eng = _port_engine(model, compressed, fused)
     assert eng.fused_bitlinear == jeng.fused_bitlinear
-    assert (tattn._FLASH_IMPL is not None) == bool(fused or (compressed and fused is None))
+    assert (eng.kernel_hooks[0] is not None) == bool(fused or (compressed and fused is None))
+    assert tattn._FLASH_IMPL is None          # the process's hooks stay as they were
     got = eng.generate(torch.from_numpy(model["prompts"]), STEPS)
     np.testing.assert_array_equal(got.numpy(), want)
     assert eng.compression == jeng.compression
     assert eng.last_timing["decode_steps"] == STEPS - 1
+
+
+def _counting_adapters(monkeypatch):
+    """Count the calls of the K3 and K5 adapters that ``enable_kernels``
+    registers (their plain versions on the CPU)."""
+    calls = {"fused": 0, "flash": 0}
+    fused, flash = tops.apply_compressed_fused, tops.flash_attention_model_layout
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(tops, "apply_compressed_fused", counted("fused", fused))
+    monkeypatch.setattr(tops, "flash_attention_model_layout", counted("flash", flash))
+    return calls
+
+
+def test_two_engines_generating_in_turn_each_run_their_own_kernels(model, monkeypatch):
+    """An Engine with the kernels and one built with use_fused_bitlinear=False
+    generate in turn: each gives the tokens and makes the kernel calls it
+    makes alone, and neither building nor running one changes the
+    process's hooks (JAX compiles each Engine's hooks into its steps)."""
+    calls = _counting_adapters(monkeypatch)
+    prompts = torch.from_numpy(model["prompts"])
+    before = tops.kernel_hooks()
+    alone = {}
+    for fused in (None, False):
+        calls.update(fused=0, flash=0)
+        alone[fused] = (_port_engine(model, True, fused).generate(prompts, STEPS), dict(calls))
+    per_forward = sum(math.prod(e["group_dims"]) or 1
+                      for e in model["jart"].manifest["tensors"].values())
+    assert alone[None][1] == {"fused": per_forward * STEPS, "flash": model["tcfg"].num_layers}
+    assert alone[False][1] == {"fused": 0, "flash": 0}
+    engines = {None: _port_engine(model, True), False: _port_engine(model, True, False)}
+    assert tops.kernel_hooks() == before
+    for _ in range(2):
+        for fused, eng in engines.items():
+            calls.update(fused=0, flash=0)
+            assert torch.equal(eng.generate(prompts, STEPS), alone[fused][0])
+            assert calls == alone[fused][1]
+            assert tops.kernel_hooks() == before
+
+
+def test_disable_kernels_after_an_engine_is_built_changes_nothing_it_runs(model, monkeypatch):
+    calls = _counting_adapters(monkeypatch)
+    prompts = torch.from_numpy(model["prompts"])
+    eng = _port_engine(model, True)
+    plain = _port_engine(model, True, False)
+    want, made = eng.generate(prompts, STEPS), dict(calls)
+    assert made["fused"] > 0 and made["flash"] == model["tcfg"].num_layers
+    tops.disable_kernels()
+    calls.update(fused=0, flash=0)
+    assert torch.equal(eng.generate(prompts, STEPS), want) and calls == made
+    # nor does a later enable_kernels() turn them on for the plain Engine
+    want_plain = plain.generate(prompts, STEPS)
+    tops.enable_kernels()
+    calls.update(fused=0, flash=0)
+    assert torch.equal(plain.generate(prompts, STEPS), want_plain)
+    assert calls == {"fused": 0, "flash": 0}
 
 
 def test_eos_padding_and_early_exit_identical_to_jax(model):
@@ -173,7 +235,7 @@ def test_serve_model_from_a_jax_checkpoint_gives_jax_tokens(model, tmp_path):
     res = serve_model(model["tcfg"], ckpt_dir=str(tmp_path), batch=2, prompt_len=P,
                       steps=STEPS, seed=3, device="cpu", verbose=False)
     assert res.engine.compression["tensors"] == len(model["jart"].manifest["tensors"])
-    assert res.engine.fused_bitlinear and tattn._FLASH_IMPL is not None
+    assert res.engine.fused_bitlinear and res.engine.kernel_hooks[0] is not None
     want, _ = _jax_tokens(model, True, prompts=res.prompts.numpy())
     np.testing.assert_array_equal(res.tokens.numpy(), want)
 
@@ -281,7 +343,7 @@ def test_serve_cli_serves_reduced_zamba2_compressed(monkeypatch, capsys):
     assert {"groups/0/ssm/in_proj/w", "groups/0/ssm/out_proj/w", "groups/5/ssm/in_proj/w",
             "shared/attn/wq/w", "shared/mlp/down/w"} <= paths
     assert eng.artifact.manifest["tensors"]["groups/0/ssm/in_proj/w"]["tile_d"] == 37
-    assert eng.fused_bitlinear and tattn._FLASH_IMPL is not None
+    assert eng.fused_bitlinear and eng.kernel_hooks[0] is not None
 
 
 def test_serve_cli_load_curve_needs_cuda(capsys):

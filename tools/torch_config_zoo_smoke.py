@@ -173,14 +173,11 @@ def run_arch(arch: str, *, batch: int = 2, seq_len: int = 16, device=None,
         raise AssertionError(f"{arch}: the artifact's tensors are not the plan's")
 
     inputs = calibration_inputs(cfg, batch=batch, seq_len=seq_len, seed=0, device=dev)
-    ops.disable_kernels()
-    try:
-        with torch.inference_mode():
-            y_plain, _, _ = forward(cvals, inputs, cfg)
-            ops.enable_kernels()
-            y_kernels, _, _ = forward(cvals, inputs, cfg)
-    finally:
-        ops.disable_kernels()
+    # the plain path, then the kernels; the caller's hooks restored after
+    with ops.kernels_off(), torch.inference_mode():
+        y_plain, _, _ = forward(cvals, inputs, cfg)
+        ops.enable_kernels()
+        y_kernels, _, _ = forward(cvals, inputs, cfg)
 
     rel, mismatch = check_logits(arch, y_plain, y_kernels, exact=cfg.dtype == "float32")
     return {

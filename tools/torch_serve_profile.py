@@ -75,7 +75,6 @@ def main(argv=None) -> int:
         return 2
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import chip_smoke as cs
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,7 +97,6 @@ def main(argv=None) -> int:
     eng = res.engine
     t1, c1, timing1 = traced_generate(torch, eng, res.prompts, 1)
     tn, cn, timing = traced_generate(torch, eng, res.prompts, cs.GEN_STEPS)
-    ops.disable_kernels()
     prefill = kernel_table(t1, c1, 1e3 * timing1["prefill_s"])
     dc = cn - c1                      # kernel names launched more often with all steps
     decode = kernel_table(collections.Counter({n: tn[n] - t1[n] for n in dc}), dc,

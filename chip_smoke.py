@@ -13,8 +13,9 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      and 4 runs x 10 reads x 64 sweeps) and at the budget allocator's QUBO
      shape (6 problems x 8 reads x 96 sweeps) at n = 121, 237 (the
      shared-memory body's limit at 8 chains), 238, 512 and 1,024 (the
-     global-memory body): spins and energies must be bit-identical.  Timed
-     at the first three shapes and the allocator's at n = 237 and 1,024
+     global-memory body, each chain split over a block's warps, the launch's
+     body counted): spins and energies must be bit-identical.  Timed at the
+     first three shapes and the allocator's at n = 237, 512 and 1,024
      beside its bytes, operations and chain bounds (the longest dependent
      path at 4 cycles a step) and its threshold pass alone.
   2. The main path at full width: ``compress_model`` on qwen3-32b's
@@ -133,7 +134,8 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
      (the bf16 grid on the tensor cores above T = 4 at td 131 and 419 as at
      128, td padded to 144-column chunks; stream maps the parts
      ``stream_tensor_maps`` admits), and in_proj and out_proj at T = 4 and
-     4096 and mamba2's in_proj at 4096 timed.  Then ``serve_model`` from
+     4096 and mamba2's in_proj at 4 and 4096 timed (decode at T = 4 with C
+     staged raw at td 131, ``decode_layout``).  Then ``serve_model`` from
      the checkpoint, as phase 4: K3 launched 118 x 32 times (each
      compressed layer slice, and each of the shared block's 7 weights 6
      times, per forward), per schedule as the resolutions picked, the
@@ -519,10 +521,11 @@ K1_FIXTURES = {
 # K1 at the budget allocator's QUBO shape (compression/autotune/allocate.py:
 # 6 penalty problems x 8 reads x 96 sweeps on ising's annealing schedule),
 # n on both sides of the shared-memory body's limit (237 spins at 8 chains)
-# up to the global-memory body's 1,024; n = 237 and 1,024 timed
+# up to the global-memory body's 1,024 (its 48 chains each split over a
+# block's warps, sa_sweep.global_warps); n = 237, 512 and 1,024 timed
 K1_ALLOC_SHAPE = (6, 8, 96)
 K1_ALLOC_N = (121, 237, 238, 512, 1024)
-K1_ALLOC_TIMED = (237, 1024)
+K1_ALLOC_TIMED = (237, 512, 1024)
 
 
 def k1_timing(torch, lib, h, B, x0, u, temps, flush, plain_ms=None):
@@ -554,8 +557,9 @@ def k1_timing(torch, lib, h, B, x0, u, temps, flush, plain_ms=None):
 def phase_k1(torch, dev, flush):
     from repro_torch.core import ising
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import bitlinear as bl
     from repro_torch.kernels.sa_sweep import (
-        direct_acceptance, lanes_per_chain, sa_sweep_many, shared_body,
+        direct_acceptance, global_warps, lanes_per_chain, sa_sweep_many, shared_body,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -594,7 +598,17 @@ def phase_k1(torch, dev, flush):
         x0 = (2.0 * torch.randint(0, 2, (P, C, n), generator=g, device=dev) - 1.0).contiguous()
         u = torch.rand((P, C, S, n), generator=g, device=dev)
         temps = ising._temperature_schedule(h, B, S).float().contiguous()
+        before = dict(sa_sweep_many.by_body)
         xk, ek = sa_sweep_many(h, B, x0, u, temps)
+        # the body the launch reports it ran: at 48 chains the shared one up
+        # to 237 spins, above it each chain split over a block's warps, as
+        # the rule's mirror says
+        ran = [b for b, k in sa_sweep_many.by_body.items() if k != before[b]]
+        body = "shared" if shared_body(n, C) else "global/split"
+        warps = 0 if body == "shared" else global_warps(P * C, n, bl.device_sms(dev))
+        check(ran == [body] and sa_sweep_many.by_body[body] == before[body] + 1
+              and (warps > 1) == (body == "global/split"),
+              f"K1 at {label}: the launch ran {ran}, want {body} ({warps} warps a chain)")
         # the plain version (seconds at these n) runs once: checked and timed
         res = {}
         plain_ms = cuda_ms(torch, lambda: res.update(zip("xe", ref.sa_sweep_many_ref(
@@ -604,7 +618,7 @@ def phase_k1(torch, dev, flush):
         check(torch.equal(xk, xr), f"K1 spins differ from the plain version ({label})")
         check(torch.equal(ek, er), f"K1 energies differ from the plain version ({label})")
         out[label] = {"P": P, "C": C, "S": S, "n": n, "identical": True, "max_abs_err": err,
-                      "body": "shared" if shared_body(n, C) else "global",
+                      "body": body, "warps_a_chain": warps,
                       "flipped": float((xk != x0).float().mean())}
         if n in K1_ALLOC_TIMED:
             out.setdefault("timing_allocator", {})[label] = k1_timing(
@@ -2441,8 +2455,9 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
     grid's tensor-core body for bf16 x and C above T = 4 at td 131 and 419
     as at 128, its FMA body otherwise; stream's maps by
     ``stream_tensor_maps``); then zamba2's in_proj and out_proj at T = 4 and
-    4096 and mamba2-130m's in_proj at 4096 at the default rule's schedule,
-    timed beside their bound, the plain version and a dense bf16 matmul."""
+    4096 and mamba2-130m's in_proj at 4 and 4096 at the default rule's
+    schedule, timed beside their bound, the plain version and a dense bf16
+    matmul."""
     from repro_torch.configs import get_config
     from repro_torch.core.compress import pick_tile
     from repro_torch.kernels import autotune, ref
@@ -2486,14 +2501,25 @@ def phase_zamba_k3(torch, dev, cvalues, flush):
                          "variants_held": ran, "paths": paths}
     timing = {}
     for label, name, T in ZAMBA_K3:
-        if label == "mamba2_in_proj_T4":
-            continue
         w = weights[name]
         mp = w["m_packed"]
         x = torch.randn((T, mp.shape[0] * mp.shape[2]), generator=g, device=dev).to(torch.bfloat16)
         timing[label] = k3_timing(torch, x, w, flush)
         check(timing[label]["tensor_cores"] == (T > bl.SMALL_T),
               f"{label}: tensor cores {timing[label]['tensor_cores']} at T = {T}")
+        if T <= bl.SMALL_T:
+            # decode: how its block stages C (whole tiles at td 128, raw at
+            # 131, from device memory at 419)
+            _, _, tn, _ = mp.shape
+            K, td = w["C"].shape[2], w["C"].shape[3]
+            kw = dict(T=T, tn=tn, K=K, td=td, x_itemsize=2, c_itemsize=2)
+            layout = bl.built_decode_layout(**kw)
+            want = "tiles" if td == 128 else "raw" if td <= 32 * bl.DECODE_RAW_COLS else "device"
+            check(timing[label]["schedule"] == "decode/bitplane" and layout["c"] == want
+                  and layout == bl.decode_layout(**kw),
+                  f"{label}: decode at td {td}: {timing[label]['schedule']}, C {layout['c']} "
+                  f"(the mirror: {bl.decode_layout(**kw)['c']})")
+            timing[label]["decode_layout"] = layout
     autotune.clear_log()
     out = {"checks": checks, "max_abs_err": errs, "timing": timing}
     emit({"zamba2_k3": out})
@@ -5497,7 +5523,8 @@ def main() -> int:
                              for k, v in paper["algorithms"].items()},
          # phase 8: the budget allocator's QUBO solve (its spins), and K1 timed
          # at the allocator's shape (6 problems x 8 reads x 96 sweeps) at n =
-         # 237 (the shared-memory body) and 1,024 (the global-memory body)
+         # 237 (the shared-memory body), 512 and 1,024 (the global-memory
+         # body, each chain split over a block's warps)
          "launches_phase8": zamba_auto["k1_launches"],
          # phase 9: the delta's warm BBO re-solve (each launch with init_state);
          # phase 10b: the streaming autotuner's QUBO on llama3-405b's plan

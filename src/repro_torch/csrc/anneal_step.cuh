@@ -151,7 +151,8 @@ __device__ __forceinline__ void sts(unsigned a, float v) {
 // memory body stages B (n*n floats) and one spin row per warp of a block of
 // at most kSaMaxWarps warps, at most kSaSharedMaxSpins spins (8 per lane);
 // above that the global-memory body reads B's rows from device memory (the
-// L2 keeps them) and holds up to 32 spins per lane, kSaGlobalMaxSpins in all.
+// L2 keeps them), up to kSaGlobalMaxSpins spins: a warp a chain, up to 32
+// spins a lane, or one chain split over a block's warps (below).
 constexpr int kSaSmemBytes = 232448;
 constexpr int kSaMaxWarps = 8;
 constexpr int kSaSharedMaxSpins = 256;
@@ -163,15 +164,87 @@ __host__ __device__ constexpr bool sa_shared_body(int n, int chains) {
              kSaSmemBytes;
 }
 
+// The global-memory body's two forms (sa_sweep.cu), and the rule between
+// them (kernels/sa_sweep.py::global_warps mirrors it).  The split form runs
+// one chain a block over W = ceil(n / (32 m)) compute warps, m = ceil(n /
+// (32 kSaSplitWarps)) spins a lane, with a ring of B's rows in groups of
+// kSaSplitGroup rows, as many groups as kSaSmemBytes holds (2 to 8).  Its
+// block takes more than half of an SM's kSaSmSmemBytes (kSaBlockReservedBytes
+// of them reserved a resident block), so one chain an SM at every n it
+// serves.  The rule splits while the launch's chains run in one wave of
+// such blocks, or in two from kSaSplitTwoWaveSpins spins on (where a warp
+// a chain's step takes more than twice the split one's), else a warp a
+// chain, up to 32 spins a lane (PERF.md has the times on both sides).
+constexpr int kSaSplitWarps = 8;
+constexpr int kSaSplitGroup = 16;
+constexpr int kSaSmSmemBytes = 233472;
+constexpr int kSaBlockReservedBytes = 1024;
+constexpr int kSaSplitTwoWaveSpins = 512;
+
+__host__ __device__ constexpr int sa_split_spins(int n) {
+  return n > 0 ? (n + 32 * kSaSplitWarps - 1) / (32 * kSaSplitWarps) : 1;
+}
+
+__host__ __device__ constexpr int sa_split_warps(int n) {
+  return (n + 32 * sa_split_spins(n) - 1) / (32 * sa_split_spins(n));
+}
+
+// floats of a ring row: n and the up to 3 before it (a row is copied from
+// the 16-byte boundary at or below it), rounded up to 4
+__host__ __device__ constexpr int sa_split_row_stride(int n) { return (n + 6) & ~3; }
+
+// bytes of a split block's parts but the ring: stamped deltas (8 bytes a
+// spin), the ring's mbarriers (full and empty, 8 bytes each, 8 groups),
+// spins and B x (4 bytes a spin each); n rounded up to 4
+__host__ __device__ constexpr long long sa_split_fixed_bytes(int n) {
+  return 16LL * ((n + 3) & ~3) + 2 * 8 * 8;
+}
+
+// groups of kSaSplitGroup rows in the ring: as many as fit, 2 to 8
+__host__ __device__ constexpr int sa_split_clamp(long long g) {
+  return g < 2 ? 2 : g > 8 ? 8 : (int)g;
+}
+
+__host__ __device__ constexpr int sa_split_groups(int n) {
+  return sa_split_clamp((kSaSmemBytes - sa_split_fixed_bytes(n)) /
+                        (4LL * kSaSplitGroup * sa_split_row_stride(n)));
+}
+
+__host__ __device__ constexpr long long sa_split_smem_bytes(int n) {
+  return sa_split_fixed_bytes(n) +
+         4LL * kSaSplitGroup * sa_split_groups(n) * sa_split_row_stride(n);
+}
+
+// split blocks resident on one SM, as their shared memory allows
+__host__ __device__ constexpr int sa_split_blocks_per_sm(int n) {
+  return (int)(kSaSmSmemBytes / (sa_split_smem_bytes(n) + kSaBlockReservedBytes));
+}
+
+// waves of split blocks the rule takes
+__host__ __device__ constexpr int sa_split_waves(int n) {
+  return n >= kSaSplitTwoWaveSpins ? 2 : 1;
+}
+
+__host__ __device__ constexpr int sa_global_warps(long long chains, int n, int sms) {
+  return chains <= (long long)sms * sa_split_blocks_per_sm(n) * sa_split_waves(n)
+             ? sa_split_warps(n)
+             : 1;
+}
+
+inline int device_sms() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
 // Warps per block of a sweep launch that needs `need` warps for each of P
 // problems (a block holds chains of one problem, so the problem's couplings
 // are staged once): up to max_warps, but when the warps are few, fewer per
 // block so the blocks spread over the SMs and no two chains share a
 // scheduler (a chain is bound by its dependent path, not by the card).
 inline int block_warps(int P, int need, int max_warps) {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = device_sms();
   int w = need < max_warps ? need : max_warps;
   const long long total = (long long)P * need;
   if (total < (long long)sms * w) w = total / sms < 1 ? 1 : (int)(total / sms);

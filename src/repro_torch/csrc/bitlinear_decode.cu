@@ -36,4 +36,20 @@ long long bitlinear_decode_smem_bytes(int T, int tn, int kb, int K, int td, int 
   return (long long)decode_geom(T, tn, kb, K, td, x_size(x_kind), c_bf16 ? 2 : 4).smem;
 }
 
+// The decode block's layout for these shapes, as decode_geom computes it:
+// out[0] r tiles a stage, out[1] how C reaches the consumers (0 read from
+// device memory, 1 staged as whole tiles, 2 staged raw), out[2] the blocks
+// along td.  Returns -1 for an unknown x_kind, else 0.
+// kernels/bitlinear.py::decode_layout mirrors it.
+int bitlinear_decode_layout(int T, int tn, int kb, int K, int td, int x_kind, int c_bf16,
+                            int* out) {
+  using namespace bitlinear_impl;
+  if (x_kind < 0 || x_kind > 2) return -1;
+  const DecodeGeom g = decode_geom(T, tn, kb, K, td, x_size(x_kind), c_bf16 ? 2 : 4);
+  out[0] = g.rs;
+  out[1] = g.stage_c ? 1 : g.raw_c ? 2 : 0;
+  out[2] = g.raw_c ? 1 : (td + 32 * ring_cols(td) - 1) / (32 * ring_cols(td));
+  return 0;
+}
+
 }  // extern "C"

@@ -33,7 +33,22 @@
 //     with d_in.  A part whose tiles are not a multiple of 16 bytes (the BBO
 //     tensors' 8-byte M tiles, tn = 8, K = 3), or a C wider than one column
 //     chunk, is not staged: the consumers read it from device memory with
-//     the widest load that fits.
+//     the widest load that fits; except C below:
+//   * C tiles that span two column chunks, up to DEC_RAW_COLS x 32 columns
+//     (zamba2's in_proj, td 131: 1,048-byte bf16 tiles, read one element a
+//     load from device memory before, by two sets of blocks, one of them
+//     for 3 columns): at T <= 4, each r tile's C is copied raw, from the 16-byte
+//     boundary at or below its start, by one bulk copy rounded up to 16
+//     bytes, into a ring slot of its own (c_slot), and the consumers read
+//     it at the tile's offset.  One block covers all td columns against
+//     the z it computed once: lane l owns the columns l, l + 32, ..., l +
+//     128, so each of its 2- or 4-byte loads of the unaligned rows is one
+//     conflict-free access of the warp (RAW instances, V = DEC_RAW_COLS).
+//     The stage's split among the warps (rs, batch) stays the one the
+//     other parts give, so every warp sums the same r tiles in the same
+//     order and the bits do not change.  Wider odd tiles (mamba2-130m's
+//     td 419) keep one set of blocks per 128-column chunk: one block over
+//     its four chunks ran 1.6x slower than those 32 blocks (PERF.md).
 //   * DEC_WARPS = 4 consumer warps read every stage, warp w its w-th quarter
 //     of the stage's r tiles, and accumulate their partial y in registers.
 //     z for its tiles is lane-parallel: lane (tile, pair of k, slice) loads
@@ -76,6 +91,10 @@ namespace bitlinear_impl {
 constexpr int DEC_WARPS = 4;             // consumer warps, each a quarter of every stage
 constexpr int DEC_STAGES = BITLINEAR_DECODE_STAGES;
 constexpr int DEC_STAGE_BYTES = BITLINEAR_DECODE_STAGE_BYTES;   // most bytes of one stage
+// C staged raw: columns a lane owns, and the most bytes of one such stage
+// (kernels/bitlinear.py::decode_layout mirrors the rule)
+constexpr int DEC_RAW_COLS = 5;
+constexpr int DEC_RAW_STAGE_BYTES = 65536;
 // resident blocks per SM the registers must allow: 3 for groups of up to 4
 // rows (at most 128 registers a thread: 4 blocks, 96, spilled and ran
 // slower), 2 for 8-row groups; or the -D value
@@ -87,10 +106,13 @@ constexpr int dec_min_blocks(int bt) {
 // [per-warp z buffers] [per-warp partial y slots] [full, empty mbarriers].
 // A stage has rs r tiles, a warp's quarter of them one z batch of z_batch's
 // units (tile, pair of k) of ls lanes each (a power of two covering the
-// tile row's 16-byte slices of x, at most 32).
+// tile row's 16-byte slices of x, at most 32).  C is staged as whole tiles
+// (stage_c), raw (raw_c: c_slot bytes a tile) or not at all.
 struct DecodeGeom {
   int ls, ns, rs, batch;                   // lanes, slices per tile; r tiles per stage; per warp
-  bool stage_c, stage_m, stage_x;          // parts the producer copies
+  bool stage_c, raw_c, stage_m, stage_x;   // parts the producer copies
+  int cols;                                // columns a lane owns: ring_cols(td), or DEC_RAW_COLS
+  size_t c_slot;                           // bytes of one raw C tile in a stage
   size_t c_bytes, m_bytes, x_bytes;        // of one stage
   size_t stage, zbuf, slots, smem;
 };
@@ -112,26 +134,60 @@ inline DecodeGeom decode_geom(int T, int tn, int kb, int K, int td, size_t xsize
   const size_t ts = fit < (size_t)DEC_WARPS * full ? fit : (size_t)DEC_WARPS * full;
   g.rs = ts < DEC_WARPS ? DEC_WARPS : (int)(ts - ts % DEC_WARPS);
   g.batch = g.rs / DEC_WARPS;
-  g.c_bytes = g.stage_c ? g.rs * c_tile : 0;   // each a multiple of 16
+  // raw C: a tile's span from the 16-byte boundary below it, rounded up;
+  // the split above stays the parts' own
+  g.c_slot = c_tile % 16 ? align16(c_tile) + 16 : c_tile;
+  g.raw_c = td > 32 * ring_cols(td) && td <= 32 * DEC_RAW_COLS && T <= 4 &&
+            (size_t)g.rs * (g.c_slot + per) <= (size_t)DEC_RAW_STAGE_BYTES;
+  g.cols = g.raw_c ? DEC_RAW_COLS : ring_cols(td);
+  g.c_bytes = g.stage_c ? g.rs * c_tile : g.raw_c ? g.rs * g.c_slot : 0;   // multiples of 16
   g.m_bytes = g.stage_m ? g.rs * m_tile : 0;
   g.x_bytes = g.stage_x ? (size_t)T * g.rs * x_tile : 0;
   g.stage = g.c_bytes + g.m_bytes + g.x_bytes;
   g.zbuf = align16((size_t)DEC_WARPS * g.batch * ring_rows(T) * K * 4);
-  g.slots = (size_t)DEC_WARPS * T * 32 * ring_cols(td) * 4;
+  g.slots = (size_t)DEC_WARPS * T * 32 * g.cols * 4;
   g.smem = DEC_STAGES * g.stage + g.zbuf + g.slots + 2 * DEC_STAGES * 8;
   return g;
+}
+
+// acc[t][v] += z[j][k][t] * C[j][k][c0 + 32 v] over the batch's tiles from
+// raw C spans in a stage: tile j's span sits at cst + j c_slot, from the
+// 16-byte boundary below its C in device memory (cg + j c_gstr, read for
+// the offset only); columns at or past td are not read (their sums stay
+// unused).  zc_batch's additions, in its order.
+template <typename CT, int BT, int V>
+__device__ __forceinline__ void zc_raw(const unsigned char* cst, size_t c_slot, const CT* cg,
+                                       size_t c_gstr, int nb, int K, int td, int c0,
+                                       const float* zbuf, float (&acc)[BT][V]) {
+  for (int j = 0; j < nb; ++j) {
+    const uintptr_t off = reinterpret_cast<uintptr_t>(cg + (size_t)j * c_gstr) & 15;
+    const CT* ct = reinterpret_cast<const CT*>(cst + (size_t)j * c_slot + off) + c0;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float cv[V], zt[BT];
+#pragma unroll
+      for (int v = 0; v < V; ++v) cv[v] = c0 + 32 * v < td ? ld(ct + (size_t)k * td + 32 * v) : 0.f;
+      load_z<BT>(zt, zbuf + (j * K + k) * BT);
+#pragma unroll
+      for (int t = 0; t < BT; ++t)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[t][v] = fmaf(zt[t], cv[v], acc[t][v]);
+    }
+  }
 }
 
 struct DecodeParams {
   int T, n_r, n_c, tn, kb, K, td;
   int rs, batch, ls, ns;                // r tiles per stage and per warp; lanes and 16-byte
                                         // slices per tile row
-  int stage_c, stage_m, stage_x;        // parts in the stages (else read from device memory)
+  int stage_c, raw_c, stage_m, stage_x; // parts in the stages (else read from device memory)
   int x_vec, m_vec, c_vec;              // vector loads fit
+  unsigned c_slot;                      // bytes of one raw C tile in a stage
   unsigned stage_bytes, m_off, x_off, zbuf_off, slots_off, bar_off;
 };
 
-template <typename XT, typename CT, int BT, int V, bool BP>
+// RAW: C staged raw (p.raw_c), V = DEC_RAW_COLS columns a lane, 32 apart
+template <typename XT, typename CT, int BT, int V, bool BP, bool RAW>
 __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
     bitlinear_decode_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ mp,
                             const CT* __restrict__ Cw, XT* __restrict__ y, const DecodeParams p) {
@@ -169,15 +225,29 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
       if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
       const int r0 = rb + i * rs, nr = min(rs, re - r0);
       const bool copy = BITLINEAR_DECODE_VARIANT != 2 || use == 0;
-      const int nc = copy && p.stage_c ? nr : 0, nm = copy && p.stage_m ? nr : 0,
+      const int nc = copy && (RAW || p.stage_c) ? nr : 0, nm = copy && p.stage_m ? nr : 0,
                 nx = copy && p.stage_x ? T : 0;
       const unsigned cb = (unsigned)(c_tile * sizeof(CT)), mb = (unsigned)m_tile,
                      xb = (unsigned)(nr * tn * sizeof(XT));
-      if (lane == 0) mbar_arrive_expect_tx(&full[slot], nc * cb + nm * mb + nx * xb);
+      // a raw C tile's copy: from the 16-byte boundary at or below it, rounded up
+      auto raw_src = [&](int q) {
+        return reinterpret_cast<uintptr_t>(Cw + ((size_t)(r0 + q) * n_c + c) * c_tile);
+      };
+      unsigned c_all = nc * cb;
+      if (RAW) {
+        unsigned mine = 0;
+        for (int q = lane; q < nc; q += 32) mine += (unsigned)align16((raw_src(q) & 15) + cb);
+        c_all = __reduce_add_sync(0xffffffffu, mine);
+      }
+      if (lane == 0) mbar_arrive_expect_tx(&full[slot], c_all + nm * mb + nx * xb);
       __syncwarp();
       unsigned char* st = smem + (size_t)slot * p.stage_bytes;
       for (int q = lane; q < nc + nm + nx; q += 32) {
-        if (q < nc)   // the C tile of r tile r0 + q
+        if (RAW && q < nc) {
+          const uintptr_t src = raw_src(q);
+          bulk_copy(st + (size_t)q * p.c_slot, reinterpret_cast<const void*>(src & ~uintptr_t(15)),
+                    (unsigned)align16((src & 15) + cb), &full[slot]);
+        } else if (q < nc)   // the C tile of r tile r0 + q
           bulk_copy(st + (size_t)q * cb, Cw + ((size_t)(r0 + q) * n_c + c) * c_tile, cb,
                     &full[slot]);
         else if (q < nc + nm)
@@ -195,6 +265,8 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
     float* zbuf = reinterpret_cast<float*>(smem + p.zbuf_off) + (size_t)warp * b * BT * K;
     const bool multi = T > BT;   // row groups: partial sums kept in slot_w
     const int d = d0 + lane * V;
+    // the lane's column v (from d0): 32 apart where C is raw
+    auto col = [&](int v) { return RAW ? lane + 32 * v : lane * V + v; };
     float acc[BT][V];
 #pragma unroll
     for (int t = 0; t < BT; ++t)
@@ -227,21 +299,27 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
             for (int t = 0; t < BT; ++t)
 #pragma unroll
               for (int v = 0; v < V; ++v)
-                acc[t][v] = g0 + t < T ? slot_w[(g0 + t) * CW + lane * V + v] : 0.f;
+                acc[t][v] = g0 + t < T ? slot_w[(g0 + t) * CW + col(v)] : 0.f;
           }
           if (BITLINEAR_DECODE_VARIANT != 4)
             z_batch<XT, CT, BT, BP>(xs + (size_t)g0 * x_row, x_row, ms, m_str, nb,
                                     min(BT, T - g0), p, zbuf, lane);
           __syncwarp();
-          if (BITLINEAR_DECODE_VARIANT != 3)
-            zc_batch<CT, BT, V>(cs + d, c_str, td, nb, K, td - d, p.c_vec, zbuf, acc);
+          if (BITLINEAR_DECODE_VARIANT != 3) {
+            if constexpr (RAW)
+              zc_raw<CT, BT, V>(st + (size_t)j0 * p.c_slot, p.c_slot,
+                                Cw + ((size_t)ra * n_c + c) * c_tile, (size_t)n_c * c_tile, nb, K,
+                                td, lane, zbuf, acc);
+            else
+              zc_batch<CT, BT, V>(cs + d, c_str, td, nb, K, td - d, p.c_vec, zbuf, acc);
+          }
           __syncwarp();
           if (multi) {
 #pragma unroll
             for (int t = 0; t < BT; ++t)
 #pragma unroll
               for (int v = 0; v < V; ++v)
-                if (g0 + t < T) slot_w[(g0 + t) * CW + lane * V + v] = acc[t][v];
+                if (g0 + t < T) slot_w[(g0 + t) * CW + col(v)] = acc[t][v];
           }
         }
       }
@@ -253,7 +331,7 @@ __global__ void __launch_bounds__((DEC_WARPS + 1) * 32, dec_min_blocks(BT))
       for (int t = 0; t < BT; ++t)
 #pragma unroll
         for (int v = 0; v < V; ++v)
-          if (t < T) slot_w[t * CW + lane * V + v] = acc[t][v];
+          if (t < T) slot_w[t * CW + col(v)] = acc[t][v];
     }
   }
 
@@ -277,9 +355,9 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-template <typename XT, typename CT, int BT, int V, bool BP>
+template <typename XT, typename CT, int BT, int V, bool BP, bool RAW>
 cudaError_t launch_decode_cfg(const DecodeArgs& a) {
-  auto kern = bitlinear_decode_kernel<XT, CT, BT, V, BP>;
+  auto kern = bitlinear_decode_kernel<XT, CT, BT, V, BP, RAW>;
   // set on every launch: a function-local cache in this template would be
   // one object for every library of the process that instantiates it
   cudaError_t err;
@@ -292,7 +370,7 @@ cudaError_t launch_decode_cfg(const DecodeArgs& a) {
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.S, a.E * a.p.n_c, (a.p.td + 32 * V - 1) / (32 * V));
+  cfg.gridDim = dim3(a.S, a.E * a.p.n_c, RAW ? 1 : (a.p.td + 32 * V - 1) / (32 * V));
   cfg.blockDim = dim3((DEC_WARPS + 1) * 32);
   cfg.dynamicSmemBytes = a.smem;
   cfg.stream = a.stream;
@@ -311,8 +389,11 @@ cudaError_t launch_decode_cfg(const DecodeArgs& a) {
 
 template <typename XT, typename CT, int BT, bool BP>
 cudaError_t launch_decode_v(const DecodeArgs& a) {
-  return ring_cols(a.p.td) == 1 ? launch_decode_cfg<XT, CT, BT, 1, BP>(a)
-                               : launch_decode_cfg<XT, CT, BT, 4, BP>(a);
+  if constexpr (BT <= 4) {   // C staged raw only at T <= 4 (decode_geom)
+    if (a.p.raw_c) return launch_decode_cfg<XT, CT, BT, DEC_RAW_COLS, BP, true>(a);
+  }
+  return ring_cols(a.p.td) == 1 ? launch_decode_cfg<XT, CT, BT, 1, BP, false>(a)
+                               : launch_decode_cfg<XT, CT, BT, 4, BP, false>(a);
 }
 
 template <typename XT, typename CT, bool BP>
@@ -355,6 +436,8 @@ inline int decode_dispatch(const void* x, const uint8_t* mp, const void* C, void
   // a part is staged when its tiles are whole 16-byte units (the layout) and
   // its base is 16-byte aligned (the wrapper clones a view that is not)
   p.stage_c = g.stage_c && aligned(C, 16);
+  p.raw_c = g.raw_c && aligned(C, 16);
+  p.c_slot = (unsigned)g.c_slot;
   p.stage_m = g.stage_m && aligned(mp, 16);
   p.stage_x = g.stage_x && aligned(x, 16);
   p.x_vec = tn % VX == 0 && (p.stage_x || ((size_t)n_r * tn * xs % 16 == 0 && aligned(x, 16)));

@@ -59,7 +59,22 @@
 //     tools/torch_k1_global_ab.py on an H100 80GB HBM3 at 700 W (device
 //     time, (6, 8, 96)): 5.0 ms at n = 238, 16.1 at 512, 55.5 at 1,024;
 //     the next row's loads in registers one step ahead took 4.9, 22.9, 94.1
-//     and a ring filled by 4-byte copies 6.1, 19.6, 97.5.
+//     and a ring filled by 4-byte copies 6.1, 19.6, 97.5.  That is a lone
+//     warp per SM (48 chains) updating 32 slots a lane, one dependent
+//     latency after another, every step;
+//   * so where the chains are few (anneal::sa_global_warps: while they
+//     run in one wave of split blocks, one an SM at every n > 237, or in
+//     two from 512 spins on; the allocator's 48 chains, a BBO chunk of 64
+//     tiles x 4 reads at n >= 512), sa_sweep_split_kernel splits one chain
+//     over the warps of a block, at most 8 (m = ceil(n / 256) slots a
+//     lane), the owner of each range of 32 m steps running ahead and
+//     posting its deltas to the other warps through shared memory: 3.66
+//     ms at n = 238, 6.51 at 512, 13.9 at 1,024 by the same tool (~142 ns
+//     a step at 1,024; ~86 with stale rows: fetching B's rows is still the
+//     larger part), and (64, 4, 24) at 512 and 1,024 in two waves 3.59 and
+//     7.67 against 4.64 and 15.9.  Past that a warp a chain, as above: two
+//     waves at n = 256 took 2.04 ms against 1.78, and a pool of 2,048
+//     tiles 92 against 11.8.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -391,6 +406,268 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (lane == 0) e_out[chain] = __fadd_rn(eh, eb);
 }
 
+// The split form of the global-memory body, for chains too few to fill the
+// card: one chain per block, its n spins split over the block's W compute
+// warps (warp w owns spins w 32 m ... w 32 m + 32 m - 1, lane l of them l,
+// l + 32, ... : m = sa_split_spins(n) slots a lane, x and f in registers).
+// Only the warp that owns spin i needs f_i current at step i, so the owner
+// of a range of 32 m steps runs ahead through them alone: it decides each
+// step, updates its own fields, and posts the step's delta to shared memory
+// stamped with the sweep (one 64-bit store); every other warp applies the
+// posted deltas to its fields in step order, spinning on a stamp only when
+// it has caught up, and takes over at its own range.  No block barrier
+// inside the sweeps.  A producer warp streams B's rows, in step order over
+// the sweeps, into a ring of whole rows shared by the block (as many as
+// shared memory holds, 48 to 128): one bulk copy (TMA) a row, from the
+// 16-byte boundary at or below it, rounded up (so up to 12 bytes past B's
+// last row are read: B's base must be 16-byte aligned, as PyTorch's
+// allocations are), with full and empty mbarriers a group of kSaSplitGroup
+// rows (anneal_step.cuh sizes the block: sa_split_smem_bytes).  One copy a
+// row for the block: a copy of each warp's slice (8 small copies a step,
+// by 16-byte cp.async or by TMA) cost ~100 ns a step, more
+// than the step itself.  The initial field and the final energy's B x are
+// row-blocked over the warps (each warp its spins' columns, each sum in
+// index order), the energy's sums then lane l over spins l, l + 32, ... and
+// the xor-shuffle tree: every addition of sa_sweep_global_kernel's, in its
+// order, so the same bits on any input.
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// `bytes` (a multiple of 16) from 16-byte aligned global src to shared dst,
+// completing on the mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the 64-bit store where `mine` (a predicated store: no branch in the warp)
+__device__ __forceinline__ void st_stamped(unsigned a, unsigned long long v, bool mine) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %2, 0;\n @p st.volatile.shared.u64 [%0], %1;\n}\n"
+      ::"r"(a), "l"(v), "r"((unsigned)mine)
+      : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_stamped(unsigned a) {
+  unsigned long long v;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
+  return v;
+}
+
+template <int M, bool DIRECT>
+__global__ void __launch_bounds__((anneal::kSaSplitWarps + 1) * 32)
+    sa_sweep_split_kernel(const float* __restrict__ h, const float* __restrict__ B,
+                          const float* __restrict__ x0, const float* __restrict__ theta,
+                          const float* __restrict__ temps, float* __restrict__ x_out,
+                          float* __restrict__ e_out, int C, int S, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int W = (blockDim.x >> 5) - 1;          // compute warps; warp W is the producer
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x, c = blockIdx.y;
+  const size_t chain = (size_t)p * C + c;
+  const float* Bp = B + (size_t)p * n * n;
+  const int n4 = (n + 3) & ~3, rs = anneal::sa_split_row_stride(n),
+            G = anneal::sa_split_groups(n);
+  const int ring_rows = G * anneal::kSaSplitGroup;
+  unsigned long long* deltas = reinterpret_cast<unsigned long long*>(smem);
+  float* bars = smem + 2 * n4;                  // full[8], empty[8]
+  float* xc = bars + 32;
+  float* bx = xc + n4;
+  const unsigned dsh = anneal::shared_base(reinterpret_cast<float*>(deltas));
+  const unsigned full = anneal::shared_base(bars), empty = full + 64u;
+  const unsigned ring = anneal::shared_base(bx + n4);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    xc[j] = x0[chain * n + j];
+    deltas[j] = 0ull;
+  }
+  if (threadIdx.x < G) {
+    mbar_init(full + 8u * threadIdx.x, 1);
+    mbar_init(empty + 8u * threadIdx.x, W);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();
+  // row r's offset in its ring slot: (p n^2 + r n) % 4
+  auto row_offset = [&](int r) { return (int)(((size_t)p * n * n + (size_t)r * n) & 3); };
+  const long long steps = (long long)S * n;
+  const int groups = (int)((steps + anneal::kSaSplitGroup - 1) / anneal::kSaSplitGroup);
+
+  const int w0 = warp * 32 * M;                 // a compute warp's first spin
+  const int wn = min(32 * M, n - w0);           // and its count
+  float x[M];
+  bool own[M];
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    own[k] = warp < W && 32 * k + lane < wn;
+    x[k] = own[k] ? xc[w0 + 32 * k + lane] : 1.f;
+  }
+  if (warp == W) {
+    // the producer: group g (steps g kSaSplitGroup ..., rows wrapping at n)
+    // into ring slot g % G once every compute warp released its last use
+    for (int g = 0; g < groups; ++g) {
+      const int slot = g % G;
+      if (g >= G) mbar_wait(empty + 8u * slot, (g / G - 1) & 1);
+      const long long q = (long long)g * anneal::kSaSplitGroup + lane;
+      const int r = (int)(q % n), off = row_offset(r);
+      const unsigned bytes =
+          lane < anneal::kSaSplitGroup && q < steps ? (unsigned)(4 * (off + n) + 15) & ~15u : 0u;
+      const unsigned all = __reduce_add_sync(0xffffffffu, bytes);
+      if (lane == 0) mbar_arrive_expect_tx(full + 8u * slot, all);
+      __syncwarp();
+      if (bytes)
+        bulk_copy(ring + 4u * (unsigned)((slot * anneal::kSaSplitGroup + lane) * rs),
+                  Bp + (size_t)r * n - off, bytes, full + 8u * slot);
+    }
+  } else {
+    float f[M];
+    bmat_x<M>(Bp + w0, xc, n, lane, own, f);     // (B x)_j, summed in index order
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      f[k] = own[k] ? __fadd_rn(h[(size_t)p * n + w0 + 32 * k + lane], __fmul_rn(2.f, f[k]))
+                    : 0.f;
+
+    // 2 B's row i over the warp's spins, from the ring: at each group's
+    // first step the warp releases the group before and waits for this one
+    int step = 0, get = 0;
+    auto row_b = [&](int i, float (&b)[M]) {
+      if (step % anneal::kSaSplitGroup == 0) {
+        const int g = step / anneal::kSaSplitGroup;
+        __syncwarp();
+        if (g > 0 && lane == 0) mbar_arrive(empty + 8u * (unsigned)((g - 1) % G));
+        mbar_wait(full + 8u * (unsigned)(g % G), (g / G) & 1);
+      }
+      const unsigned bi = ring + 4u * (unsigned)(get * rs + row_offset(i) + w0 + lane);
+#pragma unroll
+      for (int k = 0; k < M; ++k)
+        b[k] = own[k] ? __fmul_rn(2.f, anneal::lds(bi + 128u * k)) : 0.f;
+      get = get + 1 < ring_rows ? get + 1 : 0;
+      ++step;
+    };
+
+    const float* thc = theta + chain * (size_t)S * n;
+    float th[M], tn[M];                    // this sweep's thresholds (uniforms), the next's
+#pragma unroll
+    for (int k = 0; k < M; ++k) tn[k] = own[k] && S > 0 ? thc[w0 + 32 * k + lane] : 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float t = DIRECT ? fmaxf(temps[(size_t)p * S + s], 1e-12f) : 0.f;
+      const unsigned long long stamp = (unsigned long long)(s + 1) << 32;
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        th[k] = tn[k];
+        tn[k] = own[k] && s + 1 < S ? thc[(size_t)(s + 1) * n + w0 + 32 * k + lane] : 0.f;
+      }
+      for (int ow = 0; ow < W; ++ow) {
+        const int r0 = ow * 32 * M, r1 = min(n, r0 + 32 * M);
+        if (ow == warp) {
+          // the owner: its steps, as sa_sweep_global_kernel takes them
+#pragma unroll
+          for (int slot = 0; slot < M; ++slot) {
+            const int base = r0 + 32 * slot;
+            if (base >= r1) break;
+            const int cnt = min(32, r1 - base);
+            for (int o = 0; o < cnt; ++o) {
+              float b[M];
+              row_b(base + o, b);
+              const float v = __fmul_rn(x[slot], f[slot]);
+              const bool accept = DIRECT ? anneal::accepts(v, th[slot], t) : v >= th[slot];
+              const float dl = accept ? __fmul_rn(-2.f, x[slot]) : 0.f;
+              const float delta = __shfl_sync(0xffffffffu, dl, o);
+#pragma unroll
+              for (int k = 0; k < M; ++k)
+                if (own[k]) f[k] = __fadd_rn(f[k], __fmul_rn(b[k], delta));
+              const float xs = __fadd_rn(x[slot], delta);
+              x[slot] = lane == o ? xs : x[slot];
+              st_stamped(dsh + 8u * (unsigned)(base + o), stamp | __float_as_uint(delta),
+                         lane == o);
+            }
+          }
+        } else {
+          // the others: the owner's deltas, in step order
+          for (int i = r0; i < r1; ++i) {
+            float b[M];
+            row_b(i, b);
+            unsigned long long d = ld_stamped(dsh + 8u * (unsigned)i);
+            while (d < stamp) d = ld_stamped(dsh + 8u * (unsigned)i);
+            const float delta = __uint_as_float((unsigned)d);
+#pragma unroll
+            for (int k = 0; k < M; ++k)
+              if (own[k]) f[k] = __fadd_rn(f[k], __fmul_rn(b[k], delta));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      if (own[k]) xc[w0 + 32 * k + lane] = x[k];
+  }
+  __syncthreads();
+  if (warp < W) {
+    float bxk[M];
+    bmat_x<M>(Bp + w0, xc, n, lane, own, bxk);
+#pragma unroll
+    for (int k = 0; k < M; ++k)
+      if (own[k]) bx[w0 + 32 * k + lane] = bxk[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float eh = 0.f, eb = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      eh = __fadd_rn(eh, __fmul_rn(xc[j], h[(size_t)p * n + j]));
+      eb = __fadd_rn(eb, __fmul_rn(xc[j], bx[j]));
+      x_out[chain * n + j] = xc[j];
+    }
+    eh = warp_sum(eh);
+    eb = warp_sum(eb);
+    if (lane == 0) e_out[chain] = __fadd_rn(eh, eb);
+  }
+}
+
+template <int M, bool DIRECT>
+cudaError_t launch_split_mode(const float* h, const float* B, const float* x0,
+                              const float* theta, const float* temps, float* x_out, float* e_out,
+                              int P, int C, int S, int n, cudaStream_t stream) {
+  const int W = (n + 32 * M - 1) / (32 * M);
+  const size_t smem = (size_t)anneal::sa_split_smem_bytes(n);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(sa_sweep_split_kernel<M, DIRECT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  sa_sweep_split_kernel<M, DIRECT><<<dim3(P, C), (W + 1) * 32, smem, stream>>>(
+      h, B, x0, theta, temps, x_out, e_out, C, S, n);
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch_split_m(const float* h, const float* B, const float* x0, const float* theta,
+                           const float* temps, bool direct, float* x_out, float* e_out, int P,
+                           int C, int S, int n, cudaStream_t st) {
+  return direct ? launch_split_mode<M, true>(h, B, x0, theta, temps, x_out, e_out, P, C, S, n, st)
+                : launch_split_mode<M, false>(h, B, x0, theta, temps, x_out, e_out, P, C, S, n,
+                                              st);
+}
+
 template <int M, bool DIRECT>
 cudaError_t launch_global_mode(const float* h, const float* B, const float* x0,
                                const float* theta, const float* temps, float* x_out,
@@ -419,9 +696,24 @@ cudaError_t launch_global_m(const float* h, const float* B, const float* x0, con
                                                st);
 }
 
+// split: 1 splits each chain over a block's warps, 0 keeps a warp a chain,
+// -1 takes anneal::sa_global_warps's rule
 cudaError_t launch_global(const float* h, const float* B, const float* x0, const float* theta,
                           const float* temps, bool direct, float* x_out, float* e_out, int P,
-                          int C, int S, int n, cudaStream_t st) {
+                          int C, int S, int n, int split, cudaStream_t st) {
+  if (split < 0) split = anneal::sa_global_warps((long long)P * C, n, anneal::device_sms()) > 1;
+  if (split) {
+    switch (anneal::sa_split_spins(n)) {
+#define K1S_CASE(MM) \
+  return launch_split_m<MM>(h, B, x0, theta, temps, direct, x_out, e_out, P, C, S, n, st)
+      case 1: K1S_CASE(1);
+      case 2: K1S_CASE(2);
+      case 3: K1S_CASE(3);
+      case 4: K1S_CASE(4);
+#undef K1S_CASE
+      default: return cudaErrorInvalidValue;
+    }
+  }
   const int m = (n + 31) / 32;
 #define K1G_CASE(MM) \
   return launch_global_m<MM>(h, B, x0, theta, temps, direct, x_out, e_out, P, C, S, n, st)
@@ -438,7 +730,7 @@ cudaError_t launch_global(const float* h, const float* B, const float* x0, const
 // global-memory one, else the shared-memory one at `lanes`.
 int run(const float* h, const float* B, const float* x0, const float* u, const float* temps,
         float* theta, float* x_out, float* e_out, int P, int C, int S, int n, int lanes,
-        int direct, bool global_body, cudaStream_t st) {
+        int direct, bool global_body, int split, cudaStream_t st) {
   if (!direct) {
     cudaError_t err = anneal::launch_thresholds(u, temps, 0.f, theta, (long long)P * C, S * n,
                                                 n, C, S, st);
@@ -446,7 +738,8 @@ int run(const float* h, const float* B, const float* x0, const float* u, const f
   }
   const float* src = direct ? u : theta;
   if (global_body)
-    return (int)launch_global(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
+    return (int)launch_global(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, split,
+                              st);
   switch (lanes) {
     case 4: return (int)launch_lanes<4>(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
     case 8: return (int)launch_lanes<8>(h, B, x0, src, temps, direct, x_out, e_out, P, C, S, n, st);
@@ -477,16 +770,22 @@ int sa_sweep_shared_body(int n, int chains) { return anneal::sa_shared_body(n, c
 // spins per lane; else, up to kSaGlobalMaxSpins spins, the global-memory
 // body (lanes must be 32).  direct != 0: each step evaluates the acceptance
 // on its uniform (theta unused); else the thresholds are launched first.
+// Where `body` is not null the launch writes there the body it ran: 0 the
+// shared-memory one, 1 the global-memory one a warp a chain, 2 that one
+// with each chain split over a block's warps (anneal::sa_global_warps).
 // Returns the first nonzero cudaGetLastError() of the launches.
 int sa_sweep_many_f32(const float* h, const float* B, const float* x0, const float* u,
                       const float* temps, float* theta, float* x_out, float* e_out, int P, int C,
-                      int S, int n, int lanes, int direct, void* stream) {
+                      int S, int n, int lanes, int direct, void* stream, int* body) {
   if (P <= 0 || C <= 0) return 0;
   const bool global_body = !anneal::sa_shared_body(n, C);
   if (n <= 0 || n > anneal::kSaGlobalMaxSpins) return (int)cudaErrorInvalidValue;
   if (global_body ? lanes != 32 : n > 8 * lanes) return (int)cudaErrorInvalidValue;
+  const int split =
+      global_body && anneal::sa_global_warps((long long)P * C, n, anneal::device_sms()) > 1;
+  if (body) *body = global_body ? 1 + split : 0;
   return run(h, B, x0, u, temps, theta, x_out, e_out, P, C, S, n, lanes, direct, global_body,
-             reinterpret_cast<cudaStream_t>(stream));
+             split, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The global-memory body at any n up to kSaGlobalMaxSpins, whatever the
@@ -496,8 +795,28 @@ int sa_sweep_many_global_f32(const float* h, const float* B, const float* x0, co
                              int C, int S, int n, int direct, void* stream) {
   if (P <= 0 || C <= 0) return 0;
   if (n <= 0 || n > anneal::kSaGlobalMaxSpins) return (int)cudaErrorInvalidValue;
-  return run(h, B, x0, u, temps, theta, x_out, e_out, P, C, S, n, 32, direct, true,
+  return run(h, B, x0, u, temps, theta, x_out, e_out, P, C, S, n, 32, direct, true, -1,
              reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The same with the global body's form pinned: split 1 splits each chain
+// over a block's warps, 0 keeps a warp a chain, -1 takes the rule
+// (anneal::sa_global_warps).  For timing the two forms against each other.
+int sa_sweep_many_global_split_f32(const float* h, const float* B, const float* x0,
+                                   const float* u, const float* temps, float* theta,
+                                   float* x_out, float* e_out, int P, int C, int S, int n,
+                                   int split, int direct, void* stream) {
+  if (P <= 0 || C <= 0) return 0;
+  if (n <= 0 || n > anneal::kSaGlobalMaxSpins || split < -1 || split > 1)
+    return (int)cudaErrorInvalidValue;
+  return run(h, B, x0, u, temps, theta, x_out, e_out, P, C, S, n, 32, direct, true, split,
+             reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Warps a chain takes in the global-memory body at `chains` chains of n
+// spins on a card of `sms` SMs (anneal::sa_global_warps).
+int sa_sweep_global_warps(long long chains, int n, int sms) {
+  return anneal::sa_global_warps(chains, n, sms);
 }
 
 }  // extern "C"

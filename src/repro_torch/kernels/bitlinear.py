@@ -28,10 +28,12 @@ Schedules (``mode``), the names of the JAX kernels' so that a tuned
     :func:`decode_cluster_size`); a producer warp streams
     the tiles (C, M and the T rows of x over them) into a ring of
     shared-memory stages, four consumer warps reduce them, and rank 0 adds
-    the blocks' partial sums.  Its shared memory grows with T, K and td, not
-    with d_in (:func:`decode_path_ok`).  ``decode_clusters`` counts its
-    launches by the S passed to the launch.  ``block_t`` and ``r_chunk`` are
-    ignored.
+    the blocks' partial sums.  C tiles of 129 to 160 columns, which span
+    two 128-column chunks (zamba2's td 131), are staged raw and one block
+    covers all their columns against one z (:func:`decode_layout`).  Its
+    shared memory grows with T, K and td, not with d_in
+    (:func:`decode_path_ok`).  ``decode_clusters`` counts its launches by
+    the S passed to the launch.  ``block_t`` and ``r_chunk`` are ignored.
   * stream (K3 only, as in JAX): a kernel of its own.  Each column tile's r
     tiles are split across the S blocks of a thread-block cluster in whole
     chunks of ``r_chunk`` tiles (S from :func:`stream_cluster_size`); one
@@ -80,6 +82,8 @@ __all__ = [
     "grid_on_tensor_cores",
     "grid_mma_chunk",
     "decode_cluster_size",
+    "decode_layout",
+    "built_decode_layout",
     "stream_cluster_size",
     "stream_geometry",
     "stream_tensor_maps",
@@ -135,6 +139,19 @@ DECODE_BLOCKS_PER_SM = 3
 DECODE_MIN_TILES = 32
 DECODE_PORTABLE_CLUSTER = 8
 DECODE_MAX_CLUSTER = 16
+
+# The decode block's staging of C (decode_layout mirrors
+# csrc/bitlinear_decode.cuh's decode_geom; tests/test_torch_guards.py holds
+# these to its DEC_WARPS, BITLINEAR_DECODE_STAGE_BYTES, DEC_RAW_COLS and
+# DEC_RAW_STAGE_BYTES): DECODE_WARPS consumer warps, stages of
+# at most DECODE_STAGE_BYTES of the parts that are whole 16-byte tiles
+# (C's only within one column chunk), and C staged raw at tile widths over
+# one chunk up to 32 DECODE_RAW_COLS where a stage of it stays within
+# DECODE_RAW_STAGE_BYTES.
+DECODE_WARPS = 4
+DECODE_STAGE_BYTES = 24576
+DECODE_RAW_COLS = 5
+DECODE_RAW_STAGE_BYTES = 65536
 
 # The stream block (csrc/bitlinear_stream.cuh; stream_geometry mirrors its
 # layout): STREAM_WARPS consumer warps; a ring of stages of one r chunk each,
@@ -253,6 +270,60 @@ def decode_cluster_size(blocks: int, n_r: int, sms: int) -> int:
     if S >= DECODE_MAX_CLUSTER:
         return DECODE_MAX_CLUSTER
     return max(1, min(DECODE_PORTABLE_CLUSTER, S))
+
+
+def decode_layout(*, T: int, tn: int, K: int, td: int, x_itemsize: int,
+                  c_itemsize: int) -> dict:
+    """The decode block's layout (``csrc/bitlinear_decode.cuh::decode_geom``,
+    mirrored): ``rs`` r tiles a stage, split among the ``DECODE_WARPS``
+    consumer warps as the parts staged as whole 16-byte tiles allow; ``c``,
+    how C reaches the consumers: "tiles" (whole tiles in the stage: they are
+    16-byte units within one 128-column chunk), "raw" (each tile's span from
+    the 16-byte boundary below it, where it spans two chunks, 128 < td <= 32
+    ``DECODE_RAW_COLS``, at T <= 4, while a stage of them stays within
+    ``DECODE_RAW_STAGE_BYTES``)
+    or "device" (read from device memory); ``groups``, the blocks along td
+    (one per 128-column chunk unless C is raw)."""
+    cw = 32 if td <= 32 else 128
+    nch = -(-td // cw)
+    per_vec = 16 // x_itemsize
+    ns = -(-tn // per_vec)
+    ls = 1
+    while ls < ns and ls < 32:
+        ls *= 2
+    pairs = (K + 1) // 2
+    full = 32 // ls // pairs if 32 // ls > pairs else 1
+    c_tile, m_tile, x_tile = K * td * c_itemsize, tn * (-(-K // 8)), tn * x_itemsize
+    tiles = c_tile % 16 == 0 and nch == 1
+    per = ((c_tile if tiles else 0) + (m_tile if m_tile % 16 == 0 else 0)
+           + (T * x_tile if x_tile % 16 == 0 else 0))
+    fit = DECODE_STAGE_BYTES // per if per else DECODE_WARPS * full
+    ts = min(fit, DECODE_WARPS * full)
+    rs = DECODE_WARPS if ts < DECODE_WARPS else ts - ts % DECODE_WARPS
+    c_slot = (c_tile + 15) // 16 * 16 + 16 if c_tile % 16 else c_tile
+    raw = (cw < td <= 32 * DECODE_RAW_COLS and T <= 4
+           and rs * (c_slot + per) <= DECODE_RAW_STAGE_BYTES)
+    return {"rs": rs, "c": "tiles" if tiles else "raw" if raw else "device",
+            "groups": 1 if raw else nch}
+
+
+def built_decode_layout(*, T: int, tn: int, K: int, td: int, x_itemsize: int,
+                        c_itemsize: int) -> dict:
+    """:func:`decode_layout` as the built library computes it
+    (``bitlinear_decode_layout`` in ``csrc/bitlinear_decode.cu``, the
+    ``decode_geom`` every decode launch takes its layout from), for holding
+    the mirror and a launch's staging to it.  Builds the library on first
+    use."""
+    fn = _FNS.get("layout/decode")
+    if fn is None:
+        fn = _FNS["layout/decode"] = _build.load("bitlinear_decode").bitlinear_decode_layout
+        fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    if fn(T, tn, (K + 7) // 8, K, td, _KIND_OF_ITEMSIZE[x_itemsize], int(c_itemsize == 2),
+          out) != 0:
+        raise ValueError(f"built_decode_layout: bad x_itemsize {x_itemsize}")
+    return {"rs": out[0], "c": ("device", "tiles", "raw")[out[1]], "groups": out[2]}
 
 
 def tensor_map_ok(esize: int, box, strides, base: int = 0) -> bool:

@@ -10,7 +10,9 @@ launch).
 ``lanes_per_chain`` is the kernel's schedule rule; ``max_spins`` and
 ``MAX_SPINS`` mirror the rule that picks its body (``shared_body``: B in
 shared memory up to ``max_spins(C)`` spins, else read from device memory
-up to ``MAX_SPINS``, both in ``csrc/anneal_step.cuh``); ``expf_decreases`` counts
+up to ``MAX_SPINS``, both in ``csrc/anneal_step.cuh``), and
+``global_warps`` the one that splits a chain of the global-memory body over
+a block's warps when the chains are few; ``expf_decreases`` counts
 on the card the floats at which the kernel's ``expf`` would break the
 exactness of its acceptance thresholds (``csrc/anneal_step.cuh``).
 """
@@ -25,7 +27,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sa_sweep_many_ref
 
 __all__ = ["sa_sweep", "sa_sweep_many", "sa_sweep_many_global", "sq_sweep_many", "max_spins",
-           "shared_body", "MAX_SPINS", "lanes_per_chain", "direct_acceptance", "expf_decreases"]
+           "shared_body", "MAX_SPINS", "global_warps", "lanes_per_chain", "direct_acceptance",
+           "expf_decreases"]
 
 # csrc/anneal_step.cuh's kSaSmemBytes, kSaMaxWarps, kSaSharedMaxSpins,
 # kSaGlobalMaxSpins (tests/test_torch_guards.py holds them to the header)
@@ -33,6 +36,11 @@ _SMEM_BYTES = 232448      # shared memory one block may use on Hopper
 _MAX_WARPS = 8            # warps per block
 _SHARED_MAX_SPINS = 256   # the shared-memory body: 8 spins per lane at 32 lanes
 MAX_SPINS = 1024          # the global-memory body: 32 spins per lane
+_SPLIT_WARPS = 8          # kSaSplitWarps: warps one chain is split over, at most
+_SPLIT_GROUP = 16         # kSaSplitGroup: rows of B a group of the split form's ring
+_SM_SMEM_BYTES = 233472   # kSaSmSmemBytes: shared memory of one SM on Hopper
+_BLOCK_RESERVED = 1024    # kSaBlockReservedBytes: of it reserved a resident block
+_SPLIT_TWO_WAVES = 512    # kSaSplitTwoWaveSpins: spins from which two waves are split
 _MAX_SPL = 8              # spins per lane (the shared body's largest template)
 _FILL_CHAINS = 4096       # chains from which the card is full at 8 chains per warp
 
@@ -52,6 +60,31 @@ def max_spins(chains: int) -> int:
     while not shared_body(n, chains):
         n -= 1
     return n
+
+
+def split_smem_bytes(n: int) -> int:
+    """Shared memory of one block of the global-memory body's split form
+    (``csrc/anneal_step.cuh::sa_split_smem_bytes``): 16 bytes a spin, 128
+    of mbarriers, and a ring of B's rows (each n + 3 floats rounded up to 4)
+    in groups of 16, as many groups as the block's limit holds, 2 to 8."""
+    n4, stride = (n + 3) & ~3, (n + 6) & ~3
+    fixed = 16 * n4 + 128
+    groups = min(8, max(2, (_SMEM_BYTES - fixed) // (4 * _SPLIT_GROUP * stride)))
+    return fixed + 4 * _SPLIT_GROUP * groups * stride
+
+
+def global_warps(chains: int, n: int, sms: int) -> int:
+    """Warps one chain takes in the global-memory body (``csrc/
+    anneal_step.cuh::sa_global_warps``): split over W = ceil(n / (32 m))
+    warps of a block, m = ceil(n / 256) spins a lane, while the ``chains``
+    blocks run in one wave on the ``sms`` SMs (as many an SM as their
+    shared memory allows: one at every n it serves), or in two from 512
+    spins on; else 1, a warp a chain."""
+    m = max(1, -(-n // (32 * _SPLIT_WARPS)))
+    w = -(-n // (32 * m))
+    per_sm = _SM_SMEM_BYTES // (split_smem_bytes(n) + _BLOCK_RESERVED)
+    waves = 2 if n >= _SPLIT_TWO_WAVES else 1
+    return w if chains <= sms * per_sm * waves else 1
 
 
 def lanes_per_chain(P: int, C: int, n: int) -> int:
@@ -90,7 +123,7 @@ def direct_acceptance(P: int, C: int) -> bool:
 def _lib():
     lib = _build.load("sa_sweep")
     fn = lib.sa_sweep_many_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,37 +174,47 @@ def sa_sweep_many(h, B, x0, rand, temps):
     e = torch.empty((P, C), dtype=torch.float32, device=h.device)
     if P == 0 or C == 0:
         return x, e
-    lanes = lanes_per_chain(P, C, n) if shared_body(n, C) else 32
-    if not shared_body(n, C) and B.data_ptr() % 16:
+    shared = shared_body(n, C)
+    lanes = lanes_per_chain(P, C, n) if shared else 32
+    if not shared and B.data_ptr() % 16:
         B = B.clone()            # the global-memory body copies B's rows in 16-byte pieces
     direct = direct_acceptance(P, C)
     # the acceptance thresholds of the uniforms (none where steps decide directly)
     theta = None if direct else torch.empty_like(rand)
+    body = ctypes.c_int(-1)      # the body the launch ran, as it reports it
     err = _lib()(
         h.data_ptr(), B.data_ptr(), x0.data_ptr(), rand.data_ptr(),
         temps.data_ptr(), None if theta is None else theta.data_ptr(), x.data_ptr(),
         e.data_ptr(), P, C, S, n, lanes, int(direct),
-        torch.cuda.current_stream(h.device).cuda_stream,
+        torch.cuda.current_stream(h.device).cuda_stream, ctypes.byref(body),
     )
     if err != 0:
         raise RuntimeError(f"sa_sweep_many: CUDA launch failed (cudaError {err})")
     sa_sweep_many.launches += 1
+    sa_sweep_many.by_body[_BODIES[body.value]] += 1
     return x, e
 
 
+# launches, and of them by body, as each launch reports it: the shared-
+# memory one, the global-memory one a warp a chain or each chain split over
+# a block's warps
+_BODIES = ("shared", "global/warp", "global/split")
 sa_sweep_many.launches = 0
+sa_sweep_many.by_body = {"shared": 0, "global/warp": 0, "global/split": 0}
 
 
-def sa_sweep_many_global(h, B, x0, rand, temps):
+def sa_sweep_many_global(h, B, x0, rand, temps, split=None):
     """``sa_sweep_many`` through the global-memory body at any n up to
     ``MAX_SPINS``, whichever body the rule picks: CUDA tensors only, for
-    holding the two bodies to each other.  Not counted in ``launches``."""
+    holding the two bodies to each other.  ``split`` pins its form (True:
+    each chain over a block's warps, False: a warp a chain; None:
+    :func:`global_warps`'s rule).  Not counted in ``launches``."""
     P, C, n = x0.shape
     if h.device.type != "cuda" or n > MAX_SPINS:
         raise ValueError(f"sa_sweep_many_global: CUDA tensors of at most {MAX_SPINS} spins")
     lib = _build.load("sa_sweep")
-    fn = lib.sa_sweep_many_global_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = lib.sa_sweep_many_global_split_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     x = torch.empty((P, C, n), dtype=torch.float32, device=h.device)
     e = torch.empty((P, C), dtype=torch.float32, device=h.device)
@@ -181,7 +224,8 @@ def sa_sweep_many_global(h, B, x0, rand, temps):
     theta = None if direct else torch.empty_like(rand)
     err = fn(h.data_ptr(), B.data_ptr(), x0.data_ptr(), rand.data_ptr(), temps.data_ptr(),
              None if theta is None else theta.data_ptr(), x.data_ptr(), e.data_ptr(),
-             P, C, temps.shape[1], n, int(direct), torch.cuda.current_stream(h.device).cuda_stream)
+             P, C, temps.shape[1], n, -1 if split is None else int(split), int(direct),
+             torch.cuda.current_stream(h.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sa_sweep_many_global: CUDA launch failed (cudaError {err})")
     return x, e

@@ -73,30 +73,43 @@ def test_sa_sweep_kernel_bit_identical(dev, P, C, S, n):
 # the global-memory body (n above max_spins(C)): the budget allocator's
 # shape (6 penalty problems x 8 reads) at n = 238 and 1,024, and a direct-
 # acceptance launch (4,096 chains)
+# and few chains at C = 1, 3, 8 (each chain split over a block's warps, the
+# form sa.global_warps picks while the chains run in one wave) just above
+# the shared body's limit (241: max_spins is 240 at one chain, 239 at three)
+# and at 1,000 (a ragged last warp, rows off 16-byte boundaries), and 136
+# chains, past one wave of split blocks on an H100's 132 SMs (split at
+# 1,000 spins, two waves; a warp a chain at 300); each launch runs the
+# body it reports, the one the mirror of the rule names
 @pytest.mark.parametrize("P,C,S,n", [(6, 8, 6, 238), (6, 8, 3, 1024), (2, 3, 4, 300),
-                                     (512, 8, 2, 241)])
+                                     (512, 8, 2, 241), (1, 1, 5, 241), (2, 3, 3, 241),
+                                     (1, 8, 2, 1000), (1, 1, 2, 1000), (3, 3, 2, 1000),
+                                     (17, 8, 2, 300), (17, 8, 2, 1000)])
 def test_sa_sweep_global_body_bit_identical(dev, P, C, S, n):
     assert not sa.shared_body(n, C)
+    body = ("global/split" if sa.global_warps(P * C, n, bl.device_sms(dev)) > 1
+            else "global/warp")
     rng = np.random.default_rng(P * n + C)
     h, B = _dyadic_problems(rng, P, n)
     x0 = np.where(rng.random((P, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
     u = rng.random((P, C, S, n), dtype=np.float32)
     temps = np.broadcast_to(np.geomspace(8.0, 0.05, S, dtype=np.float32), (P, S)).copy()
     args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
-    before = sa.sa_sweep_many.launches
+    before, by_body = sa.sa_sweep_many.launches, dict(sa.sa_sweep_many.by_body)
     xk, ek = sa.sa_sweep_many(*args)
     torch.cuda.synchronize()
     assert sa.sa_sweep_many.launches == before + 1
+    assert sa.sa_sweep_many.by_body[body] == by_body[body] + 1
     xr, er = ref.sa_sweep_many_ref(*args)
     assert torch.equal(xk, xr)
     assert torch.equal(ek, er)
 
 
-def test_sa_sweep_global_body_takes_an_unaligned_b(dev):
+@pytest.mark.parametrize("n", [301, 1000])
+def test_sa_sweep_global_body_takes_an_unaligned_b(dev, n):
     """The global-memory body copies B's rows in 16-byte pieces: a B view
     off a 16-byte boundary is copied by the wrapper, with the same result."""
     rng = np.random.default_rng(5)
-    P, C, S, n = 2, 3, 3, 301
+    P, C, S = 2, 3, 3
     h, B = _dyadic_problems(rng, P, n)
     x0 = np.where(rng.random((P, C, n)) < 0.5, -1.0, 1.0).astype(np.float32)
     u = rng.random((P, C, S, n), dtype=np.float32)
@@ -111,10 +124,14 @@ def test_sa_sweep_global_body_takes_an_unaligned_b(dev):
     assert torch.equal(xk, xr) and torch.equal(ek, er)
 
 
-@pytest.mark.parametrize("P,C,n", [(6, 8, 200), (3, 5, 40), (4100, 1, 24)])
-def test_sa_sweep_bodies_identical_on_rounded_sums(dev, P, C, n):
-    """Normal h and B, whose sums round: the global-memory body makes the
-    shared-memory body's every addition in its order, so their bits agree."""
+@pytest.mark.parametrize("split", [None, True, False])
+@pytest.mark.parametrize("P,C,n", [(6, 8, 200), (3, 5, 40), (4100, 1, 24), (6, 8, 237),
+                                   (1, 1, 237)])
+def test_sa_sweep_bodies_identical_on_rounded_sums(dev, P, C, n, split):
+    """Normal h and B, whose sums round: the global-memory body, a warp a
+    chain or each chain split over a block's warps (``split``; None: the
+    rule's), makes the shared-memory body's every addition in its order, so
+    their bits agree."""
     rng = np.random.default_rng(n)
     h = rng.standard_normal((P, n)).astype(np.float32)
     B = np.triu(rng.standard_normal((P, n, n)), 1).astype(np.float32)
@@ -126,7 +143,7 @@ def test_sa_sweep_bodies_identical_on_rounded_sums(dev, P, C, n):
     args = [torch.from_numpy(a).to(dev) for a in (h, B, x0, u, temps)]
     assert sa.shared_body(n, C) and sa.lanes_per_chain(P, C, n) == 32
     xs, es = sa.sa_sweep_many(*args)
-    xg, eg = sa.sa_sweep_many_global(*args)
+    xg, eg = sa.sa_sweep_many_global(*args, split=split)
     torch.cuda.synchronize()
     assert torch.equal(xs, xg)
     assert torch.equal(es, eg)
@@ -140,6 +157,13 @@ def test_sa_sweep_body_rule_is_the_librarys(dev):
     for C in (1, 2, 7, 8, 9, 64):
         for n in (1, 24, 200, 236, 237, 238, 239, 240, 241, 256, 257, 1024):
             assert bool(lib.sa_sweep_shared_body(n, C)) == sa.shared_body(n, C), (n, C)
+    fn = lib.sa_sweep_global_warps
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    for chains in (1, 48, 114, 115, 132, 133, 256, 264, 265, 8192):
+        for n in (24, 238, 256, 257, 511, 512, 513, 1000, 1024):
+            for sms in (132, 114):
+                assert fn(chains, n, sms) == sa.global_warps(chains, n, sms), (chains, n, sms)
 
 
 def test_sa_sweep_refuses_above_its_limit(dev):
@@ -607,22 +631,31 @@ def test_block_layout_is_what_the_launch_admits(dev):
 DECODE_SHAPES = [(1, 4, 7, 3, 32, 4, 128), (32, 3, 5, 2, 32, 4, 128), (1, 5, 11, 2, 8, 3, 128),
                  (1, 37, 6, 2, 16, 9, 48), (1, 1, 9, 3, 16, 9, 160), (2, 4, 13, 2, 12, 3, 20),
                  (1, 4, 8, 3, 32, 4, 131), (1, 4, 24, 8, 32, 4, 419), (1, 3, 6, 2, 32, 4, 37)]
+# odd td: C staged raw at td 131 (bl.decode_layout; T <= 4), from device
+# memory by one set of blocks per chunk at 419 and above T = 4: K3 and K4
+# (E = 2) at zamba2's td 131 and mamba2-130m's 419 at T = 1, 2, 4, T > 8
+# in row groups, and r tiles no S divides
+DECODE_ODD_SHAPES = [(2, 4, 9, 3, 32, 4, 131), (2, 2, 7, 2, 32, 4, 419),
+                     (1, 13, 5, 2, 32, 4, 419), (1, 1, 33, 2, 32, 4, 131),
+                     (2, 4, 24, 2, 32, 4, 419), (1, 2, 64, 3, 32, 4, 131)]
 
 
+@pytest.mark.parametrize("shapes", ["tiles", "odd_td"])
 @pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("math_", ["unpack", "bitplane"])
 @pytest.mark.parametrize("S", [1, 2, 8, 16, None])
-def test_decode_matches_plain_at_every_cluster_size(dev, monkeypatch, S, math_, cd, xd):
+def test_decode_matches_plain_at_every_cluster_size(dev, monkeypatch, S, math_, cd, xd, shapes):
     """The decode kernel against the plain version with r split over
     clusters of S blocks (16: non-portable; None: the rule's S, else the
     rule pinned to S), counted by the S of the launch."""
     g = torch.Generator(device=dev).manual_seed(14)
+    cases = DECODE_SHAPES if shapes == "tiles" else DECODE_ODD_SHAPES
     want = [bl.decode_cluster_size(E * n_c, n_r, bl.device_sms(dev)) if S is None else S
-            for E, T, n_r, n_c, tn, K, td in DECODE_SHAPES]
+            for E, T, n_r, n_c, tn, K, td in cases]
     if S is not None:
         monkeypatch.setattr(bl, "decode_cluster_size", lambda *a: S)
-    for (E, T, n_r, n_c, tn, K, td), want_s in zip(DECODE_SHAPES, want):
+    for (E, T, n_r, n_c, tn, K, td), want_s in zip(cases, want):
         lead = (E,) if E > 1 else ()
         fn, plain = ((bl.bitlinear_grouped, ref.bitlinear_grouped_ref) if lead
                      else (bl.bitlinear, ref.bitlinear_ref))
@@ -635,17 +668,19 @@ def test_decode_matches_plain_at_every_cluster_size(dev, monkeypatch, S, math_, 
         _assert_variant(yk, plain(x, mp, C, math_), xd, cd)
 
 
+@pytest.mark.parametrize("td", [128, 131, 419])
 @pytest.mark.parametrize("S", [1, 8, None])
 @pytest.mark.parametrize("xd", [torch.float32, torch.bfloat16])
-def test_decode_launches_give_identical_bits(dev, monkeypatch, xd, S):
+def test_decode_launches_give_identical_bits(dev, monkeypatch, xd, S, td):
     """Partial sums are added in a fixed order (warps, then cluster ranks):
     two launches on the same inputs give the same bits (S: the rule pinned
-    to it; None: the rule's)."""
+    to it; None: the rule's), at qwen's td 128 and the odd td of zamba2's
+    (C staged raw) and mamba2-130m's in_proj."""
     g = torch.Generator(device=dev).manual_seed(15)
     if S is not None:
         monkeypatch.setattr(bl, "decode_cluster_size", lambda *a: S)
-    for E, T, n_r, n_c, tn, K, td in ((1, 4, 160, 4, 32, 4, 128), (32, 4, 32, 4, 32, 4, 128),
-                                      (1, 4, 640, 8, 8, 3, 128)):
+    shapes = ((1, 4, 160, 4, 32, 4, td), (32, 4, 32, 4, 32, 4, td), (1, 4, 640, 8, 8, 3, td))
+    for E, T, n_r, n_c, tn, K, td in shapes:
         lead = (E,) if E > 1 else ()
         fn = bl.bitlinear_grouped if lead else bl.bitlinear
         x, mp, C = _variant_operands(g, dev, lead, T, n_r, n_c, tn, K, td, xd, xd)
@@ -653,6 +688,19 @@ def test_decode_launches_give_identical_bits(dev, monkeypatch, xd, S):
         y1 = fn(x, mp, C, mode="decode", math="bitplane")
         torch.cuda.synchronize()
         assert torch.equal(y0, y1)
+
+
+def test_decode_layout_is_the_librarys(dev):
+    """bl.decode_layout (the Python mirror) is what the built library's
+    decode_geom computes (bl.built_decode_layout): r tiles a stage, how C
+    is staged, blocks along td."""
+    for T in (1, 4, 13):
+        for tn, K in ((32, 4), (8, 3), (16, 9), (12, 3)):
+            for td in (20, 37, 48, 128, 129, 131, 160, 161, 419):
+                for xs in (4, 2, 1):
+                    for cs in (4, 2):
+                        kw = dict(T=T, tn=tn, K=K, td=td, x_itemsize=xs, c_itemsize=cs)
+                        assert bl.built_decode_layout(**kw) == bl.decode_layout(**kw), kw
 
 
 # (T, n_r, n_c, tn, K, td): ragged T in one and several register groups, T
@@ -783,6 +831,28 @@ def test_auto_runs_the_default_schedule(dev, T):
             assert ran == {f"{mode}/unpack"}
             plain = ref.bitlinear_grouped_ref if grouped else ref.bitlinear_ref
             _assert_variant(y, plain(x, mp, C), torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("n_r,n_c,td", [(64, 64, 131), (24, 8, 419)])
+def test_default_schedule_decodes_the_ssm_in_proj(dev, T, n_r, n_c, td):
+    """zamba2-1.2b's in_proj (64 x 64 tiles of 32 x 131) and mamba2-130m's
+    (24 x 8 of 32 x 419) at decode T resolve to decode, whose block (C staged
+    raw, bl.decode_layout) fits the card in every activation dtype at f32 C,
+    and the auto launch runs it."""
+    budget = bl.device_smem_budget(dev)
+    for xs in (4, 2, 1):
+        assert bl.decode_path_ok(T, n_r, 32, 4, td, xs, budget)
+        assert bl.default_schedule(T=T, n_r=n_r, tn=32, K=4, td=td, x_itemsize=xs,
+                                   budget=budget)["mode"] == "decode"
+    g = torch.Generator(device=dev).manual_seed(16)
+    x, mp, C = _variant_operands(g, dev, (), T, n_r, n_c, 32, 4, td, torch.bfloat16,
+                                 torch.bfloat16)
+    before = bl.bitlinear.by_schedule["decode/bitplane"]
+    y = bl.bitlinear(x, mp, C, math="bitplane")
+    torch.cuda.synchronize()
+    assert bl.bitlinear.by_schedule["decode/bitplane"] == before + 1
+    _assert_variant(y, ref.bitlinear_ref(x, mp, C, "bitplane"), torch.bfloat16, torch.bfloat16)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-32b", "granite-moe-1b-a400m"])

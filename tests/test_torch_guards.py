@@ -183,7 +183,10 @@ def test_k1_body_rule_is_the_headers():
     consts = dict(re.findall(r"^constexpr int (kSa\w+) = (\d+);$", header, re.M))
     assert {k: int(v) for k, v in consts.items()} == {
         "kSaSmemBytes": sa._SMEM_BYTES, "kSaMaxWarps": sa._MAX_WARPS,
-        "kSaSharedMaxSpins": sa._SHARED_MAX_SPINS, "kSaGlobalMaxSpins": sa.MAX_SPINS}
+        "kSaSharedMaxSpins": sa._SHARED_MAX_SPINS, "kSaGlobalMaxSpins": sa.MAX_SPINS,
+        "kSaSplitWarps": sa._SPLIT_WARPS, "kSaSplitGroup": sa._SPLIT_GROUP,
+        "kSaSmSmemBytes": sa._SM_SMEM_BYTES, "kSaBlockReservedBytes": sa._BLOCK_RESERVED,
+        "kSaSplitTwoWaveSpins": sa._SPLIT_TWO_WAVES}
     rule = re.search(
         r"return n <= kSaSharedMaxSpins &&\s+4LL \* \(\(long long\)n \* n \+ \(long long\)"
         r"\(chains < kSaMaxWarps \? chains : kSaMaxWarps\) \* n\) <=\s+kSaSmemBytes;", header)
@@ -192,6 +195,95 @@ def test_k1_body_rule_is_the_headers():
     assert (sa.max_spins(8), sa.max_spins(64), sa.max_spins(1)) == (237, 237, 240)
     for C in (1, 7, 8, 9):
         assert sa.shared_body(sa.max_spins(C), C) and not sa.shared_body(sa.max_spins(C) + 1, C)
+
+
+def test_k1_global_form_rule_is_the_headers():
+    """kernels/sa_sweep.py's global_warps mirrors csrc/anneal_step.cuh's
+    sa_global_warps: a chain split over ceil(n / (32 m)) warps, m =
+    ceil(n / (32 kSaSplitWarps)) spins a lane, while the chains run in one
+    wave of split blocks (as many an SM as their shared memory,
+    sa_split_smem_bytes, allows), two from kSaSplitTwoWaveSpins spins on;
+    else a warp a chain."""
+    import re
+
+    from repro_torch.kernels import sa_sweep as sa
+
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "anneal_step.cuh").read_text()
+    body = " ".join(header.split())
+    for rule in (
+        r"return n > 0 \? \(n \+ 32 \* kSaSplitWarps - 1\) / \(32 \* kSaSplitWarps\) : 1;",
+        r"return \(n \+ 32 \* sa_split_spins\(n\) - 1\) / \(32 \* sa_split_spins\(n\)\);",
+        r"sa_split_row_stride\(int n\) \{ return \(n \+ 6\) & ~3; \}",
+        r"return 16LL \* \(\(n \+ 3\) & ~3\) \+ 2 \* 8 \* 8;",
+        r"return g < 2 \? 2 : g > 8 \? 8 : \(int\)g;",
+        r"return sa_split_clamp\(\(kSaSmemBytes - sa_split_fixed_bytes\(n\)\) / "
+        r"\(4LL \* kSaSplitGroup \* sa_split_row_stride\(n\)\)\);",
+        r"return sa_split_fixed_bytes\(n\) \+ 4LL \* kSaSplitGroup \* sa_split_groups\(n\) \* "
+        r"sa_split_row_stride\(n\);",
+        r"return \(int\)\(kSaSmSmemBytes / "
+        r"\(sa_split_smem_bytes\(n\) \+ kSaBlockReservedBytes\)\);",
+        r"sa_split_waves\(int n\) \{ return n >= kSaSplitTwoWaveSpins \? 2 : 1; \}",
+        r"return chains <= \(long long\)sms \* sa_split_blocks_per_sm\(n\) \* sa_split_waves\(n\) "
+        r"\? sa_split_warps\(n\) : 1;"):
+        assert re.search(rule, body), rule
+    # a split block takes more than half an SM at every n of the global
+    # body: 8 ring groups at 238 (126 KiB), 3 at 1,024 (209 KiB)
+    assert (sa.split_smem_bytes(238), sa.split_smem_bytes(1024)) == (128896, 213888)
+    assert all(sa._SM_SMEM_BYTES // (sa.split_smem_bytes(n) + sa._BLOCK_RESERVED) == 1
+               for n in range(238, sa.MAX_SPINS + 1))
+    # the allocator's 48 chains split at every n; below 512 spins up to one
+    # wave (132 chains on 132 SMs) split, one more a warp a chain (a BBO
+    # chunk of 64 tiles x 4 reads at n = 256, a pool of 2,048 tiles); from
+    # 512 on up to two waves (that chunk at n = 512 or 1,024 splits)
+    assert [sa.global_warps(48, n, 132) for n in (238, 256, 257, 512, 513, 1000, 1024)] == \
+        [8, 8, 5, 8, 6, 8, 8]
+    assert (sa.global_warps(132, 511, 132), sa.global_warps(133, 511, 132)) == (8, 1)
+    assert (sa.global_warps(264, 512, 132), sa.global_warps(265, 512, 132)) == (8, 1)
+    assert (sa.global_warps(264, 1024, 132), sa.global_warps(265, 1024, 132)) == (8, 1)
+    assert (sa.global_warps(114, 238, 114), sa.global_warps(115, 238, 114)) == (8, 1)
+    assert sa.global_warps(256, 256, 132) == sa.global_warps(8192, 256, 132) == 1
+    assert sa.global_warps(256, 1024, 132) == 8 and sa.global_warps(8192, 1024, 132) == 1
+    assert sa.global_warps(1, 24, 132) == 1
+
+
+# (T, tn, K, td, x_itemsize, c_itemsize) -> how the decode block stages C
+DECODE_LAYOUTS = [
+    ((4, 32, 4, 128, 2, 2), {"rs": 16, "c": "tiles", "groups": 1}),    # qwen
+    ((4, 8, 3, 128, 2, 2), {"rs": 28, "c": "tiles", "groups": 1}),     # BBO wk
+    ((4, 32, 4, 131, 2, 2), {"rs": 16, "c": "raw", "groups": 1}),      # zamba2
+    ((4, 32, 4, 131, 4, 4), {"rs": 8, "c": "raw", "groups": 1}),
+    ((13, 32, 4, 131, 2, 2), {"rs": 16, "c": "device", "groups": 2}),  # T > 4
+    ((4, 32, 4, 419, 2, 2), {"rs": 16, "c": "device", "groups": 4}),   # mamba2
+    ((4, 32, 4, 37, 2, 2), {"rs": 16, "c": "device", "groups": 1}),    # reduced
+    ((1, 16, 9, 160, 4, 4), {"rs": 4, "c": "raw", "groups": 1}),
+    ((2, 12, 3, 20, 2, 2), {"rs": 32, "c": "device", "groups": 1}),
+]
+
+
+@pytest.mark.parametrize("shape,want", DECODE_LAYOUTS, ids=lambda v: str(v))
+def test_decode_layout_rule_is_the_headers(shape, want):
+    """kernels/bitlinear.py's decode_layout mirrors csrc/bitlinear_decode.cuh's
+    decode_geom: its constants, its rule for staging C raw, and where that
+    puts zamba2's (td 131) and mamba2-130m's (td 419) in_proj tiles."""
+    import re
+
+    from repro_torch.kernels import bitlinear as bl
+
+    header = (_ROOT / "src" / "repro_torch" / "csrc" / "bitlinear_decode.cuh").read_text()
+    defines = dict(re.findall(r"^#define (BITLINEAR_DECODE_\w+) (\d+)$", header, re.M))
+    assert int(defines["BITLINEAR_DECODE_STAGE_BYTES"]) == bl.DECODE_STAGE_BYTES
+    assert re.search(rf"^constexpr int DEC_RAW_STAGE_BYTES = {bl.DECODE_RAW_STAGE_BYTES};",
+                     header, re.M)
+    assert re.search(rf"^constexpr int DEC_WARPS = {bl.DECODE_WARPS};", header, re.M)
+    assert re.search(rf"^constexpr int DEC_RAW_COLS = {bl.DECODE_RAW_COLS};", header, re.M)
+    body = " ".join(header.split())
+    for rule in (r"g\.stage_c = c_tile % 16 == 0 && td <= 32 \* ring_cols\(td\);",
+                 r"g\.c_slot = c_tile % 16 \? align16\(c_tile\) \+ 16 : c_tile;",
+                 r"g\.raw_c = td > 32 \* ring_cols\(td\) && td <= 32 \* DEC_RAW_COLS && T <= 4 && "
+                 r"\(size_t\)g\.rs \* \(g\.c_slot \+ per\) <= \(size_t\)DEC_RAW_STAGE_BYTES;"):
+        assert re.search(rule, body), rule
+    T, tn, K, td, xs, cs = shape
+    assert bl.decode_layout(T=T, tn=tn, K=K, td=td, x_itemsize=xs, c_itemsize=cs) == want
 
 
 def test_compress_cli_needs_cuda():

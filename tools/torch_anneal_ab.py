@@ -5,10 +5,11 @@
     python3 tools/torch_anneal_ab.py --parent build/parent
 
 Builds the earlier checkout's ``src/repro_torch/csrc/sa_sweep.cu`` and
-``sqa_sweep.cu`` (entry points without the threshold scratch: K1 takes
-h, B, x0, u, temps, x, e, P, C, S, n, stream; K2 h, B, X0, u, jperps, X, E,
-P, C, T, S, n, temperature, stream) into ``build/anneal_ab/``; this tree's
-run through ``repro_torch.kernels``.  On problems whose sums round (normal
+``sqa_sweep.cu`` (K1 takes h, B, x0, u, temps, theta, x, e, P, C, S, n,
+lanes, direct, stream; K2 h, B, X0, u, jperps, theta, X, E, P, C, T, S, n,
+G, d, temperature, stream: theta is the acceptance thresholds' scratch,
+lanes, direct, G and d this tree's rules') into ``build/anneal_ab/``; this
+tree's run through ``repro_torch.kernels``.  On problems whose sums round (normal
 h and B; and the Ising problems the paper's BBO loop hands its solver,
 captured from ``run_bbo_batch`` on shrunk-VGG instance 0 with phase 6's
 draws) at every shape ``chip_smoke.py`` times: K1 at the BBO pool's
@@ -54,8 +55,8 @@ def earlier_entries(parent: str):
     os.makedirs(OUT, exist_ok=True)
     fns = {}
     for name, argtypes in (
-        ("sa_sweep", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-        ("sqa_sweep", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        ("sa_sweep", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+        ("sqa_sweep", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
          + [ctypes.c_float, ctypes.c_void_p]),
     ):
         src = os.path.join(parent, "src", "repro_torch", "csrc", f"{name}.cu")
@@ -154,10 +155,15 @@ def main() -> int:
         x = torch.empty_like(x0)
         e = torch.empty((P, C), dtype=torch.float32, device=dev)
 
+        lanes = sa.lanes_per_chain(P, C, n) if sa.shared_body(n, C) else 32
+        direct = sa.direct_acceptance(P, C)
+        theta = torch.empty_like(u)
+
         def run_earlier():
             err = earlier["sa_sweep"](h.data_ptr(), B.data_ptr(), x0.data_ptr(), u.data_ptr(),
-                                      temps.data_ptr(), x.data_ptr(), e.data_ptr(), P, C,
-                                      u.shape[2], n, stream)
+                                      temps.data_ptr(), theta.data_ptr(), x.data_ptr(),
+                                      e.data_ptr(), P, C, u.shape[2], n, lanes, int(direct),
+                                      stream)
             if err:
                 raise RuntimeError(f"earlier K1 launch returned {err}")
             return x, e
@@ -168,10 +174,14 @@ def main() -> int:
         X = torch.empty_like(X0)
         E = torch.empty((P, C, T), dtype=torch.float32, device=dev)
 
+        G, d = sqa.wavefront_schedule(T, n)
+        theta = torch.empty_like(u)
+
         def run_earlier():
             err = earlier["sqa_sweep"](h.data_ptr(), B.data_ptr(), X0.data_ptr(), u.data_ptr(),
-                                       jp.data_ptr(), X.data_ptr(), E.data_ptr(), P, C, T,
-                                       jp.shape[0], n, temperature, stream)
+                                       jp.data_ptr(), theta.data_ptr(), X.data_ptr(),
+                                       E.data_ptr(), P, C, T, jp.shape[0], n, G, d,
+                                       temperature, stream)
             if err:
                 raise RuntimeError(f"earlier K2 launch returned {err}")
             return X, E

@@ -96,7 +96,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
 
     k1 = _build.load("sa_sweep").sa_sweep_many_f32
-    k1.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    k1.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     k1.restype = ctypes.c_int
     for label, (P, C, S, n, schedule) in cs.K1_FIXTURES.items():
         if label == "sa_geometric":
@@ -114,7 +114,7 @@ def main() -> int:
                 def run():
                     err = k1(h.data_ptr(), B.data_ptr(), x0.data_ptr(), u.data_ptr(),
                              temps.data_ptr(), theta.data_ptr(), x.data_ptr(), e.data_ptr(),
-                             P, C, S, n, lanes, direct, stream)
+                             P, C, S, n, lanes, direct, stream, None)
                     if err:
                         raise RuntimeError(f"K1 {label}: launch returned {err}")
                 run()

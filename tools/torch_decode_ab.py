@@ -9,13 +9,16 @@ into ``build/decode_ab/``, and this tree's through
 ``repro_torch.kernels._build``.  Both run the decode schedule on
 ``chip_smoke.py``'s T = 4 decode calls (bf16 x and C, bitplane): qwen3-32b's
 eight compressed tensors (K3; tile 32 x 128, K = 4, the BBO attn/w[kv] at
-8 x 128, K = 3) and granite-moe-1b-a400m's three expert stacks (K4, 32
-experts).  Both are called through their C entry points (the decode
-kernel's own, ``clusters``, ``smem_budget``, ``stream``) at the rule's
-cluster size (``bitlinear.decode_cluster_size``), and
-timed in the order earlier, this, this, earlier, as device time (CUDA
-events, median of 20, the L2 overwritten before each launch and the card
-kept busy while the host enqueues it, so neither side's host time counts).
+8 x 128, K = 3), granite-moe-1b-a400m's three expert stacks (K4, 32
+experts), zamba2-1.2b's in_proj (64 x 64 tiles of 32 x 131) and out_proj
+(128 x 16 of 32 x 128), mamba2-130m's in_proj (24 x 8 of 32 x 419), and a
+K4 call at td 131 (4 experts of 32 x 8 tiles).  Both are called through
+their C entry points (the decode kernel's own, ``clusters``,
+``smem_budget``, ``stream``) at the rule's cluster size
+(``bitlinear.decode_cluster_size``), and timed in the order earlier, this,
+this, earlier, as device time (CUDA events, median of 20, the L2
+overwritten before each launch and the card kept busy while the host
+enqueues it, so neither side's host time counts).
 Each output is held against the plain version within 2e-2 of max|y|, and
 ``identical`` says whether the two sides gave the same bits.  Prints the
 card, one JSON line per call and the sums per kernel.  Needs one CUDA card
@@ -36,14 +39,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "build", "decode_ab")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-T, TD = 4, 128
-# name -> (E, d_in, d_out, tn, K)
-SHAPES = {"k3/head": (1, 5120, 151936, 32, 4), "k3/wq": (1, 5120, 8192, 32, 4),
-          "k3/wk": (1, 5120, 1024, 8, 3), "k3/wv": (1, 5120, 1024, 8, 3),
-          "k3/wo": (1, 8192, 5120, 32, 4), "k3/gate": (1, 5120, 25600, 32, 4),
-          "k3/up": (1, 5120, 25600, 32, 4), "k3/down": (1, 25600, 5120, 32, 4),
-          "k4/gate": (32, 1024, 512, 32, 4), "k4/up": (32, 1024, 512, 32, 4),
-          "k4/down": (32, 512, 1024, 32, 4)}
+T = 4
+# name -> (E, d_in, d_out, tn, K, td); the sums group the calls by the
+# name's prefix
+SHAPES = {"k3/head": (1, 5120, 151936, 32, 4, 128), "k3/wq": (1, 5120, 8192, 32, 4, 128),
+          "k3/wk": (1, 5120, 1024, 8, 3, 128), "k3/wv": (1, 5120, 1024, 8, 3, 128),
+          "k3/wo": (1, 8192, 5120, 32, 4, 128), "k3/gate": (1, 5120, 25600, 32, 4, 128),
+          "k3/up": (1, 5120, 25600, 32, 4, 128), "k3/down": (1, 25600, 5120, 32, 4, 128),
+          "k4/gate": (32, 1024, 512, 32, 4, 128), "k4/up": (32, 1024, 512, 32, 4, 128),
+          "k4/down": (32, 512, 1024, 32, 4, 128),
+          "zamba2/in_proj": (1, 2048, 8384, 32, 4, 131),
+          "zamba2/out_proj": (1, 4096, 2048, 32, 4, 128),
+          "mamba2/in_proj": (1, 768, 3352, 32, 4, 419),
+          "k4_odd/td131": (4, 1024, 1048, 32, 4, 131)}
 SPIN_CYCLES = 200_000      # ~0.1 ms: longer than the host takes to enqueue a launch
 
 
@@ -105,16 +113,16 @@ def main() -> int:
     budget = bl.device_smem_budget(dev)
     sms = bl.device_sms(dev)
     sums = {}
-    for name, (E, d_in, d_out, tn, K) in SHAPES.items():
-        n_r, n_c = d_in // tn, d_out // TD
+    for name, (E, d_in, d_out, tn, K, td) in SHAPES.items():
+        n_r, n_c = d_in // tn, d_out // td
         mp = torch.randint(0, 256, (E, n_r, n_c, tn, 1), generator=g, device=dev,
                            dtype=torch.uint8)
-        C = (torch.randn(E, n_r, n_c, K, TD, generator=g, device=dev) * 0.2).bfloat16()
+        C = (torch.randn(E, n_r, n_c, K, td, generator=g, device=dev) * 0.2).bfloat16()
         x = torch.randn(E, T, d_in, generator=g, device=dev).bfloat16()
         y = torch.empty(E, T, d_out, dtype=torch.bfloat16, device=dev)
         S = bl.decode_cluster_size(E * n_c, n_r, sms)
         head = (x.data_ptr(), mp.data_ptr(), C.data_ptr(), y.data_ptr(), E, T, n_r, n_c, tn, 1, K,
-                TD, 1, 1, 1)
+                td, 1, 1, 1)
 
         def run_earlier():
             err = earlier(*head, S, budget, stream)
@@ -138,7 +146,9 @@ def main() -> int:
             if errs[side] > 2e-2:
                 raise RuntimeError(f"{name}: {side} kernel off by {errs[side]:.3g} of max|y|")
         e1, t1, t2, e2 = timed(run_earlier), timed(run_this), timed(run_this), timed(run_earlier)
-        print(json.dumps({"call": name, "S": S, "earlier_ms": [e1, e2], "this_ms": [t1, t2],
+        layout = bl.built_decode_layout(T=T, tn=tn, K=K, td=td, x_itemsize=2, c_itemsize=2)
+        print(json.dumps({"call": name, "S": S, "c": layout["c"], "groups": layout["groups"],
+                          "earlier_ms": [e1, e2], "this_ms": [t1, t2],
                           "rel_err": errs,
                           "identical": torch.equal(outs["earlier"], outs["this"])}), flush=True)
         tot = sums.setdefault(name.split("/")[0], {"earlier_ms": 0.0, "this_ms": 0.0})

@@ -1,0 +1,7 @@
+"""K4's share of its roofline in the serving window, in %."""
+
+from benchlib.readers import roofline
+
+
+def read(run):
+    return roofline(run, "k4")
